@@ -1,0 +1,97 @@
+"""Builds the port's CUDA kernels and binds them with ctypes.
+
+Every `internvideo_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into one
+shared library with a plain C interface, at first use, into
+`build/internvideo_tpu_torch/` beside the package. The library's file name
+carries a hash of the sources and the flags, so an edited source never loads
+a stale build. Nothing is downloaded and no PyTorch header is compiled, which
+keeps the build to seconds.
+
+Only a CUDA tensor reaches this module: on a machine without `nvcc` the
+build raises, and the caller raises with it (there is no fallback).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "internvideo_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills per kernel, into the log
+)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libivt_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for them exists; return its path.
+
+    The compiler's output (ptxas register and spill counts) is kept beside
+    the library as `<name>.log`.
+    """
+    out = _library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its C signatures."""
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ivt_flash_fwd.argtypes = [
+        i, p, p, p, p, p,            # dtype, q, k, v, o, lse
+        i, i, i, i, i,               # B, Sq, Sk, H, D
+        ctypes.POINTER(ctypes.c_longlong),  # 12 element strides
+        ctypes.c_float, p,           # softmax scale, stream
+    ]
+    lib.ivt_flash_fwd.restype = i
+    return lib
