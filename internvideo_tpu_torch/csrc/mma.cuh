@@ -1,0 +1,86 @@
+// Shared device helpers of the flash-attention kernels (sm_90a): cp.async
+// copies, the bf16 mma.sync.m16n8k16 product, ldmatrix and bf16 packing.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace ivt {
+
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; with pred false the destination is zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two transposed 8x8 b16 matrices; lanes 0-7 address the first, 8-15 the second.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A operand of m16n8k16 from a row-major bf16 tile in shared memory:
+// rows [row0, row0 + 16), columns [16 * ks, 16 * ks + 16). g = lane / 4,
+// t = lane % 4.
+__device__ __forceinline__ void load_a_frag(uint32_t* a, const __nv_bfloat16* tile, int stride,
+                                            int row0, int ks, int g, int t) {
+  const __nv_bfloat16* p0 = tile + (row0 + g) * stride + ks * 16 + 2 * t;
+  const __nv_bfloat16* p1 = p0 + 8 * stride;
+  a[0] = ld_u32(p0);
+  a[1] = ld_u32(p1);
+  a[2] = ld_u32(p0 + 8);
+  a[3] = ld_u32(p1 + 8);
+}
+
+// The B operand of m16n8k16 when B^T is a row-major tile (rows = the n
+// index): rows [n0, n0 + 8), columns [16 * ks, 16 * ks + 16).
+__device__ __forceinline__ void load_bt_frag(uint32_t* b, const __nv_bfloat16* tile, int stride,
+                                             int n0, int ks, int g, int t) {
+  const __nv_bfloat16* p = tile + (n0 + g) * stride + ks * 16 + 2 * t;
+  b[0] = ld_u32(p);
+  b[1] = ld_u32(p + 8);
+}
+
+// The A operand of a k-step of 16 built from two fp32 accumulator n-tiles
+// (columns 16 * kk .. 16 * kk + 15 of a 16-row product), rounded to bf16.
+__device__ __forceinline__ void acc_to_a_frag(uint32_t* a, const float* lo, const float* hi) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+}  // namespace ivt

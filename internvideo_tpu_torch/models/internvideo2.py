@@ -1,4 +1,4 @@
-"""InternVideo2 video encoder (inference): PyTorch port.
+"""InternVideo2 video encoder: PyTorch port.
 
 Port of internvideo_tpu/models/internvideo2.py: reshape+GEMM tubelet
 patchify, CLS token, learnable pos embed initialised from the 3D sin-cos
@@ -11,8 +11,14 @@ token is `cls_token + pos[:1]` in `dtype`; norm weights and LayerScale
 gammas stay fp32 whatever `param_dtype` is. The pooling head runs the plain
 attention route, as the JAX model pins it (`attn_impl="xla"`, :278).
 
+Training: `deterministic=False` with an explicit `generator` applies
+DropPath at the linear ramp `drop_path_rate * i / (depth - 1)`; every
+block's keep masks are drawn before the blocks run, so that `remat=True`
+(one `torch.utils.checkpoint` per block, the JAX `nn.remat` with no policy)
+recomputes each block with the mask its forward used.
+
 Not ported yet (each raises NotImplementedError; ROADMAP queue 1): the
-masked forward (`keep_indices`), DropPath in training, `remat`, `quant`,
+masked forward (`keep_indices`), `remat_policy`, `quant`,
 `pool_type="cls_proj"`, `ln_pre`, `norm_type="layernorm"`,
 `return_pool_attn`.
 """
@@ -23,12 +29,13 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from internvideo_tpu_torch.nn.dense import Dense, trunc_normal_
 from internvideo_tpu_torch.nn.embeds import PatchEmbed3D, get_3d_sincos_pos_embed
 from internvideo_tpu_torch.nn.norms import LayerNorm
-from internvideo_tpu_torch.nn.transformer import AttentionPoolingBlock, Block
+from internvideo_tpu_torch.nn.transformer import AttentionPoolingBlock, Block, draw_keep_masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +106,8 @@ class EncoderOutput:
 
 
 def _unported(cfg: InternVideo2Config) -> Optional[str]:
-    if cfg.remat:
-        return "remat (ROADMAP queue 1, item 2)"
+    if cfg.remat_policy is not None:
+        return f"remat_policy={cfg.remat_policy!r} (ROADMAP queue 1, item 2)"
     if cfg.quant is not None:
         return f"quant={cfg.quant!r} (ROADMAP queue 1, item 6)"
     if cfg.pool_type != "attn":
@@ -134,12 +141,14 @@ class InternVideo2(nn.Module):
         pos = get_3d_sincos_pos_embed(d, gh, gt, cls_token=True)
         self.pos_embed = nn.Parameter(
             torch.from_numpy(pos).to(device=device, dtype=param_dtype))
+        self.drop_path_rates = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+                                for i in range(cfg.depth)]
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   qk_normalization=cfg.qk_normalization,
-                  init_values=cfg.init_values, attn_impl=cfg.attn_impl,
-                  mlp_act=cfg.mlp_act, **kw)
-            for _ in range(cfg.depth)
+                  init_values=cfg.init_values, drop_path=rate,
+                  attn_impl=cfg.attn_impl, mlp_act=cfg.mlp_act, **kw)
+            for rate in self.drop_path_rates
         )
         # single-query attention: the plain route, as the JAX model pins it
         self.clip_projector = AttentionPoolingBlock(
@@ -170,17 +179,18 @@ class InternVideo2(nn.Module):
         *,
         keep_indices: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
         return_hidden_states: bool = False,
         return_hidden_layers: Optional[Sequence[int]] = None,
         return_pool_attn: bool = False,
     ) -> EncoderOutput:
+        """`generator` draws the DropPath masks; it is needed when not
+        `deterministic` and `drop_path_rate` > 0, and lives on the video's
+        device."""
         cfg = self.config
         if keep_indices is not None:
             raise NotImplementedError(
                 "keep_indices (masked forward) is not ported yet (ROADMAP queue 1, item 2)")
-        if not deterministic and cfg.drop_path_rate > 0:
-            raise NotImplementedError(
-                "DropPath in training is not ported yet (ROADMAP queue 1, item 2)")
         if return_pool_attn:
             raise NotImplementedError(
                 "return_pool_attn is not ported yet (ROADMAP queue 1, item 2)")
@@ -193,9 +203,19 @@ class InternVideo2(nn.Module):
         cls = (self.cls_token.to(dtype) + pos[:1].to(dtype)).expand(b, 1, cfg.embed_dim)
         x = torch.cat([cls, x], dim=1)
 
+        keep = [None] * cfg.depth
+        if not deterministic and cfg.drop_path_rate > 0:
+            if generator is None:
+                raise ValueError("drop_path_rate > 0 in training needs a generator")
+            keep = draw_keep_masks(self.drop_path_rates, b, generator)
         hidden = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, x, deterministic, keep[i], use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = blk(x, deterministic, keep[i])
             if return_hidden_states or (
                 return_hidden_layers and i in return_hidden_layers
             ):

@@ -1,12 +1,14 @@
-"""Transformer building blocks of the InternVideo2 encoder (inference).
+"""Transformer building blocks of the InternVideo2 encoder.
 
-Port of internvideo_tpu/nn/transformer.py: LayerScale with an fp32 gamma,
-Mlp, self-Attention with a flat qkv projection and whole-dim QK-RMSNorm
-(one (D,) weight across all heads, applied before the split into heads),
-the pre-norm Block, CrossAttention and the mean-query
+Port of internvideo_tpu/nn/transformer.py: DropPath, LayerScale with an
+fp32 gamma, Mlp, self-Attention with a flat qkv projection and whole-dim
+QK-RMSNorm (one (D,) weight across all heads, applied before the split into
+heads), the pre-norm Block, CrossAttention and the mean-query
 AttentionPoolingBlock. The residual stream stays in the activation dtype.
-DropPath is the identity at inference (`deterministic=True` in JAX); its
-training form is not ported yet (ROADMAP queue 1, item 2).
+
+DropPath takes its per-sample keep mask as a tensor instead of drawing it:
+the caller draws every block's masks before the blocks run, so that a
+recomputed (checkpointed) block reuses the same mask.
 """
 
 from __future__ import annotations
@@ -20,6 +22,32 @@ from torch import nn
 from internvideo_tpu_torch.nn.dense import Dense
 from internvideo_tpu_torch.nn.norms import LayerNorm, RMSNorm
 from internvideo_tpu_torch.ops.attention import dot_product_attention
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (transformer.py:51-64): where `keep` is
+    False the sample's branch is zeroed, elsewhere it is scaled by
+    1 / (1 - rate), in x's dtype. Identity when the rate is 0 or no mask is
+    given (deterministic)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate == 0.0 or keep is None:
+            return x
+        mask = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def draw_keep_masks(rates, batch: int, generator: torch.Generator) -> torch.Tensor:
+    """(len(rates), 2, batch) bool: the keep masks of each block's two
+    DropPaths, Bernoulli(1 - rate), drawn in one call on the generator's
+    device."""
+    u = torch.rand((len(rates), 2, batch), generator=generator, device=generator.device)
+    keep = 1.0 - torch.tensor(rates, dtype=torch.float32, device=u.device)
+    return u < keep[:, None, None]
 
 
 class LayerScale(nn.Module):
@@ -98,15 +126,18 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block: RMSNorm -> attn -> LayerScale, then
-    RMSNorm -> MLP -> LayerScale, each added to the residual in `dtype`."""
+    """Pre-norm transformer block: RMSNorm -> attn -> LayerScale -> DropPath,
+    then RMSNorm -> MLP -> LayerScale -> DropPath, each added to the
+    residual in `dtype`."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_normalization: bool = True,
-                 init_values: Optional[float] = 1e-5, attn_impl: str = "auto",
-                 mlp_act: str = "gelu", dtype: torch.dtype = torch.float32,
+                 init_values: Optional[float] = 1e-5, drop_path: float = 0.0,
+                 attn_impl: str = "auto", mlp_act: str = "gelu",
+                 dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.drop_path = drop_path
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
@@ -120,10 +151,20 @@ class Block(nn.Module):
             self.ls2 = LayerScale(dim, init_values, dtype=dtype, device=device)
         else:
             self.ls1 = self.ls2 = nn.Identity()
+        self.droppath1 = DropPath(drop_path)
+        self.droppath2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`keep`: (2, B) bool keep masks of the two DropPaths
+        (`draw_keep_masks`); needed when not deterministic and drop_path > 0."""
+        if deterministic or self.drop_path == 0.0:
+            keep = None
+        elif keep is None:
+            raise ValueError("Block with drop_path > 0 in training needs its keep masks")
+        k1, k2 = (None, None) if keep is None else keep
+        x = x + self.droppath1(self.ls1(self.attn(self.norm1(x))), k1)
+        return x + self.droppath2(self.ls2(self.mlp(self.norm2(x))), k2)
 
 
 class CrossAttention(nn.Module):

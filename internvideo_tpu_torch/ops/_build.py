@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-Every `internvideo_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into one
-shared library with a plain C interface, at first use, into
+Every `internvideo_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc`
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, at first use, into
 `build/internvideo_tpu_torch/` beside the package. The library's file name
 carries a hash of the sources and the flags, so an edited source never loads
 a stale build. Nothing is downloaded and no PyTorch header is compiled, which
@@ -26,7 +27,7 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "internvideo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills per kernel, into the log
 )
 
@@ -62,22 +63,41 @@ def _library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
 
-    The compiler's output (ptxas register and spill counts) is kept beside
+    One nvcc per source runs in parallel (`-c` to an object), then one link.
+    The compilers' output (ptxas register and spill counts) is kept beside
     the library as `<name>.log`.
     """
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
     os.replace(tmp, out)
     return out
 
@@ -94,4 +114,14 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, p,           # softmax scale, stream
     ]
     lib.ivt_flash_fwd.restype = i
+    for name, outs in (("ivt_flash_bwd_dq", [p]), ("ivt_flash_bwd_dkv", [p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            i, p, p, p, p, p, p,     # dtype, q, k, v, dO, lse, delta
+            *outs,                   # dq | dk, dv
+            i, i, i, i, i,           # B, Sq, Sk, H, D
+            ctypes.POINTER(ctypes.c_longlong),  # 18 element strides
+            ctypes.c_float, p,       # softmax scale, stream
+        ]
+        fn.restype = i
     return lib

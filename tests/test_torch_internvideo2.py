@@ -199,7 +199,7 @@ def test_params_from_jax_roundtrip_names(jax_params):
 
 
 @pytest.mark.parametrize("override", [
-    dict(remat=True), dict(quant="int8"), dict(pool_type="cls_proj"),
+    dict(remat=True, remat_policy="save_attn"), dict(quant="int8"), dict(pool_type="cls_proj"),
     dict(ln_pre=True), dict(norm_type="layernorm"),
 ])
 def test_unported_config_raises(override):
