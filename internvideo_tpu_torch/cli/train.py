@@ -4,13 +4,20 @@
         --config configs/torch/finetune_k400_1b.py --device cuda \
         trainer.total_steps=3 trainer.log_every=1 trainer.checkpoint_dir=None
 
+    python -m internvideo_tpu_torch.cli.train \
+        --config configs/torch/pretrain_1b_umt.py --device cuda
+
 Port of internvideo_tpu/cli/train.py. The config file defines
-`config = RunConfig(...)`; dotlist overrides follow. Only the `finetune`
-task is ported (InternVideo2 + mixup/cutmix + soft-target CE + AdamW with
-layer decay); the JAX CLI's other tasks exit with "not yet ported".
+`config = RunConfig(...)`; dotlist overrides follow. Two tasks are ported:
+`finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW with layer
+decay) and `pretrain` (UMT masked pretraining of PretrainInternVideo2 with
+frozen CLIP and MAE teachers); the JAX CLI's other tasks exit with "not yet
+ported".
 `--device` is explicit: `cuda` (the default) with no GPU is an error, not a
-CPU run. The model starts from the seeded init (`trainer.seed`) and the
-data from `data["stream"]`, or synthetic clips made from a fixed seed.
+CPU run. The model starts from the seeded init (`trainer.seed`), the
+pretrain teachers from their own (`trainer.seed` + 1 and + 2), as the JAX
+CLI does when no teacher checkpoint is given; the data come from
+`data["stream"]`, or synthetic clips made from a fixed seed.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ class RunConfig:
     model: object = None  # task-specific model config
     data: object = None  # task-specific data config: batch_size, stream
     engine: object = None  # task-specific engine config
+    teacher: object = None  # pretrain: the CLIP teacher's TeacherConfig
+    mae_teacher: object = None  # pretrain: the MAE teacher's TeacherConfig
+
+_PORTED_TASKS = ("finetune", "pretrain")
 
 
 def build_finetune(run: RunConfig, device: torch.device):
@@ -66,6 +77,55 @@ def synthetic_stream(batch: dict, num_classes: int, seed: int = 0):
         }
 
 
+def _synthetic_video_stream(shape: tuple, seed: int = 0):
+    """Endless standard-normal clips of `shape`, as numpy arrays made from
+    `seed` (the JAX CLI's `_synthetic_video_stream`, :268-275)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {"video": rng.normal(size=shape).astype(np.float32)}
+
+
+def _num_visible_tokens(mask_type: str, mask_ratio: float, t_s: int, n_spatial: int) -> int:
+    """The static visible count of the engine's keep indices (:278-284)."""
+    from internvideo_tpu_torch.data.masking import num_visible
+
+    if mask_type in ("tube", "attention"):
+        return t_s * num_visible(n_spatial, mask_ratio)
+    return num_visible(t_s * n_spatial, mask_ratio)
+
+
+def build_pretrain(run: RunConfig, device: torch.device):
+    """(trainer, full-rate video shape, (CLIP teacher, MAE teacher)) for UMT
+    dual-teacher masked pretraining on `device` (the JAX `build_pretrain`,
+    :287-342). The teachers are frozen (train/state.py `frozen_teacher`) and
+    ride the step; with no teacher checkpoint in the repository they start
+    from seeded random weights, as the JAX CLI's do without one."""
+    from internvideo_tpu_torch.models.pretrain import PretrainInternVideo2
+    from internvideo_tpu_torch.models.teachers import CLIPTeacher, MAETeacher
+    from internvideo_tpu_torch.train.engines.pretrain import make_pretrain_step
+    from internvideo_tpu_torch.train.state import frozen_teacher
+
+    for key in ("clip_teacher_checkpoint", "mae_teacher_checkpoint"):
+        if run.data.get(key):
+            raise NotImplementedError(
+                f"data.{key}: loading the convert-CLI's teacher npz is not ported yet "
+                "(ROADMAP queue 1, item 4)")
+    seed = run.trainer.seed
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    enc, cfg = run.model.encoder, run.engine
+    t_full = enc.num_frames * cfg.td_ratio
+    model = PretrainInternVideo2(run.model, device=device, generator=gen(seed))
+    clip_teacher = frozen_teacher(CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)))
+    mae_teacher = frozen_teacher(MAETeacher(run.mae_teacher, num_frames=t_full, device=device,
+                                            generator=gen(seed + 2)))
+    trainer = Trainer(
+        run.trainer, model,
+        lambda grad_accum=1: make_pretrain_step(cfg, clip_teacher, mae_teacher,
+                                                grad_accum=grad_accum))
+    shape = (run.data["batch_size"], t_full, enc.img_size, enc.img_size, 3)
+    return trainer, shape, (clip_teacher, mae_teacher)
+
+
 def main(argv: Optional[list[str]] = None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -78,13 +138,18 @@ def main(argv: Optional[list[str]] = None):
 
     run: RunConfig = load_config(args.config)
     run = apply_overrides(run, args.overrides)
-    if run.task != "finetune":
+    if run.task not in _PORTED_TASKS:
         if run.task in _JAX_TASKS:
-            raise SystemExit(f"task {run.task!r} is not yet ported; ported: ['finetune']")
+            raise SystemExit(
+                f"task {run.task!r} is not yet ported; ported: {list(_PORTED_TASKS)}")
         raise SystemExit(f"unknown task {run.task!r}")
     print("config:", config_to_dict(run.trainer))
-    trainer, batch = build_finetune(run, device)
-    data = run.data.get("stream") or synthetic_stream(batch, run.model.num_classes)
+    if run.task == "pretrain":
+        trainer, shape, _ = build_pretrain(run, device)
+        data = run.data.get("stream") or _synthetic_video_stream(shape)
+    else:
+        trainer, batch = build_finetune(run, device)
+        data = run.data.get("stream") or synthetic_stream(batch, run.model.num_classes)
     trainer.fit(data)
     return 0
 

@@ -1,18 +1,21 @@
-"""Weight bridge: the JAX package's InternVideo2 param tree -> this port's
-state_dict.
+"""Weight bridge: the JAX package's param trees -> this port's state_dicts.
 
-Input is the nested dict `InternVideo2.init` gives in the JAX package,
-unboxed (`flax.linen.unbox`) and turned into numpy arrays; a top-level
+Input is the nested dict a JAX module's `init` gives (InternVideo2,
+PretrainInternVideo2, CLIPTeacher, MAETeacher), unboxed
+(`flax.linen.unbox`) and turned into numpy arrays; a top-level
 `{"params": ...}` wrapper is accepted. Translations:
 
   * flax Dense `kernel` (in, out)     -> torch `weight` (out, in) [transpose]
   * `blocks_{i}`                      -> `blocks.{i}`
+  * `clip_decoder_{j}`, `mae_decoder_{j}` -> `clip_decoder.{j}`, `mae_decoder.{j}`
+  * the MLP decoder's `head_0` / `head_2` -> `head.0` / `head.2`
   * LayerNorm `scale` / `bias`        -> `weight` / `bias`
-  * RMSNorm `weight`, LayerScale `gamma`, `cls_token`, `pos_embed` and
-    biases go across as they are.
+  * RMSNorm `weight`, LayerScale `gamma`, `cls_token`, the pos embeds and
+    biases go across as they are; the `encoder` prefix of the pretrain
+    student and the CLIP teacher stays.
 
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
-weights load exactly. `InternVideo2.load_state_dict(sd, strict=True)` then
+weights load exactly. The module's `load_state_dict(sd, strict=True)` then
 accepts the result.
 """
 
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 
 _BLOCK = re.compile(r"^blocks_(\d+)$")
+# flax module names with an index -> torch ModuleList / Sequential entries
+_INDEXED = re.compile(r"^(blocks|clip_decoder|mae_decoder|head)_(\d+)$")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -35,19 +40,22 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
-    """JAX InternVideo2 params -> state_dict for `InternVideo2(cfg, ...)`."""
+def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
+    """JAX params -> state_dict of the matching port module. With `cfg` (an
+    InternVideo2 or teacher config, anything with `depth`) the top level's
+    `blocks_{i}` must be exactly range(cfg.depth)."""
     if "params" in params:
         params = params["params"]
-    blocks = sorted(int(m.group(1)) for k in params if (m := _BLOCK.match(k)))
-    if blocks != list(range(cfg.depth)):
-        raise ValueError(f"param tree has blocks {blocks}, config depth {cfg.depth}")
+    if cfg is not None:
+        blocks = sorted(int(m.group(1)) for k in params if (m := _BLOCK.match(k)))
+        if blocks != list(range(cfg.depth)):
+            raise ValueError(f"param tree has blocks {blocks}, config depth {cfg.depth}")
     sd: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
         for name, child in node.items():
-            m = _BLOCK.match(name)
-            key = f"blocks.{m.group(1)}" if m else name
+            m = _INDEXED.match(name)
+            key = f"{m.group(1)}.{m.group(2)}" if m else name
             path = f"{prefix}{key}"
             if isinstance(child, Mapping):
                 walk(child, path + ".")

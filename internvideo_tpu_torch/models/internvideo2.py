@@ -17,10 +17,15 @@ block's keep masks are drawn before the blocks run, so that `remat=True`
 (one `torch.utils.checkpoint` per block, the JAX `nn.remat` with no policy)
 recomputes each block with the mask its forward used.
 
-Not ported yet (each raises NotImplementedError; ROADMAP queue 1): the
-masked forward (`keep_indices`), `remat_policy`, `quant`,
-`pool_type="cls_proj"`, `ln_pre`, `norm_type="layernorm"`,
-`return_pool_attn`.
+Masked forward (UMT pretraining): `keep_indices` (B, n_vis) gathers a
+static count of visible tokens right after the pos embed, before the CLS
+token goes in front (:200-202). `return_pool_attn` also returns the pooling
+head's attention over the tokens (:248-283), which the CLIP teacher hands
+to attention-guided masking. `norm_type="layernorm"` builds LayerNorm
+blocks (eps `norm_eps`, default 1e-6).
+
+Not ported yet (each raises NotImplementedError; ROADMAP queue 1):
+`remat_policy`, `quant`, `pool_type="cls_proj"`, `ln_pre`.
 """
 
 from __future__ import annotations
@@ -102,7 +107,7 @@ class EncoderOutput:
     logits: Optional[torch.Tensor]  # (B, num_classes) if a head is configured
     tokens: torch.Tensor  # (B, 1+N, D) final-layer hidden states
     hidden_states: Optional[tuple]  # per-layer (B, 1+N, D) when requested
-    pool_attn: Optional[torch.Tensor] = None
+    pool_attn: Optional[torch.Tensor] = None  # (B, 1+N) pooling attention
 
 
 def _unported(cfg: InternVideo2Config) -> Optional[str]:
@@ -114,8 +119,6 @@ def _unported(cfg: InternVideo2Config) -> Optional[str]:
         return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 11)"
     if cfg.ln_pre:
         return "ln_pre (ROADMAP queue 1, item 11)"
-    if cfg.norm_type != "rmsnorm":
-        return f"norm_type={cfg.norm_type!r} (ROADMAP queue 1, item 5)"
     return None
 
 
@@ -147,7 +150,8 @@ class InternVideo2(nn.Module):
             Block(d, cfg.num_heads, mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   qk_normalization=cfg.qk_normalization,
                   init_values=cfg.init_values, drop_path=rate,
-                  attn_impl=cfg.attn_impl, mlp_act=cfg.mlp_act, **kw)
+                  attn_impl=cfg.attn_impl, mlp_act=cfg.mlp_act,
+                  norm_type=cfg.norm_type, norm_eps=cfg.norm_eps, **kw)
             for rate in self.drop_path_rates
         )
         # single-query attention: the plain route, as the JAX model pins it
@@ -184,22 +188,19 @@ class InternVideo2(nn.Module):
         return_hidden_layers: Optional[Sequence[int]] = None,
         return_pool_attn: bool = False,
     ) -> EncoderOutput:
-        """`generator` draws the DropPath masks; it is needed when not
-        `deterministic` and `drop_path_rate` > 0, and lives on the video's
-        device."""
+        """`keep_indices`: (B, n_vis) visible positions in [0, N); only
+        those tokens enter the blocks. `generator` draws the DropPath masks;
+        it is needed when not `deterministic` and `drop_path_rate` > 0, and
+        lives on the video's device."""
         cfg = self.config
-        if keep_indices is not None:
-            raise NotImplementedError(
-                "keep_indices (masked forward) is not ported yet (ROADMAP queue 1, item 2)")
-        if return_pool_attn:
-            raise NotImplementedError(
-                "return_pool_attn is not ported yet (ROADMAP queue 1, item 2)")
         dtype = self.dtype
         x = self.patch_embed(video)  # (B, T', L, D)
         b = x.shape[0]
         x = x.reshape(b, -1, cfg.embed_dim)
         pos = self.pos_embed
         x = x + pos[1:].to(dtype)
+        if keep_indices is not None:
+            x = torch.gather(x, 1, keep_indices.long()[..., None].expand(-1, -1, cfg.embed_dim))
         cls = (self.cls_token.to(dtype) + pos[:1].to(dtype)).expand(b, 1, cfg.embed_dim)
         x = torch.cat([cls, x], dim=1)
 
@@ -221,7 +222,11 @@ class InternVideo2(nn.Module):
             ):
                 hidden.append(x)
 
-        pooled = self.clip_projector(x)
+        pool_attn = None
+        if return_pool_attn:
+            pooled, pool_attn = self.clip_projector(x, return_attn=True)
+        else:
+            pooled = self.clip_projector(x)
         logits = None
         if self.head is not None:
             logits = self.head(self.fc_norm(pooled))
@@ -230,4 +235,5 @@ class InternVideo2(nn.Module):
             logits=logits,
             tokens=x,
             hidden_states=tuple(hidden) if hidden else None,
+            pool_attn=pool_attn,
         )

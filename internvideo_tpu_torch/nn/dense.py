@@ -33,6 +33,15 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> to
     return t.copy_(tmp)
 
 
+@torch.no_grad()
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill the (out, in) weight `t` from U(-a, a), a = sqrt(6 / (in + out))
+    (flax `initializers.xavier_uniform()`), sampled in fp32 on t's device."""
+    a = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    tmp = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    return t.copy_(tmp.uniform_(-a, a, generator=generator))
+
+
 def lecun_normal_std(fan_in: int) -> float:
     """std for flax `initializers.lecun_normal()` (truncated-normal variance
     scaling, fan_in mode)."""
@@ -40,10 +49,13 @@ def lecun_normal_std(fan_in: int) -> float:
 
 
 class Dense(nn.Module):
+    """`init_std`: the truncated-normal std of the weight, or
+    "xavier_uniform" (the pretrain decoders' init)."""
+
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
-                 init_std: float = 0.02, device=None):
+                 init_std: float | str = 0.02, device=None):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
@@ -55,7 +67,10 @@ class Dense(nn.Module):
         )
 
     def init_weights(self, generator: torch.Generator) -> None:
-        trunc_normal_(self.weight, self.init_std, generator)
+        if self.init_std == "xavier_uniform":
+            xavier_uniform_(self.weight, generator)
+        else:
+            trunc_normal_(self.weight, self.init_std, generator)
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.zero_()

@@ -114,7 +114,24 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, p,           # softmax scale, stream
     ]
     lib.ivt_flash_fwd.restype = i
-    for name, outs in (("ivt_flash_bwd_dq", [p]), ("ivt_flash_bwd_dkv", [p, p])):
+    lib.ivt_small_s_fwd.argtypes = lib.ivt_flash_fwd.argtypes
+    lib.ivt_small_s_fwd.restype = i
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.ivt_fused_qkv_rstd.argtypes = [
+        i, p, p, p,                  # dtype, qkv, q_rstd, k_rstd
+        i, i, i, ll, ll,             # B, S, W, qkv batch / seq strides
+        f, p,                        # eps, stream
+    ]
+    lib.ivt_fused_qkv_rstd.restype = i
+    lib.ivt_fused_qkv_fwd.argtypes = [
+        i, p, p, p, p, p, p,         # dtype, qkv, q_rstd, k_rstd, q_w, k_w, o
+        i, i, i, i,                  # B, S, H, D
+        ll, ll, ll, ll, ll,          # qkv batch / seq strides, o batch / seq / head strides
+        f, p,                        # softmax scale, stream
+    ]
+    lib.ivt_fused_qkv_fwd.restype = i
+    for name, outs in (("ivt_flash_bwd_dq", [p]), ("ivt_flash_bwd_dkv", [p, p]),
+                       ("ivt_small_s_bwd_dq", [p]), ("ivt_small_s_bwd_dkv", [p, p])):
         fn = getattr(lib, name)
         fn.argtypes = [
             i, p, p, p, p, p, p,     # dtype, q, k, v, dO, lse, delta

@@ -1,7 +1,8 @@
-"""Attention dispatcher: the CUDA flash kernel or the plain reference.
+"""Attention dispatcher: the CUDA kernels or the plain reference.
 
 Port of internvideo_tpu/ops/attention.py:151 `dot_product_attention`, with
-the same keyword signature. `impl`:
+the same keyword signature, and of `fused_qkv_attention_or_none` (:81).
+`impl`:
 
   * "auto": the kernel for a CUDA tensor, the plain version for a CPU one;
   * "kernel" (JAX spelling "pallas"): ops/flash_attention.py, which launches
@@ -21,9 +22,53 @@ from typing import Optional
 import torch
 
 from internvideo_tpu_torch.ops.attention_xla import attention_xla
-from internvideo_tpu_torch.ops.flash_attention import flash_attention
+from internvideo_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    fused_qkv_eligible,
+    fused_qkv_rmsnorm_attention,
+)
 
 _IMPLS = {"kernel": "kernel", "pallas": "kernel", "plain": "plain", "xla": "plain"}
+
+
+def _route(impl: str, x: torch.Tensor) -> str:
+    if impl == "auto":
+        return "kernel" if x.is_cuda else "plain"
+    if impl in _IMPLS:
+        return _IMPLS[impl]
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def fused_qkv_attention_or_none(
+    qkv: torch.Tensor,  # (B, S, 3W) flat projection output
+    q_weight: torch.Tensor,  # (W,) whole-dim QK-RMSNorm weights
+    k_weight: torch.Tensor,
+    *,
+    num_heads: int,
+    eps: float = 1e-6,
+    softmax_scale: Optional[float] = None,
+    impl: str = "auto",
+    allow_large: bool = False,
+) -> Optional[torch.Tensor]:
+    """Fused qkv + QK-RMSNorm + attention (K3) when it applies, else None:
+    the caller then runs the unfused path. Declines on the plain route
+    ("auto" for a CPU tensor, as the JAX dispatcher declines off the TPU)
+    and outside `fused_qkv_eligible`. `allow_large=True`, the JAX opt-in to
+    the blocked-K large-S variant, raises: that kernel (K11) is not ported
+    yet (ROADMAP queue 2)."""
+    if allow_large:
+        raise NotImplementedError(
+            "allow_large: the blocked-K fused qkv kernel is not ported yet (ROADMAP queue 2, K11)")
+    if _route(impl, qkv) != "kernel":
+        return None
+    _, s, w3 = qkv.shape
+    w = w3 // 3
+    if w3 != 3 * w or w % num_heads:
+        return None
+    if not fused_qkv_eligible(s, num_heads, w // num_heads, qkv.element_size()):
+        return None
+    return fused_qkv_rmsnorm_attention(qkv, q_weight, k_weight, num_heads=num_heads,
+                                       eps=eps, softmax_scale=softmax_scale)
 
 
 def dot_product_attention(
@@ -42,13 +87,7 @@ def dot_product_attention(
     q_position_offset: int = 0,
     layout: str = "bshd",
 ) -> torch.Tensor:
-    if impl == "auto":
-        route = "kernel" if q.is_cuda else "plain"
-    elif impl in _IMPLS:
-        route = _IMPLS[impl]
-    else:
-        raise ValueError(f"unknown attention impl {impl!r}")
-    if route == "kernel":
+    if _route(impl, q) == "kernel":
         return flash_attention(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, softmax_scale=softmax_scale,

@@ -1,19 +1,33 @@
-"""Flash attention, forward and backward: the Hopper CUDA kernels and their
-plain versions.
+"""Flash attention, small-S attention and the fused qkv + QK-RMSNorm op:
+the Hopper CUDA kernels and their plain versions.
 
 Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
-(:2037) and `flash_attention_with_lse` (:1188) with their custom VJPs, for
-the case the InternVideo2 encoder runs: non-causal, no segment ids, no
-window, one K/V head per query head, d_v == d_qk, layout (B, S, H, D).
+(:2037), `flash_attention_with_lse` (:1188), `_small_s_attention` (:1606),
+`_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784) and
+`fused_qkv_rmsnorm_attention` (:1801) with their custom VJPs, for the case
+the InternVideo2 encoder and its teachers run: non-causal, no segment ids,
+no window, one K/V head per query head, d_v == d_qk, layout (B, S, H, D).
 Every other argument raises NotImplementedError naming the ROADMAP item
 that brings it.
 
-`FlashAttention` is the autograd Function. On a CUDA tensor its forward
-launches `csrc/flash_fwd.cu` and its backward the dq and dk/dv kernels of
-`csrc/flash_bwd.cu` (built by `_build`), or raises; on a CPU tensor they
-run the plain versions `flash_attention_ref_with_lse` and
-`flash_attention_bwd_ref`. There is no fallback from one to the other.
-Both outputs are differentiable: an LSE cotangent folds into delta.
+Three autograd Functions, each owning a kernel route (CUDA tensors: the
+kernel, or raise) and a plain route (CPU tensors); there is no fallback
+from one to the other:
+
+  * `FlashAttention` (K1 forward `csrc/flash_fwd.cu`, K4a backward
+    `csrc/flash_bwd.cu`), differentiable in out and LSE;
+  * `SmallSAttention` (K2 forward `csrc/small_s_fwd.cu`, K4b backward
+    `csrc/small_s_bwd.cu`) for 0 < Sq, Sk <= 1024, the route
+    `flash_attention` takes there, as the JAX package's does (:2080-2094);
+  * `FusedQKVAttention` (K3 `csrc/fused_qkv.cu`: a row-statistics
+    pre-pass and the attention kernel), whose backward differentiates the
+    unfused composition slice -> rms_norm -> SmallSAttention, as
+    `_fused_qkv_bwd_rule` (:1770-1778) does.
+
+The JAX package's TPU-only routing conditions (`_ss_fits`, a VMEM budget;
+W % 128, Mosaic lane alignment) are replaced by the Hopper kernels' own:
+an instantiated head dim, 16-byte bf16 rows and the grid limits. At every
+shape of the ported paths both packages pick the same kernel.
 
 The LSE is the natural-log softmax normaliser, (B, H, Sq) float32; a row
 that sees no key gets out 0 and LSE -inf.
@@ -22,18 +36,30 @@ that sees no key gets out 0 and LSE -inf.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from internvideo_tpu_torch.ops import _build
+from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 
-# Head dims the kernels are instantiated for (csrc/flash_fwd.cu IVT_CASE,
-# csrc/flash_bwd.cu IVT_BWD_DISPATCH).
+# Head dims the kernels are instantiated for: K1 / K4a (csrc/flash_fwd.cu
+# IVT_CASE, csrc/flash_bwd.cu IVT_BWD_DISPATCH) and K2 / K4b / K3
+# (csrc/small_s_fwd.cu, small_s_bwd.cu, fused_qkv.cu; 128 for the CLIP-6B
+# teacher).
 KERNEL_HEAD_DIMS = (64, 88)
+SMALL_S_HEAD_DIMS = (64, 88, 128)
+SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
+_GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LOG2E = 1.0 / math.log(2.0)
 
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
+# pre-pass, launched once per "fused_qkv_fwd".
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
+           "fused_qkv_rstd", "fused_qkv_fwd")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -128,10 +154,12 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, scale: float, lse_ct=None):
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
 
 
-def _check_kernel_inputs(tensors, what: str) -> None:
+def _check_kernel_inputs(tensors, what: str, head_dims=KERNEL_HEAD_DIMS,
+                         source: str = "csrc/flash_fwd.cu") -> None:
     """Raise unless `tensors` (name -> (B, S, H, D) tensor) can go to the
-    kernels: one device and dtype (fp32 or bf16), an instantiated head dim,
-    a unit head-dim stride, and for bf16 16-byte rows."""
+    kernels: one device and dtype (fp32 or bf16), a head dim in
+    `head_dims` (those `source` instantiates), a unit head-dim stride, and
+    for bf16 16-byte rows."""
     (n0, x0), *rest = tensors.items()
     dev, dt = x0.device, x0.dtype
     for name, x in rest:
@@ -144,11 +172,10 @@ def _check_kernel_inputs(tensors, what: str) -> None:
         raise NotImplementedError(
             f"flash kernel takes float32 or bfloat16 q/k/v, got {dt}")
     b, _, h, d = x0.shape
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} / heads {h} exceed the kernel grid's 65535 limit")
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dim {d} is not instantiated in csrc/flash_fwd.cu {KERNEL_HEAD_DIMS}")
+    if b > _GRID_MAX or h > _GRID_MAX:
+        raise ValueError(f"batch {b} / heads {h} exceed the kernel grid's {_GRID_MAX} limit")
+    if d not in head_dims:
+        raise NotImplementedError(f"head dim {d} is not instantiated in {source} {head_dims}")
     for name, x in tensors.items():
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride on the head dim, got {x.stride()}")
@@ -159,9 +186,16 @@ def _check_kernel_inputs(tensors, what: str) -> None:
                 f"(strides {x.stride()}, ptr {x.data_ptr():#x})")
 
 
-def _flash_fwd_cuda(q, k, v, scale: float):
-    """Launch csrc/flash_fwd.cu on CUDA tensors; returns (out, lse)."""
-    _check_kernel_inputs({"q": q, "k": k, "v": v}, "flash_fwd")
+# kernel family -> (head dims its sources instantiate, sources)
+_SOURCES = {"flash": (KERNEL_HEAD_DIMS, "csrc/flash_fwd.cu"),
+            "small_s": (SMALL_S_HEAD_DIMS, "csrc/small_s_fwd.cu / small_s_bwd.cu")}
+
+
+def _flash_fwd_cuda(q, k, v, scale: float, kernel: str = "flash_fwd"):
+    """Launch `kernel` ("flash_fwd": csrc/flash_fwd.cu, K1; "small_s_fwd":
+    csrc/small_s_fwd.cu, K2; same C signature) on CUDA tensors; returns
+    (out, lse)."""
+    _check_kernel_inputs({"q": q, "k": k, "v": v}, kernel, *_SOURCES[kernel.rsplit("_", 1)[0]])
     dev = q.device
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -174,13 +208,13 @@ def _flash_fwd_cuda(q, k, v, scale: float):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ivt_flash_fwd(
+        rc = getattr(lib, f"ivt_{kernel}")(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, strides,
             float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
-    _launches["flash_fwd"] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {rc}")
+    _launches[kernel] += 1
     return out, lse
 
 
@@ -195,9 +229,10 @@ def _bwd_delta(out, do, lse_ct=None) -> torch.Tensor:
 
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
-    """Launch one backward kernel of csrc/flash_bwd.cu ("flash_bwd_dq" into
-    outs = (dq,), "flash_bwd_dkv" into outs = (dk, dv)) on the current
-    stream of q's device."""
+    """Launch one backward kernel ("flash_bwd_dq" / "small_s_bwd_dq" into
+    outs = (dq,), "flash_bwd_dkv" / "small_s_bwd_dkv" into outs = (dk, dv);
+    csrc/flash_bwd.cu, csrc/small_s_bwd.cu) on the current stream of q's
+    device."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     lib = _build.load_library()
@@ -215,17 +250,20 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
     _launches[name] += 1
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, do, scale: float, lse_ct=None):
-    """Launch the two kernels of csrc/flash_bwd.cu; returns (dq, dk, dv)."""
+def _flash_bwd_cuda(q, k, v, out, lse, do, scale: float, lse_ct=None, prefix: str = "flash"):
+    """Launch the dq and dk/dv kernels of csrc/flash_bwd.cu (prefix
+    "flash", K4a) or csrc/small_s_bwd.cu ("small_s", K4b); returns
+    (dq, dk, dv)."""
     if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()
-    _check_kernel_inputs({"q": q, "k": k, "v": v, "dout": do}, "flash_bwd")
+    _check_kernel_inputs({"q": q, "k": k, "v": v, "dout": do}, f"{prefix}_bwd",
+                         *_SOURCES[prefix])
     delta, lse = _bwd_delta(out, do, lse_ct), lse.contiguous()
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)
-    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale)
+    _launch_bwd(f"{prefix}_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)
+    _launch_bwd(f"{prefix}_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale)
     return dq, dk, dv
 
 
@@ -256,6 +294,233 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def small_s_attention_ref(q, k, v, scale: float):
+    """Plain PyTorch version of the K2 kernel on (B, S, H, D) inputs:
+    (out, natural-log lse).
+
+    The JAX kernel's cast chain (flash_attention.py:1505-1521): fp32
+    scores in the base-2 domain, unnormalised probabilities exp2(s - max)
+    cast to v's dtype before PV, fp32 accumulation, divided by the fp32 row
+    sum, output in q's dtype. Loops over the batch, as the flash plain
+    version does.
+    """
+    outs, lses = [], []
+    for i in range(q.shape[0]):
+        qi, ki, vi = (x[i].transpose(0, 1) for x in (q, k, v))  # (H, S, D)
+        s = torch.matmul(qi.float(), ki.float().transpose(1, 2)) * (scale * _LOG2E)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        denom = p.sum(dim=-1, keepdim=True)
+        out = torch.matmul(p.to(v.dtype).float(), vi.float()) / denom
+        outs.append(out.to(q.dtype).transpose(0, 1))
+        lses.append(((m + torch.log2(denom)) / _LOG2E).squeeze(-1))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def small_s_attention_bwd_ref(q, k, v, out, lse, do, scale: float):
+    """Plain PyTorch version of the K4b kernels: (dq, dk, dv).
+
+    The JAX small-S backward (:1524-1603) computes the same formulas, with
+    the same casts, as the flash backward: p = exp(s - lse), delta =
+    rowsum(dO * O), ds = p * (dp - delta) rounded to k's dtype, p rounded to
+    dO's dtype before p^T dO. So this is `flash_attention_bwd_ref`."""
+    return flash_attention_bwd_ref(q, k, v, out, lse, do, scale)
+
+
+class SmallSAttention(torch.autograd.Function):
+    """(q, k, v) (B, S, H, D), 0 < Sq, Sk <= 1024 -> out: the K2 kernel
+    forward and the K4b kernels backward on CUDA, the plain versions on
+    the CPU. The forward keeps its LSE for the backward (the JAX dq kernel
+    recomputes it; the gradients are the same)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        if q.is_cuda:
+            out, lse = _flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd")
+        elif q.device.type == "cpu":
+            out, lse = small_s_attention_ref(q, k, v, scale)
+        else:
+            raise NotImplementedError(f"no small-S attention for device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, dout, ctx.scale, prefix="small_s")
+        else:
+            dq, dk, dv = small_s_attention_bwd_ref(q, k, v, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None
+
+
+def small_s_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """`_small_s_attention` (:1606) in its layout: q/k/v (B, S, H*D), the
+    free reshape of the projection, -> (B, Sq, H*D)."""
+    heads = (num_heads, q.shape[-1] // num_heads)
+    out = SmallSAttention.apply(*(x.unflatten(-1, heads) for x in (q, k, v)), scale)
+    return out.flatten(-2)
+
+
+def _small_s_kernel_takes(x: torch.Tensor, num_heads: int, head_dim: int) -> bool:
+    """The Hopper conditions of the small-S kernels (K2, K4b, K3) for a
+    (B, S, ...) tensor: dtype, an instantiated head dim, the grid limits,
+    and for bf16 16-byte rows (unit last stride, strides multiples of 8, a
+    16-byte aligned base)."""
+    if x.dtype not in _DTYPE_CODES or head_dim not in SMALL_S_HEAD_DIMS:
+        return False
+    if x.shape[0] > _GRID_MAX or num_heads > _GRID_MAX or x.stride(-1) != 1:
+        return False
+    return x.dtype == torch.float32 or not (
+        any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16)
+
+
+def takes_small_s(q, k, v, *, causal=False, q_segment_ids=None, kv_segment_ids=None,
+                  window=None, layout: str = "bshd") -> bool:
+    """Does `flash_attention` take the small-S route? The JAX package's
+    condition (:2080-2086) without its VMEM budget `_ss_fits`, and for CUDA
+    tensors the kernels' own conditions in its place."""
+    if not (layout == "bshd" and q_segment_ids is None and kv_segment_ids is None
+            and not causal and window is None):
+        return False
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if hq != hkv or v.shape[-1] != d or not (0 < sq <= SMALL_S_MAX and 0 < sk <= SMALL_S_MAX):
+        return False
+    return not q.is_cuda or all(_small_s_kernel_takes(x, hq, d) for x in (q, k, v))
+
+
+def _fused_qkv_unfused(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float,
+                       plain: bool = False):
+    """slice -> rms_norm -> small-S attention on (B, S, 3W) `qkv`, (B, S, W):
+    the composition K3's backward differentiates (`_fused_qkv_unfused_ref`
+    :1755; K2 / K4b on CUDA), or with `plain` the small-S plain version."""
+    w = qkv.shape[-1] // 3
+    q = rms_norm(qkv[..., :w], q_weight, eps=eps)
+    k = rms_norm(qkv[..., w:2 * w], k_weight, eps=eps)
+    if not plain:
+        return small_s_attention(q, k, qkv[..., 2 * w:], num_heads, scale)
+    heads = (num_heads, w // num_heads)
+    out, _ = small_s_attention_ref(*(x.unflatten(-1, heads) for x in (q, k, qkv[..., 2 * w:])),
+                                   scale)
+    return out.flatten(-2)
+
+
+def fused_qkv_ref(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float = 1e-6):
+    """Plain PyTorch version of K3: rms_norm of the q and k slices of
+    (B, S, 3W) `qkv` with the (W,) weights, then the small-S plain
+    attention; (B, S, W)."""
+    return _fused_qkv_unfused(qkv, q_weight, k_weight, num_heads, scale, eps, plain=True)
+
+
+def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float):
+    """Launch K3 (csrc/fused_qkv.cu) on a CUDA (B, S, 3W) tensor: the
+    row-statistics pre-pass, then the attention kernel; (B, S, W)."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    d = w // num_heads
+    if w3 != 3 * w or w != num_heads * d:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, S, 3 * {num_heads} * D)")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise NotImplementedError(f"fused qkv kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if d not in SMALL_S_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d} is not instantiated in csrc/fused_qkv.cu {SMALL_S_HEAD_DIMS}")
+    if not 0 < s <= SMALL_S_MAX:
+        raise ValueError(f"fused qkv kernel takes 0 < S <= {SMALL_S_MAX}, got {s}")
+    if not _small_s_kernel_takes(qkv, num_heads, d):
+        raise ValueError(
+            f"qkv: the kernel needs a unit last stride, batch {b} / heads {num_heads} within "
+            f"{_GRID_MAX}, and for bf16 16-byte rows (strides {qkv.stride()}, "
+            f"ptr {qkv.data_ptr():#x})")
+    dev = qkv.device
+    # the kernel reads the weights as float4: contiguous fp32, 16-byte aligned
+    qw, kw = (x.to(device=dev, dtype=torch.float32).contiguous() for x in (q_weight, k_weight))
+    qw, kw = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (qw, kw))
+    if qw.shape != (w,) or kw.shape != (w,):
+        raise ValueError(f"q/k weights {tuple(qw.shape)} / {tuple(kw.shape)}, expected ({w},)")
+    q_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
+    k_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
+    out = torch.empty((b, s, w), dtype=qkv.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    code, (s_b, s_s) = _DTYPE_CODES[qkv.dtype], qkv.stride()[:2]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ivt_fused_qkv_rstd(code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(),
+                                    b, s, w, s_b, s_s, float(eps), stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_qkv_rstd kernel launch failed: cudaError_t {rc}")
+        _launches["fused_qkv_rstd"] += 1
+        rc = lib.ivt_fused_qkv_fwd(code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(),
+                                   qw.data_ptr(), kw.data_ptr(), out.data_ptr(), b, s,
+                                   num_heads, d, s_b, s_s, s * w, w, d, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_qkv_fwd kernel launch failed: cudaError_t {rc}")
+    _launches["fused_qkv_fwd"] += 1
+    return out
+
+
+class FusedQKVAttention(torch.autograd.Function):
+    """(qkv (B, S, 3W), q_weight, k_weight) -> (B, S, W): K3 on CUDA, its
+    plain version on the CPU; the backward is autograd through the unfused
+    composition, as `_fused_qkv_bwd_rule` (:1770-1778), so the gradients
+    are the production path's (on CUDA: K2 recompute, then K4b)."""
+
+    @staticmethod
+    def forward(ctx, qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float):
+        if qkv.is_cuda:
+            out = _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads, scale, eps)
+        elif qkv.device.type == "cpu":
+            out = fused_qkv_ref(qkv, q_weight, k_weight, num_heads, scale, eps)
+        else:
+            raise NotImplementedError(f"no fused qkv attention for device {qkv.device}")
+        ctx.save_for_backward(qkv, q_weight, k_weight)
+        ctx.args = (num_heads, scale, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _fused_qkv_unfused(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None)
+
+
+def fused_qkv_eligible(s: int, num_heads: int, head_dim: int, itemsize: int) -> bool:
+    """Can (B, S, 3W) self-attention take K3? The JAX condition (:1784)
+    without its TPU-only parts (W % 128 lane alignment, the `_ss_fits` VMEM
+    budget) and with the kernel's own: an instantiated head dim (all are
+    multiples of 8, so bf16 rows and the three column views are 16-byte
+    aligned), fp32 or bf16, the grid's head limit."""
+    return (0 < s <= SMALL_S_MAX and head_dim in SMALL_S_HEAD_DIMS
+            and itemsize in (2, 4) and num_heads <= _GRID_MAX)
+
+
+def fused_qkv_rmsnorm_attention(
+    qkv: torch.Tensor,  # (B, S, 3W): one flat projection GEMM output
+    q_weight: torch.Tensor,  # (W,) fp32 RMSNorm weight over the flattened dim
+    k_weight: torch.Tensor,
+    *,
+    num_heads: int,
+    eps: float = 1e-6,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused qkv slice + whole-dim QK-RMSNorm + small-S attention; returns
+    (B, S, W) in the projection layout. The caller checks
+    `fused_qkv_eligible` (the CUDA wrapper raises on what K3 cannot take)."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    if w3 != 3 * w or w % num_heads:
+        raise ValueError(f"qkv {tuple(qkv.shape)} does not split into 3 x {num_heads} heads")
+    d = w // num_heads
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    return FusedQKVAttention.apply(qkv, q_weight, k_weight, num_heads, scale, eps)
+
+
 def flash_attention_with_lse(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, H, D)
@@ -277,6 +542,27 @@ def flash_attention_with_lse(
     return FlashAttention.apply(q, k, v, scale)
 
 
-def flash_attention(q, k, v, **kwargs) -> torch.Tensor:
-    """Flash attention over (B, S, H, D) inputs; see flash_attention_with_lse."""
-    return flash_attention_with_lse(q, k, v, **kwargs)[0]
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, H, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    window: Optional[int] = None,
+    q_position_offset: int = 0,
+    layout: str = "bshd",
+) -> torch.Tensor:
+    """Flash attention over (B, S, H, D) inputs. Short sequences (0 < Sq,
+    Sk <= 1024, see `takes_small_s`) take the small-S route (K2 / K4b), as
+    in the JAX package; the rest K1 / K4a (flash_attention_with_lse)."""
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              window=window, layout=layout)
+    _check_supported(q, k, v, q_position_offset=q_position_offset, **kw)
+    if takes_small_s(q, k, v, **kw):
+        scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+        return SmallSAttention.apply(q, k, v, scale)
+    return flash_attention_with_lse(q, k, v, softmax_scale=softmax_scale,
+                                    q_position_offset=q_position_offset, **kw)[0]

@@ -1,7 +1,8 @@
 """Train state: the model, its optimizer, the update count and the random
-stream of the step.
+stream of the step; and the frozen teachers beside it.
 
-Port of internvideo_tpu/train/state.py `TrainState` (:23-48). The JAX state
+Port of internvideo_tpu/train/state.py `TrainState` (:23-48) and of
+`sharded_frozen_variables` (:126) as `frozen_teacher`. The JAX state
 is an immutable pytree of params and optimizer state; here the model and
 the optimizer are updated in place and the state holds them. `generator`
 is a CPU torch.Generator from which each step draws its seeds (mixup and
@@ -9,6 +10,11 @@ DropPath), the counterpart of the Trainer's JAX key folded with the step;
 it is part of the state so that a checkpoint resumes the same stream. The
 sharded creation (`create_sharded_state`) is the JAX package's
 multi-device path and is not ported (ROADMAP queue 1, item 9).
+
+A frozen teacher is a module built on its device from its own seeded
+generator, with every parameter's requires_grad off and in eval mode. It is
+held by the step, never by the student, so it is in no optimizer group, in
+no global norm and in no checkpoint of the student.
 """
 
 from __future__ import annotations
@@ -59,3 +65,9 @@ class TrainState:
         """A seed for one micro-batch's random draws, from `generator`
         (host only: no device sync)."""
         return int(torch.randint(0, 2**62, (), generator=self.generator))
+
+
+def frozen_teacher(module: torch.nn.Module) -> torch.nn.Module:
+    """Freeze `module` in place: requires_grad off on every parameter, eval
+    mode."""
+    return module.requires_grad_(False).eval()

@@ -91,13 +91,17 @@ def test_bwd_ref_matches_autograd_of_plain_forward(dtype):
 
 
 def test_kernel_route_output_carries_the_gradient():
-    """The kernel route returns FlashAttention's autograd node (on a CUDA
-    tensor its forward fills the output through ctypes, so only this node
-    carries gradients to q, k and v), and the qkv projection and QK norms
-    of an Attention layer get the same gradients as on the plain route."""
+    """The kernel route returns the autograd node of its Function (on a
+    CUDA tensor the forward fills the output through ctypes, so only this
+    node carries gradients to q, k and v): SmallSAttention at S <= 1024,
+    FlashAttention for flash_attention_with_lse; and the qkv projection and
+    QK norms of an Attention layer (on the kernel route: the fused qkv op)
+    get the same gradients as on the plain route."""
     q, k, v, g, _ = (torch.from_numpy(x) for x in _inputs(1, 20, 20, 2, 64, seed=3))
     q.requires_grad_()
     out = dot_product_attention(q, k, v, impl="kernel")
+    assert type(out.grad_fn).__name__ == "SmallSAttentionBackward"
+    out, _ = fa.flash_attention_with_lse(q, k, v)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
 
     torch.manual_seed(0)

@@ -60,8 +60,9 @@ def test_backward_kernels_match_plain(dtype):
         before = {n: fa.launch_count(n) for n in fa.KERNELS}
         out, lse, grads = _grads(q, k, v, g)
         torch.cuda.synchronize()
-        assert {n: fa.launch_count(n) - before[n] for n in fa.KERNELS} == dict.fromkeys(
-            fa.KERNELS, 1)
+        k1_k4a = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        assert {n: fa.launch_count(n) - before[n] for n in fa.KERNELS} == {
+            n: int(n in k1_k4a) for n in fa.KERNELS}
         ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, g, d ** -0.5)
         for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
             assert x.dtype == dt and x.shape == r.shape, name
@@ -100,7 +101,7 @@ def test_gradients_reach_the_projection():
     x = torch.randn(1, 65, 176, device="cuda", generator=gen)
     w = torch.randn(3 * 176, 176, device="cuda", generator=gen).mul_(0.05).requires_grad_()
     q, k, v = (t.unflatten(-1, (2, 88)) for t in (x @ w.t()).split(176, dim=-1))
-    out = fa.flash_attention(q, k, v)
+    out, _ = fa.flash_attention_with_lse(q, k, v)  # K1 / K4a at any S
     assert out.grad_fn is not None
     (gw,) = torch.autograd.grad(out.square().sum(), (w,))
     assert torch.isfinite(gw).all()

@@ -56,19 +56,24 @@ def test_kernel_matches_plain(dtype):
 
 @pytest.mark.cuda
 def test_kernel_takes_strided_qkv_views_and_rejects_what_it_cannot_take():
+    """K1 through flash_attention_with_lse, which stays on it at any S (the
+    short-S route of flash_attention is K2: test_torch_small_s_kernel_cuda.py)."""
     _card()
     b, s, h, d = 2, 130, 4, 88
     qkv = torch.randn(b, s, 3 * h * d, device="cuda").bfloat16()
     q, k, v = (x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1))
-    out = fa.flash_attention(q, k, v)
+    before = fa.launch_count()
+    out, _ = fa.flash_attention_with_lse(q, k, v)
+    assert fa.launch_count() == before + 1
     ref = fa.flash_attention_ref(q, k, v, d ** -0.5)
     assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() <= 1e-2
     with pytest.raises(NotImplementedError, match="head dim"):
-        fa.flash_attention(*(torch.randn(1, 8, 2, 40, device="cuda") for _ in range(3)))
+        fa.flash_attention_with_lse(*(torch.randn(1, 8, 2, 40, device="cuda") for _ in range(3)))
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-        fa.flash_attention(*(torch.randn(1, 8, 2, 64, device="cuda").half() for _ in range(3)))
+        fa.flash_attention_with_lse(
+            *(torch.randn(1, 8, 2, 64, device="cuda").half() for _ in range(3)))
     with pytest.raises(NotImplementedError, match="K5"):
-        fa.flash_attention(q, k, v, causal=True)
+        fa.flash_attention_with_lse(q, k, v, causal=True)
     misaligned = torch.randn(1, 8, 2, 65, device="cuda").bfloat16()[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention(misaligned, misaligned, misaligned)
+        fa.flash_attention_with_lse(misaligned, misaligned, misaligned)

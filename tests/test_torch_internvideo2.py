@@ -200,7 +200,7 @@ def test_params_from_jax_roundtrip_names(jax_params):
 
 @pytest.mark.parametrize("override", [
     dict(remat=True, remat_policy="save_attn"), dict(quant="int8"), dict(pool_type="cls_proj"),
-    dict(ln_pre=True), dict(norm_type="layernorm"),
+    dict(ln_pre=True), dict(remat_policy="offload_mlp"),
 ])
 def test_unported_config_raises(override):
     cfg = iv2.make_config("1B", **{**SMALL, **override})
@@ -209,13 +209,18 @@ def test_unported_config_raises(override):
 
 
 def test_unported_forward_options_raise():
+    """The forward options the masked pretrain brought in (keep_indices,
+    return_pool_attn) no longer raise: they gather the visible tokens and
+    return the pooling attention over all tokens."""
     cfg = iv2.make_config("1B", **{**SMALL, "depth": 1})
     model = iv2.InternVideo2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     video = torch.from_numpy(_video(cfg, batch=1))
-    for kw in (dict(keep_indices=torch.zeros(1, 4, dtype=torch.long)),
-               dict(return_pool_attn=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(video, **kw)
+    with torch.no_grad():
+        out = model(video, keep_indices=torch.tensor([[0, 3, 5, 9]]))
+        assert out.tokens.shape == (1, 5, cfg.embed_dim)
+        out = model(video, return_pool_attn=True)
+    assert out.pool_attn.shape == (1, 1 + cfg.num_patches)
+    torch.testing.assert_close(out.pool_attn.sum(-1), torch.ones(1))
 
 
 def test_seeded_init_is_reproducible_and_bf16_keeps_fp32_norms():
