@@ -69,7 +69,39 @@ non-zero and prints no result):
      batch (ms, clips/s) split into CLIP teacher, MAE teacher and the
      student's forward + backward + update; each new kernel at its path
      shape beside its plain version, its bound and the SDPA yardstick; one
-     more step under torch.profiler.
+     more step under torch.profiler;
+ 15. the causal / narrow-v flash kernel (K5) vs its plain version on the
+     card: fp32 at the JAX kernel tests' causal shapes (ragged S = 200, the
+     72 / 200 / 128 query offset, d_v 32 < d_qk 64; max-abs 2e-5) and bf16
+     at the prefill's (8, 2048, 32, 256 / 128) and the 2B preset's
+     (8, 2048, 20, 192 / 128) with k / v as strided views of one tensor
+     (out rel-L2 <= 1e-2);
+ 16. the paged decode kernel (K6) vs its plain version: fp32 with ragged
+     lengths and unused block-table columns on a page of NaN (max-abs
+     1e-4), bf16 at the 8B decode shape (B 8, H 32, R 896, P 128, page 64,
+     seq 2048-2112; rel-L2 <= 1e-2);
+ 17. the serving main path: `internvideo_tpu_torch.cli.generate --preset
+     qwen3_8b_mla --paged` on a 512-token prompt for 32 tokens, then a
+     ServingEngine on the same seeded 8B model (8 slots, page 64, 272
+     pages, buckets 512 / 2048, max_len 2112) serving 12 requests of
+     100-2048 prompt tokens and 32-64 new tokens, with decode_horizon 1 and
+     8; the launch counts are reset before each run and read after and must
+     be 36 K5 per prefill call, 36 K6 per decode step and nothing else;
+     every token in the vocabulary, every request at its budget;
+ 18. kernel route vs plain route on the 8B model, 36 layers, B = 2,
+     512-token prompts, prefill and 4 paged decode steps (same fed
+     tokens): in bf16 the attention of layers 0, 18 and 35 on its real
+     inputs (rel-L2 <= 1e-2) and the logits against the same weights run
+     in fp32 (the kernel route no farther than the plain route, x 1.25; the
+     two bf16 routes are ~5.6e-2 apart, as far as each is from fp32); in
+     fp32 the two routes' logits (rel-L2 <= 1e-4); fp32 at the 8B widths
+     and depth 2: greedy tokens identical across dense generate, paged
+     generate (K6) and the ServingEngine;
+ 19. times with CUDA events: prefill at B = 8, prompt 2048 and steady paged
+     decode at B = 8, seq 2048 (tokens/s) on qwen3_8b_mla and qwen3_2b_mla;
+     K5 and K6 at their path shapes beside the plain version, the bound
+     and (K5) the SDPA yardstick; one prefill and one decode step under
+     torch.profiler.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}.
@@ -98,6 +130,15 @@ CONFIG_PRETRAIN = "configs/torch/pretrain_1b_umt.py"
 PRETRAIN_SHAPE = (32, 833, 16, 88)  # B, S, H, head_dim of the masked 1B student
 TEACHER_SHAPE = (512, 257, 25, 128)  # B*T, S, H, head_dim of the CLIP-6B teacher
 PRETRAIN_STEPS = 3
+PRESET_8B, PRESET_2B = "qwen3_8b_mla", "qwen3_2b_mla"
+LLM_DEPTH_8B, VOCAB = 36, 151936
+PREFILL_SHAPE = (8, 2048)  # B, prompt: bench.py's LLM prefill shape
+CAUSAL_SHAPE = (8, 2048, 32, 256, 128)  # B, S, H, d_qk, d_v of the 8B prefill
+CAUSAL_SHAPE_2B = (8, 2048, 20, 192, 128)
+DECODE_SHAPE = (8, 32, 896, 128, 64)  # B, H, R, P, page size of the 8B decode
+DECODE_LENS = [2048, 2060, 2075, 2080, 2090, 2100, 2111, 2112]
+SERVE_ENGINE = dict(max_batch=8, page_size=64, num_pages=272, prompt_buckets=(512, 2048),
+                    max_len=2112)
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -473,7 +514,8 @@ def _sdpa_times(shape, card) -> dict:
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_s_fwd", "small_s_dq",
-                "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd"):
+                "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd",
+                "paged_decode"):
         if key in n:
             return key
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
@@ -898,6 +940,463 @@ def time_pretrain_step(fa, run, card) -> dict:
     return {"step_ms": step_ms, "clip_ms": clip_ms, "mae_ms": mae_ms}
 
 
+def _llm(preset: str, seed: int = 0, **overrides):
+    """The preset's MLATransformer on the card with seeded weights (the
+    generate CLI's init for `--seed seed`), in eval mode."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.llm import MLATransformer
+
+    cfg = getattr(presets, preset)(**overrides)
+    return MLATransformer(cfg, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(seed)).eval()
+
+
+def _set_llm_impl(model, impl: str) -> None:
+    from internvideo_tpu_torch.nn.mla import MLAttention
+
+    for m in model.modules():
+        if isinstance(m, MLAttention):
+            m.attn_impl = impl
+
+
+def _serve_counts(fa, pd) -> dict:
+    return {**{n: fa.launch_count(n) for n in fa.KERNELS}, "paged_decode": pd.launch_count()}
+
+
+def _serve_reset(fa, pd) -> None:
+    fa.reset_launch_count()
+    pd.reset_launch_count()
+
+
+def check_causal_kernel(fa) -> float:
+    """Phase 15; returns K5's max-abs error at CAUSAL_SHAPE in bf16."""
+    g = torch.Generator("cuda").manual_seed(15)
+    for b, sq, sk, h, d, dv, causal, off in [(1, 200, 200, 2, 64, 64, True, 0),
+                                            (1, 72, 200, 2, 64, 64, True, 128),
+                                            (2, 200, 200, 4, 64, 32, True, 0),
+                                            (2, 200, 200, 4, 64, 32, False, 0)]:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=g)
+        k = torch.randn(b, sk, h, d, device="cuda", generator=g)
+        v = torch.randn(b, sk, h, dv, device="cuda", generator=g)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_position_offset=off)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, causal, off)
+        e_out, e_lse = (out - ref).abs().max().item(), (lse - ref_lse).abs().max().item()
+        print(f"K5 fp32 {(b, sq, sk, h, d, dv)} causal={causal} offset={off}: out max-abs "
+              f"{e_out:.3e}, lse max-abs {e_lse:.3e} (bar 2e-5)", flush=True)
+        if not (e_out <= 2e-5 and e_lse <= 2e-5):
+            raise AssertionError("fp32 causal flash kernel disagrees with its plain version")
+    err = None
+    for b, s, h, d, dv in (CAUSAL_SHAPE, CAUSAL_SHAPE_2B):
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+        kv = torch.randn(b, s, h, d + dv, device="cuda", generator=g).bfloat16()
+        k, v = kv[..., :d], kv[..., d:]  # strided views of one tensor
+        before = fa.launch_count("flash_fwd_causal")
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if fa.launch_count("flash_fwd_causal") != before + 1:
+            raise AssertionError("the causal call did not launch K5")
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True)
+        rel, e_lse = _rel(out, ref), (lse - ref_lse).abs().max().item()
+        max_abs = (out.float() - ref.float()).abs().max().item()
+        print(f"K5 bf16 {(b, s, h, d, dv)} causal, k/v strided views: out rel-L2 {rel:.3e} "
+              f"(bar 1e-2), max-abs {max_abs:.3e}, lse max-abs {e_lse:.3e}", flush=True)
+        if not rel <= 1e-2:
+            raise AssertionError(f"bf16 causal flash kernel disagrees at {(b, s, h, d, dv)}")
+        err = max_abs if err is None else err
+        del q, kv, k, v, out, lse, ref, ref_lse
+    return err
+
+
+def _paged_inputs(b, h, r, p_dim, page_size, max_pages, lens, dtype, seed):
+    """A pool of b * max_pages pages plus a NaN trash page; shuffled tables
+    whose unused columns point at it; slots past each length NaN too."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    n_pages = b * max_pages
+    pages = torch.randn(n_pages + 1, page_size, r + p_dim, device="cuda", generator=g)
+    pages[n_pages] = float("nan")
+    tables = torch.full((b, max_pages), n_pages, dtype=torch.int32)
+    perm = torch.Generator().manual_seed(seed)
+    for i, n_tok in enumerate(lens):
+        n = -(-n_tok // page_size)
+        tables[i, :n] = i * max_pages + torch.randperm(max_pages, generator=perm)[:n].int()
+        pages[tables[i, n - 1], n_tok - (n - 1) * page_size:] = float("nan")
+    q_lat = torch.randn(b, h, r, device="cuda", generator=g).to(dtype)
+    q_pe = torch.randn(b, h, p_dim, device="cuda", generator=g).to(dtype)
+    return (q_lat, q_pe, pages.to(dtype), tables.cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def check_paged_kernel(pd) -> float:
+    """Phase 16; returns K6's max-abs error at DECODE_SHAPE in bf16."""
+    for b, h, r, p_dim, ps, mp, lens in [(3, 4, 32, 16, 4, 5, [3, 9, 17]),
+                                         (2, 32, 896, 128, 64, 4, [1, 200])]:
+        q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, mp, lens,
+                                                       torch.float32, 16)
+        out = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=0.17)
+        torch.cuda.synchronize()
+        ref = pd.paged_mla_decode_ref(q_lat, q_pe, torch.nan_to_num(pages), tables, sl,
+                                      softmax_scale=0.17)
+        err = (out - ref).abs().max().item()
+        print(f"K6 fp32 (B {b}, H {h}, R {r}, P {p_dim}, page {ps}) lens {lens}, NaN trash "
+              f"page: max-abs {err:.3e} (bar 1e-4), finite {bool(torch.isfinite(out).all())}",
+              flush=True)
+        if not (torch.isfinite(out).all() and err <= 1e-4):
+            raise AssertionError("fp32 paged decode kernel disagrees with its plain version")
+    b, h, r, p_dim, ps = DECODE_SHAPE
+    q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, 34, DECODE_LENS,
+                                                   torch.bfloat16, 17)
+    out = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=256 ** -0.5)
+    ref = pd.paged_mla_decode_ref(q_lat, q_pe, torch.nan_to_num(pages), tables, sl,
+                                  softmax_scale=256 ** -0.5)
+    torch.cuda.synchronize()
+    rel, err = _rel(out, ref), (out.float() - ref.float()).abs().max().item()
+    print(f"K6 bf16 {DECODE_SHAPE} seq {DECODE_LENS[0]}-{DECODE_LENS[-1]}: rel-L2 {rel:.3e} "
+          f"(bar 1e-2), max-abs {err:.3e}", flush=True)
+    if not (torch.isfinite(out).all() and rel <= 1e-2):
+        raise AssertionError("bf16 paged decode kernel disagrees with its plain version")
+    return err
+
+
+def _wrap_calls(model) -> dict:
+    """Count the model's prefill_paged / decode_step_paged calls."""
+    calls = {"prefill": 0, "decode": 0}
+    for name, key in (("prefill_paged", "prefill"), ("decode_step_paged", "decode")):
+        fn = getattr(model, name)
+
+        def counted(*a, _fn=fn, _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+
+        setattr(model, name, counted)
+    return calls
+
+
+def run_serve_path(fa, pd, card):
+    """Phase 17; returns (the 8B model, the launches of each kernel summed
+    over the CLI run and both engine runs)."""
+    import numpy as np
+
+    from internvideo_tpu_torch.cli import generate as cli
+    from internvideo_tpu_torch.serve import ServingEngine
+
+    zero = dict.fromkeys(_serve_counts(fa, pd), 0)
+    ids = torch.randint(1, VOCAB, (512,), generator=torch.Generator().manual_seed(17))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _serve_reset(fa, pd)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--preset", PRESET_8B, "--paged", "--ids", ",".join(map(str, ids.tolist())),
+                       "--max-new-tokens", "32", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _serve_counts(fa, pd)
+    wall = time.perf_counter() - t0
+    tokens = json.loads(buf.getvalue().strip().splitlines()[-1])["tokens"]
+    print(f"[{card}] cli.generate --preset {PRESET_8B} --paged, 512-token prompt, 32 new: "
+          f"{tokens[:8]}... ({wall:.1f} s wall incl. the 8B init); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want = {**zero, "flash_fwd_causal": LLM_DEPTH_8B, "paged_decode": LLM_DEPTH_8B * 31}
+    if rc != 0 or len(tokens) != 32 or not all(0 <= t < VOCAB for t in tokens):
+        raise AssertionError(f"cli.generate returned {len(tokens)} tokens: {tokens}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} on the generate CLI; expected {want}")
+    total = dict(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = _llm(PRESET_8B)  # the CLI's seeded weights
+    calls = _wrap_calls(model)
+    for horizon in (1, 8):
+        eng = ServingEngine(model, **SERVE_ENGINE, decode_horizon=horizon)
+        rng = np.random.default_rng(17)
+        reqs = [(rng.integers(1, VOCAB, size=int(n)).astype(np.int32), int(m))
+                for n, m in zip(rng.integers(100, 2049, 12), rng.integers(32, 65, 12))]
+        calls.update(prefill=0, decode=0)
+        _serve_reset(fa, pd)
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, m) for p, m in reqs]
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _serve_counts(fa, pd)
+        n_tok = sum(len(outs[r]) for r in rids)
+        print(f"[{card}] ServingEngine {PRESET_8B} horizon {horizon}: 12 requests, prompts "
+              f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)}, {n_tok} tokens "
+              f"in {wall:.2f} s ({n_tok / wall:.1f} tokens/s end to end incl. prefill); "
+              f"{calls['prefill']} prefill calls, {calls['decode']} decode steps; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for rid, (p, m) in zip(rids, reqs):
+            out = outs[rid]
+            if len(out) != m or not ((out >= 0) & (out < VOCAB)).all():
+                raise AssertionError(f"request {rid}: {len(out)} of {m} tokens, {out}")
+        want = {**zero, "flash_fwd_causal": LLM_DEPTH_8B * calls["prefill"],
+                "paged_decode": LLM_DEPTH_8B * calls["decode"]}
+        if launches != want or calls["prefill"] != 12:
+            raise AssertionError(f"launches {launches} for {calls} on the engine; expected "
+                                 f"{want} (36 K5 per prefill, 36 K6 per decode step)")
+        total = {k: total[k] + launches[k] for k in total}
+        del eng
+    for name in ("prefill_paged", "decode_step_paged"):
+        delattr(model, name)
+    return model, total
+
+
+def _route_logits(model, impl: str, ids, fed, capture=None) -> list:
+    """Prefill `ids` into fresh page pools, then 4 paged decode steps fed
+    `fed`, on route `impl`; returns the 5 last-position logits (fp32).
+    With `capture`, the first, middle and last layers record their attention inputs of
+    the prefill and of the first decode step."""
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+
+    _set_llm_impl(model, impl)
+    b, s = ids.shape
+    pages, tables = init_paged_cache(model.cfg, b, s + 64, 64, model.embed_tokens.weight.dtype,
+                                     "cuda")
+    undo = []
+    if capture is not None:
+        n = model.cfg.num_layers
+        for i in sorted({0, n // 2, n - 1}):
+            attn = model.layers[i].self_attn
+
+            def record(m, args, kwargs, i=i):
+                capture.setdefault(("prefill", i), (args, kwargs))
+
+            undo.append(attn.register_forward_pre_hook(record, with_kwargs=True).remove)
+            undo.append(_hook_decode(attn, capture, i))
+    with torch.no_grad():
+        out = model.prefill_paged(ids, pages, tables, 64)
+        logits = [out.logits[:, -1].float()]
+        for step in range(4):
+            lens = torch.full((b,), s + step, dtype=torch.int32, device="cuda")
+            out = model.decode_step_paged(fed[:, step:step + 1], pages, tables, lens, 64)
+            logits.append(out.logits[:, -1].float())
+    for fn in undo:
+        fn()
+    _set_llm_impl(model, "kernel")
+    return logits
+
+
+def _hook_decode(attn, capture, i):
+    """Record the first decode_paged call's arguments of `attn` (later
+    steps write only past its seq_lens, so its pool view stays valid);
+    returns the undo."""
+    fn = attn.decode_paged
+
+    def recorded(*a, **kw):
+        capture.setdefault(("decode", i), (a, kw))
+        return fn(*a, **kw)
+
+    attn.decode_paged = recorded
+    return lambda: delattr(attn, "decode_paged")
+
+
+def check_serve_routes(model) -> None:
+    """Phase 18 on the 8B bf16 `model`, then an fp32 8B-width depth-2 model.
+
+    End to end in bf16, any two roundings of this 36-layer random-init model
+    land ~5.6e-2 apart in the logits (both routes are that far from the same
+    weights run in fp32), so the routes are held to each other layer by
+    layer on the real activations (rel-L2 <= 1e-2), and end to end against
+    the fp32 run: the kernel route no farther from it than the plain route
+    (x 1.25), and in fp32 the two routes agree to 1e-4."""
+    import numpy as np
+
+    from internvideo_tpu_torch.models.generation import generate
+    from internvideo_tpu_torch.models.llm import MLATransformer
+    from internvideo_tpu_torch.serve import ServingEngine
+
+    g = torch.Generator("cuda").manual_seed(18)
+    ids = torch.randint(1, VOCAB, (2, 512), device="cuda", generator=g)
+    fed = torch.randint(1, VOCAB, (2, 4), device="cuda", generator=g)
+    capture = {}
+    res = {impl: _route_logits(model, impl, ids, fed, capture if impl == "kernel" else None)
+           for impl in ("kernel", "plain")}
+    for (kind, i), (args, kw) in sorted(capture.items()):
+        attn = model.layers[i].self_attn
+        outs = {}
+        with torch.no_grad():
+            for impl in ("kernel", "plain"):
+                attn.attn_impl = impl
+                fn = attn.forward if kind == "prefill" else attn.decode_paged
+                outs[impl] = fn(*args, **kw)
+        attn.attn_impl = "kernel"
+        rel = _rel(outs["kernel"], outs["plain"])
+        print(f"{PRESET_8B} bf16 layer {i} {kind} attention on its real inputs, kernel vs plain "
+              f"route: rel-L2 {rel:.3e} (bar 1e-2)", flush=True)
+        if not rel <= 1e-2:
+            raise AssertionError(f"routes disagree at layer {i} ({kind})")
+    del capture
+
+    ref = MLATransformer(dataclasses.replace(model.cfg, dtype="float32", param_dtype="float32"),
+                         device="cuda", generator=torch.Generator("cuda").manual_seed(0)).eval()
+    with torch.no_grad():
+        for p32, p16 in zip(ref.parameters(), model.parameters()):
+            p32.copy_(p16)
+    f32 = {impl: _route_logits(ref, impl, ids, fed) for impl in ("kernel", "plain")}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for n in range(5):
+        rk, rp = _rel(res["kernel"][n], f32["plain"][n]), _rel(res["plain"][n], f32["plain"][n])
+        rows.append((_rel(res["kernel"][n], res["plain"][n]), rk, rp,
+                     _rel(f32["kernel"][n], f32["plain"][n])))
+    print(f"{PRESET_8B} 36 layers B=2 512-token prompts, prefill + 4 paged decode steps (same fed "
+          "tokens), logits rel-L2 [bf16 kernel vs bf16 plain | bf16 kernel vs fp32 | bf16 plain "
+          "vs fp32 | fp32 kernel vs fp32 plain]: "
+          + "; ".join(" / ".join(f"{x:.3e}" for x in r) for r in rows), flush=True)
+    if not all(torch.isfinite(x).all() for x in res["kernel"]):
+        raise AssertionError("non-finite logits on the kernel route")
+    if not all(rk <= 1.25 * rp and r32 <= 1e-4 for _, rk, rp, r32 in rows):
+        raise AssertionError("the kernel route is farther from the fp32 run than the plain route, "
+                             "or the fp32 routes disagree")
+    del res, f32
+
+    m32 = _llm(PRESET_8B, num_layers=2, dtype="float32", param_dtype="float32")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(1, VOCAB, size=n).astype(np.int32) for n in (100, 37)]
+    eng = ServingEngine(m32, max_batch=2, page_size=64, num_pages=8, max_len=136,
+                        prompt_buckets=(128,))
+    rids = [eng.submit(p, 8) for p in prompts]
+    outs = eng.run()
+    for rid, p in zip(rids, prompts):
+        pt = torch.from_numpy(p).long()[None].cuda()
+        dense = generate(m32, pt, max_new_tokens=8)[0].cpu().numpy()
+        paged = generate(m32, pt, max_new_tokens=8, paged=True, page_size=64)[0].cpu().numpy()
+        print(f"{PRESET_8B} widths fp32 depth 2, prompt {len(p)}: dense {dense.tolist()}, "
+              f"paged {paged.tolist()}, engine {outs[rid].tolist()}", flush=True)
+        if not ((dense == paged).all() and (dense == outs[rid]).all()):
+            raise AssertionError("fp32 greedy tokens differ across dense, paged and the engine")
+
+
+def _param_bytes(model, skip_embed: bool = True) -> int:
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if not (skip_embed and n.startswith("embed_tokens")))
+
+
+def time_llm(model, preset: str, card) -> dict:
+    """Phase 19: prefill at PREFILL_SHAPE and steady paged decode at B = 8,
+    seq 2048 on `model` (tokens/s and the bounds)."""
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+
+    cfg = model.cfg
+    b, s = PREFILL_SHAPE
+    g = torch.Generator("cuda").manual_seed(19)
+    ids = torch.randint(1, VOCAB, (b, s), device="cuda", generator=g)
+    pages, tables = init_paged_cache(cfg, b, s + 64, 64, torch.bfloat16, "cuda")
+    tok = torch.randint(1, VOCAB, (b, 1), device="cuda", generator=g)
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        prefill = lambda: model.prefill_paged(ids, pages, tables, 64)  # noqa: E731
+        decode = lambda: model.decode_step_paged(tok, pages, tables, lens, 64)  # noqa: E731
+        prefill_ms = _time_ms(prefill, iters=3, warmup=1)
+        decode_ms = _time_ms(decode, iters=10, warmup=2)
+    m = cfg.mla
+    layer_params = sum(p.numel() for n, p in model.named_parameters() if n.startswith("layers."))
+    head = cfg.vocab_size * cfg.hidden_size
+    attn = cfg.num_layers * b * m.num_heads * s * (s + 1) // 2 * 2 * (m.q_head_dim
+                                                                     + m.v_head_dim)
+    # weights read once (the table only for its looked-up rows), the logits
+    # of the last position (prefill) or of every sequence (decode), and for
+    # decode the pool entries of the cached tokens
+    prefill_bound = _bound(2 * layer_params * b * s + attn + 2 * head * b,
+                           _param_bytes(model) + b * s * cfg.hidden_size * 2)
+    decode_bound = _bound(2 * (layer_params + head) * b,
+                          _param_bytes(model) + cfg.num_layers * b * s * m.cache_dim * 2)
+    print(f"[{card}] {preset} prefill B={b} prompt {s} bf16 (prefill_paged, K5): "
+          f"{prefill_ms:.1f} ms = {b * s * 1e3 / prefill_ms:.0f} tokens/s (bound "
+          f"{prefill_bound[0]:.1f} ms, {prefill_bound[1]})", flush=True)
+    print(f"[{card}] {preset} paged decode step B={b} seq {s} bf16 (K6): {decode_ms:.2f} ms = "
+          f"{b * 1e3 / decode_ms:.1f} tokens/s (bound {decode_bound[0]:.2f} ms, "
+          f"{decode_bound[1]}: the weight stream)", flush=True)
+    res = {"prefill_ms": prefill_ms, "prefill_tokens_per_sec": b * s * 1e3 / prefill_ms,
+           "decode_ms": decode_ms, "decode_tokens_per_sec": b * 1e3 / decode_ms,
+           "prefill_bound_ms": prefill_bound[0], "decode_bound_ms": decode_bound[0]}
+    if preset == PRESET_8B:
+        with torch.no_grad():
+            profile_step(prefill, card, f"{preset} prefill B={b} S={s}")
+            profile_step(decode, card, f"{preset} paged decode step B={b} seq {s}")
+    del pages
+    return res
+
+
+def _sdpa_causal_ms(q, k, v) -> tuple:
+    """The fastest PyTorch SDPA backend that takes causal (B, S, H, D)
+    attention with v at its own width, else with v zero-padded to q's
+    (yardstick only, never on the port's path): (ms, note)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    vpad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
+    best = (None, "no backend ran")
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for vv, tag in ((v, "d_v as is"), (vpad, "v zero-padded to d_qk")):
+            try:
+                with sdpa_kernel(backend):
+                    ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, vv,
+                                                                         is_causal=True),
+                                  iters=10, warmup=2)
+            except RuntimeError as e:  # the backend refuses the shape: try the next
+                print(f"  SDPA {backend.name} ({tag}) refused: {str(e).splitlines()[0][:100]}",
+                      flush=True)
+                continue
+            if best[0] is None or ms < best[0]:
+                best = (ms, f"{backend.name}, {tag}")
+            break
+    return best
+
+
+def time_serve_kernels(fa, pd, card) -> dict:
+    """Phase 19, kernels: K5 at CAUSAL_SHAPE (and the 2B shape) and K6 at
+    DECODE_SHAPE beside the plain version, the bound and the yardstick."""
+    g = torch.Generator("cuda").manual_seed(20)
+    res = {}
+    for tag, (b, s, h, d, dv) in (("8b", CAUSAL_SHAPE), ("2b", CAUSAL_SHAPE_2B)):
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, s, h, dv, device="cuda", generator=g).bfloat16()
+        scale = d ** -0.5
+        with torch.no_grad():
+            ms = _time_ms(lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0),
+                          iters=20, warmup=3)
+            plain_ms = _time_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, scale, True),
+                                iters=1)
+            lib_ms, lib_note = _sdpa_causal_ms(q, k, v)
+        pairs = b * h * s * (s + 1) // 2  # visible (query, key) pairs
+        bound = _bound(2 * pairs * (d + dv), (2 * b * s * h * d + 2 * b * s * h * dv) * 2
+                       + b * h * s * 4)
+        res[f"flash_fwd_causal_{tag}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                             library_note=lib_note, bound=bound,
+                                             shape=[b, s, h, d, dv])
+        print(f"[{card}] K5 flash_fwd_causal {(b, s, h, d, dv)} bf16: kernel {ms:.3f} ms "
+              f"({2 * pairs * (d + dv) / ms / 1e9:.1f} TFLOP/s), bound {bound[0]:.3f} ms "
+              f"({bound[1]}), plain {plain_ms:.3f} ms, SDPA yardstick "
+              + (f"{lib_ms:.3f} ms ({lib_note})" if lib_ms is not None else lib_note), flush=True)
+        del q, k, v
+
+    b, h, r, p_dim, ps = DECODE_SHAPE
+    q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, 34, DECODE_LENS,
+                                                   torch.bfloat16, 21)
+    pages = torch.nan_to_num(pages)
+    scale = 256 ** -0.5
+    with torch.no_grad():
+        ms = _time_ms(lambda: pd._paged_decode_cuda(q_lat, q_pe, pages, tables, sl, scale),
+                      iters=50, warmup=5)
+        plain_ms = _time_ms(lambda: pd.paged_mla_decode_ref(q_lat, q_pe, pages, tables, sl,
+                                                            softmax_scale=scale), iters=5)
+    toks = sum(DECODE_LENS)
+    bound = _bound(toks * h * 2 * (r + p_dim + r),
+                   toks * (r + p_dim) * 2 + b * h * (2 * r + p_dim) * 2 + tables.numel() * 4)
+    res["paged_decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound,
+                               shape=[b, h, r, p_dim, ps, DECODE_LENS[0], DECODE_LENS[-1]])
+    print(f"[{card}] K6 paged_decode {DECODE_SHAPE} seq {DECODE_LENS[0]}-{DECODE_LENS[-1]} "
+          f"bf16: kernel {ms:.4f} ms ({(toks * (r + p_dim) * 2) / ms / 1e6:.0f} GB/s of pool), "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, no library "
+          "yardstick", flush=True)
+    return res
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -908,6 +1407,7 @@ def main() -> int:
     from internvideo_tpu_torch.models.internvideo2 import InternVideo2
     from internvideo_tpu_torch.ops import _build
     from internvideo_tpu_torch.ops import flash_attention as fa
+    from internvideo_tpu_torch.ops import paged_decode as pd
 
     card = _card()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -984,6 +1484,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_pretrain_step(fa, prun, card)
 
+    # 15. the causal flash kernel (K5) vs its plain version
+    k5_err = check_causal_kernel(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. the paged decode kernel (K6) vs its plain version
+    k6_err = check_paged_kernel(pd)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the serving main path, counting launches
+    llm, serve_launches = run_serve_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. kernel route vs plain route in serving
+    check_serve_routes(llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. times
+    serve_times = {PRESET_8B: time_llm(llm, PRESET_8B, card)}
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm = _llm(PRESET_2B)
+    serve_times[PRESET_2B] = time_llm(llm, PRESET_2B, card)
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    sk = time_serve_kernels(fa, pd, card)
+    print(f"[{card}] serving: " + json.dumps(serve_times), flush=True)
+
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
     b, s, h, d = TRAIN_SHAPE
@@ -994,7 +1527,8 @@ def main() -> int:
     jax_fa = "internvideo_tpu/ops/flash_attention.py:"
 
     def by_path(name, eval_n=0):
-        return {"eval": eval_n, "train": train_launches[name], "pretrain": pre_launches[name]}
+        return {"eval": eval_n, "train": train_launches[name], "pretrain": pre_launches[name],
+                "serve": serve_launches[name]}
 
     def entry(name, source, line, r, err, shape):
         return {"name": name, "route": "cuda", "source": src + source,
@@ -1043,6 +1577,28 @@ def main() -> int:
                      "bound_ms": pk["fused_qkv_rstd_teacher"]["bound"][0],
                      "bound_by": pk["fused_qkv_rstd_teacher"]["bound"][1]}},
     ]
+    k5, k5_2b, k6 = sk["flash_fwd_causal_8b"], sk["flash_fwd_causal_2b"], sk["paged_decode"]
+    kernels += [{
+        "name": "flash_fwd_causal", "route": "cuda", "source": src + "flash_fwd_causal.cu",
+        "replaces": jax_fa + "153", "launches": serve_launches["flash_fwd_causal"],
+        "launches_by_path": by_path("flash_fwd_causal"), "max_abs_err": k5_err,
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
+        "bound_by": k5["bound"][1], "library_ms": k5["library_ms"],
+        "library_note": k5["library_note"], "shape": k5["shape"],
+        "preset_2b": {"shape": k5_2b["shape"], "ms": k5_2b["ms"],
+                      "plain_ms": k5_2b["plain_ms"], "bound_ms": k5_2b["bound"][0],
+                      "bound_by": k5_2b["bound"][1], "library_ms": k5_2b["library_ms"],
+                      "library_note": k5_2b["library_note"]},
+    }, {
+        "name": "paged_decode", "route": "cuda", "source": src + "paged_decode.cu",
+        "replaces": "internvideo_tpu/ops/paged_decode.py:47",
+        "launches": serve_launches["paged_decode"],
+        "launches_by_path": {"eval": 0, "train": 0, "pretrain": 0,
+                             "serve": serve_launches["paged_decode"]},
+        "max_abs_err": k6_err, "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1], "library_ms": None,
+        "shape": k6["shape"],
+    }]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,26 @@
 """Weight bridge: the JAX package's param trees -> this port's state_dicts.
 
 Input is the nested dict a JAX module's `init` gives (InternVideo2,
-PretrainInternVideo2, CLIPTeacher, MAETeacher), unboxed
+PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer), unboxed
 (`flax.linen.unbox`) and turned into numpy arrays; a top-level
 `{"params": ...}` wrapper is accepted. Translations:
 
   * flax Dense `kernel` (in, out)     -> torch `weight` (out, in) [transpose]
-  * `blocks_{i}`                      -> `blocks.{i}`
+  * `blocks_{i}`, `layers_{i}`        -> `blocks.{i}`, `layers.{i}`
+  * flax Embed `embedding` (vocab, D) -> `weight`
   * `clip_decoder_{j}`, `mae_decoder_{j}` -> `clip_decoder.{j}`, `mae_decoder.{j}`
   * the MLP decoder's `head_0` / `head_2` -> `head.0` / `head.2`
   * LayerNorm `scale` / `bias`        -> `weight` / `bias`
   * RMSNorm `weight`, LayerScale `gamma`, `cls_token`, the pos embeds and
     biases go across as they are; the `encoder` prefix of the pretrain
     student and the CLIP teacher stays.
+
+For the MLA LLM the names are the reference's HF / xtuner layout:
+`embed_tokens.weight`, `layers.{i}.{input,post_attention}_layernorm.weight`,
+`layers.{i}.self_attn.{q_proj,kv_a_proj_with_mqa,o_proj}.{weight,bias}`,
+`layers.{i}.self_attn.kv_b_proj_kernel` (kept (R, H, nope + v), the JAX raw
+param), `layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`,
+`lm_head.weight`.
 
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
 weights load exactly. The module's `load_state_dict(sd, strict=True)` then
@@ -27,9 +35,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^blocks_(\d+)$")
+_BLOCK = re.compile(r"^(?:blocks|layers)_(\d+)$")
 # flax module names with an index -> torch ModuleList / Sequential entries
-_INDEXED = re.compile(r"^(blocks|clip_decoder|mae_decoder|head)_(\d+)$")
+_INDEXED = re.compile(r"^(blocks|layers|clip_decoder|mae_decoder|head)_(\d+)$")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -42,14 +50,16 @@ def _to_tensor(a) -> torch.Tensor:
 
 def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
-    InternVideo2 or teacher config, anything with `depth`) the top level's
-    `blocks_{i}` must be exactly range(cfg.depth)."""
+    InternVideo2 or teacher config with `depth`, or an LLMConfig with
+    `num_layers`) the top level's `blocks_{i}` / `layers_{i}` must be
+    exactly range(depth)."""
     if "params" in params:
         params = params["params"]
     if cfg is not None:
+        depth = cfg.num_layers if hasattr(cfg, "num_layers") else cfg.depth
         blocks = sorted(int(m.group(1)) for k in params if (m := _BLOCK.match(k)))
-        if blocks != list(range(cfg.depth)):
-            raise ValueError(f"param tree has blocks {blocks}, config depth {cfg.depth}")
+        if blocks != list(range(depth)):
+            raise ValueError(f"param tree has blocks {blocks}, config depth {depth}")
     sd: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -63,7 +73,7 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
             t = _to_tensor(child)
             if name == "kernel":
                 sd[f"{prefix}weight"] = t.t().contiguous()
-            elif name == "scale":
+            elif name in ("scale", "embedding"):
                 sd[f"{prefix}weight"] = t
             else:
                 sd[path] = t

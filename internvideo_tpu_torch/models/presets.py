@@ -1,0 +1,65 @@
+"""Model config presets of the ported families.
+
+Port of the LLM presets of internvideo_tpu/models/presets.py (:45-81),
+field for field; the other presets wait with their families (ROADMAP
+queue 1, items 6 and 11). `qwen3_mla_tiny` is the port's own: the
+architecture at test widths, so that `cli.generate` runs on a CPU in
+seconds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from internvideo_tpu_torch.models.llm import LLMConfig
+from internvideo_tpu_torch.nn.mla import MLAConfig
+
+
+def qwen3_8b_mla(**overrides) -> LLMConfig:
+    """Qwen3-8B-MLA text model (xtuner qwen3.py:377-407), the text tower of
+    InternVideo3-8B: 36 layers, hidden 4096, SwiGLU 12288, MLA kv_lora 896
+    / 128 rope / 128 nope / 128 v, rope_theta 5e6, mRoPE [24, 20, 20]."""
+    cfg = LLMConfig(
+        vocab_size=151936, hidden_size=4096, num_layers=36,
+        intermediate_size=12288, rope_theta=5_000_000.0,
+        mrope_section=(24, 20, 20),
+        mla=MLAConfig(
+            hidden_size=4096, num_heads=32, kv_lora_rank=896,
+            qk_rope_head_dim=128, qk_nope_head_dim=128, v_head_dim=128,
+            qkv_bias=True,
+        ),
+        dtype="bfloat16", param_dtype="bfloat16", remat=True,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_2b_mla(**overrides) -> LLMConfig:
+    """2B-class M2LA text model: the qwen3_8b_mla architecture at hidden
+    2560, 24 layers, SwiGLU 8192, 20 heads, MLA latent 512 + 64 rope;
+    mrope_section rescaled to sum to qk_rope_head_dim // 2 = 32."""
+    cfg = qwen3_8b_mla(
+        hidden_size=2560, num_layers=24, intermediate_size=8192,
+        remat=False, mrope_section=(12, 10, 10),
+    )
+    cfg = dataclasses.replace(
+        cfg,
+        mla=dataclasses.replace(
+            cfg.mla, hidden_size=2560, num_heads=20,
+            kv_lora_rank=512, qk_rope_head_dim=64,
+        ),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_mla_tiny(**overrides) -> LLMConfig:
+    """The qwen3_8b_mla architecture at the JAX serving tests' widths
+    (tests/test_serving_engine.py:24-41): 2 layers, hidden 32, vocab 97,
+    MLA 2 heads, latent 16 + 8 rope, fp32. A smoke-test preset, not a
+    published model."""
+    cfg = LLMConfig(
+        vocab_size=97, hidden_size=32, num_layers=2, intermediate_size=64,
+        mrope_section=None,
+        mla=MLAConfig(hidden_size=32, num_heads=2, kv_lora_rank=16,
+                      qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=8),
+    )
+    return dataclasses.replace(cfg, **overrides)

@@ -116,6 +116,21 @@ def load_library() -> ctypes.CDLL:
     lib.ivt_flash_fwd.restype = i
     lib.ivt_small_s_fwd.argtypes = lib.ivt_flash_fwd.argtypes
     lib.ivt_small_s_fwd.restype = i
+    lib.ivt_flash_fwd_causal.argtypes = [
+        i, p, p, p, p, p,            # dtype, q, k, v, o, lse
+        i, i, i, i, i, i,            # B, Sq, Sk, H, D_qk, D_v
+        ctypes.POINTER(ctypes.c_longlong),  # 12 element strides
+        ctypes.c_float, i, i, p,     # softmax scale, causal, q position offset, stream
+    ]
+    lib.ivt_flash_fwd_causal.restype = i
+    lib.ivt_paged_decode.argtypes = [
+        i, p, p, p, p, p,            # dtype, q_lat, q_pe, pages, block tables, seq lens
+        p, p, p,                     # split partials (acc, m/l), out
+        i, i, i, i,                  # B, H, R, P
+        i, i, i, i,                  # page size, max pages, split length, splits
+        ctypes.c_float, p,           # softmax scale, stream
+    ]
+    lib.ivt_paged_decode.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.ivt_fused_qkv_rstd.argtypes = [
         i, p, p, p,                  # dtype, qkv, q_rstd, k_rstd

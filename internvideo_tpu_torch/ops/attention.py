@@ -9,9 +9,9 @@ the same keyword signature, and of `fused_qkv_attention_or_none` (:81).
     the CUDA kernel on a CUDA tensor and runs its plain version on a CPU one;
   * "plain" (JAX spelling "xla"): ops/attention_xla.py.
 
-A case the kernel does not take (causal, segment ids, window, GQA, ...)
-raises on the kernel route, including "auto" on a CUDA tensor; nothing
-falls back to the plain route. The sequence-parallel and head-parallel
+A case the kernels do not take (segment ids, window, GQA, ...) raises on
+the kernel route, including "auto" on a CUDA tensor; nothing falls back to
+the plain route. The sequence-parallel and head-parallel
 contexts of the JAX dispatcher are not ported yet (ROADMAP queue 1, item 9).
 """
 
@@ -71,6 +71,16 @@ def fused_qkv_attention_or_none(
                                        eps=eps, softmax_scale=softmax_scale)
 
 
+def native_attention_layout(impl: str = "auto") -> str:
+    """The layout the attention path consumes without copies: "bshd". The
+    JAX package returns "bhsd" for its TPU kernel (ops/attention.py:136);
+    the Hopper kernels take element strides, so either layout is a free
+    view here and producers keep (B, S, H, D)."""
+    if impl != "auto" and impl not in _IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return "bshd"
+
+
 def dot_product_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -93,11 +103,16 @@ def dot_product_attention(
             kv_segment_ids=kv_segment_ids, softmax_scale=softmax_scale,
             window=window, q_position_offset=q_position_offset, layout=layout,
         )
-    if window is not None or layout != "bshd":
+    if window is not None:
         raise NotImplementedError(
-            "window / bhsd layout are not ported yet (ROADMAP queue 2, K5)")
-    return attention_xla(
+            "sliding-window attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "bhsd":
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    out = attention_xla(
         q, k, v, causal=causal, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, softmax_scale=softmax_scale,
         q_position_offset=q_position_offset,
     )
+    return out if layout == "bshd" else out.transpose(1, 2)

@@ -5,17 +5,19 @@ Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
 (:2037), `flash_attention_with_lse` (:1188), `_small_s_attention` (:1606),
 `_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784) and
 `fused_qkv_rmsnorm_attention` (:1801) with their custom VJPs, for the case
-the InternVideo2 encoder and its teachers run: non-causal, no segment ids,
-no window, one K/V head per query head, d_v == d_qk, layout (B, S, H, D).
-Every other argument raises NotImplementedError naming the ROADMAP item
-that brings it.
+the InternVideo2 encoder and its teachers run (non-causal, d_v == d_qk)
+and for the one the M2LA LLM's prefill runs (causal, a query position
+offset, d_v != d_qk): no segment ids, no window, one K/V head per query
+head, layout (B, S, H, D) or its permuted view (B, H, S, D). Every other
+argument raises NotImplementedError naming the ROADMAP item that brings it.
 
 Three autograd Functions, each owning a kernel route (CUDA tensors: the
 kernel, or raise) and a plain route (CPU tensors); there is no fallback
 from one to the other:
 
   * `FlashAttention` (K1 forward `csrc/flash_fwd.cu`, K4a backward
-    `csrc/flash_bwd.cu`), differentiable in out and LSE;
+    `csrc/flash_bwd.cu`), differentiable in out and LSE; causal or
+    narrow-v calls take K5 (`csrc/flash_fwd_causal.cu`), forward only;
   * `SmallSAttention` (K2 forward `csrc/small_s_fwd.cu`, K4b backward
     `csrc/small_s_bwd.cu`) for 0 < Sq, Sk <= 1024, the route
     `flash_attention` takes there, as the JAX package's does (:2080-2094);
@@ -50,16 +52,19 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 # teacher).
 KERNEL_HEAD_DIMS = (64, 88)
 SMALL_S_HEAD_DIMS = (64, 88, 128)
+# (d_qk, d_v) pairs of K5 (csrc/flash_fwd_causal.cu): qwen3_8b_mla,
+# qwen3_2b_mla, and two small pairs for the parity checks
+CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (64, 64), (64, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 _GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = 1.0 / math.log(2.0)
 
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
-# pre-pass, launched once per "fused_qkv_fwd".
+# pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" is K5.
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
-           "fused_qkv_rstd", "fused_qkv_fwd")
+           "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -75,46 +80,61 @@ def reset_launch_count() -> None:
         _launches[name] = 0
 
 
-def _check_supported(q, k, v, *, causal, q_segment_ids, kv_segment_ids,
-                     window, q_position_offset, layout):
-    if causal:
-        raise NotImplementedError(
-            "causal flash attention is not ported yet (ROADMAP queue 2, K5)")
+def _check_supported(q, k, v, *, q_segment_ids, kv_segment_ids, window, layout):
+    """Raise on what no route of this module takes; `q`, `k`, `v` are
+    (B, S, H, D) (after a "bhsd" layout is permuted)."""
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise NotImplementedError(
             "segment ids are not ported yet (ROADMAP queue 2, K8)")
-    if window is not None or q_position_offset:
+    if window is not None:
         raise NotImplementedError(
-            "window / q_position_offset are not ported yet (ROADMAP queue 2, K5)")
-    if layout != "bshd":
-        raise NotImplementedError(
-            f"layout {layout!r} is not ported yet (ROADMAP queue 2, K5)")
+            "sliding-window attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown layout {layout!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"expected (B, S, H, D) inputs, got {q.shape}, {k.shape}, {v.shape}")
-    if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
-        raise NotImplementedError(
-            f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)}: d_v != d_qk "
-            "is not ported yet (ROADMAP queue 2, K5)")
+    if (k.shape[:3] != v.shape[:3] or q.shape[0] != k.shape[0]
+            or q.shape[3] != k.shape[3]):
+        raise ValueError(
+            f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} do not form "
+            "one attention")
     if q.shape[2] != k.shape[2]:
         raise NotImplementedError(
-            "grouped-query attention is not ported yet (ROADMAP queue 2, K5)")
+            "grouped-query attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
 
 
-def flash_attention_ref_with_lse(q, k, v, scale: float):
-    """Plain PyTorch version of the kernel: (out, natural-log lse).
+def _to_bshd(layout: str, *xs):
+    """(B, H, S, D) views -> (B, S, H, D) views (no copy) for layout "bhsd"."""
+    return xs if layout == "bshd" else tuple(x.transpose(1, 2) for x in xs)
+
+
+def flash_attention_ref_with_lse(q, k, v, scale: float, causal: bool = False,
+                                 q_position_offset: int = 0):
+    """Plain PyTorch version of the kernels: (out, natural-log lse).
 
     The cast chain of ops/attention_xla.py: fp32 logits, fp32 softmax,
     probabilities cast to v's dtype before PV, fp32 accumulation, output in
-    q's dtype. Loops over the batch so that the (H, Sq, Sk) fp32 scores of
-    one sequence are the largest temporary.
+    q's dtype (with v's head dim). With `causal`, query row i sees key j iff
+    j <= i + q_position_offset; a row that sees no key gets out 0 and LSE
+    -inf. Loops over the batch so that the (H, Sq, Sk) fp32 scores of one
+    sequence are the largest temporary.
     """
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + q_position_offset
+        mask = torch.arange(sk, device=q.device)[None, :] <= rows
     outs, lses = [], []
     for i in range(q.shape[0]):
         qi, ki, vi = (x[i].transpose(0, 1) for x in (q, k, v))  # (H, S, D)
         logits = torch.matmul(qi.float(), ki.float().transpose(1, 2)) * scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask, float("-inf"))
         lse = torch.logsumexp(logits, dim=-1)
-        probs = torch.exp(logits - lse[..., None]).to(v.dtype)
-        out = torch.matmul(probs.float(), vi.float())
+        probs = torch.exp(logits - lse[..., None])
+        if mask is not None:
+            probs = torch.where(torch.isinf(lse)[..., None], 0.0, probs)
+        out = torch.matmul(probs.to(v.dtype).float(), vi.float())
         outs.append(out.to(q.dtype).transpose(0, 1))
         lses.append(lse)
     return torch.stack(outs), torch.stack(lses)
@@ -218,6 +238,38 @@ def _flash_fwd_cuda(q, k, v, scale: float, kernel: str = "flash_fwd"):
     return out, lse
 
 
+def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offset: int):
+    """Launch K5 (csrc/flash_fwd_causal.cu) on CUDA (B, S, H, D) tensors,
+    q/k at d_qk and v at d_v: causal (query row i sees key j iff j <= i +
+    q_position_offset) or not; returns (out (B, Sq, H, d_v), lse)."""
+    b, sq, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    if (d, dv) not in CAUSAL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dims (d_qk, d_v) = {(d, dv)} are not instantiated in "
+            f"csrc/flash_fwd_causal.cu {CAUSAL_HEAD_DIMS} (ROADMAP queue 2, K5)")
+    _check_kernel_inputs({"q": q, "k": k, "v": v}, "flash_fwd_causal", head_dims=(d,),
+                         source="csrc/flash_fwd_causal.cu")
+    dev = q.device
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out, lse
+    lib = _build.load_library()
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ivt_flash_fwd_causal(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, dv, strides,
+            float(scale), int(causal), int(q_position_offset), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_causal kernel launch failed: cudaError_t {rc}")
+    _launches["flash_fwd_causal"] += 1
+    return out, lse
+
+
 def _bwd_delta(out, do, lse_ct=None) -> torch.Tensor:
     """delta = rowsum(dO * O) in fp32 minus the LSE cotangent, (B, H, Sq)
     contiguous; computed in torch, as the JAX package leaves it to XLA
@@ -269,29 +321,37 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale: float, lse_ct=None, prefix: st
 
 class FlashAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse) with the kernels on CUDA, the plain versions
-    on the CPU; differentiable in both outputs."""
+    on the CPU; differentiable in both outputs. A causal or narrow-v call
+    (d_v != d_qk) runs K5 forward only: its backward raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
+    def forward(ctx, q, k, v, scale: float, causal: bool = False, q_position_offset: int = 0):
+        k5 = causal or v.shape[-1] != q.shape[-1]
         if q.is_cuda:
-            out, lse = _flash_fwd_cuda(q, k, v, scale)
+            out, lse = (_flash_fwd_causal_cuda(q, k, v, scale, causal, q_position_offset)
+                        if k5 else _flash_fwd_cuda(q, k, v, scale))
         elif q.device.type == "cpu":
-            out, lse = flash_attention_ref_with_lse(q, k, v, scale)
+            out, lse = flash_attention_ref_with_lse(q, k, v, scale, causal, q_position_offset)
         else:
             raise NotImplementedError(f"no flash attention for device {q.device}")
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.k5 = scale, k5
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
+        if ctx.k5:
+            raise NotImplementedError(
+                "the backward of causal / d_v != d_qk flash attention is not ported yet "
+                "(ROADMAP queue 2, K5 leftovers: the LLM training slice); serve under "
+                "torch.no_grad()")
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
         bwd = _flash_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
         dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 def small_s_attention_ref(q, k, v, scale: float):
@@ -380,7 +440,9 @@ def takes_small_s(q, k, v, *, causal=False, q_segment_ids=None, kv_segment_ids=N
                   window=None, layout: str = "bshd") -> bool:
     """Does `flash_attention` take the small-S route? The JAX package's
     condition (:2080-2086) without its VMEM budget `_ss_fits`, and for CUDA
-    tensors the kernels' own conditions in its place."""
+    tensors the kernels' own conditions in its place. q/k/v are (B, S, H,
+    D) with layout "bshd", (B, H, S, D) with "bhsd" (which the JAX small-S
+    route never takes)."""
     if not (layout == "bshd" and q_segment_ids is None and kv_segment_ids is None
             and not causal and window is None):
         return False
@@ -522,9 +584,9 @@ def fused_qkv_rmsnorm_attention(
 
 
 def flash_attention_with_lse(
-    q: torch.Tensor,  # (B, Sq, H, D)
+    q: torch.Tensor,  # (B, Sq, H, D), or (B, H, Sq, D) with layout="bhsd"
     k: torch.Tensor,  # (B, Sk, H, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Sk, H, D_v)
     *,
     causal: bool = False,
     q_segment_ids: Optional[torch.Tensor] = None,
@@ -534,18 +596,23 @@ def flash_attention_with_lse(
     q_position_offset: int = 0,
     layout: str = "bshd",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Sq, H, D), lse (B, H, Sq) natural log, float32)."""
-    _check_supported(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-                     kv_segment_ids=kv_segment_ids, window=window,
-                     q_position_offset=q_position_offset, layout=layout)
+    """(out (B, Sq, H, D_v) in q's layout, lse (B, H, Sq) natural log,
+    float32). Non-causal calls with D_v == D run K1 / K4a; causal or
+    narrow-v calls run K5 (forward only). With causal, query row i sits at
+    key index i + q_position_offset."""
+    q, k, v = _to_bshd(layout, q, k, v)
+    _check_supported(q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                     window=window, layout=layout)
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, scale)
+    out, lse = FlashAttention.apply(q, k, v, scale, bool(causal),
+                                    int(q_position_offset) if causal else 0)
+    return _to_bshd(layout, out)[0], lse
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Sq, H, D)
+    q: torch.Tensor,  # (B, Sq, H, D), or (B, H, Sq, D) with layout="bhsd"
     k: torch.Tensor,  # (B, Sk, H, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Sk, H, D_v)
     *,
     causal: bool = False,
     q_segment_ids: Optional[torch.Tensor] = None,
@@ -555,12 +622,12 @@ def flash_attention(
     q_position_offset: int = 0,
     layout: str = "bshd",
 ) -> torch.Tensor:
-    """Flash attention over (B, S, H, D) inputs. Short sequences (0 < Sq,
-    Sk <= 1024, see `takes_small_s`) take the small-S route (K2 / K4b), as
-    in the JAX package; the rest K1 / K4a (flash_attention_with_lse)."""
+    """Flash attention. Short non-causal sequences (0 < Sq, Sk <= 1024, see
+    `takes_small_s`) take the small-S route (K2 / K4b), as in the JAX
+    package; the rest `flash_attention_with_lse` (K1 / K4a, or K5 for
+    causal and narrow-v calls)."""
     kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               window=window, layout=layout)
-    _check_supported(q, k, v, q_position_offset=q_position_offset, **kw)
     if takes_small_s(q, k, v, **kw):
         scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
         return SmallSAttention.apply(q, k, v, scale)

@@ -130,16 +130,25 @@ def test_dispatch_rejects_unknown_impl_and_unported_cases():
     with pytest.raises(ValueError, match="unknown attention impl"):
         dot_product_attention(q, k, v, impl="triton")
     seg = torch.zeros(1, 16, dtype=torch.int32)
-    unported = [dict(causal=True), dict(q_segment_ids=seg, kv_segment_ids=seg),
-                dict(window=8), dict(q_position_offset=2), dict(layout="bhsd")]
+    unported = [dict(q_segment_ids=seg, kv_segment_ids=seg), dict(window=8),
+                dict(causal=True, window=8)]
     for kw in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dot_product_attention(q, k, v, impl="kernel", **kw)
     qg, kg, vg = _t(*_qkv(1, 16, 16, 4, 64, seed=7, hkv=2))
     with pytest.raises(NotImplementedError, match="K5"):
         fa.flash_attention(qg, kg, vg)
-    # the plain route takes causal on the CPU
-    dot_product_attention(q, k, v, impl="auto", causal=True)
+    # causal, its query offset and the bhsd layout are ported (K5): both
+    # routes agree on them
+    for kw in (dict(causal=True), dict(causal=True, q_position_offset=2)):
+        torch.testing.assert_close(dot_product_attention(q, k, v, impl="kernel", **kw),
+                                   dot_product_attention(q, k, v, impl="plain", **kw),
+                                   atol=2e-5, rtol=2e-5)
+    bhsd = [x.transpose(1, 2) for x in (q, k, v)]
+    for impl in ("kernel", "plain"):
+        out = dot_product_attention(*bhsd, impl=impl, causal=True, layout="bhsd")
+        torch.testing.assert_close(out.transpose(1, 2), attention_xla(q, k, v, causal=True),
+                                   atol=2e-5, rtol=2e-5)
 
 
 def test_port_imports_without_jax_or_triton():
