@@ -101,6 +101,37 @@ non-zero and prints no result):
      decode at B = 8, seq 2048 (tokens/s) on qwen3_8b_mla and qwen3_2b_mla;
      K5 and K6 at their path shapes beside the plain version, the bound
      and (K5) the SDPA yardstick; one prefill and one decode step under
+     torch.profiler;
+ 20. the SFT kernels vs their plain versions on the card: K5's backward
+     (dq, dk/dv), K8 (segment ids in K5's forward and backward) and K2 /
+     K4b at head dim 72, in fp32 at the JAX kernel tests' shapes (segments
+     in halves, packed runs, pads of -1 that meet each other, the 72 / 200
+     / 128 query offset, d_v 32 < d_qk 64; max-abs 2e-5 forward, 5e-4
+     grads) and in bf16 at the path's shapes (rel-L2 <= 1e-2): K5 + K8 at
+     (1, 8192, 32, 256 / 128) with the SFT stream's segments and k / v as
+     strided views, K5 alone there, K2 / K4b at (8, 196, 16, 72) on qkv
+     views;
+ 21. the SFT main path: `internvideo_tpu_torch.cli.train` on
+     configs/torch/sft_internvideo3_8b.py (InternVideo3-8B widths, text
+     depth 32, pack 8192, B = 1, bf16, remat) for 3 steps; the launch counts
+     are reset just before and read just after and must be, per step,
+     2 x 32 segmented K5 forwards (forward + remat), 32 + 32 segmented K5
+     dq / dk/dv and 27 each of K2 / K4b dq / K4b dk/dv, nothing else; every
+     loss and grad_norm finite; the peak device memory;
+ 22. kernel route vs plain route in SFT at pack 2048: fp32 at full widths,
+     text depth 2 (loss and every parameter's grad max-abs <= 5e-4); bf16 at
+     the config's depth (loss rel <= 1e-2; the grads of
+     layers.{0,31}.self_attn.{q_proj.weight,kv_b_proj_kernel} and
+     vision_tower.blocks.0.qkv.weight printed as rel-L2 between the routes,
+     and held as: the kernel route no farther (rel-L2) from the same weights
+     run in fp32 than the plain route, x 1.25; the two bf16 routes sit
+     3e-2-9e-2 apart, each as far from fp32, see PERF.md);
+ 23. times with CUDA events: each new kernel at its path shape beside its
+     plain version, its bound (the visible pairs this row's segments give)
+     and, as a yardstick only, SDPA with an explicit mask where a backend
+     takes the shape; the SFT step at the config's depth on a
+     device-resident batch (ms, tokens/s, peak memory), one step split into
+     tower, LLM forward + backward, CE and update; one step under
      torch.profiler.
 
 The last three lines are the card, the kernel table as JSON and
@@ -139,6 +170,11 @@ DECODE_SHAPE = (8, 32, 896, 128, 64)  # B, H, R, P, page size of the 8B decode
 DECODE_LENS = [2048, 2060, 2075, 2080, 2090, 2100, 2111, 2112]
 SERVE_ENGINE = dict(max_batch=8, page_size=64, num_pages=272, prompt_buckets=(512, 2048),
                     max_len=2112)
+CONFIG_SFT = "configs/torch/sft_internvideo3_8b.py"
+SFT_PACK, SFT_STEPS, SFT_ROUTE_PACK = 8192, 3, 2048
+SFT_ATTN_SHAPE = (1, 8192, 32, 256, 128)  # B, S, H, d_qk, d_v of the SFT text attention
+TOWER_SHAPE = (8, 196, 16, 72)  # B * frames, S, H, head_dim of the tower at 16 x 224
+TOWER_DEPTH = 27
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -514,14 +550,14 @@ def _sdpa_times(shape, card) -> dict:
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_s_fwd", "small_s_dq",
-                "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd",
-                "paged_decode"):
+                "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd", "causal_bwd_dq",
+                "causal_bwd_dkv", "paged_decode"):
         if key in n:
             return key
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "GEMMs (cuBLAS)"
     if "adam" in n or "multi_tensor" in n:
-        return "optimizer (foreach AdamW, norms)"
+        return "optimizer (AdamW, norms)"
     return "elementwise / reductions / copies"
 
 
@@ -1397,6 +1433,483 @@ def time_serve_kernels(fa, pd, card) -> dict:
     return res
 
 
+# -- the SFT slice: phases 20-23 ---------------------------------------------------------
+
+def _sft_run(pack: int = SFT_PACK, **text_overrides):
+    """The SFT config's RunConfig with its stream at `pack` tokens and the
+    text model's fields replaced."""
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.data.mllm_tokenize import SyntheticSFTConfig, synthetic_sft_stream
+
+    run = load_config(CONFIG_SFT)
+    model = dataclasses.replace(run.model, text=dataclasses.replace(run.model.text,
+                                                                    **text_overrides))
+    data = {**run.data, "pack_max_length": pack,
+            "stream": synthetic_sft_stream(SyntheticSFTConfig(), batch_size=1,
+                                           pack_max_length=pack, seed=0)}
+    return dataclasses.replace(run, model=model, data=data)
+
+
+def _stream_segments(pack: int = SFT_PACK):
+    """The segment ids of the SFT stream's first row, on the card."""
+    from internvideo_tpu_torch.data.mllm_tokenize import SyntheticSFTConfig, synthetic_sft_stream
+
+    row = next(synthetic_sft_stream(SyntheticSFTConfig(), batch_size=1, pack_max_length=pack,
+                                    seed=0))
+    return torch.from_numpy(row["segment_ids"]).cuda()
+
+
+def _visible_pairs(seg) -> int:
+    """(query, key) pairs a causal segmented attention sees on (B, S) ids:
+    n (n + 1) / 2 for each run of equal ids (the pads' -1 run included)."""
+    pairs = 0
+    for row in seg.cpu().tolist():
+        n = 1
+        for a, b in zip(row, row[1:] + [None]):
+            if a == b:
+                n += 1
+            else:
+                pairs += n * (n + 1) // 2
+                n = 1
+    return pairs
+
+
+def _attn_grads(fn, q, k, v, do):
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, do)]
+
+
+def check_sft_kernels(fa) -> dict:
+    """Phase 20; returns the max-abs errors of each new kernel at its path
+    shape in bf16."""
+    from internvideo_tpu_torch.ops.attention_xla import attention_xla
+
+    g = torch.Generator("cuda").manual_seed(30)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+
+    def seg_ids(kind, b, s):
+        if kind is None:
+            return None
+        if kind == "halves":
+            lens = [s // 2, s - s // 2]
+        elif kind == "packed":
+            lens = [130, 100, 200, 82]
+        else:
+            lens = [s * 3 // 8, s // 4, s // 8]
+            lens.append(s - sum(lens))
+        ids = torch.repeat_interleave(torch.arange(len(lens)), torch.tensor(lens))
+        if kind == "pads":
+            ids[sum(lens[:3]):] = -1
+        return ids[None].repeat(b, 1).to(torch.int32).cuda()
+
+    # the JAX kernel tests' shapes (tests/test_flash_attention.py :80, :152,
+    # :511, :569 without GQA), pads that meet each other, and K2 / K4b at 72
+    cases = [(1, 256, 256, 2, 64, 64, False, 0, "halves"),
+             (1, 72, 200, 2, 64, 64, True, 128, None),
+             (2, 512, 512, 2, 32, 32, False, 0, "packed"),
+             (2, 512, 512, 2, 32, 32, True, 0, "packed"),
+             (2, 200, 200, 4, 64, 32, True, 0, None),
+             (2, 200, 200, 4, 64, 32, False, 0, None),
+             (1, 300, 300, 2, 64, 64, True, 0, "pads"),
+             (2, 196, 196, 2, 72, 72, False, 0, None)]
+    for b, sq, sk, h, d, dv, causal, off, kind in cases:
+        q, k, v, do = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, dv), rnd(b, sq, h, dv)
+        seg = seg_ids(kind, b, sq)
+        kw = dict(causal=causal, q_position_offset=off, q_segment_ids=seg, kv_segment_ids=seg)
+        got = _attn_grads(lambda q, k, v: fa.flash_attention(q, k, v, **kw), q, k, v, do)
+        torch.cuda.synchronize()
+        want = _attn_grads(lambda q, k, v: attention_xla(q, k, v, **kw), q, k, v, do)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        print(f"SFT kernels fp32 {(b, sq, sk, h, d, dv)} causal={causal} offset={off} "
+              f"segments={kind}: out/dq/dk/dv max-abs {errs[0]:.2e} / {errs[1]:.2e} / "
+              f"{errs[2]:.2e} / {errs[3]:.2e} (bars 2e-5, 5e-4)", flush=True)
+        if not (errs[0] <= 2e-5 and max(errs[1:]) <= 5e-4):
+            raise AssertionError("fp32 SFT kernels disagree with their plain version")
+
+    out = {}
+    b, s, h, d, dv = SFT_ATTN_SHAPE
+    seg = _stream_segments()
+    q = rnd(b, s, h, d).bfloat16()
+    kv = rnd(b, s, h, d + dv).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]  # strided views, as MLAttention makes them
+    do = rnd(b, s, h, dv).bfloat16()
+    before = {n: fa.launch_count(n) for n in fa.KERNELS}
+    got = _attn_grads(lambda q, k, v: fa.flash_attention(
+        q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg), q, k, v, do)
+    torch.cuda.synchronize()
+    for n in ("flash_fwd_causal_seg", "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg"):
+        if fa.launch_count(n) != before[n] + 1:
+            raise AssertionError(f"the segmented causal call did not launch {n}")
+    ref_out, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True, 0, seg, seg)
+    want = [ref_out, *fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do, d ** -0.5,
+                                                 causal=True, q_segment_ids=seg,
+                                                 kv_segment_ids=seg)]
+    rels = [_rel(a, w) for a, w in zip(got, want)]
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+    print(f"K5 + K8 bf16 {SFT_ATTN_SHAPE} causal, the stream's {int(seg.max()) + 1} segments "
+          f"+ pads: out/dq/dk/dv rel-L2 {rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e} / "
+          f"{rels[3]:.2e} (bar 1e-2), max-abs {errs[0]:.2e} / {errs[1]:.2e} / {errs[2]:.2e} / "
+          f"{errs[3]:.2e}", flush=True)
+    if not max(rels) <= 1e-2:
+        raise AssertionError("bf16 K5 / K8 disagree with their plain version at the path shape")
+    out.update(flash_fwd_causal_seg=errs[0], flash_bwd_causal_dq_seg=errs[1],
+               flash_bwd_causal_dkv_seg=max(errs[2:]))
+    # the same call without segments: the K5 backward alone
+    got = _attn_grads(lambda q, k, v: fa.flash_attention(q, k, v, causal=True), q, k, v, do)
+    ref_out, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True)
+    want = [ref_out, *fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do, d ** -0.5,
+                                                 causal=True)]
+    rels = [_rel(a, w) for a, w in zip(got, want)]
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+    print(f"K5 bf16 {SFT_ATTN_SHAPE} causal, no segments: out/dq/dk/dv rel-L2 "
+          f"{rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e} / {rels[3]:.2e} (bar 1e-2)", flush=True)
+    if not max(rels) <= 1e-2:
+        raise AssertionError("bf16 K5 backward disagrees with its plain version")
+    out.update(flash_bwd_causal_dq=errs[1], flash_bwd_causal_dkv=max(errs[2:]))
+    del q, kv, k, v, do, got, want, ref_out, ref_lse
+
+    b, s, h, d = TOWER_SHAPE
+    qkv, (q, k, v) = _qkv_views(b, s, h, d, g)
+    do = rnd(b, s, h, d).bfloat16()
+    got = _attn_grads(lambda q, k, v: fa.flash_attention(q, k, v), q, k, v, do)
+    ref_out, ref_lse = fa.small_s_attention_ref(q, k, v, d ** -0.5)
+    want = [ref_out, *fa.small_s_attention_bwd_ref(q, k, v, ref_out, ref_lse, do, d ** -0.5)]
+    rels = [_rel(a, w) for a, w in zip(got, want)]
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+    print(f"K2 / K4b bf16 {TOWER_SHAPE} (head dim 72) on qkv views: out/dq/dk/dv rel-L2 "
+          f"{rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e} / {rels[3]:.2e} (bar 1e-2)", flush=True)
+    if not max(rels) <= 1e-2:
+        raise AssertionError("bf16 small-S kernels at head dim 72 disagree with their plain "
+                             "version")
+    out.update(small_s_fwd=errs[0], small_s_bwd_dq=errs[1], small_s_bwd_dkv=max(errs[2:]))
+    return out
+
+
+def _sft_depth() -> int:
+    from internvideo_tpu_torch.core.config import load_config
+
+    return load_config(CONFIG_SFT).model.text.num_layers
+
+
+def sft_want(fa, steps: int, depth: int) -> dict:
+    """The launches `steps` SFT steps must make: per step, 2 x depth
+    segmented K5 forwards (forward + remat recompute), depth K5 dq and dk/dv,
+    27 each of K2 / K4b dq / K4b dk/dv (the tower, no remat), nothing else."""
+    return {**dict.fromkeys(fa.KERNELS, 0),
+            "flash_fwd_causal_seg": 2 * depth * steps,
+            "flash_bwd_causal_dq_seg": depth * steps, "flash_bwd_causal_dkv_seg": depth * steps,
+            "small_s_fwd": TOWER_DEPTH * steps, "small_s_bwd_dq": TOWER_DEPTH * steps,
+            "small_s_bwd_dkv": TOWER_DEPTH * steps}
+
+
+def run_sft_path(fa, pd, card) -> dict:
+    """Phase 21; returns the launches of each kernel in the main-path run."""
+    from internvideo_tpu_torch.cli import train as cli
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _serve_reset(fa, pd)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_SFT, "--device", "cuda",
+                       f"trainer.total_steps={SFT_STEPS}", "trainer.log_every=1"])
+    torch.cuda.synchronize()
+    launches = _serve_counts(fa, pd)
+    wall = time.perf_counter() - t0
+    records = [dict(kv.split(": ") for kv in line.split("  "))
+               for line in buf.getvalue().splitlines() if line.startswith("step: ")]
+    for r in records:
+        print(f"cli.train {CONFIG_SFT}: {r}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{card}] main path (sft): {SFT_STEPS} steps in {wall:.1f} s wall incl. model init "
+          f"and host data; peak device memory {peak:.2f} GB "
+          f"(reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB); launches {launches}",
+          flush=True)
+    if rc != 0 or len(records) != SFT_STEPS:
+        raise AssertionError(f"cli.train logged {len(records)} of {SFT_STEPS} SFT steps")
+    if not all(math.isfinite(float(r[k])) for r in records for k in ("loss", "grad_norm")):
+        raise AssertionError("non-finite loss or grad_norm on the SFT main path")
+    want = {**sft_want(fa, SFT_STEPS, _sft_depth()), "paged_decode": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} on the SFT main path; expected {want}")
+    return launches
+
+
+def _sft_model(run):
+    from internvideo_tpu_torch.models.mllm import VideoMLLM
+
+    return VideoMLLM(run.model, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(run.trainer.seed))
+
+
+def _set_sft_impl(model, impl: str) -> None:
+    from internvideo_tpu_torch.models.vision_tower import VisionBlock
+    from internvideo_tpu_torch.nn.mla import MLAttention
+
+    for m in model.modules():
+        if isinstance(m, (MLAttention, VisionBlock)):
+            m.attn_impl = impl
+
+
+def _sft_batch(run):
+    batch = next(run.data["stream"])
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _sft_loss_grads(model, batch, impl, names=None):
+    from internvideo_tpu_torch.train.chunked_ce import chunked_cross_entropy
+
+    _set_sft_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    out = model(batch["input_ids"], batch["video"], position_ids=batch["position_ids"],
+                segment_ids=batch["segment_ids"], with_logits=False)
+    loss = chunked_cross_entropy(out.hidden, model.language_model.lm_head.weight,
+                                 batch["labels"])
+    loss.backward()
+    # at text depth 2 the third deepstack merger feeds no layer: no grad
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None and (names is None or n in names)}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def check_sft_routes(fa, card) -> None:
+    """Phase 22, at pack SFT_ROUTE_PACK (the plain route materialises S x S)."""
+    run = _sft_run(SFT_ROUTE_PACK, num_layers=2, dtype="float32", param_dtype="float32")
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, vision=dataclasses.replace(run.model.vision, dtype="float32",
+                                              param_dtype="float32")))
+    model = _sft_model(run)
+    batch = _sft_batch(run)
+    fa.reset_launch_count()
+    lk, gk = _sft_loss_grads(model, batch, "kernel")
+    if fa.launch_count("flash_bwd_causal_dq_seg") == 0 or fa.launch_count("small_s_fwd") == 0:
+        raise AssertionError("the kernel route of the fp32 SFT check ran no kernel")
+    lp, gp = _sft_loss_grads(model, batch, "plain")
+    if gk.keys() != gp.keys():
+        raise AssertionError("the two routes gave gradients to different parameters")
+    worst = max(((gk[n] - gp[n]).abs().max().item(), n) for n in gk)
+    print(f"[{card}] SFT routes fp32, full widths, text depth 2, pack {SFT_ROUTE_PACK}: loss "
+          f"kernel {lk.item():.6f} plain {lp.item():.6f} (|diff| {abs(lk - lp).item():.2e}); "
+          f"worst grad max-abs {worst[0]:.2e} at {worst[1]} (bar 5e-4, {len(gk)} params)",
+          flush=True)
+    if not (abs(lk - lp).item() <= 5e-4 and worst[0] <= 5e-4):
+        raise AssertionError("fp32 SFT kernel route disagrees with the plain route")
+    del model, gk, gp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 at the config's depth. A 32-layer random-init bf16 model carries
+    # each route's rounding through 32 layers twice (phase 18 sees the same in
+    # serving): the weights' grads of the two bf16 routes differ by more than
+    # the kernels do. So each route is also held against the same weights run
+    # in fp32 (plain route): the kernel route must be no farther from it than
+    # the plain route (x 1.25).
+    run = _sft_run(SFT_ROUTE_PACK)
+    model = _sft_model(run)
+    batch = _sft_batch(run)
+    depth = _sft_depth()
+    last = depth - 1
+    names = [f"language_model.layers.{i}.self_attn.{w}" for i in (0, last)
+             for w in ("q_proj.weight", "kv_b_proj_kernel")] + ["vision_tower.blocks.0.qkv.weight"]
+    lk, gk = _sft_loss_grads(model, batch, "kernel", names)
+    lp, gp = _sft_loss_grads(model, batch, "plain", names)
+    for m in model.modules():  # the same weights in fp32, fp32 compute
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    model.float()
+    batch["video"] = batch["video"].float()
+    l32, g32 = _sft_loss_grads(model, batch, "plain", names)
+    rel_loss = abs(lk - lp).item() / abs(lp).item()
+    rels = {n: _rel(gk[n], gp[n]) for n in names}
+    far_k = {n: _rel(gk[n], g32[n]) for n in names}
+    far_p = {n: _rel(gp[n], g32[n]) for n in names}
+    print(f"[{card}] SFT routes bf16, text depth {depth}, pack {SFT_ROUTE_PACK}: loss "
+          f"kernel {lk.item():.6f} plain {lp.item():.6f} fp32 {l32.item():.6f} (kernel vs plain "
+          f"rel {rel_loss:.2e}, bar 1e-2)", flush=True)
+    for n in names:
+        print(f"  {n}: grad rel-L2 kernel vs plain {rels[n]:.2e}; to fp32: kernel "
+              f"{far_k[n]:.2e}, plain {far_p[n]:.2e} (bar: kernel <= 1.25 x plain)", flush=True)
+    if not (rel_loss <= 1e-2 and all(far_k[n] <= 1.25 * far_p[n] for n in names)):
+        raise AssertionError("bf16 SFT kernel route is farther from fp32 than the plain route")
+
+
+def time_sft_kernels(fa, card) -> dict:
+    """Phase 23, kernels: each new kernel at its path shape beside its plain
+    version, its bound (the work these inputs need) and the SDPA yardstick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = torch.Generator("cuda").manual_seed(31)
+    res = {}
+    b, s, h, d, dv = SFT_ATTN_SHAPE
+    seg = _stream_segments()
+    q, k = (torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    v, do = (torch.randn(b, s, h, dv, device="cuda", generator=g).bfloat16() for _ in range(2))
+    scale = d ** -0.5
+    mask = (seg[0][:, None] == seg[0][None, :]) & torch.ones(s, s, dtype=torch.bool,
+                                                            device="cuda").tril()
+    for tag, (qs, ks) in (("_seg", (seg, seg)), ("", (None, None))):
+        pairs = h * (_visible_pairs(seg) if qs is not None else b * s * (s + 1) // 2)
+        with torch.no_grad():
+            out, lse = fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, qs, ks)
+            delta = fa._bwd_delta(out, do)
+            fwd_ms = _time_ms(lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, qs, ks),
+                              iters=10, warmup=2)
+            plain_fwd = _time_ms(lambda: fa.flash_attention_ref_with_lse(
+                q, k, v, scale, True, 0, qs, ks), iters=1)
+            plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, scale, causal=True, q_segment_ids=qs,
+                kv_segment_ids=ks), iters=1)
+        lib_ms, lib_note = None, "no SDPA backend took the masked shape"
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+            try:
+                with sdpa_kernel(backend):
+                    lk = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                    kw = dict(attn_mask=mask) if qs is not None else dict(is_causal=True)
+                    f_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                                    iters=5, warmup=1)
+                    fb_ms = _time_ms(lambda: torch.autograd.grad(
+                        F.scaled_dot_product_attention(*lk, **kw), lk, do.transpose(1, 2)),
+                        iters=3, warmup=1)
+                lib_ms, lib_note = (f_ms, fb_ms - f_ms), f"{backend.name}, " + (
+                    "explicit (S, S) bool mask" if qs is not None else "is_causal")
+                break
+            except RuntimeError as e:
+                print(f"  SDPA {backend.name} refused: {str(e).splitlines()[0][:100]}", flush=True)
+        # the dq and dk/dv kernels one at a time
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        ptrs = fa._seg_ptrs(qs, ks)[1]
+        dq_ms, dkv_ms = (_time_ms(lambda: fa._launch_bwd_causal(
+            kind, q, k, v, do, lse, delta, ptrs, grads, scale, True, 0), iters=5, warmup=1)
+            for kind in ("dq", "dkv"))
+        io_fwd = (2 * b * s * h * d + 2 * b * s * h * dv) * 2 + b * h * s * 4
+        io_bwd = (2 * b * s * h * d + 2 * b * s * h * dv) * 2 + 2 * b * h * s * 4
+        bounds = {"fwd": _bound(2 * pairs * (d + dv), io_fwd),
+                  "dq": _bound(2 * pairs * (2 * d + dv), io_bwd + b * s * h * d * 2),
+                  "dkv": _bound(2 * pairs * (2 * d + 2 * dv),
+                                io_bwd + b * s * h * (d + dv) * 2)}
+        names = {"fwd": f"flash_fwd_causal{tag}", "dq": f"flash_bwd_causal_dq{tag}",
+                 "dkv": f"flash_bwd_causal_dkv{tag}"}
+        for key, ms, plain, lms in (("fwd", fwd_ms, plain_fwd, lib_ms and lib_ms[0]),
+                                    ("dq", dq_ms, plain_bwd, lib_ms and lib_ms[1]),
+                                    ("dkv", dkv_ms, plain_bwd, lib_ms and lib_ms[1])):
+            res[names[key]] = dict(ms=ms, plain_ms=plain, library_ms=lms, library_note=lib_note,
+                                   bound=bounds[key], shape=list(SFT_ATTN_SHAPE),
+                                   segments=qs is not None)
+            print(f"[{card}] {names[key]} {SFT_ATTN_SHAPE} bf16"
+                  f"{' stream segments' if qs is not None else ''}: kernel {ms:.3f} ms, bound "
+                  f"{bounds[key][0]:.3f} ms ({bounds[key][1]}, {pairs / h:.3e} visible pairs a "
+                  f"head), plain {plain:.2f} ms, SDPA "
+                  + (f"{lms:.3f} ms ({lib_note})" if lms is not None else lib_note), flush=True)
+        del out, lse, delta
+    del q, k, v, do, mask
+
+    b, s, h, d = TOWER_SHAPE
+    qkv, (q, k, v) = _qkv_views(b, s, h, d, g)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd")
+        delta = fa._bwd_delta(out, do)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ms = {"small_s_fwd": _time_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale,
+                                                                 kernel="small_s_fwd"),
+                                      iters=20, warmup=3),
+              "small_s_bwd_dq": _time_ms(lambda: fa._launch_bwd(
+                  "small_s_bwd_dq", q, k, v, do, lse, delta, (dq,), scale), iters=20, warmup=3),
+              "small_s_bwd_dkv": _time_ms(lambda: fa._launch_bwd(
+                  "small_s_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale), iters=20,
+                  warmup=3)}
+        plain_f = _time_ms(lambda: fa.small_s_attention_ref(q, k, v, scale), iters=3)
+        plain_b = _time_ms(lambda: fa.small_s_attention_bwd_ref(q, k, v, out, lse, do, scale),
+                           iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lk = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    f_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20, warmup=3)
+    fb_ms = _time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*lk), lk,
+                                                 do.transpose(1, 2)), iters=20, warmup=3)
+    io = 4 * b * s * h * d * 2 + 2 * b * h * s * 4
+    flops = {"small_s_fwd": 4, "small_s_bwd_dq": 6, "small_s_bwd_dkv": 8}
+    for name, n in flops.items():
+        bound = _bound(n * b * h * s * s * d, io + (b * s * h * d * 2 if name != "small_s_fwd"
+                                                    else 0))
+        plain = plain_f if name == "small_s_fwd" else plain_b
+        lms = f_ms if name == "small_s_fwd" else fb_ms - f_ms
+        res[f"{name}_72"] = dict(ms=ms[name], plain_ms=plain, library_ms=lms, bound=bound,
+                                 shape=list(TOWER_SHAPE))
+        print(f"[{card}] {name} {TOWER_SHAPE} bf16 (head dim 72): kernel {ms[name]:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}), plain {plain:.3f} ms, SDPA "
+              f"{lms:.4f} ms", flush=True)
+    return res
+
+
+def time_sft_step(fa, card) -> dict:
+    """Phase 23, the step: at the config's depth and pack on a device-resident
+    batch, the whole step (ms, tokens/s), then one step split with CUDA
+    events into tower, LLM forward + backward, CE and update; one step under
+    torch.profiler."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.models.mllm import scatter_visual
+    from internvideo_tpu_torch.train.chunked_ce import chunked_cross_entropy
+    from internvideo_tpu_torch.train.optim import global_norm
+
+    run = _sft_run()
+    trainer, _ = cli.build_sft(run, torch.device("cuda"))
+    batch = _sft_batch(run)
+    tokens = int((batch["segment_ids"] >= 0).sum())
+    step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _time_ms(step, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{card}] InternVideo3-8B SFT step (text depth {_sft_depth()}, pack {SFT_PACK}, "
+          f"B=1, {tokens} real tokens, 16 x 224 clip, bf16, remat, AdamW), device-resident "
+          f"batch: {step_ms:.1f} ms = {SFT_PACK * 1e3 / step_ms:.0f} tokens/s of pack "
+          f"({tokens * 1e3 / step_ms:.0f} real tokens/s); peak device memory {peak:.2f} GB",
+          flush=True)
+
+    model, state = trainer.model, trainer.state
+    lm, cfg = model.language_model, model.config
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    state.optimizer.zero_grad()
+    ev[0].record()
+    visual, taps = model.encode_video(batch["video"])
+    ev[1].record()
+    vis = [x.detach().requires_grad_() for x in (visual, *taps)]
+    ids = batch["input_ids"]
+    vmask = (ids == cfg.video_token_id) | (ids == cfg.image_token_id)
+    embeds = scatter_visual(lm.embed(ids), vis[0], vmask)
+    zeros = torch.zeros_like(embeds)
+    deep = [scatter_visual(zeros, t, vmask) for t in vis[1:]]
+    hidden = model._run_llm(embeds, deep, batch["position_ids"], batch["segment_ids"],
+                            False).hidden
+    ev[2].record()
+    hd = hidden.detach().requires_grad_()
+    loss = chunked_cross_entropy(hd, lm.lm_head.weight, batch["labels"])
+    loss.backward()
+    ev[3].record()
+    hidden.backward(hd.grad)
+    ev[4].record()
+    torch.autograd.backward([visual, *taps], [x.grad for x in vis])
+    ev[5].record()
+    global_norm([p.grad for p in model.parameters() if p.grad is not None])
+    state.optimizer.step()
+    ev[6].record()
+    torch.cuda.synchronize()
+    t = [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+    split = {"tower_fwd": t[0], "llm_fwd": t[1], "ce_fwd_bwd": t[2], "llm_bwd": t[3],
+             "tower_bwd": t[4], "update": t[5]}
+    print(f"[{card}] SFT step split (CUDA events, one step): tower fwd {t[0]:.1f} + bwd "
+          f"{t[4]:.1f} ms; LLM fwd {t[1]:.1f} + bwd (remat recompute incl.) {t[3]:.1f} ms; "
+          f"CE fwd + bwd {t[2]:.1f} ms; grad norm + clip + AdamW {t[5]:.1f} ms; sum "
+          f"{sum(t):.1f} ms", flush=True)
+    del visual, taps, vis, embeds, zeros, deep, hidden, hd, loss
+    profile_step(step, card, "SFT step")
+    return {"step_ms": step_ms, "tokens": tokens, "peak_gb": peak, **split}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1516,6 +2029,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     sk = time_serve_kernels(fa, pd, card)
     print(f"[{card}] serving: " + json.dumps(serve_times), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. the SFT kernels (K5 backward, K8, K2 / K4b at 72) vs their plain versions
+    sft_err = check_sft_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. the SFT main path, counting launches
+    sft_launches = run_sft_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 22. kernel route vs plain route in SFT
+    check_sft_routes(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 23. times
+    st = time_sft_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sft_step = time_sft_step(fa, card)
+    print(f"[{card}] sft: " + json.dumps(sft_step), flush=True)
 
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
@@ -1528,7 +2065,7 @@ def main() -> int:
 
     def by_path(name, eval_n=0):
         return {"eval": eval_n, "train": train_launches[name], "pretrain": pre_launches[name],
-                "serve": serve_launches[name]}
+                "serve": serve_launches[name], "sft": sft_launches[name]}
 
     def entry(name, source, line, r, err, shape):
         return {"name": name, "route": "cuda", "source": src + source,
@@ -1594,11 +2131,40 @@ def main() -> int:
         "replaces": "internvideo_tpu/ops/paged_decode.py:47",
         "launches": serve_launches["paged_decode"],
         "launches_by_path": {"eval": 0, "train": 0, "pretrain": 0,
-                             "serve": serve_launches["paged_decode"]},
+                             "serve": serve_launches["paged_decode"],
+                             "sft": sft_launches["paged_decode"]},
         "max_abs_err": k6_err, "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1], "library_ms": None,
         "shape": k6["shape"],
     }]
+    def sft_entry(name, source, line, r, err):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": jax_fa + str(line), "launches": sft_launches[name],
+                "launches_by_path": by_path(name), "max_abs_err": err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"], "library_note": r["library_note"],
+                "shape": r["shape"], "segments": r["segments"]}
+
+    kernels += [
+        sft_entry("flash_bwd_causal_dq", "flash_bwd_causal_dq.cu", 468,
+                  st["flash_bwd_causal_dq"], sft_err["flash_bwd_causal_dq"]),
+        sft_entry("flash_bwd_causal_dkv", "flash_bwd_causal_dkv.cu", 613,
+                  st["flash_bwd_causal_dkv"], sft_err["flash_bwd_causal_dkv"]),
+        sft_entry("flash_fwd_causal_seg", "flash_fwd_causal.cu", 153,
+                  st["flash_fwd_causal_seg"], sft_err["flash_fwd_causal_seg"]),
+        sft_entry("flash_bwd_causal_dq_seg", "flash_bwd_causal_dq.cu", 468,
+                  st["flash_bwd_causal_dq_seg"], sft_err["flash_bwd_causal_dq_seg"]),
+        sft_entry("flash_bwd_causal_dkv_seg", "flash_bwd_causal_dkv.cu", 613,
+                  st["flash_bwd_causal_dkv_seg"], sft_err["flash_bwd_causal_dkv_seg"]),
+    ]
+    for entry in kernels:  # K2 / K4b at the tower's head dim 72
+        r = st.get(f"{entry['name']}_72")
+        if r is not None:
+            entry["head_dim_72"] = {
+                "shape": r["shape"], "launches_sft": sft_launches[entry["name"]],
+                "max_abs_err": sft_err[entry["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"]}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,16 @@
     python -m internvideo_tpu_torch.cli.train \
         --config configs/torch/pretrain_1b_umt.py --device cuda
 
+    python -m internvideo_tpu_torch.cli.train \
+        --config configs/torch/sft_internvideo3_8b.py --device cuda
+
 Port of internvideo_tpu/cli/train.py. The config file defines
-`config = RunConfig(...)`; dotlist overrides follow. Two tasks are ported:
-`finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW with layer
-decay) and `pretrain` (UMT masked pretraining of PretrainInternVideo2 with
-frozen CLIP and MAE teachers); the JAX CLI's other tasks exit with "not yet
-ported".
+`config = RunConfig(...)`; dotlist overrides follow. Three tasks are
+ported: `finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW
+with layer decay), `pretrain` (UMT masked pretraining of
+PretrainInternVideo2 with frozen CLIP and MAE teachers) and `sft` (packed
+multimodal SFT of the InternVideo3 VideoMLLM); the JAX CLI's other tasks
+exit with "not yet ported".
 `--device` is explicit: `cuda` (the default) with no GPU is an error, not a
 CPU run. The model starts from the seeded init (`trainer.seed`), the
 pretrain teachers from their own (`trainer.seed` + 1 and + 2), as the JAX
@@ -48,7 +52,7 @@ class RunConfig:
     teacher: object = None  # pretrain: the CLIP teacher's TeacherConfig
     mae_teacher: object = None  # pretrain: the MAE teacher's TeacherConfig
 
-_PORTED_TASKS = ("finetune", "pretrain")
+_PORTED_TASKS = ("finetune", "pretrain", "sft")
 
 
 def build_finetune(run: RunConfig, device: torch.device):
@@ -126,6 +130,50 @@ def build_pretrain(run: RunConfig, device: torch.device):
     return trainer, shape, (clip_teacher, mae_teacher)
 
 
+def build_sft(run: RunConfig, device: torch.device):
+    """(trainer, example batch shapes) for packed multimodal SFT of the
+    VideoMLLM on `device` (the JAX `build_sft`, :409-465). The shapes are
+    those of the JAX synthetic stream (data.seq_len, data.num_frames,
+    data.img_size); a config's own data.stream sets its own."""
+    from internvideo_tpu_torch.models.mllm import VideoMLLM
+    from internvideo_tpu_torch.train.engines.sft import make_sft_step
+
+    if run.data.get("jsonl"):
+        raise NotImplementedError(
+            "data.jsonl: the real SFT data path (tokenizer, video decode, mllm_sft_batches) "
+            "is not ported yet (ROADMAP queue 1, item 10)")
+    model = VideoMLLM(run.model, device=device,
+                      generator=torch.Generator(device=device).manual_seed(run.trainer.seed))
+    v, b = run.model.vision, run.data["batch_size"]
+    seq = run.data.get("seq_len", 0)
+    img = run.data.get("img_size", 2 * v.patch_size * v.spatial_merge_size)
+    batch = {"input_ids": (b, seq), "segment_ids": (b, seq), "position_ids": (b, seq),
+             "labels": (b, seq), "video": (b, run.data.get("num_frames", 2), img, img, 3)}
+    trainer = Trainer(
+        run.trainer, model,
+        lambda grad_accum=1: make_sft_step(run.engine, mesh=run.trainer.mesh,
+                                           grad_accum=grad_accum))
+    return trainer, batch
+
+
+def _synthetic_sft_stream(batch: dict, seed: int = 0):
+    """The JAX CLI's `_synthetic_sft_stream` (:492-508), draw for draw:
+    standard-normal clips, token ids in [1, 100), labels the ids rolled by
+    one, positions 0..L-1, all-zero segments; no placeholders, so the
+    tower's output is unused."""
+    rng = np.random.default_rng(seed)
+    while True:
+        out = {k: (np.zeros(shape, np.int32) if k != "video"
+                   else rng.normal(size=shape).astype(np.float32))
+               for k, shape in batch.items()}
+        ids = rng.integers(1, 100, size=batch["input_ids"])
+        out["input_ids"] = ids.astype(np.int32)
+        out["labels"] = np.roll(ids, -1, axis=1).astype(np.int32)
+        out["position_ids"] = np.broadcast_to(
+            np.arange(ids.shape[1], dtype=np.int32), ids.shape).copy()
+        yield out
+
+
 def main(argv: Optional[list[str]] = None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -147,6 +195,9 @@ def main(argv: Optional[list[str]] = None):
     if run.task == "pretrain":
         trainer, shape, _ = build_pretrain(run, device)
         data = run.data.get("stream") or _synthetic_video_stream(shape)
+    elif run.task == "sft":
+        trainer, batch = build_sft(run, device)
+        data = run.data.get("stream") or _synthetic_sft_stream(batch)
     else:
         trainer, batch = build_finetune(run, device)
         data = run.data.get("stream") or synthetic_stream(batch, run.model.num_classes)

@@ -1,0 +1,41 @@
+// Shared parts of the causal / narrow-v / segmented flash-attention backward
+// (K5 backward + K8) for Hopper (sm_90a): its argument block and the base-2
+// LSE. The dq kernel is in flash_bwd_causal_dq.cu, the dk/dv kernel in
+// flash_bwd_causal_dkv.cu; each keeps its own __global__ names, C entry and
+// launch count. The design is described in flash_bwd_causal_dq.cu.
+#pragma once
+
+#include "segments.cuh"
+
+namespace ivt {
+
+struct CausalBwdArgs {
+  const void *q, *k, *v, *dout;  // q, k (B, S, H, Dqk); v (B, Sk, H, Dv); dO (B, Sq, H, Dv)
+  const float *lse, *delta;      // (B, H, Sq) fp32: natural-log LSE, rowsum(dO O) - dLSE
+  const int *q_seg, *kv_seg;     // (B, Sq) / (B, Sk) int32, or null
+  void *dq, *dk, *dv;            // outputs in the layouts of q, k, v
+  int Sq, Sk, H;
+  // element strides of (batch, sequence, head) of q, k, v, dO, dq, dk, dv
+  long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h, dq_b, dq_s, dq_h,
+      dk_b, dk_s, dk_h, dv_b, dv_s, dv_h;
+  float scale, scale_log2;
+  int causal, q_off;  // query row i sees key j iff j <= i + q_off (with causal)
+};
+
+inline CausalBwdArgs make_causal_bwd_args(const void* q, const void* k, const void* v,
+                                          const void* dout, const float* lse, const float* delta,
+                                          const int* q_seg, const int* kv_seg, void* dq, void* dk,
+                                          void* dv, int Sq, int Sk, int H, const long long* s,
+                                          float scale, int causal, int q_off) {
+  return CausalBwdArgs{q,     k,     v,     dout,  lse,   delta, q_seg, kv_seg, dq,    dk,
+                       dv,    Sq,    Sk,    H,     s[0],  s[1],  s[2],  s[3],   s[4],  s[5],
+                       s[6],  s[7],  s[8],  s[9],  s[10], s[11], s[12], s[13],  s[14], s[15],
+                       s[16], s[17], s[18], s[19], s[20], scale, scale * kLog2e, causal, q_off};
+}
+
+// natural-log LSE -> base 2; a row that saw no key (-inf) gets +inf, so p = 0
+__device__ __forceinline__ float lse_to_base2(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * kLog2e;
+}
+
+}  // namespace ivt

@@ -11,6 +11,13 @@
 // gets out 0 and LSE -inf. With causal = 0 the same body runs non-causal
 // attention at d_v != d_qk.
 //
+// With packed-sequence segment ids (K8, the `kSeg` template flag; the JAX
+// kernel's `q_seg == k_seg` in `_mask_block` :62-64 and its block skipping
+// `_segs_overlap` / `_build_remap` :75-130) query row i also needs
+// q_seg[i] == kv_seg[j]. A key tile whose id range is disjoint from the
+// query tile's is never loaded (segments.cuh); the kept tiles are masked by
+// equality element by element from the tile's ids in shared memory.
+//
 // What bounds it: at the prefill shape (8, 2048, 32, 256 / 128) bf16 the
 // causal half of B*H*S^2*(d_qk + d_v) FLOPs (4.1e11) takes 0.42 ms at the
 // tensor cores' 989 TFLOP/s, against 0.81 GB of q/k/v/out (0.24 ms at 3.35
@@ -36,7 +43,7 @@
 //        -Xcompiler -fPIC, linked with the other sources into one shared
 //        library (internvideo_tpu_torch/ops/_build.py).
 
-#include "mma.cuh"
+#include "segments.cuh"
 
 namespace {
 
@@ -62,37 +69,31 @@ struct Tile {
   // SM; at d_qk = 256 one, so that two CTAs (8 warps) share the SM and one's
   // loads overlap the other's products (1 CTA of 4 warps ran at 83 TFLOP/s).
   static constexpr int kStages = DQK >= 256 ? 1 : 2;
-  static constexpr int kSmemBytes = (kQTile + kStages * (kKTile + kVTile)) * 2;
+  // + the key tile's segment ids (kSeg)
+  static constexpr int kSmemBytes = (kQTile + kStages * (kKTile + kVTile)) * 2 + kBlockN * 4;
 };
 
-// rows [row0, row0 + 64) of a (S, D) bf16 matrix with row stride s_stride
-// into a smem tile of row stride `dst_stride`; rows at or past `valid` are
-// zero-filled (finite, so a masked key's p is exactly 0).
 template <int D>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int dst_stride,
                                           const __nv_bfloat16* src, long long s_stride, int row0,
                                           int valid, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = row0 + r < valid;
-    const __nv_bfloat16* p = ok ? src + (long long)(row0 + r) * s_stride + c * 8 : src;
-    cp_async_16(dst + r * dst_stride + c * 8, p, ok);
-  }
+  cp_rows<D, kBlockM, kThreads>(dst, dst_stride, src, s_stride, row0, valid, tid);
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     causal_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int Sq, int Sk, int H, Strides st,
+                           float* __restrict__ lse, const int* __restrict__ q_seg,
+                           const int* __restrict__ kv_seg, int Sq, int Sk, int H, Strides st,
                            float scale_log2, int causal, int q_off) {
   using T = Tile<DQK, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + T::kQTile;             // kStages buffers
   __nv_bfloat16* sV = sK + T::kStages * T::kKTile;  // kStages buffers
+  int* sKS = reinterpret_cast<int*>(sV + T::kStages * T::kVTile);  // the tile's kv ids
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
@@ -101,42 +102,63 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* qb = q + b * st.q_b + h * st.q_h;
   const __nv_bfloat16* kb = k + b * st.k_b + h * st.k_h;
   const __nv_bfloat16* vb = v + b * st.v_b + h * st.v_h;
+  const int qr = warp * 16;  // this warp's first row in the query tile
 
   // Keys any stored row of this tile can see: [0, key_end).
   const int row_end = min(m0 + kBlockM, Sq);
   const int key_end = causal ? max(0, min(Sk, row_end + q_off)) : Sk;
   const int n_tiles = (key_end + kBlockN - 1) / kBlockN;
 
+  // Segments: the query tile's id range, this thread's two rows' ids.
+  const int* kvs = kSeg ? kv_seg + (long long)b * Sk : nullptr;
+  int2 q_range = make_int2(INT_MIN, INT_MAX);
+  int qs[2] = {0, 0};
+  if constexpr (kSeg) {
+    const int* qsb = q_seg + (long long)b * Sq;
+    q_range = seg_range(qsb, m0, kBlockM, Sq, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + qr + g + 8 * r;
+      qs[r] = row < Sq ? qsb[row] : INT_MIN;
+    }
+  }
+  // The first key tile at or after j that some row of this tile may see.
+  auto next_tile = [&](int j) {
+    if constexpr (kSeg) {
+      while (j < n_tiles && !ranges_meet(seg_range(kvs, j * kBlockN, kBlockN, Sk, lane), q_range))
+        ++j;
+    }
+    return j;
+  };
+
+  int j = next_tile(0);
   load_rows<DQK>(sQ, T::kQStride, qb, st.q_s, m0, Sq, tid);
-  if (n_tiles > 0) {
-    load_rows<DQK>(sK, T::kQStride, kb, st.k_s, 0, Sk, tid);
-    load_rows<DV>(sV, T::kVStride, vb, st.v_s, 0, Sk, tid);
+  if (j < n_tiles) {
+    load_rows<DQK>(sK, T::kQStride, kb, st.k_s, j * kBlockN, Sk, tid);
+    load_rows<DV>(sV, T::kVStride, vb, st.v_s, j * kBlockN, Sk, tid);
   }
   cp_async_commit();
 
-  const int qr = warp * 16;  // this warp's first row in the query tile
   float acc[DV / 8][4];
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max of base-2 scores, rows g and g+8
   float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int cur = T::kStages == 2 ? j & 1 : 0;
-    if (T::kStages == 1 && j > 0) {  // the trailing barrier freed the one buffer
-      load_rows<DQK>(sK, T::kQStride, kb, st.k_s, j * kBlockN, Sk, tid);
-      load_rows<DV>(sV, T::kVStride, vb, st.v_s, j * kBlockN, Sk, tid);
-      cp_async_commit();
-    }
-    if (T::kStages == 2 && j + 1 < n_tiles) {
-      load_rows<DQK>(sK + (cur ^ 1) * T::kKTile, T::kQStride, kb, st.k_s, (j + 1) * kBlockN, Sk,
-                     tid);
-      load_rows<DV>(sV + (cur ^ 1) * T::kVTile, T::kVStride, vb, st.v_s, (j + 1) * kBlockN, Sk,
-                    tid);
+  int cur = 0;
+  while (j < n_tiles) {
+    const int jn = next_tile(j + 1);
+    if (T::kStages == 2 && jn < n_tiles) {
+      load_rows<DQK>(sK + (cur ^ 1) * T::kKTile, T::kQStride, kb, st.k_s, jn * kBlockN, Sk, tid);
+      load_rows<DV>(sV + (cur ^ 1) * T::kVTile, T::kVStride, vb, st.v_s, jn * kBlockN, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
+    }
+    const int key0 = j * kBlockN;
+    if constexpr (kSeg) {
+      if (tid < kBlockN) sKS[tid] = key0 + tid < Sk ? kvs[key0 + tid] : INT_MIN;
     }
     __syncthreads();
     const __nv_bfloat16* sKc = sK + cur * T::kKTile;
@@ -159,10 +181,11 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // Mask only a tile that crosses the diagonal or the Sk tail. Fragment
-    // element e sits at row g + 8 * (e >> 1) and key 8 * nt + 2 * t + (e & 1).
-    const int key0 = j * kBlockN;
-    const bool masked = key0 + kBlockN > Sk || (causal && key0 + kBlockN - 1 > m0 + q_off);
+    // Mask only a tile that crosses the diagonal or the Sk tail, or any kept
+    // tile with segments. Fragment element e sits at row g + 8 * (e >> 1)
+    // and key 8 * nt + 2 * t + (e & 1).
+    const bool masked =
+        kSeg || key0 + kBlockN > Sk || (causal && key0 + kBlockN - 1 > m0 + q_off);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -170,9 +193,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * scale_log2;
         if (masked) {
-          const int key = key0 + nt * 8 + 2 * t + (e & 1);
+          const int kc = nt * 8 + 2 * t + (e & 1);
+          const int key = key0 + kc;
           const int row = m0 + qr + g + 8 * (e >> 1);
-          if (key >= Sk || (causal && key > row + q_off)) x = -INFINITY;
+          if (key >= Sk || (causal && key > row + q_off) || (kSeg && sKS[kc] != qs[e >> 1]))
+            x = -INFINITY;
         }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -222,7 +247,14 @@ __global__ void __launch_bounds__(kThreads)
         mma_16816(acc[n], a, bf);
       }
     }
-    __syncthreads();  // the next iteration's prefetch overwrites this buffer
+    __syncthreads();  // the next prefetch overwrites this buffer (and sKS)
+    if (T::kStages == 1 && jn < n_tiles) {  // the one buffer is free again
+      load_rows<DQK>(sK, T::kQStride, kb, st.k_s, jn * kBlockN, Sk, tid);
+      load_rows<DV>(sV, T::kVStride, vb, st.v_s, jn * kBlockN, Sk, tid);
+      cp_async_commit();
+    }
+    if (T::kStages == 2) cur ^= 1;
+    j = jn;
   }
   cp_async_wait<0>();
 
@@ -248,18 +280,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q is read from global memory (L1) per key tile so that
-// d_qk = 256 needs no register array. Numerics as the bf16 body.
+// d_qk = 256 needs no register array. Numerics as the bf16 body; with
+// segments every key is tested (no tile skipping: the parity checks' path).
 constexpr int kF32Rows = 64;
 constexpr int kF32Keys = 16;
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kSeg>
 __global__ void __launch_bounds__(kF32Rows)
     causal_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int Sq, int Sk, int H, Strides st,
+                          float* __restrict__ lse, const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, int Sq, int Sk, int H, Strides st,
                           float scale_log2, int causal, int q_off) {
   __shared__ float sK[kF32Keys][DQK];
   __shared__ float sV[kF32Keys][DV];
+  __shared__ int sKS[kF32Keys];
   const int tid = threadIdx.x;
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
   const int row = m0 + tid;
@@ -271,6 +306,7 @@ __global__ void __launch_bounds__(kF32Rows)
   const int row_end = min(m0 + kF32Rows, Sq);
   const int key_end = causal ? max(0, min(Sk, row_end + q_off)) : Sk;
   const int my_end = causal ? min(Sk, row + q_off + 1) : Sk;  // keys this row sees
+  const int qs = kSeg && valid ? q_seg[(long long)b * Sq + row] : 0;
 
   float acc[DV];
 #pragma unroll
@@ -287,6 +323,9 @@ __global__ void __launch_bounds__(kF32Rows)
       const int r = i / DV, c = i - r * DV;
       sV[r][c] = k0 + r < Sk ? vb[(long long)(k0 + r) * st.v_s + c] : 0.f;
     }
+    if (kSeg && tid < kF32Keys) {
+      sKS[tid] = k0 + tid < Sk ? kv_seg[(long long)b * Sk + k0 + tid] : INT_MIN;
+    }
     __syncthreads();
     float s[kF32Keys];
 #pragma unroll
@@ -300,7 +339,8 @@ __global__ void __launch_bounds__(kF32Rows)
     float mx = m_run;
 #pragma unroll
     for (int j = 0; j < kF32Keys; ++j) {
-      s[j] = k0 + j < my_end ? s[j] * scale_log2 : -INFINITY;
+      const bool ok = k0 + j < my_end && (!kSeg || sKS[j] == qs);
+      s[j] = ok ? s[j] * scale_log2 : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float m_use = mx == -INFINITY ? 0.f : mx;
@@ -330,13 +370,14 @@ __global__ void __launch_bounds__(kF32Rows)
   lse[((long long)b * H + h) * Sq + row] = l_run > 0.f ? (m_run + log2f(l_run)) * kLn2 : -INFINITY;
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int Sq, int Sk, int H, const Strides& st, float scale_log2, int causal,
-                   int q_off, cudaStream_t stream) {
+                   const int* q_seg, const int* kv_seg, int B, int Sq, int Sk, int H,
+                   const Strides& st, float scale_log2, int causal, int q_off,
+                   cudaStream_t stream) {
   if (dtype == 1) {
     using bf = __nv_bfloat16;
-    auto kern = causal_fwd_bf16_kernel<DQK, DV>;
+    auto kern = causal_fwd_bf16_kernel<DQK, DV, kSeg>;
     const int smem = Tile<DQK, DV>::kSmemBytes;
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -344,13 +385,14 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
     kern<<<grid, kThreads, smem, stream>>>(static_cast<const bf*>(q), static_cast<const bf*>(k),
                                            static_cast<const bf*>(v), static_cast<bf*>(o), lse,
-                                           Sq, Sk, H, st, scale_log2, causal, q_off);
+                                           q_seg, kv_seg, Sq, Sk, H, st, scale_log2, causal,
+                                           q_off);
   } else {
     const dim3 grid((Sq + kF32Rows - 1) / kF32Rows, H, B);
-    causal_fwd_f32_kernel<DQK, DV><<<grid, kF32Rows, 0, stream>>>(
+    causal_fwd_f32_kernel<DQK, DV, kSeg><<<grid, kF32Rows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H, st, scale_log2,
-        causal, q_off);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, q_seg, kv_seg, Sq, Sk, H, st,
+        scale_log2, causal, q_off);
   }
   return cudaGetLastError();
 }
@@ -359,13 +401,15 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 // C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. q and k are
 // (B, S, H, Dqk), v and o (B, S, H, Dv); `strides` holds 12 int64: (batch,
-// seq, head) element strides of q, k, v, o. causal: 0 or 1; q_offset: the
-// key index of query row 0. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for an uninstantiated (Dqk, Dv) or dtype).
+// seq, head) element strides of q, k, v, o. q_seg / kv_seg: (B, Sq) / (B, Sk)
+// int32 contiguous segment ids, or both null (no segments). causal: 0 or 1;
+// q_offset: the key index of query row 0. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for an uninstantiated (Dqk, Dv) or dtype).
 // Launches on `stream`; does not synchronise.
 extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, const void* v,
-                                    void* o, float* lse, int B, int Sq, int Sk, int H, int Dqk,
-                                    int Dv, const long long* strides, float scale, int causal,
+                                    void* o, float* lse, const int* q_seg, const int* kv_seg,
+                                    int B, int Sq, int Sk, int H, int Dqk, int Dv,
+                                    const long long* strides, float scale, int causal,
                                     int q_offset, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
@@ -373,14 +417,19 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
   const float scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
+  const bool seg = q_seg != nullptr;
 #define IVT_CASE(DQK, DV)                                                                    \
   if (Dqk == DQK && Dv == DV)                                                                \
-    return launch<DQK, DV>(dtype, q, k, v, o, lse, B, Sq, Sk, H, st, scale_log2, causal,    \
-                           q_offset, s);
+    return seg ? launch<DQK, DV, true>(dtype, q, k, v, o, lse, q_seg, kv_seg, B, Sq, Sk, H, \
+                                       st, scale_log2, causal, q_offset, s)                  \
+               : launch<DQK, DV, false>(dtype, q, k, v, o, lse, q_seg, kv_seg, B, Sq, Sk, H, \
+                                        st, scale_log2, causal, q_offset, s);
   IVT_CASE(256, 128)
   IVT_CASE(192, 128)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
+  IVT_CASE(32, 32)
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }

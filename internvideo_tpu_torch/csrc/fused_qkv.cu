@@ -158,6 +158,8 @@ extern "C" int ivt_fused_qkv_fwd(int dtype, const void* qkv, const float* q_rstd
   switch (D) {
     case 64:
       return launch<64>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
+    case 72:
+      return launch<72>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
     case 88:
       return launch<88>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
     case 128:

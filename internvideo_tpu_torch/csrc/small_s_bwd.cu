@@ -29,6 +29,9 @@
 // operations against reading q, k, v, dO once: at (32, 833, 16, 88) the
 // tensor cores, ~0.19 and ~0.25 ms at the bf16 peak.
 //
+// Head dims: 64, 72 (the InternVideo3 vision tower; padded to 80 in shared
+// memory for the products that reduce over d), 88, 128.
+//
 // Build: compiled alone by ops/_build.py (one nvcc per source, in parallel).
 
 #include "attn_bwd.cuh"
@@ -53,6 +56,9 @@ IVT_BWD_KERNELS(small_s)
   switch (D) {                                                                              \
     case 64:                                                                                \
       return LAUNCH<64>(small_s_##KIND##_bf16_kernel<64>, small_s_##KIND##_f32_kernel<64>,  \
+                        dtype, a);                                                          \
+    case 72:                                                                                \
+      return LAUNCH<72>(small_s_##KIND##_bf16_kernel<72>, small_s_##KIND##_f32_kernel<72>,  \
                         dtype, a);                                                          \
     case 88:                                                                                \
       return LAUNCH<88>(small_s_##KIND##_bf16_kernel<88>, small_s_##KIND##_f32_kernel<88>,  \

@@ -27,6 +27,9 @@
 // ~0.13 ms of tensor-core work against ~0.09 ms of traffic, so it is bound by
 // the tensor cores and the exp2 work between the two products.
 //
+// Head dims: 64, 72 (the InternVideo3 vision tower, zero-padded to 80 in
+// shared memory for the QK^T k-steps, as 88 is to 96), 88, 128.
+//
 // Build: compiled alone by ops/_build.py (one nvcc per source, in parallel).
 
 #include "attn_fwd.cuh"
@@ -90,6 +93,8 @@ extern "C" int ivt_small_s_fwd(int dtype, const void* q, const void* k, const vo
   switch (D) {
     case 64:
       return launch<64>(dtype, q, k, v, o, lse, B, Sq, Sk, H, st, scale_log2, s);
+    case 72:
+      return launch<72>(dtype, q, k, v, o, lse, B, Sq, Sk, H, st, scale_log2, s);
     case 88:
       return launch<88>(dtype, q, k, v, o, lse, B, Sq, Sk, H, st, scale_log2, s);
     case 128:

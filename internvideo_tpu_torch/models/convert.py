@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's param trees -> this port's state_dicts.
 
 Input is the nested dict a JAX module's `init` gives (InternVideo2,
-PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer), unboxed
+PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer, VideoMLLM),
+unboxed
 (`flax.linen.unbox`) and turned into numpy arrays; a top-level
 `{"params": ...}` wrapper is accepted. Translations:
 
@@ -9,6 +10,7 @@ PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer), unboxed
   * `blocks_{i}`, `layers_{i}`        -> `blocks.{i}`, `layers.{i}`
   * flax Embed `embedding` (vocab, D) -> `weight`
   * `clip_decoder_{j}`, `mae_decoder_{j}` -> `clip_decoder.{j}`, `mae_decoder.{j}`
+  * `deepstack_merger_{j}` (VideoMLLM)  -> `deepstack_merger.{j}`
   * the MLP decoder's `head_0` / `head_2` -> `head.0` / `head.2`
   * LayerNorm `scale` / `bias`        -> `weight` / `bias`
   * RMSNorm `weight`, LayerScale `gamma`, `cls_token`, the pos embeds and
@@ -20,7 +22,10 @@ For the MLA LLM the names are the reference's HF / xtuner layout:
 `layers.{i}.self_attn.{q_proj,kv_a_proj_with_mqa,o_proj}.{weight,bias}`,
 `layers.{i}.self_attn.kv_b_proj_kernel` (kept (R, H, nope + v), the JAX raw
 param), `layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`,
-`lm_head.weight`.
+`lm_head.weight`. The VideoMLLM tree keeps its JAX top level:
+`vision_tower.{patch_embed, pos_embed, blocks.{i}.{norm1, qkv, proj, norm2,
+fc1, fc2}}`, `merger.{norm, linear_fc1, linear_fc2}`,
+`deepstack_merger.{j}.*` and `language_model.*` (the LLM names above).
 
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
 weights load exactly. The module's `load_state_dict(sd, strict=True)` then
@@ -37,7 +42,7 @@ import torch
 
 _BLOCK = re.compile(r"^(?:blocks|layers)_(\d+)$")
 # flax module names with an index -> torch ModuleList / Sequential entries
-_INDEXED = re.compile(r"^(blocks|layers|clip_decoder|mae_decoder|head)_(\d+)$")
+_INDEXED = re.compile(r"^(blocks|layers|clip_decoder|mae_decoder|head|deepstack_merger)_(\d+)$")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -48,18 +53,25 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _check_depth(tree: Mapping, depth: int) -> None:
+    blocks = sorted(int(m.group(1)) for k in tree if (m := _BLOCK.match(k)))
+    if blocks != list(range(depth)):
+        raise ValueError(f"param tree has blocks {blocks}, config depth {depth}")
+
+
 def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
-    InternVideo2 or teacher config with `depth`, or an LLMConfig with
-    `num_layers`) the top level's `blocks_{i}` / `layers_{i}` must be
-    exactly range(depth)."""
+    InternVideo2 or teacher config with `depth`, an LLMConfig or
+    VisionTowerConfig with `num_layers`, or an MLLMConfig) the
+    `blocks_{i}` / `layers_{i}` of each tower must be exactly range(depth)."""
     if "params" in params:
         params = params["params"]
     if cfg is not None:
-        depth = cfg.num_layers if hasattr(cfg, "num_layers") else cfg.depth
-        blocks = sorted(int(m.group(1)) for k in params if (m := _BLOCK.match(k)))
-        if blocks != list(range(depth)):
-            raise ValueError(f"param tree has blocks {blocks}, config depth {depth}")
+        if hasattr(cfg, "vision") and hasattr(cfg, "text"):
+            _check_depth(params["vision_tower"], cfg.vision.num_layers)
+            _check_depth(params["language_model"], cfg.text.num_layers)
+        else:
+            _check_depth(params, cfg.num_layers if hasattr(cfg, "num_layers") else cfg.depth)
     sd: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:

@@ -5,12 +5,13 @@ Port of internvideo_tpu/models/llm.py: the text tower of InternVideo3-8B
 128 / 128 / 128 rope / nope / v dims, rope_theta 5e6, mRoPE [24, 20, 20]).
 Layer = RMSNorm -> MLA -> residual; RMSNorm -> SwiGLU -> residual.
 
-Serving surfaces: the full forward, the dense latent cache (`init_cache`,
-`prefill`, `decode_step`) and the paged one (`init_paged_cache`,
-`prefill_paged`, `decode_step_paged`), whose pools are written in place.
-Options outside this slice raise NotImplementedError naming their ROADMAP
-item: int8 quant modes, fp8, MoE; `remat` (a training setting of the 8B
-preset) is ignored without autograd and raises with it.
+Surfaces: the full forward (training: packed segment ids, and with
+`remat` each layer under `torch.utils.checkpoint(use_reentrant=False)`, the
+JAX `nn.remat(_DecoderLayer)` :193-194, when autograd is on), the dense
+latent cache (`init_cache`, `prefill`, `decode_step`) and the paged one
+(`init_paged_cache`, `prefill_paged`, `decode_step_paged`), whose pools are
+written in place. Options outside the ported slices raise
+NotImplementedError naming their ROADMAP item: int8 quant modes, fp8, MoE.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from internvideo_tpu_torch.nn.dense import Dense, trunc_normal_
@@ -155,11 +157,14 @@ class MLATransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
-    def _check_grad(self) -> None:
+    def run_layer(self, i: int, x, cos, sin, segment_ids=None):
+        """Decoder layer i; with `remat` and autograd on, its activations are
+        recomputed in the backward instead of kept."""
+        layer = self.layers[i]
         if self.cfg.remat and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "remat=True is a training setting: LLM training is not ported yet (ROADMAP "
-                "queue 1, item 10); serve under torch.no_grad()")
+            return torch.utils.checkpoint.checkpoint(layer, x, cos, sin, segment_ids,
+                                                     use_reentrant=False)
+        return layer(x, cos, sin, segment_ids)
 
     def _rope(self, position_ids):
         cfg = self.cfg
@@ -183,14 +188,13 @@ class MLATransformer(nn.Module):
 
     def forward(self, input_ids=None, *, input_embeds=None, position_ids=None,
                 segment_ids=None, with_logits: bool = True) -> LLMOutput:
-        self._check_grad()
         x = input_embeds if input_embeds is not None else self.embed(input_ids)
         b, s, _ = x.shape
         if position_ids is None:
             position_ids = self._positions(b, s)
         cos, sin = self._rope(position_ids)
-        for layer in self.layers:
-            x = layer(x, cos, sin, segment_ids)
+        for i in range(len(self.layers)):
+            x = self.run_layer(i, x, cos, sin, segment_ids)
         x = self.norm(x)
         return LLMOutput(logits=self._head(x) if with_logits else None, hidden=x)
 
@@ -201,7 +205,6 @@ class MLATransformer(nn.Module):
     def prefill(self, input_embeds, caches, *, position_ids=None) -> LLMOutput:
         """Run the prompt, fill the latent caches (in place), return the
         last-position logits."""
-        self._check_grad()
         b, s, _ = input_embeds.shape
         if position_ids is None:
             position_ids = self._positions(b, s)
@@ -215,7 +218,6 @@ class MLATransformer(nn.Module):
         return LLMOutput(logits=self._head(x[:, -1:]), hidden=x, caches=caches)
 
     def decode_step(self, token_ids, caches, cache_len, *, position_ids=None) -> LLMOutput:
-        self._check_grad()
         x = self.embed_tokens(token_ids)
         b = x.shape[0]
         if position_ids is None:
@@ -232,7 +234,6 @@ class MLATransformer(nn.Module):
         """Prompt pass writing latent entries into the page pools (in
         place); attention is plain causal self-attention over the prompt
         (K5 on the kernel route)."""
-        self._check_grad()
         x = input_embeds if input_embeds is not None else self.embed_tokens(input_ids)
         b, s, _ = x.shape
         if position_ids is None:
@@ -252,7 +253,6 @@ class MLATransformer(nn.Module):
         """One decode step over the paged pools: write each token's latent
         entry at position seq_lens[b], then absorbed paged attention over
         seq_lens + 1 tokens (K6 on the kernel route)."""
-        self._check_grad()
         x = self.embed_tokens(token_ids)
         positions = seq_lens[:, None].to(torch.int32)  # (B, 1)
         cos, sin = self._rope(positions)

@@ -1,8 +1,8 @@
 """Model config presets of the ported families.
 
-Port of the LLM presets of internvideo_tpu/models/presets.py (:45-81),
-field for field; the other presets wait with their families (ROADMAP
-queue 1, items 6 and 11). `qwen3_mla_tiny` is the port's own: the
+Port of the LLM presets and the InternVideo3-8B MLLM preset of
+internvideo_tpu/models/presets.py (:45-102), field for field; the other
+presets wait with their families (ROADMAP queue 1, items 6 and 11). `qwen3_mla_tiny` is the port's own: the
 architecture at test widths, so that `cli.generate` runs on a CPU in
 seconds.
 """
@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 from internvideo_tpu_torch.models.llm import LLMConfig
+from internvideo_tpu_torch.models.mllm import MLLMConfig
+from internvideo_tpu_torch.models.vision_tower import VisionTowerConfig
 from internvideo_tpu_torch.nn.mla import MLAConfig
 
 
@@ -61,5 +63,26 @@ def qwen3_mla_tiny(**overrides) -> LLMConfig:
         mrope_section=None,
         mla=MLAConfig(hidden_size=32, num_heads=2, kv_lora_rank=16,
                       qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=8),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def internvideo3_8b(**overrides) -> MLLMConfig:
+    """InternVideo3-8B (internvideo3_config.py:19-120): SigLIP-style tower
+    1152d / 27 layers, deepstack after blocks [8, 16, 24], and the
+    Qwen3-8B-MLA text model."""
+    cfg = MLLMConfig(
+        vision=VisionTowerConfig(
+            hidden_size=1152, num_layers=27, num_heads=16,
+            intermediate_size=4304, patch_size=16, temporal_patch_size=2,
+            spatial_merge_size=2, pos_embed_grid=48,
+            deepstack_indexes=(8, 16, 24), text_hidden_size=4096,
+            dtype="bfloat16", param_dtype="bfloat16",
+        ),
+        text=qwen3_8b_mla(),
+        image_token_id=151655,
+        video_token_id=151656,
+        vision_start_token_id=151652,
+        vision_end_token_id=151653,
     )
     return dataclasses.replace(cfg, **overrides)

@@ -118,6 +118,7 @@ def load_library() -> ctypes.CDLL:
     lib.ivt_small_s_fwd.restype = i
     lib.ivt_flash_fwd_causal.argtypes = [
         i, p, p, p, p, p,            # dtype, q, k, v, o, lse
+        p, p,                        # q / kv segment ids (or null)
         i, i, i, i, i, i,            # B, Sq, Sk, H, D_qk, D_v
         ctypes.POINTER(ctypes.c_longlong),  # 12 element strides
         ctypes.c_float, i, i, p,     # softmax scale, causal, q position offset, stream
@@ -154,6 +155,16 @@ def load_library() -> ctypes.CDLL:
             i, i, i, i, i,           # B, Sq, Sk, H, D
             ctypes.POINTER(ctypes.c_longlong),  # 18 element strides
             ctypes.c_float, p,       # softmax scale, stream
+        ]
+        fn.restype = i
+    for name in ("ivt_flash_bwd_causal_dq", "ivt_flash_bwd_causal_dkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            i, p, p, p, p, p, p,     # dtype, q, k, v, dO, lse, delta
+            p, p, p, p, p,           # q / kv segment ids (or null), dq, dk, dv
+            i, i, i, i, i, i,        # B, Sq, Sk, H, D_qk, D_v
+            ctypes.POINTER(ctypes.c_longlong),  # 21 element strides
+            ctypes.c_float, i, i, p,  # softmax scale, causal, q position offset, stream
         ]
         fn.restype = i
     return lib

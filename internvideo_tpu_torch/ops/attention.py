@@ -9,9 +9,10 @@ the same keyword signature, and of `fused_qkv_attention_or_none` (:81).
     the CUDA kernel on a CUDA tensor and runs its plain version on a CPU one;
   * "plain" (JAX spelling "xla"): ops/attention_xla.py.
 
-A case the kernels do not take (segment ids, window, GQA, ...) raises on
-the kernel route, including "auto" on a CUDA tensor; nothing falls back to
-the plain route. The sequence-parallel and head-parallel
+Segment ids reach the kernel route (K5 / K8). A case the kernels do not
+take (window, GQA, an uninstantiated head dim, ...) raises on the kernel
+route, including "auto" on a CUDA tensor; nothing falls back to the plain
+route. The sequence-parallel and head-parallel
 contexts of the JAX dispatcher are not ported yet (ROADMAP queue 1, item 9).
 """
 

@@ -5,19 +5,22 @@ Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
 (:2037), `flash_attention_with_lse` (:1188), `_small_s_attention` (:1606),
 `_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784) and
 `fused_qkv_rmsnorm_attention` (:1801) with their custom VJPs, for the case
-the InternVideo2 encoder and its teachers run (non-causal, d_v == d_qk)
-and for the one the M2LA LLM's prefill runs (causal, a query position
-offset, d_v != d_qk): no segment ids, no window, one K/V head per query
-head, layout (B, S, H, D) or its permuted view (B, H, S, D). Every other
-argument raises NotImplementedError naming the ROADMAP item that brings it.
+the InternVideo2 encoder, its teachers and the InternVideo3 vision tower
+run (non-causal, d_v == d_qk) and for the one the M2LA LLM's prefill and
+packed SFT training run (causal, a query position offset, d_v != d_qk,
+packed-sequence segment ids): no window, one K/V head per query head,
+layout (B, S, H, D) or its permuted view (B, H, S, D). Every other argument
+raises NotImplementedError naming the ROADMAP item that brings it.
 
 Three autograd Functions, each owning a kernel route (CUDA tensors: the
 kernel, or raise) and a plain route (CPU tensors); there is no fallback
 from one to the other:
 
   * `FlashAttention` (K1 forward `csrc/flash_fwd.cu`, K4a backward
-    `csrc/flash_bwd.cu`), differentiable in out and LSE; causal or
-    narrow-v calls take K5 (`csrc/flash_fwd_causal.cu`), forward only;
+    `csrc/flash_bwd.cu`), differentiable in out and LSE; causal, narrow-v
+    or segmented calls take K5 (forward `csrc/flash_fwd_causal.cu`,
+    backward `csrc/flash_bwd_causal_dq.cu` / `flash_bwd_causal_dkv.cu`),
+    with segment ids K8 (the same kernels' `kSeg` instantiations);
   * `SmallSAttention` (K2 forward `csrc/small_s_fwd.cu`, K4b backward
     `csrc/small_s_bwd.cu`) for 0 < Sq, Sk <= 1024, the route
     `flash_attention` takes there, as the JAX package's does (:2080-2094);
@@ -32,7 +35,10 @@ an instantiated head dim, 16-byte bf16 rows and the grid limits. At every
 shape of the ported paths both packages pick the same kernel.
 
 The LSE is the natural-log softmax normaliser, (B, H, Sq) float32; a row
-that sees no key gets out 0 and LSE -inf.
+that sees no key gets out 0 and LSE -inf. Segment ids mask by equality, as
+the JAX kernels' `q_seg == k_seg` (:62-64) and `attention_xla` do: the pad
+id -1 that `pack_mllm_items` gives both q and kv meets itself, so pad rows
+attend to each other (causally).
 """
 
 from __future__ import annotations
@@ -51,20 +57,27 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 # (csrc/small_s_fwd.cu, small_s_bwd.cu, fused_qkv.cu; 128 for the CLIP-6B
 # teacher).
 KERNEL_HEAD_DIMS = (64, 88)
-SMALL_S_HEAD_DIMS = (64, 88, 128)
-# (d_qk, d_v) pairs of K5 (csrc/flash_fwd_causal.cu): qwen3_8b_mla,
-# qwen3_2b_mla, and two small pairs for the parity checks
-CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (64, 64), (64, 32))
+SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
+# (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):
+# qwen3_8b_mla, qwen3_2b_mla, and small pairs for the parity checks; and of
+# its backward (csrc/flash_bwd_causal_*.cu): the 8B's training pair and the
+# small ones
+CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (64, 64), (64, 32), (32, 32))
+CAUSAL_BWD_HEAD_DIMS = ((256, 128), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 _GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = 1.0 / math.log(2.0)
 
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
-# pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" is K5.
+# pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" and
+# "flash_bwd_causal_{dq,dkv}" are K5; their "_seg" names count the launches
+# with segment ids (K8), which the plain names do not.
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
-           "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal")
+           "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal",
+           "flash_bwd_causal_dq", "flash_bwd_causal_dkv", "flash_fwd_causal_seg",
+           "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -82,10 +95,16 @@ def reset_launch_count() -> None:
 
 def _check_supported(q, k, v, *, q_segment_ids, kv_segment_ids, window, layout):
     """Raise on what no route of this module takes; `q`, `k`, `v` are
-    (B, S, H, D) (after a "bhsd" layout is permuted)."""
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "segment ids are not ported yet (ROADMAP queue 2, K8)")
+    (B, S, H, D) (after a "bhsd" layout is permuted), the segment ids
+    (B, Sq) / (B, Sk) integers."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids")
+    if q_segment_ids is not None and (
+            tuple(q_segment_ids.shape) != (q.shape[0], q.shape[1])
+            or tuple(kv_segment_ids.shape) != (k.shape[0], k.shape[1])):
+        raise ValueError(f"segment ids {tuple(q_segment_ids.shape)} / "
+                         f"{tuple(kv_segment_ids.shape)} do not match q {tuple(q.shape)} / "
+                         f"k {tuple(k.shape)}")
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
@@ -108,35 +127,61 @@ def _to_bshd(layout: str, *xs):
     return xs if layout == "bshd" else tuple(x.transpose(1, 2) for x in xs)
 
 
+def _visible(i: int, sq: int, sk: int, device, causal: bool, q_position_offset: int,
+             q_segment_ids, kv_segment_ids):
+    """(Sq, Sk) bool mask of batch row i (None: every key is visible): query
+    row r sees key j iff j <= r + q_position_offset (causal) and
+    q_segment_ids[i, r] == kv_segment_ids[i, j]."""
+    mask = None
+    if causal:
+        rows = torch.arange(sq, device=device)[:, None] + q_position_offset
+        mask = torch.arange(sk, device=device)[None, :] <= rows
+    if q_segment_ids is not None:
+        seg = q_segment_ids[i][:, None] == kv_segment_ids[i][None, :]
+        mask = seg if mask is None else mask & seg
+    return mask
+
+
+def _head_chunks(h: int, sq: int, sk: int):
+    """Slices of the head axis whose (heads, Sq, Sk) fp32 scores stay under
+    about 2 GB (the plain versions at the LLM's S = 8192)."""
+    step = max(1, (1 << 29) // max(sq * sk, 1))
+    return [slice(h0, min(h, h0 + step)) for h0 in range(0, h, step)]
+
+
 def flash_attention_ref_with_lse(q, k, v, scale: float, causal: bool = False,
-                                 q_position_offset: int = 0):
+                                 q_position_offset: int = 0, q_segment_ids=None,
+                                 kv_segment_ids=None):
     """Plain PyTorch version of the kernels: (out, natural-log lse).
 
     The cast chain of ops/attention_xla.py: fp32 logits, fp32 softmax,
     probabilities cast to v's dtype before PV, fp32 accumulation, output in
     q's dtype (with v's head dim). With `causal`, query row i sees key j iff
-    j <= i + q_position_offset; a row that sees no key gets out 0 and LSE
-    -inf. Loops over the batch so that the (H, Sq, Sk) fp32 scores of one
-    sequence are the largest temporary.
+    j <= i + q_position_offset; with segment ids also iff their ids are
+    equal. A row that sees no key gets out 0 and LSE -inf. Loops over the
+    batch so that the (H, Sq, Sk) fp32 scores of one sequence are the
+    largest temporary.
     """
     sq, sk = q.shape[1], k.shape[1]
-    mask = None
-    if causal:
-        rows = torch.arange(sq, device=q.device)[:, None] + q_position_offset
-        mask = torch.arange(sk, device=q.device)[None, :] <= rows
     outs, lses = [], []
     for i in range(q.shape[0]):
-        qi, ki, vi = (x[i].transpose(0, 1) for x in (q, k, v))  # (H, S, D)
-        logits = torch.matmul(qi.float(), ki.float().transpose(1, 2)) * scale
-        if mask is not None:
-            logits = logits.masked_fill(~mask, float("-inf"))
-        lse = torch.logsumexp(logits, dim=-1)
-        probs = torch.exp(logits - lse[..., None])
-        if mask is not None:
-            probs = torch.where(torch.isinf(lse)[..., None], 0.0, probs)
-        out = torch.matmul(probs.to(v.dtype).float(), vi.float())
-        outs.append(out.to(q.dtype).transpose(0, 1))
-        lses.append(lse)
+        mask = _visible(i, sq, sk, q.device, causal, q_position_offset, q_segment_ids,
+                        kv_segment_ids)
+        out_i, lse_i = [], []
+        for hs in _head_chunks(q.shape[2], sq, sk):
+            qi, ki, vi = (x[i, :, hs].transpose(0, 1) for x in (q, k, v))  # (h, S, D)
+            logits = torch.matmul(qi.float(), ki.float().transpose(1, 2)) * scale
+            if mask is not None:
+                logits = logits.masked_fill(~mask, float("-inf"))
+            lse = torch.logsumexp(logits, dim=-1)
+            probs = torch.exp(logits - lse[..., None])
+            if mask is not None:
+                probs = torch.where(torch.isinf(lse)[..., None], 0.0, probs)
+            out = torch.matmul(probs.to(v.dtype).float(), vi.float())
+            out_i.append(out.to(q.dtype).transpose(0, 1))
+            lse_i.append(lse)
+        outs.append(torch.cat(out_i, dim=1))
+        lses.append(torch.cat(lse_i, dim=0))
     return torch.stack(outs), torch.stack(lses)
 
 
@@ -144,33 +189,50 @@ def flash_attention_ref(q, k, v, scale: float):
     return flash_attention_ref_with_lse(q, k, v, scale)[0]
 
 
-def flash_attention_bwd_ref(q, k, v, out, lse, do, scale: float, lse_ct=None):
+def flash_attention_bwd_ref(q, k, v, out, lse, do, scale: float, lse_ct=None,
+                            causal: bool = False, q_position_offset: int = 0,
+                            q_segment_ids=None, kv_segment_ids=None):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv).
 
     The explicit formulas in fp32 with the JAX kernels' cast chain
-    (flash_attention.py:1316-1333): p = exp(s - lse), delta = rowsum(dO * O)
-    minus the LSE cotangent `lse_ct` (B, H, Sq) if given, ds = p * (dp -
-    delta) rounded to k's dtype before the ds k and ds^T q products, p
-    rounded to dO's dtype before p^T dO; each gradient in its input's dtype.
-    Loops over the batch, as the forward's plain version does.
+    (flash_attention.py:1316-1333): p = exp(s - lse) on the visible (causal,
+    same-segment) keys and 0 elsewhere, dp = dO v^T and delta = rowsum(dO *
+    O) over v's head dim, minus the LSE cotangent `lse_ct` (B, H, Sq) if
+    given, ds = p * (dp - delta) rounded to k's dtype before the ds k and
+    ds^T q products, p rounded to dO's dtype before p^T dO; each gradient in
+    its input's dtype. Loops over the batch, as the forward's plain version
+    does.
     """
     f32 = torch.float32
+    sq, sk = q.shape[1], k.shape[1]
     dqs, dks, dvs = [], [], []
     for i in range(q.shape[0]):
-        qi, ki, vi, oi, doi = (x[i].transpose(0, 1).to(f32) for x in (q, k, v, out, do))
-        lse_i = lse[i][..., None]
-        s = torch.matmul(qi, ki.transpose(1, 2)) * scale
-        # a row that saw no key (lse -inf) has p = 0
-        p = torch.where(torch.isinf(lse_i), 0.0, torch.exp(s - lse_i))
-        dp = torch.matmul(doi, vi.transpose(1, 2))
-        delta = (doi * oi).sum(-1)
-        if lse_ct is not None:
-            delta = delta - lse_ct[i].to(f32)
-        ds = (p * (dp - delta[..., None])).to(k.dtype).to(f32)
-        dqs.append((scale * torch.matmul(ds, ki)).to(q.dtype).transpose(0, 1))
-        dks.append((scale * torch.matmul(ds.transpose(1, 2), qi)).to(k.dtype).transpose(0, 1))
-        dvs.append(torch.matmul(p.to(do.dtype).to(f32).transpose(1, 2), doi)
-                   .to(v.dtype).transpose(0, 1))
+        mask = _visible(i, sq, sk, q.device, causal, q_position_offset, q_segment_ids,
+                        kv_segment_ids)
+        grads = []
+        for hs in _head_chunks(q.shape[2], sq, sk):
+            qi, ki, vi, oi, doi = (x[i, :, hs].transpose(0, 1).to(f32)
+                                   for x in (q, k, v, out, do))
+            lse_i = lse[i, hs][..., None]
+            s = torch.matmul(qi, ki.transpose(1, 2)) * scale
+            # a row that saw no key (lse -inf) has p = 0
+            p = torch.where(torch.isinf(lse_i), 0.0, torch.exp(s - lse_i))
+            if mask is not None:
+                p = p.masked_fill(~mask, 0.0)
+            dp = torch.matmul(doi, vi.transpose(1, 2))
+            delta = (doi * oi).sum(-1)
+            if lse_ct is not None:
+                delta = delta - lse_ct[i, hs].to(f32)
+            ds = (p * (dp - delta[..., None])).to(k.dtype).to(f32)
+            grads.append((
+                (scale * torch.matmul(ds, ki)).to(q.dtype).transpose(0, 1),
+                (scale * torch.matmul(ds.transpose(1, 2), qi)).to(k.dtype).transpose(0, 1),
+                torch.matmul(p.to(do.dtype).to(f32).transpose(1, 2), doi)
+                .to(v.dtype).transpose(0, 1)))
+        dq_i, dk_i, dv_i = (torch.cat(g, dim=1) for g in zip(*grads))
+        dqs.append(dq_i)
+        dks.append(dk_i)
+        dvs.append(dv_i)
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
 
 
@@ -238,16 +300,30 @@ def _flash_fwd_cuda(q, k, v, scale: float, kernel: str = "flash_fwd"):
     return out, lse
 
 
-def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offset: int):
-    """Launch K5 (csrc/flash_fwd_causal.cu) on CUDA (B, S, H, D) tensors,
-    q/k at d_qk and v at d_v: causal (query row i sees key j iff j <= i +
-    q_position_offset) or not; returns (out (B, Sq, H, d_v), lse)."""
+def _seg_ptrs(q_seg, kv_seg):
+    """(int32 contiguous segment ids or None, their device pointers or None)."""
+    if q_seg is None:
+        return (None, None), (None, None)
+    segs = tuple(x.to(torch.int32).contiguous() for x in (q_seg, kv_seg))
+    return segs, tuple(x.data_ptr() for x in segs)
+
+
+def _check_causal_dims(d: int, dv: int, pairs, source: str) -> None:
+    if (d, dv) not in pairs:
+        raise NotImplementedError(
+            f"head dims (d_qk, d_v) = {(d, dv)} are not instantiated in {source} {pairs} "
+            "(ROADMAP queue 2, K5)")
+
+
+def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offset: int,
+                           q_seg=None, kv_seg=None):
+    """Launch K5 (csrc/flash_fwd_causal.cu; with segment ids its K8
+    instantiation) on CUDA (B, S, H, D) tensors, q/k at d_qk and v at d_v:
+    causal (query row i sees key j iff j <= i + q_position_offset) or not;
+    returns (out (B, Sq, H, d_v), lse)."""
     b, sq, h, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
-    if (d, dv) not in CAUSAL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dims (d_qk, d_v) = {(d, dv)} are not instantiated in "
-            f"csrc/flash_fwd_causal.cu {CAUSAL_HEAD_DIMS} (ROADMAP queue 2, K5)")
+    _check_causal_dims(d, dv, CAUSAL_HEAD_DIMS, "csrc/flash_fwd_causal.cu")
     _check_kernel_inputs({"q": q, "k": k, "v": v}, "flash_fwd_causal", head_dims=(d,),
                          source="csrc/flash_fwd_causal.cu")
     dev = q.device
@@ -255,6 +331,7 @@ def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offse
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
+    (q_seg, kv_seg), seg_ptrs = _seg_ptrs(q_seg, kv_seg)  # int32 copies kept to the launch
     lib = _build.load_library()
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -262,11 +339,12 @@ def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offse
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ivt_flash_fwd_causal(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, dv, strides,
+            out.data_ptr(), lse.data_ptr(), *seg_ptrs, b, sq, sk, h, d, dv, strides,
             float(scale), int(causal), int(q_position_offset), stream)
+    name = "flash_fwd_causal" + ("_seg" if q_seg is not None else "")
     if rc != 0:
-        raise RuntimeError(f"flash_fwd_causal kernel launch failed: cudaError_t {rc}")
-    _launches["flash_fwd_causal"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    _launches[name] += 1
     return out, lse
 
 
@@ -319,39 +397,94 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale: float, lse_ct=None, prefix: st
     return dq, dk, dv
 
 
+def _launch_bwd_causal(kind: str, q, k, v, do, lse, delta, seg_ptrs, grads, scale: float,
+                       causal: bool, q_position_offset: int) -> None:
+    """Launch one K5 backward kernel, `kind` "dq" (csrc/flash_bwd_causal_dq.cu,
+    writes grads[0]) or "dkv" (flash_bwd_causal_dkv.cu, writes grads[1:]);
+    `grads` = (dq, dk, dv), `seg_ptrs` the segment ids' pointers or Nones."""
+    b, sq, h, d = q.shape
+    dq, dk, dv = grads
+    lib = _build.load_library()
+    strides = (ctypes.c_longlong * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, f"ivt_flash_bwd_causal_{kind}")(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *seg_ptrs, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, k.shape[1], h, d, v.shape[-1], strides, float(scale),
+            int(causal), int(q_position_offset), stream)
+    name = f"flash_bwd_causal_{kind}" + ("_seg" if seg_ptrs[0] is not None else "")
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    _launches[name] += 1
+
+
+def _flash_bwd_causal_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
+                           q_position_offset: int, q_seg=None, kv_seg=None, lse_ct=None):
+    """Launch the K5 backward kernels (dq, then dk/dv; with segment ids their
+    K8 instantiations) on CUDA tensors; returns (dq, dk, dv)."""
+    d, dv_dim = q.shape[-1], v.shape[-1]
+    _check_causal_dims(d, dv_dim, CAUSAL_BWD_HEAD_DIMS, "csrc/flash_bwd_causal_*.cu")
+    if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()
+    _check_kernel_inputs({"q": q, "k": k, "v": v, "dout": do}, "flash_bwd_causal",
+                         head_dims=(d,), source="csrc/flash_bwd_causal_*.cu")
+    delta, lse = _bwd_delta(out, do, lse_ct), lse.contiguous()
+    grads = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
+    if grads[0].numel() == 0 or grads[1].numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    segs, seg_ptrs = _seg_ptrs(q_seg, kv_seg)  # `segs` keeps the int32 copies alive
+    for kind in ("dq", "dkv"):
+        _launch_bwd_causal(kind, q, k, v, do, lse, delta, seg_ptrs, grads, scale, causal,
+                           q_position_offset)
+    del segs
+    return grads
+
+
 class FlashAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse) with the kernels on CUDA, the plain versions
-    on the CPU; differentiable in both outputs. A causal or narrow-v call
-    (d_v != d_qk) runs K5 forward only: its backward raises."""
+    on the CPU; differentiable in both outputs. Causal, narrow-v (d_v !=
+    d_qk) or segmented calls run K5 (with segment ids its K8 kernels),
+    forward and backward; the rest K1 / K4a."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool = False, q_position_offset: int = 0):
-        k5 = causal or v.shape[-1] != q.shape[-1]
+    def forward(ctx, q, k, v, scale: float, causal: bool = False, q_position_offset: int = 0,
+                q_seg=None, kv_seg=None):
+        k5 = causal or v.shape[-1] != q.shape[-1] or q_seg is not None
         if q.is_cuda:
-            out, lse = (_flash_fwd_causal_cuda(q, k, v, scale, causal, q_position_offset)
+            out, lse = (_flash_fwd_causal_cuda(q, k, v, scale, causal, q_position_offset,
+                                               q_seg, kv_seg)
                         if k5 else _flash_fwd_cuda(q, k, v, scale))
         elif q.device.type == "cpu":
-            out, lse = flash_attention_ref_with_lse(q, k, v, scale, causal, q_position_offset)
+            out, lse = flash_attention_ref_with_lse(q, k, v, scale, causal, q_position_offset,
+                                                    q_seg, kv_seg)
         else:
             raise NotImplementedError(f"no flash attention for device {q.device}")
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.k5 = scale, k5
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.scale, ctx.k5, ctx.causal, ctx.q_off = scale, k5, causal, q_position_offset
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        if ctx.k5:
-            raise NotImplementedError(
-                "the backward of causal / d_v != d_qk flash attention is not ported yet "
-                "(ROADMAP queue 2, K5 leftovers: the LLM training slice); serve under "
-                "torch.no_grad()")
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
-        bwd = _flash_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
-        dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse)
-        return dq, dk, dv, None, None, None
+        if q.is_cuda:
+            if ctx.k5:
+                dq, dk, dv = _flash_bwd_causal_cuda(q, k, v, out, lse, dout, ctx.scale,
+                                                    ctx.causal, ctx.q_off, q_seg, kv_seg,
+                                                    lse_ct=dlse)
+            else:
+                dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse,
+                                                 causal=ctx.causal,
+                                                 q_position_offset=ctx.q_off,
+                                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def small_s_attention_ref(q, k, v, scale: float):
@@ -597,15 +730,17 @@ def flash_attention_with_lse(
     layout: str = "bshd",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (B, Sq, H, D_v) in q's layout, lse (B, H, Sq) natural log,
-    float32). Non-causal calls with D_v == D run K1 / K4a; causal or
-    narrow-v calls run K5 (forward only). With causal, query row i sits at
-    key index i + q_position_offset."""
+    float32), differentiable in both. Non-causal calls with D_v == D and no
+    segment ids run K1 / K4a; causal, narrow-v or segmented calls run K5
+    forward and backward (K8 with segment ids). With causal, query row i
+    sits at key index i + q_position_offset."""
     q, k, v = _to_bshd(layout, q, k, v)
     _check_supported(q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                      window=window, layout=layout)
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
     out, lse = FlashAttention.apply(q, k, v, scale, bool(causal),
-                                    int(q_position_offset) if causal else 0)
+                                    int(q_position_offset) if causal else 0,
+                                    q_segment_ids, kv_segment_ids)
     return _to_bshd(layout, out)[0], lse
 
 
@@ -625,7 +760,7 @@ def flash_attention(
     """Flash attention. Short non-causal sequences (0 < Sq, Sk <= 1024, see
     `takes_small_s`) take the small-S route (K2 / K4b), as in the JAX
     package; the rest `flash_attention_with_lse` (K1 / K4a, or K5 for
-    causal and narrow-v calls)."""
+    causal, narrow-v and segmented calls)."""
     kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               window=window, layout=layout)
     if takes_small_s(q, k, v, **kw):

@@ -114,10 +114,12 @@ def _lr_scale(name: str, config: OptimizerConfig, mults) -> float:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(sum of squares) in fp32 over a list of tensors, on their device
-    (the JAX package's `optax_global_norm`, train/step.py:136)."""
+    (the JAX package's `optax_global_norm`, train/step.py:136). Each norm
+    accumulates in fp32 without an fp32 copy of its tensor (bf16 gradients
+    of an 8B model would need 28 GB of copies)."""
     if not tensors:
         return torch.zeros(())
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -138,11 +140,17 @@ class Optimizer:
             key = (_lr_scale(name, config, mults), decays(name, p))
             groups.setdefault(key, []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        # On the card, torch's fused AdamW: one pass over each parameter's
+        # p, g, m, v, where the default multi-tensor update allocates
+        # temporaries the size of a whole group (a second copy of v: 14 GB
+        # for the 8B SFT's bf16 moments). The moments keep the parameters'
+        # dtype, as optax's scale_by_adam does.
+        fused = bool(self.params) and all(p.is_cuda for p in self.params)
         self.adamw = torch.optim.AdamW(
             [{"params": ps, "lr_scale": scale,
               "weight_decay": config.weight_decay if decay else 0.0}
              for (scale, decay), ps in groups.items()],
-            lr=0.0, betas=(config.b1, config.b2), eps=config.eps)
+            lr=0.0, betas=(config.b1, config.b2), eps=config.eps, fused=fused or None)
         self.count = 0  # updates applied so far (optax's schedule count)
 
     def zero_grad(self) -> None:

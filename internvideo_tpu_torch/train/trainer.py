@@ -103,16 +103,23 @@ class Trainer:
 
     def put_batch(self, batch: dict) -> dict:
         """Host batch -> device tensors, reshaped to (accum, micro, ...)
-        when grad_accum > 1."""
+        when grad_accum > 1; mRoPE position_ids (3, B, L) split along their
+        batch axis into (accum, 3, micro, L), as the JAX Trainer does
+        (:203-229)."""
         ga = self.config.grad_accum
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
             if ga > 1:
-                if t.shape[0] % ga:
-                    raise ValueError(f"batch leaf {k!r} of {t.shape[0]} rows does not "
+                mrope = k == "position_ids" and t.dim() == 3 and t.shape[0] == 3
+                rows = t.shape[1] if mrope else t.shape[0]
+                if rows % ga:
+                    raise ValueError(f"batch leaf {k!r} of {rows} rows does not "
                                      f"split into grad_accum={ga} micro-batches")
-                t = t.reshape((ga, t.shape[0] // ga) + tuple(t.shape[1:]))
+                if mrope:
+                    t = t.reshape(3, ga, rows // ga, *t.shape[2:]).transpose(0, 1).contiguous()
+                else:
+                    t = t.reshape((ga, rows // ga) + tuple(t.shape[1:]))
             if self.device.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)

@@ -129,18 +129,21 @@ def test_dispatch_rejects_unknown_impl_and_unported_cases():
     q, k, v = _t(*_qkv(1, 16, 16, 2, 64, seed=6))
     with pytest.raises(ValueError, match="unknown attention impl"):
         dot_product_attention(q, k, v, impl="triton")
-    seg = torch.zeros(1, 16, dtype=torch.int32)
-    unported = [dict(q_segment_ids=seg, kv_segment_ids=seg), dict(window=8),
-                dict(causal=True, window=8)]
+    seg = torch.tensor([[0] * 5 + [1] * 9 + [-1] * 2], dtype=torch.int32)
+    unported = [dict(window=8), dict(causal=True, window=8)]
     for kw in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dot_product_attention(q, k, v, impl="kernel", **kw)
     qg, kg, vg = _t(*_qkv(1, 16, 16, 4, 64, seed=7, hkv=2))
     with pytest.raises(NotImplementedError, match="K5"):
         fa.flash_attention(qg, kg, vg)
-    # causal, its query offset and the bhsd layout are ported (K5): both
-    # routes agree on them
-    for kw in (dict(causal=True), dict(causal=True, q_position_offset=2)):
+    with pytest.raises(ValueError, match="both"):
+        dot_product_attention(q, k, v, impl="kernel", q_segment_ids=seg)
+    # causal, its query offset, segment ids (K5 / K8) and the bhsd layout
+    # are ported: both routes agree on them
+    for kw in (dict(causal=True), dict(causal=True, q_position_offset=2),
+               dict(q_segment_ids=seg, kv_segment_ids=seg),
+               dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)):
         torch.testing.assert_close(dot_product_attention(q, k, v, impl="kernel", **kw),
                                    dot_product_attention(q, k, v, impl="plain", **kw),
                                    atol=2e-5, rtol=2e-5)

@@ -141,12 +141,21 @@ def test_presets_match_jax_and_unported_options_raise():
                        (dict(fp8="fwd"), "item 11"), (dict(moe=object()), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             MLATransformer(dataclasses.replace(cfg, **over), device="cpu", generator=gen)
-    remat = MLATransformer(dataclasses.replace(cfg, remat=True), device="cpu", generator=gen)
-    ids = torch.ones(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        remat(ids)
+    # remat (the 8B preset's training setting) is ported: per-layer
+    # checkpointing gives the plain forward's logits and gradients
+    remat = MLATransformer(dataclasses.replace(cfg, remat=True), device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    plain = MLATransformer(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    ids = torch.tensor([[1, 5, 9, 2, 7]])
+    seg = torch.tensor([[0, 0, 0, 1, 1]])
+    outs = [m(ids, segment_ids=seg).logits for m in (remat, plain)]
+    torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
+    for m, out in zip((remat, plain), outs):
+        out.square().sum().backward()
+    for (name, a), b in zip(remat.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, atol=0, rtol=0, msg=name)
     with torch.no_grad():
-        assert remat(ids).logits.shape == (1, 3, 97)
+        assert remat(ids).logits.shape == (1, 5, 97)
     # the weight bridge checks the depth
     jm, params, _ = _pair()
     with pytest.raises(ValueError, match="depth"):

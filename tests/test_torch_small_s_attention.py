@@ -91,10 +91,10 @@ def _rand(b, sq, sk, h, d, hkv=None, seed=0):
 def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
     """The eligible and ineligible cases of the JAX routing test: the
     port's predicate agrees with the JAX dispatcher on each, the eligible
-    shape runs SmallSAttention and the over-threshold and causal ones
-    FlashAttention (causal: K5); segmented / GQA raise on the port's kernel
-    route (not ported, ROADMAP queue 2, K8 / K5 leftovers), so they take no
-    small-S route either."""
+    shape runs SmallSAttention and the over-threshold, causal and segmented
+    ones FlashAttention (causal, segmented: K5 / K8); GQA raises on the
+    port's kernel route (not ported, ROADMAP queue 2, K5 leftovers), so it
+    takes no small-S route either."""
     seg = np.zeros((2, 205), np.int32)
     big = fa.SMALL_S_MAX + 1
     cases = [
@@ -112,7 +112,7 @@ def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
         tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
         assert fa.takes_small_s(tq, tk, tv, **tkw) == jax_route, name
         assert jax_route == (name == "eligible"), name
-        if name in ("eligible", "over-threshold", "causal"):
+        if name in ("eligible", "over-threshold", "causal", "segments"):
             out = fa.flash_attention(tq.requires_grad_(), tk, tv, **tkw)
             want = "SmallSAttentionBackward" if jax_route else "FlashAttentionBackward"
             assert type(out.grad_fn).__name__ == want, name
