@@ -132,10 +132,53 @@ non-zero and prints no result):
      takes the shape; the SFT step at the config's depth on a
      device-resident batch (ms, tokens/s, peak memory), one step split into
      tower, LLM forward + backward, CE and update; one step under
-     torch.profiler.
+     torch.profiler;
+ 22b. one bf16 AdamW step at configs/torch/sft_tiny.py's widths from the
+     same params and grads on the card (torch's fused update) and through
+     the port's CPU route (fused too): the update's rel-L2 between them and
+     to the fp32 reference (the step on fp32 copies, rounded once) <= 1e-3;
+ 24. K5 with grouped-query heads and the sliding window vs its plain version
+     on the card: fp32 at the JAX kernel tests' shapes (test_gqa 8 / 2
+     heads, test_sliding_window causal and not, window 50, the rows with no
+     key of test_window_fully_masked_rows_zero, a window with the query
+     offset 72 and a ragged S = 200; max-abs 2e-5 on out and LSE) and bf16
+     at the dense-GQA prefill's (8, 2048, 32 / 8, 128) causal, window none
+     and 128, on k / v as strided views (rel-L2 <= 1e-2);
+ 25. the dense-GQA main path: `internvideo_tpu_torch.cli.generate --preset
+     qwen3_8b_dense` (36 layers, 32 / 8 heads of 128, bf16, seeded weights)
+     on a 512-token prompt for 32 tokens, launches reset before and read
+     after: 36 `flash_fwd_causal_gqa` and nothing else (decode attends on
+     the plain route, as in JAX); `--paged` must raise the dense-GQA
+     ValueError; then the Qwen3-VL-dense compose (internvideo3_8b with the
+     qwen3_8b_dense text model): dense generate with one 16 x 224 clip and
+     its 3-D mRoPE grid, 27 K2 + 36 GQA K5 and nothing else;
+ 26. the HiCo video serving main path on internvideo25_hico_2b at bench.py's
+     shapes: 128 frames x 224 through the tower (27 K2 at (64, 196, 16, 72))
+     and HiCo-R16 to 1024 visual tokens; a 1056-token paged video prefill
+     (27 K2 + 24 K5 at (1, 1056, 20, 192 / 128)); paged decode at B = 8 (24
+     K6 a step); a ServingEngine with 8 slots serving 4 video requests
+     (`submit(..., video=)`) and 4 text requests, every request at its
+     budget, every token in the vocabulary, 27 K2 per video prefill, 24 K5
+     per prefill, 24 K6 per decode step and nothing else;
+ 27. kernel route vs plain route on both paths: bf16 at full depth, the
+     attention of the first and last text layers and tower blocks on their
+     real inputs (rel-L2 <= 1e-2), and the logits of a prefill + 4 decode
+     steps held against the same weights run in fp32 (the kernel route no
+     farther than the plain route, x 1.25; the fp32 routes within 1e-4);
+     fp32 at full widths and depth 2: greedy tokens identical across the
+     routes and, on the HiCo compose, between dense and paged video
+     generate;
+ 28. times with CUDA events: bench.py's mllm_video128_vision_ms,
+     mllm_video128_ttft_ms (paged, 1-D positions, B = 1) and
+     mllm_video128_decode_tokens_per_sec (paged, B = 8); qwen3_8b_dense
+     prefill at B = 8 x 2048 and a dense decode step at B = 8, seq 2048;
+     one prefill and one decode step of each under torch.profiler; K5 GQA
+     at (8, 2048, 32 / 8, 128), window none and 128, beside its plain
+     version, its bound and the SDPA (enable_gqa) yardstick.
 
 The last three lines are the card, the kernel table as JSON and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}; the line before them gives the whole run's
+wall time.
 """
 
 import contextlib
@@ -175,6 +218,14 @@ SFT_PACK, SFT_STEPS, SFT_ROUTE_PACK = 8192, 3, 2048
 SFT_ATTN_SHAPE = (1, 8192, 32, 256, 128)  # B, S, H, d_qk, d_v of the SFT text attention
 TOWER_SHAPE = (8, 196, 16, 72)  # B * frames, S, H, head_dim of the tower at 16 x 224
 TOWER_DEPTH = 27
+PRESET_GQA, GQA_DEPTH = "qwen3_8b_dense", 36
+GQA_SHAPE = (8, 2048, 32, 8, 128)  # B, S, Hq, Hkv, head_dim of the dense-GQA prefill
+GQA_WINDOW = 128  # gpt-oss's published sliding_window
+PRESET_HICO, HICO_FRAMES = "internvideo25_hico_2b", 128
+HICO_VISUAL, HICO_PROMPT = 1024, 1056  # 64 merged frames x HiCo-R16; + text (bench.py:526-537)
+HICO_TOWER_DEPTH, HICO_TEXT_DEPTH, HICO_DECODE_B = 27, 24, 8
+HICO_TOWER_SHAPE = (64, 196, 16, 72)  # B * T', S, H, head_dim of the tower at 128 x 224
+HICO_ATTN_SHAPE = (1, HICO_PROMPT, 20, 192, 128)  # B, S, H, d_qk, d_v of the 2B video prefill
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -1910,7 +1961,683 @@ def time_sft_step(fa, card) -> dict:
     return {"step_ms": step_ms, "tokens": tokens, "peak_gb": peak, **split}
 
 
+# -- multimodal serving and the dense-GQA model: phases 24-28 ---------------------------
+
+def _set_route(model, impl: str) -> None:
+    """Every attention module of `model` (tower blocks, MLA, GQA) on route `impl`."""
+    for m in model.modules():
+        if hasattr(m, "attn_impl"):
+            m.attn_impl = impl
+
+
+def _lse_err(lse, ref_lse) -> float:
+    """Max-abs LSE error over the rows with keys; inf if the rows without
+    keys (LSE -inf) differ."""
+    empty = torch.isinf(ref_lse)
+    if not torch.equal(empty, torch.isinf(lse)):
+        return math.inf
+    return (lse - ref_lse).masked_fill(empty, 0.0).abs().max().item()
+
+
+def _gqa_name(window) -> str:
+    return "flash_fwd_causal_window" if window else "flash_fwd_causal_gqa"
+
+
+def check_gqa_kernel(fa) -> dict:
+    """Phase 24; returns the bf16 max-abs error at GQA_SHAPE of the GQA
+    (window None) and windowed launches."""
+    g = torch.Generator("cuda").manual_seed(24)
+    cases = [((1, 128, 128, 8, 2, 64), {}),
+             ((1, 256, 256, 2, 2, 64), dict(window=50)),
+             ((1, 256, 256, 2, 2, 64), dict(causal=True, window=50)),
+             ((1, 256, 64, 2, 2, 64), dict(window=50)),
+             ((1, 128, 200, 4, 2, 64), dict(causal=True, window=50, q_position_offset=72))]
+    for (b, sq, sk, hq, hkv, d), kw in cases:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=g)
+        k, v = (torch.randn(b, sk, hkv, d, device="cuda", generator=g) for _ in range(2))
+        name = _gqa_name(kw.get("window"))
+        before = fa.launch_count(name)
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if fa.launch_count(name) != before + 1:
+            raise AssertionError(f"{kw} did not launch {name}")
+        ref, ref_lse = fa.flash_attention_ref_with_lse(
+            q, k, v, d ** -0.5, kw.get("causal", False), kw.get("q_position_offset", 0),
+            None, None, kw.get("window"))
+        e_out, e_lse = (out - ref).abs().max().item(), _lse_err(lse, ref_lse)
+        empty = int(torch.isinf(ref_lse).any(dim=(0, 1)).sum())
+        print(f"K5 GQA / window fp32 {(b, sq, sk, hq, hkv, d)} {kw}: out max-abs {e_out:.3e}, "
+              f"lse max-abs {e_lse:.3e} (bar 2e-5), {empty} rows with no key", flush=True)
+        if not (e_out <= 2e-5 and e_lse <= 2e-5):
+            raise AssertionError("fp32 K5 GQA / window disagrees with its plain version")
+    errs = {}
+    b, s, hq, hkv, d = GQA_SHAPE
+    for window in (None, GQA_WINDOW):
+        q = torch.randn(b, s, hq, d, device="cuda", generator=g).bfloat16()
+        kv = torch.randn(b, s, 2 * hkv, d, device="cuda", generator=g).bfloat16()
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]  # strided views of one tensor
+        name = _gqa_name(window)
+        before = fa.launch_count(name)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        if fa.launch_count(name) != before + 1:
+            raise AssertionError(f"window {window} did not launch {name}")
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True, 0, None, None,
+                                                       window)
+        rel, e_lse = _rel(out, ref), _lse_err(lse, ref_lse)
+        errs[name] = (out.float() - ref.float()).abs().max().item()
+        print(f"K5 GQA bf16 {GQA_SHAPE} causal window {window}, k/v strided views: out rel-L2 "
+              f"{rel:.3e} (bar 1e-2), max-abs {errs[name]:.3e}, lse max-abs {e_lse:.3e}",
+              flush=True)
+        if not (rel <= 1e-2 and e_lse <= 1e-2):
+            raise AssertionError(f"bf16 K5 GQA disagrees at {GQA_SHAPE} window {window}")
+        del q, kv, k, v, out, lse, ref, ref_lse
+    return errs
+
+
+def check_hico_kernels(fa) -> dict:
+    """Phase 24b: K2 and K5 at the shapes the HiCo video path launches them
+    at, bf16, through the wrappers: the tower's (B * T', 196, 16, 72) at 128
+    frames on qkv views, and the text prefill's (1, 1056, 20, 192 / 128)
+    causal, whose 1056 rows end in a ragged 32-row tile, on k / v strided
+    views. Returns name -> (shape, max-abs, rel-L2)."""
+    g = torch.Generator("cuda").manual_seed(241)
+    res = {}
+    b, s, h, d = HICO_TOWER_SHAPE
+    _, (q, k, v) = _qkv_views(b, s, h, d, g)
+    before = fa.launch_count("small_s_fwd")
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if fa.launch_count("small_s_fwd") != before + 1:
+        raise AssertionError(f"{HICO_TOWER_SHAPE} did not launch K2")
+    ref, _ = fa.small_s_attention_ref(q, k, v, d ** -0.5)
+    res["small_s_fwd"] = (list(HICO_TOWER_SHAPE), (out.float() - ref.float()).abs().max().item(),
+                          _rel(out, ref))
+    del q, k, v, out, ref
+    b, s, h, d, dv = HICO_ATTN_SHAPE
+    q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+    kv = torch.randn(b, s, h, d + dv, device="cuda", generator=g).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]
+    before = fa.launch_count("flash_fwd_causal")
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if fa.launch_count("flash_fwd_causal") != before + 1:
+        raise AssertionError(f"{HICO_ATTN_SHAPE} did not launch K5")
+    ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True)
+    res["flash_fwd_causal"] = (list(HICO_ATTN_SHAPE),
+                               (out.float() - ref.float()).abs().max().item(), _rel(out, ref))
+    e_lse = (lse - ref_lse).abs().max().item()
+    for name, (shape, max_abs, rel) in res.items():
+        print(f"{name} bf16 {tuple(shape)} (the HiCo path's shape): out rel-L2 {rel:.3e} "
+              f"(bar 1e-2), max-abs {max_abs:.3e}"
+              + (f", lse max-abs {e_lse:.3e}" if name == "flash_fwd_causal" else ""), flush=True)
+        if not rel <= 1e-2:
+            raise AssertionError(f"bf16 {name} disagrees with its plain version at {shape}")
+    return res
+
+
+def _compose_prompt(cfg, frames: int, n_text: int, seed: int):
+    """(ids (1, L), mRoPE positions (3, 1, L), video (1, frames, 224, 224, 3)
+    bf16) for one clip on the card: text, vision_start, the clip's merged
+    tokens (HiCo-compressed when the config says so), vision_end, text."""
+    from internvideo_tpu_torch.data.mllm_tokenize import get_rope_index_3d
+
+    v = cfg.vision
+    gt, gh = frames // v.temporal_patch_size, 224 // v.patch_size
+    per_frame = cfg.hico_tokens_per_frame or (gh // v.spatial_merge_size) ** 2
+    rng = torch.Generator().manual_seed(seed)
+    text = torch.randint(1, 150000, (n_text,), generator=rng)
+    ids = torch.cat([text[:4], torch.tensor([cfg.vision_start_token_id]),
+                     torch.full((gt * per_frame,), cfg.video_token_id),
+                     torch.tensor([cfg.vision_end_token_id]), text[4:]])
+    grid = None
+    if not cfg.hico_tokens_per_frame:  # a HiCo run has no spatial grid left
+        grid = torch.tensor([[gt, gh, gh]]).numpy()
+    pos = get_rope_index_3d(ids.numpy(), grid, image_token_id=cfg.image_token_id,
+                            video_token_id=cfg.video_token_id,
+                            vision_start_token_id=cfg.vision_start_token_id) if grid is not None \
+        else None
+    g = torch.Generator("cuda").manual_seed(seed)
+    video = torch.randn(1, frames, 224, 224, 3, device="cuda", generator=g).bfloat16()
+    pos = None if pos is None else torch.from_numpy(pos).long()[:, None].to("cuda")
+    return ids[None].to("cuda"), pos, video
+
+
+def _gqa_compose(**text_overrides):
+    """The Qwen3-VL-dense compose on the card: internvideo3_8b with the
+    qwen3_8b_dense text model (as tests/test_gqa_llm.py composes it at tiny
+    widths), seeded weights, eval mode."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.mllm import VideoMLLM
+
+    cfg = dataclasses.replace(presets.internvideo3_8b(),
+                              text=presets.qwen3_8b_dense(**text_overrides))
+    return VideoMLLM(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0)).eval()
+
+
+def _llm_gqa(**overrides):
+    """qwen3_8b_dense on the card with seeded weights (the generate CLI's
+    init for `--seed 0`), in eval mode."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.llm_gqa import GQATransformer
+
+    return GQATransformer(presets.qwen3_8b_dense(**overrides), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0)).eval()
+
+
+def run_gqa_path(fa, pd, card) -> dict:
+    """Phase 25; returns the launches of each kernel summed over the
+    generate CLI run and the compose's video generate."""
+    from internvideo_tpu_torch.cli import generate as cli
+    from internvideo_tpu_torch.models.generation import generate
+
+    zero = dict.fromkeys(_serve_counts(fa, pd), 0)
+    ids = torch.randint(1, VOCAB, (512,), generator=torch.Generator().manual_seed(25))
+    argv = ["--preset", PRESET_GQA, "--ids", ",".join(map(str, ids.tolist())), "--device", "cuda"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _serve_reset(fa, pd)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--max-new-tokens", "32"])
+    torch.cuda.synchronize()
+    launches = _serve_counts(fa, pd)
+    tokens = json.loads(buf.getvalue().strip().splitlines()[-1])["tokens"]
+    print(f"[{card}] cli.generate --preset {PRESET_GQA} (dense cache), 512-token prompt, 32 new: "
+          f"{tokens[:8]}... ({time.perf_counter() - t0:.1f} s wall incl. the 8B init); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want = {**zero, "flash_fwd_causal_gqa": GQA_DEPTH}  # decode: the plain route, as in JAX
+    if rc != 0 or len(tokens) != 32 or not all(0 <= t < VOCAB for t in tokens):
+        raise AssertionError(f"cli.generate returned {len(tokens)} tokens: {tokens}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} on the GQA generate CLI; expected {want}")
+    total = dict(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv + ["--max-new-tokens", "2", "--paged"])
+    except ValueError as e:
+        if "dense-GQA" not in str(e):
+            raise
+        print(f"cli.generate --preset {PRESET_GQA} --paged refused: {e}", flush=True)
+    else:
+        raise AssertionError("--paged with the dense-GQA preset did not raise")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = _gqa_compose()
+    ids, pos, video = _compose_prompt(model.config, 16, 36, seed=25)
+    _serve_reset(fa, pd)
+    t0 = time.perf_counter()
+    out = generate(model, ids, video=video, position_ids=pos, max_new_tokens=16,
+                   cache_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = _serve_counts(fa, pd)
+    toks = out[0].tolist()
+    print(f"[{card}] Qwen3-VL-dense compose (internvideo3_8b + {PRESET_GQA}), dense generate with "
+          f"one 16 x 224 clip, {ids.shape[1]}-token prompt, 3-D mRoPE positions, 16 new: "
+          f"{toks[:8]}... in {time.perf_counter() - t0:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want = {**zero, "small_s_fwd": TOWER_DEPTH, "flash_fwd_causal_gqa": GQA_DEPTH}
+    if len(toks) != 16 or not all(0 <= t < VOCAB for t in toks):
+        raise AssertionError(f"compose generate gave {toks}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} on the compose's video prefill; want {want}")
+    return {k: total[k] + launches[k] for k in total}
+
+
+def _hico_model(**over):
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.mllm import VideoMLLM
+
+    return VideoMLLM(presets.internvideo25_hico_2b(**over), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0)).eval()
+
+
+def run_mllm_path(fa, pd, card):
+    """Phase 26; returns (the HiCo 2B model, the launches of each kernel
+    summed over the tower, prefill, decode and engine runs)."""
+    import numpy as np
+
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+    from internvideo_tpu_torch.serve import ServingEngine
+
+    zero = dict.fromkeys(_serve_counts(fa, pd), 0)
+    model = _hico_model()
+    cfg, n_text = model.config, HICO_PROMPT - HICO_VISUAL - 2
+    ids, _, video = _compose_prompt(cfg, HICO_FRAMES, n_text, seed=26)
+    total = dict(zero)
+
+    def counted(what, fn, want):
+        _serve_reset(fa, pd)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        launches = _serve_counts(fa, pd)
+        print(f"[{card}] {PRESET_HICO} {what}: {time.perf_counter() - t0:.2f} s wall; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if launches != {**zero, **want}:
+            raise AssertionError(f"launches {launches} on {what}; expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        return out
+
+    visual, taps = counted(f"encode_video, {HICO_FRAMES} frames x 224",
+                           lambda: model.encode_video(video), {"small_s_fwd": HICO_TOWER_DEPTH})
+    if visual.shape != (1, HICO_VISUAL, cfg.text.hidden_size) or taps:
+        raise AssertionError(f"HiCo visual tokens {tuple(visual.shape)}, {len(taps)} taps")
+    pages, tables = init_paged_cache(cfg.text, 1, HICO_PROMPT + 64, 64, torch.bfloat16, "cuda")
+    out = counted(f"paged video prefill, {HICO_PROMPT} tokens",
+                  lambda: model.prefill_paged(ids, video, pages, tables, 64),
+                  {"small_s_fwd": HICO_TOWER_DEPTH, "flash_fwd_causal": HICO_TEXT_DEPTH})
+    if not torch.isfinite(out.logits).all():
+        raise AssertionError("non-finite logits from the video prefill")
+    del pages, out
+    b = HICO_DECODE_B
+    pages, tables = init_paged_cache(cfg.text, b, HICO_PROMPT + 64, 64, torch.bfloat16, "cuda")
+    tok = torch.randint(1, VOCAB, (b, 1), device="cuda")
+    lens = torch.full((b,), HICO_PROMPT, dtype=torch.int32, device="cuda")
+
+    def decode4():
+        for step in range(4):
+            out = model.decode_step_paged(tok, pages, tables, lens + step, 64)
+        return out
+
+    counted(f"4 paged decode steps at B = {b}", decode4,
+            {"paged_decode": HICO_TEXT_DEPTH * 4})
+    del pages
+
+    eng = ServingEngine(model, max_batch=8, page_size=64, num_pages=160, max_len=1152,
+                        prompt_buckets=(128, 1088))
+    calls = _wrap_calls(model)
+    rng = np.random.default_rng(26)
+    reqs = []
+    for i in range(8):
+        if i % 2 == 0:  # a video request: its own clip and text tail
+            rids, _, rvideo = _compose_prompt(cfg, HICO_FRAMES, n_text, seed=260 + i)
+            reqs.append((rids[0].cpu().numpy().astype(np.int32), rvideo[0], 32))
+        else:
+            reqs.append((rng.integers(1, VOCAB, size=int(rng.integers(60, 128))).astype(np.int32),
+                         None, int(rng.integers(24, 49))))
+    _serve_reset(fa, pd)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, m, video=v) for p, v, m in reqs]
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _serve_counts(fa, pd)
+    n_tok = sum(len(outs[r]) for r in rids)
+    print(f"[{card}] ServingEngine {PRESET_HICO}: 4 video requests ({HICO_FRAMES} frames, "
+          f"{HICO_PROMPT}-token prompts) + 4 text requests, {n_tok} tokens in {wall:.2f} s "
+          f"({n_tok / wall:.1f} tokens/s end to end incl. the towers and prefills); "
+          f"{calls['prefill']} prefill calls, {calls['decode']} decode steps; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for rid, (p, v, m) in zip(rids, reqs):
+        out = outs[rid]
+        if len(out) != m or not ((out >= 0) & (out < VOCAB)).all():
+            raise AssertionError(f"request {rid}: {len(out)} of {m} tokens, {out}")
+    want = {**zero, "small_s_fwd": HICO_TOWER_DEPTH * 4,
+            "flash_fwd_causal": HICO_TEXT_DEPTH * calls["prefill"],
+            "paged_decode": HICO_TEXT_DEPTH * calls["decode"]}
+    if launches != want or calls["prefill"] != 8:
+        raise AssertionError(f"launches {launches} for {calls} on the engine; expected {want}")
+    for name in ("prefill_paged", "decode_step_paged"):
+        delattr(model, name)
+    del eng
+    return model, {k: total[k] + launches[k] for k in total}
+
+
+def _fp32_copy(model, build):
+    """`build(dtype="float32")` on the card with `model`'s weights."""
+    ref = build()
+    with torch.no_grad():
+        for p32, p16 in zip(ref.parameters(), model.parameters()):
+            p32.copy_(p16)
+    return ref.eval()
+
+
+def _capture(modules: dict, run) -> dict:
+    """Run `run()` with forward pre-hooks on `modules` (tag -> module);
+    returns tag -> (args, kwargs) of each module's first call."""
+    capture, undo = {}, []
+    for tag, mod in modules.items():
+        def record(m, args, kwargs, tag=tag):
+            capture.setdefault(tag, (args, kwargs))
+
+        undo.append(mod.register_forward_pre_hook(record, with_kwargs=True).remove)
+    with torch.no_grad():
+        run()
+    for fn in undo:
+        fn()
+    return capture
+
+
+def _layers_kernel_vs_plain(modules: dict, capture: dict, what: str) -> None:
+    for tag, (args, kw) in sorted(capture.items()):
+        mod, outs = modules[tag], {}
+        with torch.no_grad():
+            for impl in ("kernel", "plain"):
+                mod.attn_impl = impl
+                outs[impl] = mod(*args, **kw)
+        mod.attn_impl = "kernel"
+        rel = _rel(outs["kernel"], outs["plain"])
+        print(f"{what} bf16 {tag} on its real inputs, kernel vs plain route: rel-L2 {rel:.3e} "
+              "(bar 1e-2)", flush=True)
+        if not rel <= 1e-2:
+            raise AssertionError(f"routes disagree at {what} {tag}")
+
+
+def _hold_to_fp32(res, f32, what: str) -> None:
+    """Logits: the bf16 kernel route no farther from the fp32 run than the
+    bf16 plain route (x 1.25), the fp32 routes within 1e-4 of each other."""
+    rows = [(_rel(res["kernel"][n], res["plain"][n]), _rel(res["kernel"][n], f32["plain"][n]),
+             _rel(res["plain"][n], f32["plain"][n]), _rel(f32["kernel"][n], f32["plain"][n]))
+            for n in range(len(res["kernel"]))]
+    print(f"{what}, logits rel-L2 [bf16 kernel vs bf16 plain | bf16 kernel vs fp32 | bf16 plain "
+          "vs fp32 | fp32 kernel vs fp32 plain]: "
+          + "; ".join(" / ".join(f"{x:.3e}" for x in r) for r in rows), flush=True)
+    if not all(torch.isfinite(x).all() for x in res["kernel"]):
+        raise AssertionError(f"non-finite logits on the kernel route ({what})")
+    if not all(rk <= 1.25 * rp and r32 <= 1e-4 for _, rk, rp, r32 in rows):
+        raise AssertionError(f"{what}: the kernel route is farther from the fp32 run than the "
+                             "plain route, or the fp32 routes disagree")
+
+
+def _mllm_route_logits(model, impl, ids, video, fed) -> list:
+    """Paged video prefill + 4 paged decode steps fed `fed` on route `impl`:
+    the 5 last-position logits (fp32)."""
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+
+    _set_route(model, impl)
+    b, s = ids.shape
+    dt = model.language_model.embed_tokens.weight.dtype
+    pages, tables = init_paged_cache(model.config.text, b, s + 64, 64, dt, "cuda")
+    with torch.no_grad():
+        out = model.prefill_paged(ids, video.to(dt), pages, tables, 64)
+        logits = [out.logits[:, -1].float()]
+        for step in range(4):
+            lens = torch.full((b,), s + step, dtype=torch.int32, device="cuda")
+            out = model.decode_step_paged(fed[:, step:step + 1], pages, tables, lens, 64)
+            logits.append(out.logits[:, -1].float())
+    _set_route(model, "kernel")
+    return logits
+
+
+def _gqa_route_logits(model, impl, ids, fed) -> list:
+    """Dense prefill + 4 dense decode steps fed `fed` on route `impl`: the 5
+    last-position logits (fp32)."""
+    _set_route(model, impl)
+    b, s = ids.shape
+    caches = model.init_cache(b, s + 8, model.embed_tokens.weight.dtype)
+    with torch.no_grad():
+        out = model.prefill(model.embed_tokens(ids), caches)
+        logits = [out.logits[:, -1].float()]
+        for step in range(4):
+            out = model.decode_step(fed[:, step:step + 1], caches, s + step)
+            logits.append(out.logits[:, -1].float())
+    _set_route(model, "kernel")
+    return logits
+
+
+def check_mllm_routes(model, fa, pd, card) -> None:
+    """Phase 27 on the HiCo 2B compose `model` (bf16, full depth), then the
+    8B dense-GQA model, then fp32 at full widths and depth 2. As in phase 18,
+    a deep random-init bf16 model puts any two roundings ~5e-2 apart in the
+    logits, so the routes are held layer by layer on the real activations
+    and end to end against the same weights run in fp32."""
+    from internvideo_tpu_torch.models.generation import generate
+
+    # the HiCo compose on the main path's prompt (128 frames, 1056 tokens):
+    # layers 0 and last of the tower (K2 at HICO_TOWER_SHAPE) and of the text
+    # prefill (K5 at HICO_ATTN_SHAPE) on their real inputs
+    cfg = model.config
+    fed = torch.randint(1, VOCAB, (1, 4), device="cuda")
+    ids, _, video = _compose_prompt(cfg, HICO_FRAMES, HICO_PROMPT - HICO_VISUAL - 2, seed=27)
+    last_t, last_v = cfg.text.num_layers - 1, cfg.vision.num_layers - 1
+    modules = {f"text layer {i} attention": model.language_model.layers[i].self_attn
+               for i in (0, last_t)}
+    modules.update({f"tower block {i}": model.vision_tower.blocks[i] for i in (0, last_v)})
+    capture = _capture(modules, lambda: _mllm_route_logits(model, "kernel", ids, video, fed))
+    shapes = {tag: tuple(args[0].shape) for tag, (args, _) in capture.items()}
+    print(f"{PRESET_HICO} captured inputs at {HICO_FRAMES} frames, {ids.shape[1]} tokens: {shapes}",
+          flush=True)
+    _layers_kernel_vs_plain(modules, capture, PRESET_HICO)
+    del capture
+    # end to end against fp32: a 16-frame clip (128 visual tokens), paged
+    ids, _, video = _compose_prompt(cfg, 16, 30, seed=27)
+    res = {impl: _mllm_route_logits(model, impl, ids, video, fed) for impl in ("kernel", "plain")}
+    ref = _fp32_copy(model, lambda: _hico_model(
+        vision=dataclasses.replace(cfg.vision, dtype="float32", param_dtype="float32"),
+        text=dataclasses.replace(cfg.text, dtype="float32", param_dtype="float32")))
+    f32 = {impl: _mllm_route_logits(ref, impl, ids, video, fed) for impl in ("kernel", "plain")}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_to_fp32(res, f32, f"{PRESET_HICO} {cfg.text.num_layers} text layers, one 16 x 224 "
+                  f"clip, {ids.shape[1]}-token paged video prefill + 4 paged decode steps")
+
+    # fp32 at full widths, depth 2: greedy tokens across routes, dense vs paged
+    small = _hico_model(
+        vision=dataclasses.replace(cfg.vision, num_layers=2, dtype="float32",
+                                   param_dtype="float32", deepstack_indexes=()),
+        text=dataclasses.replace(cfg.text, num_layers=2, dtype="float32",
+                                 param_dtype="float32"))
+    toks = {}
+    for impl in ("kernel", "plain"):
+        _set_route(small, impl)
+        for paged in (False, True):
+            toks[(impl, paged)] = generate(small, ids, video=video.float(), max_new_tokens=8,
+                                           paged=paged, page_size=64, decode_impl=impl)[0].tolist()
+    _set_route(small, "kernel")
+    print(f"{PRESET_HICO} widths fp32 depth 2, greedy tokens [route, paged]: {toks}", flush=True)
+    if len({tuple(t) for t in toks.values()}) != 1:
+        raise AssertionError("fp32 greedy tokens differ across routes or dense / paged")
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 8B dense-GQA model, text only, dense cache
+    gqa = _llm_gqa()
+    g = torch.Generator("cuda").manual_seed(27)
+    ids = torch.randint(1, VOCAB, (2, 512), device="cuda", generator=g)
+    fed = torch.randint(1, VOCAB, (2, 4), device="cuda", generator=g)
+    modules = {f"layer {i} attention": gqa.layers[i].self_attn for i in (0, GQA_DEPTH - 1)}
+    # the full forward calls each attention's forward (the prefill's math)
+    capture = _capture(modules, lambda: gqa(ids, with_logits=False))
+    _layers_kernel_vs_plain(modules, capture, PRESET_GQA)
+    del capture
+    res = {impl: _gqa_route_logits(gqa, impl, ids, fed) for impl in ("kernel", "plain")}
+    ref = _fp32_copy(gqa, lambda: _llm_gqa(dtype="float32", param_dtype="float32"))
+    f32 = {impl: _gqa_route_logits(ref, impl, ids, fed) for impl in ("kernel", "plain")}
+    del ref, gqa
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_to_fp32(res, f32, f"{PRESET_GQA} {GQA_DEPTH} layers B=2 512-token prompts, dense "
+                  "prefill + 4 dense decode steps")
+    small = _llm_gqa(num_layers=2, dtype="float32", param_dtype="float32")
+    toks = {}
+    for impl in ("kernel", "plain"):
+        _set_route(small, impl)
+        toks[impl] = generate(small, ids[:, :100], max_new_tokens=8)[0].tolist()
+    print(f"{PRESET_GQA} widths fp32 depth 2, greedy tokens by route: {toks}", flush=True)
+    if toks["kernel"] != toks["plain"]:
+        raise AssertionError("fp32 GQA greedy tokens differ across routes")
+
+
+def _sdpa_gqa_ms(q, k, v, window) -> tuple:
+    """PyTorch SDPA on the same (B, S, H, D) inputs with enable_gqa, causal
+    (is_causal) or with a window (an explicit boolean band mask), as a
+    yardstick only (never on the port's path): (ms, note)."""
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(is_causal=True)
+    note = "SDPA enable_gqa, is_causal"
+    if window is not None:
+        rel = (torch.arange(q.shape[2], device="cuda")[:, None]
+               - torch.arange(k.shape[2], device="cuda")[None])
+        kw = dict(attn_mask=(rel >= 0) & (rel < window))
+        note = "SDPA enable_gqa, explicit band mask"
+    try:
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw),
+                        iters=10, warmup=2), note
+    except RuntimeError as e:  # no backend takes it: no yardstick
+        return None, f"{note}: refused ({str(e).splitlines()[0][:100]})"
+
+
+def _band_pairs(s: int, window) -> int:
+    """(query, key) pairs a causal row block of S rows sees with a window."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def time_gqa_kernel(fa, card) -> dict:
+    """Phase 28, kernel: K5 with GQA at GQA_SHAPE causal, window None and
+    GQA_WINDOW, beside its plain version, its bound and the SDPA yardstick."""
+    g = torch.Generator("cuda").manual_seed(28)
+    b, s, hq, hkv, d = GQA_SHAPE
+    q = torch.randn(b, s, hq, d, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    scale, res = d ** -0.5, {}
+    for window in (None, GQA_WINDOW):
+        with torch.no_grad():
+            ms = _time_ms(lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, None, None,
+                                                            window), iters=20, warmup=3)
+            plain_ms = _time_ms(lambda: fa.flash_attention_ref_with_lse(
+                q, k, v, scale, True, 0, None, None, window), iters=1)
+            lib_ms, lib_note = _sdpa_gqa_ms(q, k, v, window)
+        pairs = b * hq * _band_pairs(s, window)
+        bound = _bound(4 * pairs * d, (2 * b * s * hq * d + 2 * b * s * hkv * d) * 2
+                       + b * hq * s * 4)
+        name = _gqa_name(window)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_note=lib_note,
+                         bound=bound, shape=[b, s, hq, hkv, d], window=window)
+        print(f"[{card}] K5 {name} {GQA_SHAPE} causal window {window} bf16: kernel {ms:.3f} ms "
+              f"({4 * pairs * d / ms / 1e9:.1f} TFLOP/s), bound {bound[0]:.3f} ms ({bound[1]}), "
+              f"plain {plain_ms:.3f} ms, yardstick "
+              + (f"{lib_ms:.3f} ms ({lib_note})" if lib_ms is not None else lib_note), flush=True)
+    return res
+
+
+def time_mllm(model, card) -> dict:
+    """Phase 28, the HiCo path as bench.py:509-620 times it (B = 1 tower and
+    paged video prefill with 1-D positions, paged decode at B = 8, seq
+    HICO_PROMPT); one prefill and one decode step under torch.profiler."""
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+
+    cfg = model.config
+    ids, _, video = _compose_prompt(cfg, HICO_FRAMES, HICO_PROMPT - HICO_VISUAL - 2, seed=28)
+    pages, tables = init_paged_cache(cfg.text, 1, HICO_PROMPT + 64, 64, torch.bfloat16, "cuda")
+    b = HICO_DECODE_B
+    dpages, dtables = init_paged_cache(cfg.text, b, HICO_PROMPT + 64, 64, torch.bfloat16, "cuda")
+    tok = torch.randint(1, VOCAB, (b, 1), device="cuda")
+    lens = torch.full((b,), HICO_PROMPT, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        vision = lambda: model.encode_video(video)  # noqa: E731
+        prefill = lambda: model.prefill_paged(ids, video, pages, tables, 64)  # noqa: E731
+        decode = lambda: model.decode_step_paged(tok, dpages, dtables, lens, 64)  # noqa: E731
+        vision_ms = _time_ms(vision, iters=5)
+        ttft_ms = _time_ms(prefill, iters=5)
+        decode_ms = _time_ms(decode, iters=20, warmup=3)
+        res = {"mllm_video128_vision_ms": vision_ms, "mllm_video128_ttft_ms": ttft_ms,
+               "mllm_video128_decode_tokens_per_sec": b * 1e3 / decode_ms,
+               "mllm_video128_decode_step_ms": decode_ms}
+        print(f"[{card}] {PRESET_HICO}, {HICO_FRAMES} frames x 224 (bench.py's video128 shapes, "
+              f"paged, 1-D positions): vision (tower + HiCo-R16) {vision_ms:.1f} ms; TTFT "
+              f"(tower + {HICO_PROMPT}-token paged prefill, B=1) {ttft_ms:.1f} ms; paged decode "
+              f"step B={b} seq {HICO_PROMPT} {decode_ms:.2f} ms = {b * 1e3 / decode_ms:.1f} "
+              "tokens/s", flush=True)
+        profile_step(prefill, card, f"{PRESET_HICO} video prefill ({HICO_FRAMES} frames, B=1)")
+        profile_step(decode, card, f"{PRESET_HICO} paged decode step B={b}")
+    return res
+
+
+def time_gqa_llm(card) -> dict:
+    """Phase 28, the dense-GQA model: prefill at PREFILL_SHAPE into the dense
+    cache and a dense decode step at B = 8, seq 2048 (the plain route, as in
+    JAX), tokens/s and the bounds; one of each under torch.profiler."""
+    model = _llm_gqa()
+    cfg = model.cfg
+    b, s = PREFILL_SHAPE
+    g = torch.Generator("cuda").manual_seed(28)
+    ids = torch.randint(1, VOCAB, (b, s), device="cuda", generator=g)
+    tok = torch.randint(1, VOCAB, (b, 1), device="cuda", generator=g)
+    caches = model.init_cache(b, s + 64, torch.bfloat16)
+    with torch.no_grad():
+        embeds = model.embed_tokens(ids)
+        prefill = lambda: model.prefill(embeds, caches)  # noqa: E731
+        decode = lambda: model.decode_step(tok, caches, s)  # noqa: E731
+        prefill_ms = _time_ms(prefill, iters=3)
+        decode_ms = _time_ms(decode, iters=10, warmup=2)
+        layer_params = sum(p.numel() for n, p in model.named_parameters()
+                           if n.startswith("layers."))
+        head = cfg.vocab_size * cfg.hidden_size
+        kv_bytes = cfg.num_layers * b * s * cfg.num_kv_heads * cfg.hd * 2 * 2
+        attn = cfg.num_layers * b * cfg.num_heads * _band_pairs(s, None) * 4 * cfg.hd
+        prefill_bound = _bound(2 * layer_params * b * s + attn + 2 * head * b,
+                               _param_bytes(model) + b * s * cfg.hidden_size * 2 + kv_bytes)
+        decode_bound = _bound(2 * (layer_params + head) * b, _param_bytes(model) + kv_bytes)
+        print(f"[{card}] {PRESET_GQA} prefill B={b} prompt {s} bf16 (dense cache, K5 GQA): "
+              f"{prefill_ms:.1f} ms = {b * s * 1e3 / prefill_ms:.0f} tokens/s (bound "
+              f"{prefill_bound[0]:.1f} ms, {prefill_bound[1]})", flush=True)
+        print(f"[{card}] {PRESET_GQA} dense decode step B={b} seq {s} bf16 (plain route): "
+              f"{decode_ms:.2f} ms = {b * 1e3 / decode_ms:.1f} tokens/s (bound "
+              f"{decode_bound[0]:.2f} ms, {decode_bound[1]})", flush=True)
+        profile_step(prefill, card, f"{PRESET_GQA} prefill B={b} S={s}")
+        profile_step(decode, card, f"{PRESET_GQA} dense decode step B={b} seq {s}")
+    return {"qwen3_8b_dense_prefill_tokens_per_sec": b * s * 1e3 / prefill_ms,
+            "qwen3_8b_dense_prefill_ms": prefill_ms, "qwen3_8b_dense_decode_ms": decode_ms,
+            "qwen3_8b_dense_decode_tokens_per_sec": b * 1e3 / decode_ms,
+            "prefill_bound_ms": prefill_bound[0], "decode_bound_ms": decode_bound[0]}
+
+
+def check_adamw_bf16(card) -> float:
+    """Phase 22b: one bf16 AdamW step at configs/torch/sft_tiny.py's widths
+    and optimizer from the same params and grads, on the card (torch's fused
+    update) and on the CPU (the port's CPU route, fused too), each against
+    the fp32 reference (the same step on fp32 copies, rounded to bf16 once).
+    Returns the card-vs-CPU gap (rel-L2 of the update)."""
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.models.mllm import VideoMLLM
+    from internvideo_tpu_torch.train.optim import Optimizer
+
+    run = load_config("configs/torch/sft_tiny.py")
+    model = VideoMLLM(run.model, device="cpu", generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(22)
+    start = {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()}
+    grads = {k: (torch.randn(v.shape, generator=g) * 0.05).to(torch.bfloat16)
+             for k, v in start.items()}
+
+    def step(device, dtype):
+        ps = {k: v.to(device, dtype).clone().requires_grad_() for k, v in start.items()}
+        for k, p in ps.items():
+            p.grad = grads[k].to(device, dtype)
+        opt = Optimizer(run.trainer.optimizer, list(ps.items()))
+        opt.step()
+        return {k: p.detach().to("cpu", torch.bfloat16) for k, p in ps.items()}, opt
+
+    def rel(got, want):
+        num = sum(((got[k].float() - want[k].float()) ** 2).sum() for k in want)
+        den = sum(((want[k].float() - start[k].float()) ** 2).sum() for k in want)
+        return (num / den).sqrt().item()
+
+    card_new, opt = step("cuda", torch.bfloat16)
+    fused = all(gr.get("fused") for gr in opt.adamw.param_groups)
+    cpu_new, _ = step("cpu", torch.bfloat16)
+    ref, _ = step("cpu", torch.float32)
+    gap, to_ref = rel(card_new, cpu_new), rel(card_new, ref)
+    n_diff = sum(int((card_new[k] != cpu_new[k]).sum()) for k in start)
+    print(f"[{card}] bf16 AdamW step, sft_tiny widths ({sum(v.numel() for v in start.values())} "
+          f"params, lr {run.trainer.optimizer.lr}): card fused ({fused}) vs CPU route, update "
+          f"rel-L2 {gap:.3e} ({n_diff} elements differ; bar 1e-3); card vs the fp32 reference "
+          f"{to_ref:.3e}, CPU route vs it {rel(cpu_new, ref):.3e}", flush=True)
+    if not (fused and gap <= 1e-3 and to_ref <= 1e-3):
+        raise AssertionError("the card's fused bf16 AdamW update disagrees with the CPU route")
+    return gap
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -2047,12 +2774,55 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 22b. one bf16 AdamW step: the card's fused update vs the CPU route
+    check_adamw_bf16(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 23. times
     st = time_sft_kernels(fa, card)
     gc.collect()
     torch.cuda.empty_cache()
     sft_step = time_sft_step(fa, card)
     print(f"[{card}] sft: " + json.dumps(sft_step), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24. K5 with GQA and the window vs its plain version
+    gqa_err = check_gqa_kernel(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions
+    hico_err = check_hico_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 25. the dense-GQA main path (generate CLI, the Qwen3-VL-dense compose)
+    gqa_launches = run_gqa_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26. the HiCo video serving main path, counting launches
+    hico, mllm_launches = run_mllm_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 27. kernel route vs plain route on both paths
+    check_mllm_routes(hico, fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 28. times
+    serve_mm = time_mllm(hico, card)
+    del hico
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mm.update(time_gqa_llm(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gk = time_gqa_kernel(fa, card)
+    print(f"[{card}] multimodal and dense-GQA serving: " + json.dumps(serve_mm), flush=True)
 
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
@@ -2064,8 +2834,9 @@ def main() -> int:
     jax_fa = "internvideo_tpu/ops/flash_attention.py:"
 
     def by_path(name, eval_n=0):
-        return {"eval": eval_n, "train": train_launches[name], "pretrain": pre_launches[name],
-                "serve": serve_launches[name], "sft": sft_launches[name]}
+        paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
+                 "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches}
+        return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def entry(name, source, line, r, err, shape):
         return {"name": name, "route": "cuda", "source": src + source,
@@ -2130,9 +2901,7 @@ def main() -> int:
         "name": "paged_decode", "route": "cuda", "source": src + "paged_decode.cu",
         "replaces": "internvideo_tpu/ops/paged_decode.py:47",
         "launches": serve_launches["paged_decode"],
-        "launches_by_path": {"eval": 0, "train": 0, "pretrain": 0,
-                             "serve": serve_launches["paged_decode"],
-                             "sft": sft_launches["paged_decode"]},
+        "launches_by_path": by_path("paged_decode"),
         "max_abs_err": k6_err, "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1], "library_ms": None,
         "shape": k6["shape"],
@@ -2165,6 +2934,28 @@ def main() -> int:
                 "max_abs_err": sft_err[entry["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": r["library_ms"]}
+    for entry in kernels:  # K2 / K5 at the HiCo video path's shapes (phase 24b)
+        if entry["name"] in hico_err:
+            shape, max_abs, rel = hico_err[entry["name"]]
+            entry["hico_2b"] = {"shape": shape, "launches_serve_mllm": mllm_launches[entry["name"]],
+                                "max_abs_err": max_abs, "rel_l2": rel}
+    gq, gw = gk["flash_fwd_causal_gqa"], gk["flash_fwd_causal_window"]
+    kernels.append({
+        "name": "flash_fwd_causal_gqa", "route": "cuda", "source": src + "flash_fwd_causal.cu",
+        "replaces": jax_fa + "153", "launches": gqa_launches["flash_fwd_causal_gqa"],
+        "launches_by_path": by_path("flash_fwd_causal_gqa"),
+        "max_abs_err": gqa_err["flash_fwd_causal_gqa"], "ms": gq["ms"],
+        "plain_ms": gq["plain_ms"], "bound_ms": gq["bound"][0], "bound_by": gq["bound"][1],
+        "library_ms": gq["library_ms"], "library_note": gq["library_note"], "shape": gq["shape"],
+        "window": {"window": GQA_WINDOW, "counter": "flash_fwd_causal_window",
+                   "launches_by_path": by_path("flash_fwd_causal_window"),
+                   "note": "no ported preset sets a window; phase 24 holds it, phase 28 times it",
+                   "max_abs_err": gqa_err["flash_fwd_causal_window"], "ms": gw["ms"],
+                   "plain_ms": gw["plain_ms"], "bound_ms": gw["bound"][0],
+                   "bound_by": gw["bound"][1], "library_ms": gw["library_ms"],
+                   "library_note": gw["library_note"]},
+    })
+    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,22 @@
 
     python -m internvideo_tpu_torch.cli.generate --preset qwen3_8b_mla \
         --ids 1,2,3 --max-new-tokens 32 --paged --device cuda
+    python -m internvideo_tpu_torch.cli.generate --preset qwen3_8b_dense \
+        --ids 1,2,3 --max-new-tokens 32 --device cuda
+    python -m internvideo_tpu_torch.cli.generate --preset qwen3_dense_tiny \
+        --ids 1,2,3 --device cpu
 
-Port of internvideo_tpu/cli/generate.py in token-id mode. Prints
+Port of internvideo_tpu/cli/generate.py in token-id mode, for the M2LA
+presets (qwen3_8b_mla, ...) and the dense-GQA ones (qwen3_8b_dense; at
+test widths qwen3_mla_tiny and qwen3_dense_tiny, for a CPU). Prints
 {"tokens": [...]}. With no checkpoint the weights are the seeded random
 init (`--seed`). `--device` is explicit: `cuda` (the default) with no GPU
-is an error, not a CPU run. `--paged` decodes over page pools (K6 on the
-card); the prefill runs causal flash attention (K5 on the card). Loading
-`--checkpoint` and the `--prompt` / `--tokenizer` text mode are not ported
-yet (ROADMAP queue 1, item 12): no LLM checkpoint is in the repository and
+is an error, not a CPU run. The prefill runs causal flash attention (K5 on
+the card; grouped-query heads for the GQA preset). `--paged` decodes over
+latent page pools (K6 on the card): M2LA only, a GQA preset raises as in
+JAX; the GQA decode attends on the plain route. Loading `--checkpoint`
+(ROADMAP queue 1, item 9) and the `--prompt` / `--tokenizer` text mode
+(item 11) are not ported yet: no LLM checkpoint is in the repository and
 the card's environment has no tokenizer package.
 """
 
@@ -26,16 +34,16 @@ def build_model(args, device: torch.device):
     """The preset's model, dispatched by config type, with seeded weights."""
     from internvideo_tpu_torch.models import presets
     from internvideo_tpu_torch.models.llm import MLATransformer
+    from internvideo_tpu_torch.models.llm_gqa import GQATransformer
 
     if not hasattr(presets, args.preset):
         raise SystemExit(f"unknown preset {args.preset!r}; see models/presets.py")
     cfg = getattr(presets, args.preset)()
+    gen = torch.Generator(device).manual_seed(args.seed)
     if hasattr(cfg, "mla"):  # a bare LLMConfig
-        return MLATransformer(cfg, device=device,
-                              generator=torch.Generator(device).manual_seed(args.seed))
-    if hasattr(cfg, "num_kv_heads"):  # dense-GQA flavor
-        raise SystemExit(f"preset {args.preset!r} is a GQA model: models/llm_gqa.py is not "
-                         "ported yet (ROADMAP queue 1, item 11)")
+        return MLATransformer(cfg, device=device, generator=gen)
+    if hasattr(cfg, "num_kv_heads"):  # dense-GQA flavour
+        return GQATransformer(cfg, device=device, generator=gen)
     raise SystemExit(f"preset {args.preset!r} is not a text-LLM config; generate serves "
                      "the LLM flavors")
 
@@ -62,11 +70,11 @@ def main(argv=None):
 
     if args.checkpoint is not None:
         raise SystemExit("--checkpoint: loading LLM weights (convert_hf_mla_llm, safetensors) "
-                         "is not ported yet (ROADMAP queue 1, item 12); omit it for the "
+                         "is not ported yet (ROADMAP queue 1, item 9); omit it for the "
                          "seeded random init")
     if args.prompt is not None or args.tokenizer is not None:
         raise SystemExit("--prompt / --tokenizer: the text mode needs a tokenizer package, "
-                         "which is not ported (ROADMAP queue 1, item 12); pass --ids")
+                         "which is not ported (ROADMAP queue 1, item 11); pass --ids")
     if not args.ids:
         raise SystemExit("pass --ids")
     device = torch.device(args.device)

@@ -11,6 +11,16 @@
 // gets out 0 and LSE -inf. With causal = 0 the same body runs non-causal
 // attention at d_v != d_qk.
 //
+// Grouped-query heads and the sliding window (the dense-GQA LLM,
+// qwen3_8b_dense; the JAX `_fwd(group=, window=)` :322-324): q head h reads
+// K/V head h / group through the K/V tensors' own strides (the K/V index maps
+// `h // group` :396-400), so K/V are never repeated in memory. With
+// window > 0 query position p = i + q_offset sees key j only if
+// p - j < window, and without causal also j - p < window (`_mask_block`
+// :40-68). A CTA walks only the key tiles of its rows' band (`_block_visible`
+// :137-150): tiles wholly outside it are never loaded, tiles that straddle
+// an edge of it are masked per element.
+//
 // With packed-sequence segment ids (K8, the `kSeg` template flag; the JAX
 // kernel's `q_seg == k_seg` in `_mask_block` :62-64 and its block skipping
 // `_segs_overlap` / `_build_remap` :75-130) query row i also needs
@@ -24,6 +34,12 @@
 // TB/s): operations. Whole-tile skipping halves the work: a (query tile,
 // key tile) pair above the diagonal is never loaded, and only tiles that
 // cross the diagonal (or the Sk tail) are masked element by element.
+//
+// With a window of w the work is linear in S: each row sees at most w keys,
+// so at (8, 2048, 32 / 8, 128) with w = 128 the 6.5e7 visible pairs (4 * d
+// FLOPs each, 33 GFLOP) take 34 us at the tensor cores' rate against 0.34 GB
+// of q/k/v/out (0.1 ms): bytes. GQA reads each K/V tile once per q head of its group (from L2 for
+// all but the first), so the DRAM bytes stay those of the Hkv heads.
 //
 // Design (right and simple first, as K1 in attn_fwd.cuh): one CTA per
 // (64-query tile, head, batch), the last query tiles (the most key tiles)
@@ -87,7 +103,7 @@ __global__ void __launch_bounds__(kThreads)
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, const int* __restrict__ q_seg,
                            const int* __restrict__ kv_seg, int Sq, int Sk, int H, Strides st,
-                           float scale_log2, int causal, int q_off) {
+                           float scale_log2, int causal, int q_off, int group, int window) {
   using T = Tile<DQK, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -100,14 +116,20 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const __nv_bfloat16* qb = q + b * st.q_b + h * st.q_h;
-  const __nv_bfloat16* kb = k + b * st.k_b + h * st.k_h;
-  const __nv_bfloat16* vb = v + b * st.v_b + h * st.v_h;
+  const __nv_bfloat16* kb = k + b * st.k_b + (h / group) * st.k_h;  // GQA: the group's K/V head
+  const __nv_bfloat16* vb = v + b * st.v_b + (h / group) * st.v_h;
   const int qr = warp * 16;  // this warp's first row in the query tile
 
-  // Keys any stored row of this tile can see: [0, key_end).
+  // Keys any stored row of this tile can see: [key_lo, key_end).
   const int row_end = min(m0 + kBlockM, Sq);
-  const int key_end = causal ? max(0, min(Sk, row_end + q_off)) : Sk;
-  const int n_tiles = (key_end + kBlockN - 1) / kBlockN;
+  const int key_lo = window > 0 ? max(0, m0 + q_off - window + 1) : 0;
+  int key_end = causal ? min(Sk, row_end + q_off) : Sk;
+  if (window > 0 && !causal) key_end = min(key_end, row_end - 1 + q_off + window);
+  const int n_tiles = (max(key_end, 0) + kBlockN - 1) / kBlockN;
+  // With a window: keys below band_lo_all are outside some row's band, and
+  // (non-causal) so are keys at or above band_hi_all.
+  const int band_lo_all = m0 + kBlockM + q_off - window;
+  const int band_hi_all = m0 + q_off + window;
 
   // Segments: the query tile's id range, this thread's two rows' ids.
   const int* kvs = kSeg ? kv_seg + (long long)b * Sk : nullptr;
@@ -131,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     return j;
   };
 
-  int j = next_tile(0);
+  int j = next_tile(key_lo / kBlockN);
   load_rows<DQK>(sQ, T::kQStride, qb, st.q_s, m0, Sq, tid);
   if (j < n_tiles) {
     load_rows<DQK>(sK, T::kQStride, kb, st.k_s, j * kBlockN, Sk, tid);
@@ -181,11 +203,12 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // Mask only a tile that crosses the diagonal or the Sk tail, or any kept
-    // tile with segments. Fragment element e sits at row g + 8 * (e >> 1)
-    // and key 8 * nt + 2 * t + (e & 1).
+    // Mask only a tile that crosses the diagonal, an edge of the window's
+    // band or the Sk tail, or any kept tile with segments. Fragment element
+    // e sits at row g + 8 * (e >> 1) and key 8 * nt + 2 * t + (e & 1).
     const bool masked =
-        kSeg || key0 + kBlockN > Sk || (causal && key0 + kBlockN - 1 > m0 + q_off);
+        kSeg || key0 + kBlockN > Sk || (causal && key0 + kBlockN - 1 > m0 + q_off) ||
+        (window > 0 && (key0 < band_lo_all || (!causal && key0 + kBlockN > band_hi_all)));
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -195,8 +218,9 @@ __global__ void __launch_bounds__(kThreads)
         if (masked) {
           const int kc = nt * 8 + 2 * t + (e & 1);
           const int key = key0 + kc;
-          const int row = m0 + qr + g + 8 * (e >> 1);
-          if (key >= Sk || (causal && key > row + q_off) || (kSeg && sKS[kc] != qs[e >> 1]))
+          const int pos = m0 + qr + g + 8 * (e >> 1) + q_off;
+          if (key >= Sk || (causal && key > pos) || (kSeg && sKS[kc] != qs[e >> 1]) ||
+              (window > 0 && (pos - key >= window || (!causal && key - pos >= window))))
             x = -INFINITY;
         }
         s[nt][e] = x;
@@ -291,7 +315,7 @@ __global__ void __launch_bounds__(kF32Rows)
                           const float* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, const int* __restrict__ q_seg,
                           const int* __restrict__ kv_seg, int Sq, int Sk, int H, Strides st,
-                          float scale_log2, int causal, int q_off) {
+                          float scale_log2, int causal, int q_off, int group, int window) {
   __shared__ float sK[kF32Keys][DQK];
   __shared__ float sV[kF32Keys][DV];
   __shared__ int sKS[kF32Keys];
@@ -299,13 +323,19 @@ __global__ void __launch_bounds__(kF32Rows)
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
   const int row = m0 + tid;
   const int h = blockIdx.y, b = blockIdx.z;
-  const float* kb = k + b * st.k_b + h * st.k_h;
-  const float* vb = v + b * st.v_b + h * st.v_h;
+  const float* kb = k + b * st.k_b + (h / group) * st.k_h;
+  const float* vb = v + b * st.v_b + (h / group) * st.v_h;
   const bool valid = row < Sq;
   const float* qp = q + b * st.q_b + (long long)(valid ? row : 0) * st.q_s + h * st.q_h;
   const int row_end = min(m0 + kF32Rows, Sq);
-  const int key_end = causal ? max(0, min(Sk, row_end + q_off)) : Sk;
-  const int my_end = causal ? min(Sk, row + q_off + 1) : Sk;  // keys this row sees
+  const int key_lo = window > 0 ? max(0, m0 + q_off - window + 1) : 0;
+  int key_end = causal ? min(Sk, row_end + q_off) : Sk;
+  if (window > 0 && !causal) key_end = min(key_end, row_end - 1 + q_off + window);
+  // keys this row sees: [my_lo, my_end)
+  const int pos = row + q_off;
+  const int my_lo = window > 0 ? pos - window + 1 : 0;
+  int my_end = causal ? min(Sk, pos + 1) : Sk;
+  if (window > 0 && !causal) my_end = min(my_end, pos + window);
   const int qs = kSeg && valid ? q_seg[(long long)b * Sq + row] : 0;
 
   float acc[DV];
@@ -313,7 +343,7 @@ __global__ void __launch_bounds__(kF32Rows)
   for (int c = 0; c < DV; ++c) acc[c] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
 
-  for (int k0 = 0; k0 < key_end; k0 += kF32Keys) {
+  for (int k0 = key_lo / kF32Keys * kF32Keys; k0 < key_end; k0 += kF32Keys) {
     __syncthreads();
     for (int i = tid; i < kF32Keys * DQK; i += kF32Rows) {
       const int r = i / DQK, c = i - r * DQK;
@@ -339,7 +369,7 @@ __global__ void __launch_bounds__(kF32Rows)
     float mx = m_run;
 #pragma unroll
     for (int j = 0; j < kF32Keys; ++j) {
-      const bool ok = k0 + j < my_end && (!kSeg || sKS[j] == qs);
+      const bool ok = k0 + j >= my_lo && k0 + j < my_end && (!kSeg || sKS[j] == qs);
       s[j] = ok ? s[j] * scale_log2 : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -373,8 +403,8 @@ __global__ void __launch_bounds__(kF32Rows)
 template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* q_seg, const int* kv_seg, int B, int Sq, int Sk, int H,
-                   const Strides& st, float scale_log2, int causal, int q_off,
-                   cudaStream_t stream) {
+                   const Strides& st, float scale_log2, int causal, int q_off, int group,
+                   int window, cudaStream_t stream) {
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     auto kern = causal_fwd_bf16_kernel<DQK, DV, kSeg>;
@@ -386,13 +416,13 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     kern<<<grid, kThreads, smem, stream>>>(static_cast<const bf*>(q), static_cast<const bf*>(k),
                                            static_cast<const bf*>(v), static_cast<bf*>(o), lse,
                                            q_seg, kv_seg, Sq, Sk, H, st, scale_log2, causal,
-                                           q_off);
+                                           q_off, group, window);
   } else {
     const dim3 grid((Sq + kF32Rows - 1) / kF32Rows, H, B);
     causal_fwd_f32_kernel<DQK, DV, kSeg><<<grid, kF32Rows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, q_seg, kv_seg, Sq, Sk, H, st,
-        scale_log2, causal, q_off);
+        scale_log2, causal, q_off, group, window);
   }
   return cudaGetLastError();
 }
@@ -403,14 +433,16 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 // (B, S, H, Dqk), v and o (B, S, H, Dv); `strides` holds 12 int64: (batch,
 // seq, head) element strides of q, k, v, o. q_seg / kv_seg: (B, Sq) / (B, Sk)
 // int32 contiguous segment ids, or both null (no segments). causal: 0 or 1;
-// q_offset: the key index of query row 0. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for an uninstantiated (Dqk, Dv) or dtype).
+// q_offset: the key index of query row 0. Hkv: K/V heads (H a multiple of
+// it: grouped-query attention). window: the sliding window, <= 0 for none.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
+// uninstantiated (Dqk, Dv) or dtype, or H not a multiple of Hkv).
 // Launches on `stream`; does not synchronise.
 extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, const void* v,
                                     void* o, float* lse, const int* q_seg, const int* kv_seg,
                                     int B, int Sq, int Sk, int H, int Dqk, int Dv,
                                     const long long* strides, float scale, int causal,
-                                    int q_offset, void* stream) {
+                                    int q_offset, int Hkv, int window, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
@@ -418,15 +450,18 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const int group = H / Hkv;
   const bool seg = q_seg != nullptr;
 #define IVT_CASE(DQK, DV)                                                                    \
   if (Dqk == DQK && Dv == DV)                                                                \
     return seg ? launch<DQK, DV, true>(dtype, q, k, v, o, lse, q_seg, kv_seg, B, Sq, Sk, H, \
-                                       st, scale_log2, causal, q_offset, s)                  \
+                                       st, scale_log2, causal, q_offset, group, window, s)   \
                : launch<DQK, DV, false>(dtype, q, k, v, o, lse, q_seg, kv_seg, B, Sq, Sk, H, \
-                                        st, scale_log2, causal, q_offset, s);
+                                        st, scale_log2, causal, q_offset, group, window, s);
   IVT_CASE(256, 128)
   IVT_CASE(192, 128)
+  IVT_CASE(128, 128)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)

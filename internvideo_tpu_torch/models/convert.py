@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's param trees -> this port's state_dicts.
 
 Input is the nested dict a JAX module's `init` gives (InternVideo2,
-PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer, VideoMLLM),
-unboxed
+PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer,
+GQATransformer, VideoMLLM with either text model), unboxed
 (`flax.linen.unbox`) and turned into numpy arrays; a top-level
 `{"params": ...}` wrapper is accepted. Translations:
 
@@ -22,7 +22,11 @@ For the MLA LLM the names are the reference's HF / xtuner layout:
 `layers.{i}.self_attn.{q_proj,kv_a_proj_with_mqa,o_proj}.{weight,bias}`,
 `layers.{i}.self_attn.kv_b_proj_kernel` (kept (R, H, nope + v), the JAX raw
 param), `layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`,
-`lm_head.weight`. The VideoMLLM tree keeps its JAX top level:
+`lm_head.weight`. The dense-GQA LLM keeps the same names with
+`layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}` and the per-head
+`layers.{i}.self_attn.{q,k}_norm.weight` (HF checkpoints through
+`convert_hf_gqa_llm` wait for checkpoint I/O, ROADMAP queue 1, item 9). The
+VideoMLLM tree keeps its JAX top level:
 `vision_tower.{patch_embed, pos_embed, blocks.{i}.{norm1, qkv, proj, norm2,
 fc1, fc2}}`, `merger.{norm, linear_fc1, linear_fc2}`,
 `deepstack_merger.{j}.*` and `language_model.*` (the LLM names above).
@@ -61,8 +65,8 @@ def _check_depth(tree: Mapping, depth: int) -> None:
 
 def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
-    InternVideo2 or teacher config with `depth`, an LLMConfig or
-    VisionTowerConfig with `num_layers`, or an MLLMConfig) the
+    InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig
+    or VisionTowerConfig with `num_layers`, or an MLLMConfig) the
     `blocks_{i}` / `layers_{i}` of each tower must be exactly range(depth)."""
     if "params" in params:
         params = params["params"]

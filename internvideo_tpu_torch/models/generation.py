@@ -1,21 +1,26 @@
-"""Autoregressive generation with the latent (M2LA) KV cache.
+"""Autoregressive generation over the model's KV cache.
 
 Port of internvideo_tpu/models/generation.py: prefill once, then a decode
 loop (the JAX `lax.scan` becomes a Python loop) with greedy, temperature,
 top-k and top-p sampling; eos is handled by a finished mask, so the output
 is always (B, max_new_tokens), eos-padded. Two cache regimes:
 
-  * dense (default): per-layer (B, max_len, R + P) latent caches;
-  * `paged=True`: per-layer page pools, decoded by K6 on the kernel route
-    (ops/paged_decode.py); token-identical to dense.
+  * dense (default): the model's own caches, per-layer (B, max_len, R + P)
+    latents for M2LA, (B, max_len, Hkv, D) K and V for dense GQA;
+  * `paged=True`: per-layer latent page pools, decoded by K6 on the kernel
+    route (ops/paged_decode.py); token-identical to dense. M2LA only.
 
-Sampling draws from an explicit `torch.Generator`; its draws differ from
-`jax.random`'s, greedy tokens do not. The mRoPE `position_ids` and `video`
-branches wait for the MLLM slice (ROADMAP queue 1, item 6).
+The model is a bare LLM (prefill(input_embeds, caches)) or a VideoMLLM
+(prefill(input_ids, video, caches)), told apart by the prefill's signature
+as in JAX. Explicit `position_ids` ((B, L), or (3, B, L) mRoPE grids) run on
+the dense path; decode positions continue from the prompt's max + 1 per
+batch row. Sampling draws from an explicit `torch.Generator`; its draws
+differ from `jax.random`'s, greedy tokens do not.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -65,11 +70,8 @@ def generate(
     decode_impl: Optional[str] = None,  # paged: auto | kernel | plain (pallas | xla)
 ) -> torch.Tensor:
     """Returns (B, max_new_tokens) generated ids (int64, eos-padded)."""
-    if video is not None or position_ids is not None:
-        raise NotImplementedError(
-            "video prompts and explicit (mRoPE) position_ids wait for the MLLM slice "
-            "(ROADMAP queue 1, item 6)")
-    cfg = model.cfg
+    # the text model's config: bare LMs carry `cfg`, a VideoMLLM `config.text`
+    cfg = model.cfg if hasattr(model, "cfg") else model.config.text
     dev = model.device
     input_ids = input_ids.to(dev)
     b, prompt_len = input_ids.shape
@@ -79,16 +81,44 @@ def generate(
     sample = lambda logits: _sample(logits[:, -1], temperature=temperature,  # noqa: E731
                                     top_k=top_k, top_p=top_p, generator=generator)
 
+    if video is not None:
+        video = video.to(dev)
     if paged:
+        if position_ids is not None:
+            raise NotImplementedError(
+                "explicit position_ids (mRoPE serving) run on the dense-cache path; the paged "
+                "decode derives positions from seq_lens")
         if not hasattr(cfg, "mla"):
-            raise ValueError("paged generate drives the latent (M2LA) page pools")
+            raise ValueError(
+                "paged generate drives the latent (M2LA) page pools; the dense-GQA flavour uses "
+                "its (B, L, Hkv, D) cache - run paged=False")
         from internvideo_tpu_torch.models.llm import init_paged_cache
 
         caches, tables = init_paged_cache(cfg, b, max_len, page_size, cache_dtype, dev)
-        out = model.prefill_paged(input_ids, caches, tables, page_size)
+        if "video" in inspect.signature(model.prefill_paged).parameters:
+            out = model.prefill_paged(input_ids, video, caches, tables, page_size)
+        elif video is not None:
+            raise ValueError("this model's paged path is text-only")
+        else:
+            out = model.prefill_paged(input_ids, caches, tables, page_size)
     else:
         caches = model.init_cache(b, max_len, cache_dtype)
-        out = model.prefill(model.embed_tokens(input_ids), caches)
+        sig = inspect.signature(model.prefill).parameters
+        pos_kw = {} if position_ids is None else {"position_ids": position_ids.to(dev)}
+        if pos_kw and "position_ids" not in sig:
+            raise ValueError("this model's prefill does not accept position_ids")
+        if "video" in sig:  # MLLM: prefill(input_ids, video, caches)
+            out = model.prefill(input_ids, video, caches, **pos_kw)
+        elif video is not None:
+            raise ValueError("this model's prefill is text-only")
+        else:  # bare LLM: prefill(input_embeds, caches)
+            out = model.prefill(model.embed_tokens(input_ids), caches, **pos_kw)
+    # decode positions: mRoPE rows advance together from the prompt's max
+    # position + 1, per batch row (the Qwen-VL convention)
+    next_pos = None
+    if position_ids is not None:
+        dims = (0, -1) if position_ids.dim() == 3 else (-1,)
+        next_pos = position_ids.to(dev).amax(dim=dims) + 1  # (B,)
 
     token = sample(out.logits)
     finished = (token == eos_token_id if eos_token_id is not None
@@ -100,7 +130,11 @@ def generate(
             out = model.decode_step_paged(token[:, None], caches, tables, seq_lens, page_size,
                                           impl=decode_impl)
         else:
-            out = model.decode_step(token[:, None], caches, prompt_len + step)
+            kw = {}
+            if next_pos is not None:
+                pos = (next_pos + step)[:, None]  # (B, 1)
+                kw["position_ids"] = pos.expand(3, b, 1) if position_ids.dim() == 3 else pos
+            out = model.decode_step(token[:, None], caches, prompt_len + step, **kw)
         nxt = sample(out.logits)
         if eos_token_id is not None:
             nxt = torch.where(finished, eos_token_id, nxt)

@@ -1,10 +1,11 @@
 """Model config presets of the ported families.
 
-Port of the LLM presets and the InternVideo3-8B MLLM preset of
-internvideo_tpu/models/presets.py (:45-102), field for field; the other
-presets wait with their families (ROADMAP queue 1, items 6 and 11). `qwen3_mla_tiny` is the port's own: the
-architecture at test widths, so that `cli.generate` runs on a CPU in
-seconds.
+Port of the M2LA LLM presets, the InternVideo3-8B and InternVideo2.5-HiCo
+MLLM presets and the dense-GQA Qwen3-8B of internvideo_tpu/models/presets.py
+(:45-131, :256-268), field for field; the other presets wait with their
+families (ROADMAP queue 1, items 6, 8 and 10). `qwen3_mla_tiny` and
+`qwen3_dense_tiny` are the port's own: each architecture at test widths, so
+that `cli.generate` runs on a CPU in seconds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 from internvideo_tpu_torch.models.llm import LLMConfig
+from internvideo_tpu_torch.models.llm_gqa import GQAConfig
 from internvideo_tpu_torch.models.mllm import MLLMConfig
 from internvideo_tpu_torch.models.vision_tower import VisionTowerConfig
 from internvideo_tpu_torch.nn.mla import MLAConfig
@@ -85,4 +87,54 @@ def internvideo3_8b(**overrides) -> MLLMConfig:
         vision_start_token_id=151652,
         vision_end_token_id=151653,
     )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def internvideo25_hico_2b(**overrides) -> MLLMConfig:
+    """Long-video serving compose (the InternVideo2.5 HiCo recipe on a
+    2B-class text model): the InternVideo3-8B vision tower + HiCo-R16
+    per-frame token compression (16 tokens per merged frame) + the
+    qwen3_2b_mla text model. The deepstack taps are off under HiCo
+    (models/mllm.py encode_video). 128 input frames -> 64 merged frames x 16
+    tokens = 1024 visual tokens."""
+    text = qwen3_2b_mla()
+    cfg = MLLMConfig(
+        vision=VisionTowerConfig(
+            hidden_size=1152, num_layers=27, num_heads=16,
+            intermediate_size=4304, patch_size=16, temporal_patch_size=2,
+            spatial_merge_size=2, pos_embed_grid=48,
+            deepstack_indexes=(8, 16, 24),
+            text_hidden_size=text.hidden_size,
+            dtype="bfloat16", param_dtype="bfloat16",
+        ),
+        text=text,
+        hico_tokens_per_frame=16,
+        image_token_id=151655,
+        video_token_id=151656,
+        vision_start_token_id=151652,
+        vision_end_token_id=151653,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_8b_dense(**overrides) -> GQAConfig:
+    """Stock dense-GQA Qwen3-8B (HF config: 36 layers, hidden 4096, 32 q /
+    8 kv heads, head_dim 128, SwiGLU 12288, qk-norm, rope 1e6)."""
+    cfg = GQAConfig(
+        vocab_size=151936, hidden_size=4096, num_layers=36,
+        num_heads=32, num_kv_heads=8, head_dim=128,
+        intermediate_size=12288, rope_theta=1_000_000.0, qk_norm=True,
+        dtype="bfloat16", param_dtype="bfloat16", remat=True,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_dense_tiny(**overrides) -> GQAConfig:
+    """The qwen3_8b_dense architecture at the JAX GQA tests' widths
+    (tests/test_gqa_llm.py:11-15): 2 layers, hidden 64, 4 q / 2 kv heads of
+    16, vocab 97, fp32, no remat. A smoke-test preset, not a published
+    model."""
+    cfg = qwen3_8b_dense(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+                         num_kv_heads=2, head_dim=None, intermediate_size=128,
+                         dtype="float32", param_dtype="float32", remat=False)
     return dataclasses.replace(cfg, **overrides)

@@ -121,7 +121,8 @@ def load_library() -> ctypes.CDLL:
         p, p,                        # q / kv segment ids (or null)
         i, i, i, i, i, i,            # B, Sq, Sk, H, D_qk, D_v
         ctypes.POINTER(ctypes.c_longlong),  # 12 element strides
-        ctypes.c_float, i, i, p,     # softmax scale, causal, q position offset, stream
+        ctypes.c_float, i, i,        # softmax scale, causal, q position offset
+        i, i, p,                     # K/V heads, window (<= 0: none), stream
     ]
     lib.ivt_flash_fwd_causal.restype = i
     lib.ivt_paged_decode.argtypes = [

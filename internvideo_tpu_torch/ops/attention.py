@@ -9,11 +9,15 @@ the same keyword signature, and of `fused_qkv_attention_or_none` (:81).
     the CUDA kernel on a CUDA tensor and runs its plain version on a CPU one;
   * "plain" (JAX spelling "xla"): ops/attention_xla.py.
 
-Segment ids reach the kernel route (K5 / K8). A case the kernels do not
-take (window, GQA, an uninstantiated head dim, ...) raises on the kernel
-route, including "auto" on a CUDA tensor; nothing falls back to the plain
-route. The sequence-parallel and head-parallel
-contexts of the JAX dispatcher are not ported yet (ROADMAP queue 1, item 9).
+Segment ids, grouped-query heads and the sliding window reach the kernel
+route (K5 / K8). A case the kernels do not take (an uninstantiated head
+dim, the backward of a grouped-query or windowed call, ...) raises on the
+kernel route, including "auto" on a CUDA tensor; nothing falls back to the
+plain route. The plain route takes a window with an explicit band mask
+(`attention_xla(window=)`), where the JAX "xla" route sends it to the
+Pallas interpreter (:310-320); both give a row with no key in its band 0.
+The sequence-parallel and head-parallel contexts of the JAX dispatcher are
+not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -104,9 +108,6 @@ def dot_product_attention(
             kv_segment_ids=kv_segment_ids, softmax_scale=softmax_scale,
             window=window, q_position_offset=q_position_offset, layout=layout,
         )
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown layout {layout!r}")
     if layout == "bhsd":
@@ -114,6 +115,6 @@ def dot_product_attention(
     out = attention_xla(
         q, k, v, causal=causal, q_segment_ids=q_segment_ids,
         kv_segment_ids=kv_segment_ids, softmax_scale=softmax_scale,
-        q_position_offset=q_position_offset,
+        q_position_offset=q_position_offset, window=window,
     )
     return out if layout == "bshd" else out.transpose(1, 2)

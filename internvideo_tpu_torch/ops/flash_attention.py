@@ -6,11 +6,13 @@ Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
 `_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784) and
 `fused_qkv_rmsnorm_attention` (:1801) with their custom VJPs, for the case
 the InternVideo2 encoder, its teachers and the InternVideo3 vision tower
-run (non-causal, d_v == d_qk) and for the one the M2LA LLM's prefill and
+run (non-causal, d_v == d_qk), for the one the M2LA LLM's prefill and
 packed SFT training run (causal, a query position offset, d_v != d_qk,
-packed-sequence segment ids): no window, one K/V head per query head,
-layout (B, S, H, D) or its permuted view (B, H, S, D). Every other argument
-raises NotImplementedError naming the ROADMAP item that brings it.
+packed-sequence segment ids) and for the dense-GQA LLM's prefill
+(grouped-query heads, Hq a multiple of Hkv, and the sliding window, causal
+or not), in layout (B, S, H, D) or its permuted view (B, H, S, D). The
+backward of a grouped-query or windowed call raises NotImplementedError
+naming the ROADMAP item that brings it.
 
 Three autograd Functions, each owning a kernel route (CUDA tensors: the
 kernel, or raise) and a plain route (CPU tensors); there is no fallback
@@ -20,7 +22,8 @@ from one to the other:
     `csrc/flash_bwd.cu`), differentiable in out and LSE; causal, narrow-v
     or segmented calls take K5 (forward `csrc/flash_fwd_causal.cu`,
     backward `csrc/flash_bwd_causal_dq.cu` / `flash_bwd_causal_dkv.cu`),
-    with segment ids K8 (the same kernels' `kSeg` instantiations);
+    with segment ids K8 (the same kernels' `kSeg` instantiations), and so
+    do grouped-query and windowed calls (forward only);
   * `SmallSAttention` (K2 forward `csrc/small_s_fwd.cu`, K4b backward
     `csrc/small_s_bwd.cu`) for 0 < Sq, Sk <= 1024, the route
     `flash_attention` takes there, as the JAX package's does (:2080-2094);
@@ -35,7 +38,8 @@ an instantiated head dim, 16-byte bf16 rows and the grid limits. At every
 shape of the ported paths both packages pick the same kernel.
 
 The LSE is the natural-log softmax normaliser, (B, H, Sq) float32; a row
-that sees no key gets out 0 and LSE -inf. Segment ids mask by equality, as
+that sees no key (a causal row before the first key, a window with no key
+in its band) gets out 0 and LSE -inf. Segment ids mask by equality, as
 the JAX kernels' `q_seg == k_seg` (:62-64) and `attention_xla` do: the pad
 id -1 that `pack_mllm_items` gives both q and kv meets itself, so pad rows
 attend to each other (causally).
@@ -59,10 +63,10 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 KERNEL_HEAD_DIMS = (64, 88)
 SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
 # (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):
-# qwen3_8b_mla, qwen3_2b_mla, and small pairs for the parity checks; and of
-# its backward (csrc/flash_bwd_causal_*.cu): the 8B's training pair and the
-# small ones
-CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (64, 64), (64, 32), (32, 32))
+# qwen3_8b_mla, qwen3_2b_mla, qwen3_8b_dense, and small pairs for the parity
+# checks; and of its backward (csrc/flash_bwd_causal_*.cu): the 8B's
+# training pair and the small ones
+CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (64, 64), (64, 32), (32, 32))
 CAUSAL_BWD_HEAD_DIMS = ((256, 128), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 _GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
@@ -72,12 +76,17 @@ _LOG2E = 1.0 / math.log(2.0)
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
 # pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" and
 # "flash_bwd_causal_{dq,dkv}" are K5; their "_seg" names count the launches
-# with segment ids (K8), which the plain names do not.
+# with segment ids (K8), which the plain names do not. A K5 forward launch
+# counts under one name: "flash_fwd_causal_window" with a window,
+# "flash_fwd_causal_gqa" with grouped-query heads and no window,
+# "flash_fwd_causal_seg" with segment ids and neither, else
+# "flash_fwd_causal".
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
            "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal",
            "flash_bwd_causal_dq", "flash_bwd_causal_dkv", "flash_fwd_causal_seg",
-           "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg")
+           "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg", "flash_fwd_causal_gqa",
+           "flash_fwd_causal_window")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -105,9 +114,8 @@ def _check_supported(q, k, v, *, q_segment_ids, kv_segment_ids, window, layout):
         raise ValueError(f"segment ids {tuple(q_segment_ids.shape)} / "
                          f"{tuple(kv_segment_ids.shape)} do not match q {tuple(q.shape)} / "
                          f"k {tuple(k.shape)}")
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int or None, got {window}")
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown layout {layout!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -117,9 +125,8 @@ def _check_supported(q, k, v, *, q_segment_ids, kv_segment_ids, window, layout):
         raise ValueError(
             f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} do not form "
             "one attention")
-    if q.shape[2] != k.shape[2]:
-        raise NotImplementedError(
-            "grouped-query attention is not ported yet (ROADMAP queue 2, K5 leftovers)")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"query heads {q.shape[2]} not divisible by kv heads {k.shape[2]}")
 
 
 def _to_bshd(layout: str, *xs):
@@ -128,14 +135,20 @@ def _to_bshd(layout: str, *xs):
 
 
 def _visible(i: int, sq: int, sk: int, device, causal: bool, q_position_offset: int,
-             q_segment_ids, kv_segment_ids):
+             q_segment_ids, kv_segment_ids, window: Optional[int] = None):
     """(Sq, Sk) bool mask of batch row i (None: every key is visible): query
-    row r sees key j iff j <= r + q_position_offset (causal) and
-    q_segment_ids[i, r] == kv_segment_ids[i, j]."""
+    row r at position p = r + q_position_offset sees key j iff j <= p
+    (causal), p - j < window and, without causal, j - p < window (a window),
+    and q_segment_ids[i, r] == kv_segment_ids[i, j]."""
     mask = None
+    if causal or window is not None:
+        rel = (torch.arange(sq, device=device)[:, None] + q_position_offset
+               - torch.arange(sk, device=device)[None, :])  # p - j
     if causal:
-        rows = torch.arange(sq, device=device)[:, None] + q_position_offset
-        mask = torch.arange(sk, device=device)[None, :] <= rows
+        mask = rel >= 0
+    if window is not None:
+        band = (rel < window) if causal else (rel.abs() < window)
+        mask = band if mask is None else mask & band
     if q_segment_ids is not None:
         seg = q_segment_ids[i][:, None] == kv_segment_ids[i][None, :]
         mask = seg if mask is None else mask & seg
@@ -151,25 +164,30 @@ def _head_chunks(h: int, sq: int, sk: int):
 
 def flash_attention_ref_with_lse(q, k, v, scale: float, causal: bool = False,
                                  q_position_offset: int = 0, q_segment_ids=None,
-                                 kv_segment_ids=None):
+                                 kv_segment_ids=None, window: Optional[int] = None):
     """Plain PyTorch version of the kernels: (out, natural-log lse).
 
     The cast chain of ops/attention_xla.py: fp32 logits, fp32 softmax,
     probabilities cast to v's dtype before PV, fp32 accumulation, output in
-    q's dtype (with v's head dim). With `causal`, query row i sees key j iff
-    j <= i + q_position_offset; with segment ids also iff their ids are
-    equal. A row that sees no key gets out 0 and LSE -inf. Loops over the
-    batch so that the (H, Sq, Sk) fp32 scores of one sequence are the
-    largest temporary.
+    q's dtype (with v's head dim). Query row i sits at position p = i +
+    q_position_offset; with `causal` it sees key j iff j <= p, with a
+    `window` iff p - j < window (and j - p < window without causal), with
+    segment ids iff their ids are equal. Query head h reads K/V head
+    h // (Hq / Hkv) (grouped-query attention). A row that sees no key gets
+    out 0 and LSE -inf. Loops over the batch so that the (H, Sq, Sk) fp32
+    scores of one sequence are the largest temporary.
     """
     sq, sk = q.shape[1], k.shape[1]
+    group = q.shape[2] // k.shape[2]
     outs, lses = [], []
     for i in range(q.shape[0]):
         mask = _visible(i, sq, sk, q.device, causal, q_position_offset, q_segment_ids,
-                        kv_segment_ids)
+                        kv_segment_ids, window)
         out_i, lse_i = [], []
         for hs in _head_chunks(q.shape[2], sq, sk):
-            qi, ki, vi = (x[i, :, hs].transpose(0, 1) for x in (q, k, v))  # (h, S, D)
+            kv_heads = torch.arange(hs.start, hs.stop, device=q.device) // group
+            qi = q[i, :, hs].transpose(0, 1)  # (h, S, D)
+            ki, vi = (x[i].index_select(1, kv_heads).transpose(0, 1) for x in (k, v))
             logits = torch.matmul(qi.float(), ki.float().transpose(1, 2)) * scale
             if mask is not None:
                 logits = logits.masked_fill(~mask, float("-inf"))
@@ -316,11 +334,12 @@ def _check_causal_dims(d: int, dv: int, pairs, source: str) -> None:
 
 
 def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offset: int,
-                           q_seg=None, kv_seg=None):
+                           q_seg=None, kv_seg=None, window: Optional[int] = None):
     """Launch K5 (csrc/flash_fwd_causal.cu; with segment ids its K8
-    instantiation) on CUDA (B, S, H, D) tensors, q/k at d_qk and v at d_v:
-    causal (query row i sees key j iff j <= i + q_position_offset) or not;
-    returns (out (B, Sq, H, d_v), lse)."""
+    instantiation) on CUDA (B, S, H, D) tensors, q/k at d_qk and v at d_v,
+    k/v with Hkv heads (Hq a multiple of Hkv): causal (query row i sees key
+    j iff j <= i + q_position_offset) or not, with a sliding `window` or
+    not; returns (out (B, Sq, Hq, d_v), lse)."""
     b, sq, h, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
     _check_causal_dims(d, dv, CAUSAL_HEAD_DIMS, "csrc/flash_fwd_causal.cu")
@@ -340,8 +359,11 @@ def _flash_fwd_causal_cuda(q, k, v, scale: float, causal: bool, q_position_offse
         rc = lib.ivt_flash_fwd_causal(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), *seg_ptrs, b, sq, sk, h, d, dv, strides,
-            float(scale), int(causal), int(q_position_offset), stream)
-    name = "flash_fwd_causal" + ("_seg" if q_seg is not None else "")
+            float(scale), int(causal), int(q_position_offset), k.shape[2],
+            int(window) if window is not None else 0, stream)
+    name = ("flash_fwd_causal_window" if window is not None
+            else "flash_fwd_causal_gqa" if k.shape[2] != h
+            else "flash_fwd_causal_seg" if q_seg is not None else "flash_fwd_causal")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     _launches[name] += 1
@@ -447,28 +469,36 @@ class FlashAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse) with the kernels on CUDA, the plain versions
     on the CPU; differentiable in both outputs. Causal, narrow-v (d_v !=
     d_qk) or segmented calls run K5 (with segment ids its K8 kernels),
-    forward and backward; the rest K1 / K4a."""
+    forward and backward; grouped-query (Hkv < Hq) and windowed calls run
+    K5's forward, and their backward raises; the rest K1 / K4a."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool = False, q_position_offset: int = 0,
-                q_seg=None, kv_seg=None):
-        k5 = causal or v.shape[-1] != q.shape[-1] or q_seg is not None
+                q_seg=None, kv_seg=None, window: Optional[int] = None):
+        gqa = k.shape[2] != q.shape[2]
+        k5 = (causal or v.shape[-1] != q.shape[-1] or q_seg is not None or gqa
+              or window is not None)
         if q.is_cuda:
             out, lse = (_flash_fwd_causal_cuda(q, k, v, scale, causal, q_position_offset,
-                                               q_seg, kv_seg)
+                                               q_seg, kv_seg, window)
                         if k5 else _flash_fwd_cuda(q, k, v, scale))
         elif q.device.type == "cpu":
             out, lse = flash_attention_ref_with_lse(q, k, v, scale, causal, q_position_offset,
-                                                    q_seg, kv_seg)
+                                                    q_seg, kv_seg, window)
         else:
             raise NotImplementedError(f"no flash attention for device {q.device}")
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
         ctx.scale, ctx.k5, ctx.causal, ctx.q_off = scale, k5, causal, q_position_offset
+        ctx.fwd_only = gqa or window is not None
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
+        if ctx.fwd_only:
+            raise NotImplementedError(
+                "the flash backward of grouped-query or sliding-window attention is not ported "
+                "yet (ROADMAP queue 1, item 7; queue 2, K5 leftovers)")
         q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
@@ -484,7 +514,7 @@ class FlashAttention(torch.autograd.Function):
                                                  causal=ctx.causal,
                                                  q_position_offset=ctx.q_off,
                                                  q_segment_ids=q_seg, kv_segment_ids=kv_seg)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def small_s_attention_ref(q, k, v, scale: float):
@@ -732,15 +762,18 @@ def flash_attention_with_lse(
     """(out (B, Sq, H, D_v) in q's layout, lse (B, H, Sq) natural log,
     float32), differentiable in both. Non-causal calls with D_v == D and no
     segment ids run K1 / K4a; causal, narrow-v or segmented calls run K5
-    forward and backward (K8 with segment ids). With causal, query row i
-    sits at key index i + q_position_offset."""
+    forward and backward (K8 with segment ids); grouped-query (k / v with
+    fewer heads than q) and windowed calls run K5 forward only. With causal
+    or a window, query row i sits at key index i + q_position_offset."""
     q, k, v = _to_bshd(layout, q, k, v)
     _check_supported(q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                      window=window, layout=layout)
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+    positioned = causal or window is not None
     out, lse = FlashAttention.apply(q, k, v, scale, bool(causal),
-                                    int(q_position_offset) if causal else 0,
-                                    q_segment_ids, kv_segment_ids)
+                                    int(q_position_offset) if positioned else 0,
+                                    q_segment_ids, kv_segment_ids,
+                                    None if window is None else int(window))
     return _to_bshd(layout, out)[0], lse
 
 
@@ -760,7 +793,7 @@ def flash_attention(
     """Flash attention. Short non-causal sequences (0 < Sq, Sk <= 1024, see
     `takes_small_s`) take the small-S route (K2 / K4b), as in the JAX
     package; the rest `flash_attention_with_lse` (K1 / K4a, or K5 for
-    causal, narrow-v and segmented calls)."""
+    causal, narrow-v, segmented, grouped-query and windowed calls)."""
     kw = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               window=window, layout=layout)
     if takes_small_s(q, k, v, **kw):

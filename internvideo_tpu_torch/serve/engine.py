@@ -19,16 +19,20 @@ so the card always decodes a full batch.
     its eos / budget inside a chunk are discarded.
   * One host sync per `step()`: the chunk's tokens and the admitted
     requests' first tokens come back in one `.cpu()`.
+  * A multimodal model (one whose `prefill_paged` takes `video`, i.e.
+    models/mllm.VideoMLLM) serves video prompts: `submit(..., video=)`
+    keeps the pixels and admission runs the video prefill on the
+    bucket-padded ids. A text-only model refuses `video=`.
 
 The page pools are written in place (the JAX engine donates them). Greedy
 by default; `temperature > 0` samples from a `torch.Generator` seeded with
-`seed`. Mesh serving and video prompts are not ported (ROADMAP queue 1,
-items 9 and 6).
+`seed`. Mesh serving is not ported (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -42,6 +46,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # (L,) int32
     max_new_tokens: int
+    video: Optional[torch.Tensor] = None  # (T, H, W, 3) pixels of a video prompt
     tokens: list = dataclasses.field(default_factory=list)  # generated
     finished: bool = False
 
@@ -55,10 +60,11 @@ class _Slot:
 
 
 class ServingEngine:
-    """Fixed-batch continuous scheduler for an MLATransformer.
+    """Fixed-batch continuous scheduler for an MLATransformer or a VideoMLLM
+    with an M2LA text model.
 
     Args:
-      model: the LLM (prefill_paged / decode_step_paged / _head), on its
+      model: the model (prefill_paged / decode_step_paged / _head), on its
         device; its parameters are the served weights.
       max_batch: decode batch width (slots).
       num_pages: page-pool size shared by all slots (+1 trash page is
@@ -80,8 +86,13 @@ class ServingEngine:
         if mesh is not None or rules is not None:
             raise NotImplementedError(
                 "mesh serving (head-parallel decode, sharded GEMMs) is not ported yet "
-                "(ROADMAP queue 1, item 9)")
-        cfg = model.cfg
+                "(ROADMAP queue 1, item 8)")
+        # the text model's config: bare LMs carry `cfg`, a VideoMLLM nests it
+        # under `config.text` (the page pool is the text model's latent cache)
+        cfg = model.cfg if hasattr(model, "cfg") else model.config.text
+        if not hasattr(cfg, "mla"):
+            raise ValueError("the engine drives latent (M2LA) page pools; a dense-GQA model "
+                             "serves through generate(paged=False)")
         self.model = model
         self.device = model.device
         self.max_batch, self.page_size = max_batch, page_size
@@ -116,6 +127,8 @@ class ServingEngine:
         self._next_rid = 0
         self.temperature = float(temperature)
         self._gen = torch.Generator(self.device).manual_seed(seed)
+        # multimodal iff the paged prompt pass takes pixels
+        self._multimodal = "video" in inspect.signature(model.prefill_paged).parameters
 
     def _sample(self, logits):
         logits = logits.float()
@@ -130,10 +143,9 @@ class ServingEngine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if video is not None:
-            raise NotImplementedError(
-                "video prompts need the multimodal model (models/mllm.py), which is not "
-                "ported yet (ROADMAP queue 1, item 6)")
+        if video is not None and not self._multimodal:
+            raise ValueError("video prompts need a multimodal model (prefill_paged with a "
+                             "`video` operand, e.g. models/mllm.VideoMLLM)")
         if len(prompt) > self.buckets[-1]:
             raise ValueError(f"prompt ({len(prompt)}) exceeds the largest bucket "
                              f"({self.buckets[-1]})")
@@ -145,7 +157,8 @@ class ServingEngine:
                              f"{self.num_pages}; raise num_pages")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, prompt, max_new_tokens)
+        req = Request(rid, prompt, max_new_tokens,
+                      video=None if video is None else torch.as_tensor(video))
         self.requests[rid] = req
         self.pending.append(req)
         return rid
@@ -258,16 +271,21 @@ class ServingEngine:
         self.tables[slot, :len(table)] = table
 
     def _admit(self, slot: int, req: Request):
-        """Prefill `req` into `slot` (padded to its bucket); returns the
-        first generated token as a (1,) tensor on the card."""
+        """Prefill `req` (with its video on a multimodal model) into `slot`,
+        padded to its bucket; returns the first generated token as a (1,)
+        tensor on the card."""
         bucket = self._bucket(len(req.prompt))
         real = len(req.prompt)
         self._sync_table(slot, bucket)  # pad entries must land in-table
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :real] = req.prompt
         table = torch.from_numpy(self.tables[slot:slot + 1]).to(self.device)
-        out = self.model.prefill_paged(torch.from_numpy(ids).to(self.device), self.pages,
-                                       table, self.page_size)
+        ids = torch.from_numpy(ids).to(self.device)
+        if self._multimodal:
+            video = None if req.video is None else req.video.to(self.device)[None]
+            out = self.model.prefill_paged(ids, video, self.pages, table, self.page_size)
+        else:
+            out = self.model.prefill_paged(ids, self.pages, table, self.page_size)
         # logits at the true last prompt token, not the padded tail
         first = self._sample(self.model._head(out.hidden[:, real - 1:real])[:, -1])
         s = self.slots[slot]

@@ -140,17 +140,20 @@ class Optimizer:
             key = (_lr_scale(name, config, mults), decays(name, p))
             groups.setdefault(key, []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
-        # On the card, torch's fused AdamW: one pass over each parameter's
-        # p, g, m, v, where the default multi-tensor update allocates
-        # temporaries the size of a whole group (a second copy of v: 14 GB
-        # for the 8B SFT's bf16 moments). The moments keep the parameters'
-        # dtype, as optax's scale_by_adam does.
-        fused = bool(self.params) and all(p.is_cuda for p in self.params)
+        # torch's fused AdamW on the card and on the CPU: one pass over each
+        # parameter's p, g, m, v (the default multi-tensor update allocates
+        # temporaries the size of a whole group: a second copy of v, 14 GB
+        # for the 8B SFT's bf16 moments). It does the update's arithmetic in
+        # fp32 and stores p, m and v in the parameters' dtype, so a bf16
+        # step rounds once per tensor; optax's chain (and torch's unfused
+        # update) round after every op. Both routes hold to the fused
+        # behaviour (tests/test_torch_adamw_bf16.py).
         self.adamw = torch.optim.AdamW(
             [{"params": ps, "lr_scale": scale,
               "weight_decay": config.weight_decay if decay else 0.0}
              for (scale, decay), ps in groups.items()],
-            lr=0.0, betas=(config.b1, config.b2), eps=config.eps, fused=fused or None)
+            lr=0.0, betas=(config.b1, config.b2), eps=config.eps,
+            fused=bool(self.params) or None)
         self.count = 0  # updates applied so far (optax's schedule count)
 
     def zero_grad(self) -> None:

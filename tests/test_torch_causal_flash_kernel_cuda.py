@@ -93,8 +93,13 @@ def test_mla_views_rows_without_keys_and_refusals():
     with pytest.raises(NotImplementedError, match="K5"):
         fa.flash_attention_with_lse(*(torch.randn(1, 8, 2, 88, device="cuda")
                                       for _ in range(3)), causal=True)
-    with pytest.raises(NotImplementedError, match="grouped-query"):
-        fa.flash_attention(q32, k32[:, :, :1], v32[:, :, :1], causal=True)
+    # grouped-query heads take K5's GQA path: one K/V head for both q heads
+    before = fa.launch_count("flash_fwd_causal_gqa")
+    gqa = fa.flash_attention(q32, k32[:, :, :1], v32[:, :, :1], causal=True)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_fwd_causal_gqa") == before + 1
+    ref, _ = fa.flash_attention_ref_with_lse(q32, k32[:, :, :1], v32[:, :, :1], 64 ** -0.5, True)
+    torch.testing.assert_close(gqa, ref, atol=2e-5, rtol=0)
     # the backward is instantiated for the training pairs only: the 2B
     # serving preset's (192, 128) raises, naming K5
     leaf = q.transpose(1, 2).float().requires_grad_()

@@ -124,8 +124,12 @@ def test_topk_topp_sampling():
         # kept: the smallest prefix whose mass reaches 0.5 (the first always)
         prev = torch.where(rank > 0, cum.gather(-1, (rank - 1).clamp(min=0)[:, None])[:, 0], 0.0)
         assert (prev < 0.5).all()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        generate(tm, ids, max_new_tokens=2, position_ids=torch.zeros(3, 2, 4))
+    # explicit positions: the default arange on the dense path gives the
+    # default tokens; the paged path refuses them, as in JAX
+    pos = torch.arange(ids.shape[1])[None].expand(ids.shape[0], -1)
+    torch.testing.assert_close(generate(tm, ids, max_new_tokens=5, position_ids=pos), greedy)
+    with pytest.raises(NotImplementedError, match="position_ids"):
+        generate(tm, ids, max_new_tokens=2, position_ids=pos, paged=True)
 
 
 def test_presets_match_jax_and_unported_options_raise():

@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from internvideo_tpu.models.mllm import scatter_visual as jax_scatter_visual
+from internvideo_tpu_torch.models.generation import generate
+from internvideo_tpu_torch.models.llm_gqa import GQAConfig
 from internvideo_tpu_torch.models.mllm import VideoMLLM, scatter_visual
+from internvideo_tpu_torch.serve import ServingEngine
 from torch_mllm_pair import configs, mllm_pair, packed_batches, torch_batch
 
 
@@ -61,14 +64,25 @@ def test_forward_with_video_mrope_and_segments_matches_jax(pair):
 
 
 def test_serving_surfaces_raise():
+    """The serving surfaces are ported (test_torch_mllm_serving.py); what
+    still raises is what JAX refuses too: the paged path with a dense-GQA
+    text model, explicit positions on the paged path, and the engine on a
+    dense-GQA model."""
     _, tcfg = configs()
-    model = VideoMLLM(tcfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    for call in (lambda: model.prefill(None, None, None), lambda: model.decode_step(None),
-                 lambda: model.prefill_paged(None), lambda: model.decode_step_paged(None),
-                 lambda: model.init_cache(1, 8)):
-        with pytest.raises(NotImplementedError, match="multimodal serving"):
-            call()
-    hico = VideoMLLM(dataclasses.replace(tcfg, hico_tokens_per_frame=2), device="cpu",
-                     generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="multimodal serving"):
-        hico.encode_video(torch.zeros(1, 4, 32, 32, 3))
+    gqa = GQAConfig(vocab_size=256, hidden_size=48, num_layers=1, num_heads=4, num_kv_heads=2,
+                    intermediate_size=96, mrope_section=(2, 2, 2))
+    model = VideoMLLM(dataclasses.replace(tcfg, text=gqa), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([[5, 251, 251, 251, 251, 7]])
+    video = torch.zeros(1, 2, 32, 32, 3)
+    with pytest.raises(ValueError, match="dense-GQA"):
+        model.prefill_paged(ids, video, [], torch.zeros((1, 2), dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="dense-GQA"):
+        generate(model, ids, video=video, max_new_tokens=2, paged=True)
+    with pytest.raises(ValueError, match="dense-GQA"):
+        ServingEngine(model)
+    mla = VideoMLLM(tcfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="position_ids"):
+        generate(mla, ids, video=video, max_new_tokens=2, paged=True,
+                 position_ids=torch.zeros((3, 1, 6), dtype=torch.long))
+    assert generate(model, ids, video=video, max_new_tokens=2).shape == (1, 2)

@@ -206,7 +206,8 @@ def test_small_s_at_72_fp32():
 @pytest.mark.cuda
 def test_refusals():
     """What the kernels do not take raises: the backward at a pair it does
-    not instantiate, window and GQA with segments."""
+    not instantiate, and the backward of a windowed or GQA call with
+    segments (their forward is K5's window / GQA path)."""
     _card()
     seg = segments("halves", 1, 64)
     q = torch.randn(1, 64, 2, 192, device="cuda", requires_grad=True)
@@ -215,8 +216,11 @@ def test_refusals():
     out = fa.flash_attention(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
     with pytest.raises(NotImplementedError, match="K5"):
         out.sum().backward()
-    with pytest.raises(NotImplementedError, match="window"):
-        fa.flash_attention(q, k, v, causal=True, window=8, q_segment_ids=seg,
-                           kv_segment_ids=seg)
-    with pytest.raises(NotImplementedError, match="grouped-query"):
-        fa.flash_attention(q, k[:, :, :1], v[:, :, :1], q_segment_ids=seg, kv_segment_ids=seg)
+    for kk, vv, kw in ((k, v, dict(causal=True, window=8)), (k[:, :, :1], v[:, :, :1], {})):
+        out = fa.flash_attention(q, kk, vv, q_segment_ids=seg, kv_segment_ids=seg, **kw)
+        ref, _ = fa.flash_attention_ref_with_lse(q.detach(), kk, vv, 192 ** -0.5,
+                                                 kw.get("causal", False), 0, seg, seg,
+                                                 kw.get("window"))
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            out.sum().backward()

@@ -92,9 +92,9 @@ def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
     """The eligible and ineligible cases of the JAX routing test: the
     port's predicate agrees with the JAX dispatcher on each, the eligible
     shape runs SmallSAttention and the over-threshold, causal and segmented
-    ones FlashAttention (causal, segmented: K5 / K8); GQA raises on the
-    port's kernel route (not ported, ROADMAP queue 2, K5 leftovers), so it
-    takes no small-S route either."""
+    ones FlashAttention (causal, segmented: K5 / K8); GQA takes no small-S
+    route either: its forward is K5's and its backward raises (not ported,
+    ROADMAP queue 1, item 7)."""
     seg = np.zeros((2, 205), np.int32)
     big = fa.SMALL_S_MAX + 1
     cases = [
@@ -117,8 +117,10 @@ def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
             want = "SmallSAttentionBackward" if jax_route else "FlashAttentionBackward"
             assert type(out.grad_fn).__name__ == want, name
         else:
+            out = fa.flash_attention(tq.requires_grad_(), tk, tv, **tkw)
+            assert type(out.grad_fn).__name__ == "FlashAttentionBackward", name
             with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fa.flash_attention(tq, tk, tv, **tkw)
+                out.sum().backward()
 
 
 def test_flash_attention_with_lse_stays_on_k1():
