@@ -174,7 +174,46 @@ non-zero and prints no result):
      prefill at B = 8 x 2048 and a dense decode step at B = 8, seq 2048;
      one prefill and one decode step of each under torch.profiler; K5 GQA
      at (8, 2048, 32 / 8, 128), window none and 128, beside its plain
-     version, its bound and the SDPA (enable_gqa) yardstick.
+     version, its bound and the SDPA (enable_gqa) yardstick;
+ 29. K5's grouped-query / sliding-window backward (dq, dk/dv) vs its plain
+     version: fp32 at the JAX kernel tests' shapes (test_sliding_window_
+     unaligned_grads, test_gqa's 8 / 2 heads causal and not, a causal window
+     with the query offset 72 and a ragged S = 200, GQA with segments and
+     pads of -1, test_window_fully_masked_rows_zero's rows without keys,
+     which must get dq = 0), each with and without an LSE cotangent (max-abs
+     5e-4); bf16 at the RL update's (4, 1152, 32 / 8, 128) causal, window
+     none and 128, k / v strided views of one projection (rel-L2 <= 1e-2);
+     dk / dv bit-identical across two calls;
+ 30. the RL main path: `RLTrainer.fit` on qwen3_8b_dense at full width
+     (hidden 4096, 32 / 8 heads of 128, SwiGLU 12288, vocab 151936, qk-norm,
+     remat, bf16, seeded weights) and depth RL_DEPTH, the compiled rollout
+     backend, 2 prompts x 8 = 16 rows of 1024 + 128 tokens at temperature
+     1.0, a rule-based reward (the share of response tokens in a fixed id
+     set), kl_beta 0.01 (the frozen reference runs), grad_accum 4, 2
+     iterations; launches reset before and read after: per iteration 14 x
+     depth `flash_fwd_causal_gqa` (prefill, logp_old, and per microbatch
+     policy + reference + remat recompute), 4 x depth each of
+     `flash_bwd_causal_{dq,dkv}_gqa`, nothing else (decode attends on the
+     plain route, as in JAX); losses, kl and rewards finite; the first
+     update's ratio_mean within 1e-2 of 1; the peak memory. Then the engine
+     backend: one iteration on qwen3_8b_mla (full width, depth 4) with a
+     ServingEngine (8 slots, temperature 1.0) serving 16 requests of 256 +
+     32 tokens: per prefill call 4 K5, per decode step 4 K6, 4 K5 for
+     logp_old, 3 x 4 K5 + 4 dq + 4 dk/dv per microbatch, nothing GQA;
+ 31. kernel route vs plain route on one policy update from phase 30's
+     first rollout batch (4 rows x 1152, the advantages set to +-1, +-0.5:
+     the seeded rewards are nearly all 0): fp32 at full width, depth 2, with
+     the KL reference (loss and every parameter's grad max-abs <= 5e-4);
+     bf16 at depth RL_DEPTH without the reference (the policy's token
+     log-probs and the grads of the first and last layers' attention
+     projections no farther, rel-L2, from the same weights run in fp32 than
+     the plain route's, x 1.25; the losses printed);
+ 32. times with CUDA events: dq and dk/dv at (4, 1152, 32 / 8, 128), window
+     none and 128, beside the plain backward, the bound (visible pairs x d x
+     6 / 8 FLOPs or the bytes) and the SDPA enable_gqa backward yardstick;
+     one RL iteration at depth RL_DEPTH after a warm-up, split into rollout
+     prefill, decode, logp_old, the updates and the optimizer step, and
+     update tokens/s; one microbatch update under torch.profiler.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -226,6 +265,12 @@ HICO_VISUAL, HICO_PROMPT = 1024, 1056  # 64 merged frames x HiCo-R16; + text (be
 HICO_TOWER_DEPTH, HICO_TEXT_DEPTH, HICO_DECODE_B = 27, 24, 8
 HICO_TOWER_SHAPE = (64, 196, 16, 72)  # B * T', S, H, head_dim of the tower at 128 x 224
 HICO_ATTN_SHAPE = (1, HICO_PROMPT, 20, 192, 128)  # B, S, H, d_qk, d_v of the 2B video prefill
+# GRPO RL on qwen3_8b_dense: depth (the largest multiple of 4 under 72 GB,
+# PERF.md §4), prompts x group rows of prompt + response tokens, microbatches
+RL_DEPTH, RL_ITERS, RL_ACCUM = 24, 2, 4
+RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW = 2, 8, 1024, 128
+RL_SHAPE = (4, 1152, 32, 8, 128)  # B, L, Hq, Hkv, head_dim of one microbatch's attention
+RL_ENGINE_DEPTH, RL_ENGINE_PROMPT, RL_ENGINE_NEW = 4, 256, 32  # the engine backend, qwen3_8b_mla
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -2636,6 +2681,430 @@ def check_adamw_bf16(card) -> float:
     return gap
 
 
+def _bwd_name(kind: str, window, gqa: bool, seg: bool) -> str:
+    """The counter of one K5 backward launch (window > GQA > segments)."""
+    return f"flash_bwd_causal_{kind}" + ("_window" if window else "_gqa" if gqa
+                                         else "_seg" if seg else "")
+
+
+def _bwd_kernel_vs_plain(fa, q, k, v, do, dlse, kw):
+    """The K5 backward kernels and the plain backward on the same inputs
+    and the same plain forward's out / LSE: ((dq, dk, dv) kernel, plain,
+    the LSE)."""
+    causal, off, window = kw.get("causal", False), kw.get("q_position_offset", 0), kw.get("window")
+    segs = kw.get("q_segment_ids"), kw.get("kv_segment_ids")
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        out, lse = fa.flash_attention_ref_with_lse(q, k, v, scale, causal, off, *segs, window)
+        lse_ct = None if dlse is None else torch.where(torch.isinf(lse), 0.0, dlse)
+        got = fa._flash_bwd_causal_cuda(q, k, v, out, lse, do, scale, causal, off, *segs,
+                                        lse_ct=lse_ct, window=window)
+        want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, lse_ct=lse_ct,
+                                          causal=causal, q_position_offset=off,
+                                          q_segment_ids=segs[0], kv_segment_ids=segs[1],
+                                          window=window)
+    return got, want, lse
+
+
+def check_rl_kernels(fa) -> dict:
+    """Phase 29; returns the bf16 max-abs error at RL_SHAPE of each GQA /
+    window backward kernel (dq: dq; dk/dv: the larger of dk and dv)."""
+    g = torch.Generator("cuda").manual_seed(29)
+    cases = [((1, 200, 200, 2, 2, 64), dict(window=64)),
+             ((1, 128, 128, 8, 2, 64), {}),
+             ((1, 128, 128, 8, 2, 64), dict(causal=True)),
+             ((1, 128, 200, 4, 2, 64), dict(causal=True, window=50, q_position_offset=72)),
+             ((2, 256, 256, 8, 2, 64), dict(causal=True, segments=True)),
+             ((1, 256, 64, 2, 2, 64), dict(window=50))]
+    for (b, sq, sk, hq, hkv, d), kw in cases:
+        kw = dict(kw)
+        if kw.pop("segments", False):  # two packed segments, then pads of -1 that meet
+            seg = (torch.arange(sk, device="cuda")[None].expand(b, sk) // 100).to(torch.int32)
+            seg = torch.where(torch.arange(sk, device="cuda") >= 220, -1, seg)
+            kw.update(q_segment_ids=seg, kv_segment_ids=seg)
+        q, do = (torch.randn(b, sq, hq, d, device="cuda", generator=g) for _ in range(2))
+        k, v = (torch.randn(b, sk, hkv, d, device="cuda", generator=g) for _ in range(2))
+        dlse = torch.randn(b, hq, sq, device="cuda", generator=g)
+        names = [_bwd_name(n, kw.get("window"), hkv != hq, "q_segment_ids" in kw)
+                 for n in ("dq", "dkv")]
+        for lse_ct in (None, dlse):
+            before = [fa.launch_count(n) for n in names]
+            got, want, lse = _bwd_kernel_vs_plain(fa, q, k, v, do, lse_ct, kw)
+            torch.cuda.synchronize()
+            if [fa.launch_count(n) for n in names] != [c + 1 for c in before]:
+                raise AssertionError(f"{kw} did not launch {names}")
+            errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+            empty = torch.isinf(lse).any(dim=(0, 1))
+            print(f"K5 GQA / window backward fp32 {(b, sq, sk, hq, hkv, d)} "
+                  f"{ {n: x for n, x in kw.items() if not n.endswith('segment_ids')} }"
+                  f"{' + segments' if 'q_segment_ids' in kw else ''}, LSE cotangent "
+                  f"{lse_ct is not None}: dq / dk / dv max-abs "
+                  + " / ".join(f"{e:.3e}" for e in errs)
+                  + f" (bar 5e-4), {int(empty.sum())} rows with no key", flush=True)
+            if not max(errs) <= 5e-4:
+                raise AssertionError("fp32 K5 GQA / window backward disagrees with its plain "
+                                     "version")
+            if empty.any() and not (got[0][:, empty] == 0).all():
+                raise AssertionError("a row with no key got a nonzero dq")
+    res = {}
+    b, s, hq, hkv, d = RL_SHAPE
+    for window in (None, GQA_WINDOW):
+        q, do = (torch.randn(b, s, hq, d, device="cuda", generator=g).bfloat16()
+                 for _ in range(2))
+        kv = torch.randn(b, s, 2 * hkv, d, device="cuda", generator=g).bfloat16()
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]  # strided views of one projection
+        kw = dict(causal=True, window=window)
+        got, want, _ = _bwd_kernel_vs_plain(fa, q, k, v, do, None, kw)
+        again = _bwd_kernel_vs_plain(fa, q, k, v, do, None, kw)[0]
+        torch.cuda.synchronize()
+        rels = [_rel(a, w) for a, w in zip(got, want)]
+        same = all(torch.equal(a, b2) for a, b2 in zip(got[1:], again[1:]))
+        errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+        res[_bwd_name("dq", window, True, False)] = errs[0]
+        res[_bwd_name("dkv", window, True, False)] = max(errs[1:])
+        print(f"K5 GQA backward bf16 {RL_SHAPE} causal window {window}, k/v strided views: "
+              "dq / dk / dv rel-L2 " + " / ".join(f"{r:.3e}" for r in rels)
+              + " (bar 1e-2), max-abs " + " / ".join(f"{e:.3e}" for e in errs)
+              + f"; dk / dv bit-identical across two calls: {same}", flush=True)
+        if not (max(rels) <= 1e-2 and same):
+            raise AssertionError(f"bf16 K5 GQA backward at {RL_SHAPE} window {window} disagrees "
+                                 "with its plain version or is not deterministic")
+        del q, do, kv, k, v, got, want, again
+    return res
+
+
+def _rl_model(depth: int, dtype: str = "bfloat16"):
+    """qwen3_8b_dense at full width and `depth` on the card, seeded weights
+    (remat, as the preset sets it)."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.llm_gqa import GQATransformer
+
+    cfg = presets.qwen3_8b_dense(num_layers=depth, dtype=dtype, param_dtype=dtype)
+    return GQATransformer(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+
+
+def _rl_cfg(**over):
+    from internvideo_tpu_torch.train.rl import GRPOConfig
+    from internvideo_tpu_torch.train.rl_trainer import RLTrainerConfig
+
+    kw = dict(grpo=GRPOConfig(group_size=RL_GROUP, kl_beta=0.01), max_new_tokens=RL_NEW,
+              rollout_temperature=1.0, lr=1e-5, cache_dtype="bfloat16", grad_accum=RL_ACCUM)
+    return RLTrainerConfig(**{**kw, **over})
+
+
+def _rl_prompts(prompt_len: int = RL_PROMPT_LEN, seed: int = 30):
+    """RL_PROMPTS seeded token-id prompts (host int32)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(1, VOCAB, (RL_PROMPTS, prompt_len), generator=g).to(torch.int32).numpy()
+
+
+def _rl_reward(p, r) -> float:
+    """A rule-based reward in the manner of tests/test_rl_trainer.py:48-49:
+    the share of response tokens in a fixed id set, ids below VOCAB / 8. (The
+    share equal to one fixed id was 0 in every row of the seeded policy's
+    2 x 2048 sampled tokens, which leaves no advantage and no gradient.)"""
+    return float((r < VOCAB // 8).mean())
+
+
+def rl_want(fa, depth: int, iters: int) -> dict:
+    """Launches `iters` RL iterations at `depth` must make: per iteration
+    the rollout prefill (depth), `logp_old` (depth) and, per microbatch,
+    the policy forward, the reference forward and the remat recompute (3 x
+    depth) of K5's GQA forward; depth each of the GQA dq and dk/dv per
+    microbatch; nothing else (decode attends on the plain route)."""
+    per = {"flash_fwd_causal_gqa": (2 + 3 * RL_ACCUM) * depth,
+           "flash_bwd_causal_dq_gqa": RL_ACCUM * depth,
+           "flash_bwd_causal_dkv_gqa": RL_ACCUM * depth}
+    return {**dict.fromkeys(fa.KERNELS, 0), "paged_decode": 0,
+            **{n: c * iters for n, c in per.items()}}
+
+
+def run_rl_path(fa, pd, card, depth: int = RL_DEPTH):
+    """Phase 30; returns (the launches of each kernel in the main-path run,
+    the first rollout batch, the peak GB)."""
+    import numpy as np
+
+    from internvideo_tpu_torch.train.rl_trainer import RLTrainer
+
+    model = _rl_model(depth)
+    prompts = _rl_prompts()
+    trainer = RLTrainer(model, _rl_cfg(), _rl_reward)
+    kept, add = [], trainer.buffer.add
+    trainer.buffer.add = lambda b: (kept.append(b), add(b))[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _serve_reset(fa, pd)
+    t0 = time.perf_counter()
+    history = trainer.fit(lambda i: prompts, iterations=RL_ITERS, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _serve_counts(fa, pd)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = rl_want(fa, depth, RL_ITERS)
+    rows, length = RL_PROMPTS * RL_GROUP, RL_PROMPT_LEN + RL_NEW
+    print(f"[{card}] RL main path: RLTrainer.fit on {PRESET_GQA} (full width, depth {depth}, "
+          f"bf16, remat), {RL_ITERS} iterations of {RL_PROMPTS} prompts x {RL_GROUP} = {rows} "
+          f"rows of {RL_PROMPT_LEN} + {RL_NEW} tokens, temperature 1.0, kl_beta 0.01, "
+          f"grad_accum {RL_ACCUM}: {wall:.1f} s, peak {peak:.2f} GB; launches "
+          + json.dumps({n: c for n, c in counts.items() if c}), flush=True)
+    for h in history:
+        print(f"  iter {h['iter']}: reward {h['reward_mean']:.5f} loss {h['loss']:.6f} "
+              f"kl {h['kl']:.3e} ratio_mean {h['ratio_mean']:.6f} clip_frac "
+              f"{h['clip_frac']:.4f}", flush=True)
+    if counts != want:
+        raise AssertionError(f"RL launches {counts} != {want}")
+    if not all(np.isfinite([h[k] for k in ("loss", "kl", "reward_mean", "ratio_mean")]).all()
+               for h in history):
+        raise AssertionError("non-finite RL loss, kl or reward")
+    if abs(history[0]["ratio_mean"] - 1.0) > 1e-2:
+        raise AssertionError(f"first update's ratio_mean {history[0]['ratio_mean']} is not "
+                             "within 1e-2 of 1")
+    batch = {k: v for k, v in kept[0].items()}
+    assert batch["full_ids"].shape == (rows, length)
+    return counts, batch, peak
+
+
+def run_rl_engine_path(fa, pd, card) -> dict:
+    """Phase 30, the engine backend: one RL iteration on qwen3_8b_mla (full
+    width, depth RL_ENGINE_DEPTH) with a ServingEngine rollout at
+    temperature 1.0; returns the launches."""
+    from internvideo_tpu_torch.serve import ServingEngine
+    from internvideo_tpu_torch.train.rl_trainer import RLTrainer
+
+    depth, plen, new = RL_ENGINE_DEPTH, RL_ENGINE_PROMPT, RL_ENGINE_NEW
+    model = _llm(PRESET_8B, num_layers=depth)
+    prompts = _rl_prompts(plen, seed=31)
+    eng = ServingEngine(model, max_batch=8, page_size=64, num_pages=48, max_len=plen + new,
+                        prompt_buckets=(plen,), temperature=1.0, seed=0)
+    trainer = RLTrainer(model, _rl_cfg(max_new_tokens=new), _rl_reward,
+                        engine=eng)
+    calls = _wrap_calls(model)
+    _serve_reset(fa, pd)
+    t0 = time.perf_counter()
+    h = trainer.fit(lambda i: prompts, iterations=1, seed=0)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _serve_counts(fa, pd)
+    want = {**dict.fromkeys(counts, 0),
+            "flash_fwd_causal": depth * (calls["prefill"] + 1 + 3 * RL_ACCUM),
+            "flash_bwd_causal_dq": depth * RL_ACCUM, "flash_bwd_causal_dkv": depth * RL_ACCUM,
+            "paged_decode": depth * calls["decode"]}
+    print(f"[{card}] RL engine backend: {PRESET_8B} (full width, depth {depth}, bf16, remat), "
+          f"ServingEngine 8 slots at temperature 1.0, {RL_PROMPTS} x {RL_GROUP} requests of "
+          f"{plen} + {new} tokens: {calls['prefill']} prefills, {calls['decode']} decode steps, "
+          f"{wall:.1f} s; loss {h['loss']:.6f} kl {h['kl']:.3e} ratio_mean "
+          f"{h['ratio_mean']:.6f}; launches " + json.dumps({n: c for n, c in counts.items() if c}),
+          flush=True)
+    if counts != want or calls["prefill"] != RL_PROMPTS * RL_GROUP:
+        raise AssertionError(f"RL engine launches {counts} != {want}")
+    if not all(math.isfinite(h[k]) for k in ("loss", "kl", "reward_mean", "ratio_mean")):
+        raise AssertionError("non-finite RL loss, kl or reward on the engine backend")
+    return counts
+
+
+def _rl_loss_grads(trainer, batch, impl: str, names=None):
+    """One policy update's loss and gradients on route `impl` (policy and
+    reference), and the policy's token log-probs: (loss, {name: grad},
+    logp)."""
+    from internvideo_tpu_torch.train.rl_trainer import sequence_logprobs
+
+    for m in (trainer.model, trainer.ref_model):
+        if m is not None:
+            _set_route(m, impl)
+    trainer.model.zero_grad(set_to_none=True)
+    loss, _ = trainer._loss_of(batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+             if p.grad is not None and (names is None or n in names)}
+    trainer.model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        logp = sequence_logprobs(trainer.model, batch["full_ids"])
+    return loss.detach(), grads, logp
+
+
+def check_rl_routes(batch, card, depth: int = RL_DEPTH) -> None:
+    """Phase 31: one policy update from phase 30's first rollout batch (its
+    first RL_SHAPE[0] rows), kernel route vs plain route."""
+    from internvideo_tpu_torch.train.rl_trainer import RLTrainer
+
+    sub = {k: v[:RL_SHAPE[0]] for k, v in batch.items()}
+    # the rollout's ids, mask and logp_old with set advantages: its rewards
+    # are nearly all 0, so its own advantages would leave no gradient
+    sub["advantages"] = torch.tensor([1.0, -1.0, 0.5, -0.5], device="cuda")[:RL_SHAPE[0]]
+    # fp32, full width, depth 2, with the KL reference
+    trainer = RLTrainer(_rl_model(2, "float32"), _rl_cfg(), None)
+    res = {impl: _rl_loss_grads(trainer, sub, impl) for impl in ("kernel", "plain")}
+    (lk, gk, _), (lp, gp, _) = res["kernel"], res["plain"]
+    worst = max(((gk[n] - gp[n]).abs().max().item(), n) for n in gk)
+    print(f"[{card}] RL route check fp32 (full width, depth 2, {RL_SHAPE[0]} x "
+          f"{sub['full_ids'].shape[1]}): loss kernel {lk.item():.7f} plain {lp.item():.7f}, "
+          f"max-abs grad difference {worst[0]:.3e} at {worst[1]} over {len(gk)} tensors "
+          "(bar 5e-4)", flush=True)
+    if not ((lk - lp).abs().item() <= 5e-4 and worst[0] <= 5e-4 and set(gk) == set(gp)):
+        raise AssertionError("RL fp32 kernel and plain routes disagree")
+    del trainer, res, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 at depth D, held to the same weights in fp32 (no KL reference: one
+    # bf16 and one fp32 copy of the policy fit the card, a reference beside
+    # each would not); gradients kept for the attention projections of the
+    # first and last layers
+    names = {f"layers.{i}.self_attn.{p}.weight" for i in (0, depth - 1)
+             for p in ("q_proj", "k_proj", "v_proj", "o_proj")}
+    cfg = _rl_cfg(grpo=dataclasses.replace(_rl_cfg().grpo, kl_beta=0.0))
+    model = _rl_model(depth)
+    model.requires_grad_(False)
+    for n, p in model.named_parameters():
+        p.requires_grad_(n in names)
+    trainer = RLTrainer(model, cfg, None)
+    res = {impl: _rl_loss_grads(trainer, sub, impl, names) for impl in ("kernel", "plain")}
+    model32 = _fp32_copy(model, lambda: _rl_model(depth, "float32"))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32.requires_grad_(False)
+    for n, p in model32.named_parameters():
+        p.requires_grad_(n in names)
+    f32 = _rl_loss_grads(RLTrainer(model32, cfg, None), sub, "plain", names)
+    rel_logp = {impl: _rel(res[impl][2], f32[2]) for impl in res}
+    rows, ok = [], rel_logp["kernel"] <= 1.25 * rel_logp["plain"]
+    for n in sorted(names):
+        rk, rp = _rel(res["kernel"][1][n], f32[1][n]), _rel(res["plain"][1][n], f32[1][n])
+        rows.append(f"{n} {_rel(res['kernel'][1][n], res['plain'][1][n]):.3e} / {rk:.3e} / "
+                    f"{rp:.3e}")
+        ok &= rk <= 1.25 * rp and bool(torch.isfinite(res["kernel"][1][n]).all())
+    # the loss is left out of the rule: a near-cancelling sum of ratio
+    # deviations from logp_old, which the bf16 kernel route computed
+    lk, lp, l32 = res["kernel"][0].item(), res["plain"][0].item(), f32[0].item()
+    print(f"[{card}] RL route check bf16 (full width, depth {depth}): loss kernel {lk:.6f} "
+          f"plain {lp:.6f} fp32 {l32:.6f}; token log-probs rel-L2 to fp32 kernel "
+          f"{rel_logp['kernel']:.3e} plain {rel_logp['plain']:.3e}; grad rel-L2 [kernel vs "
+          "plain | kernel vs fp32 | plain vs fp32]: " + "; ".join(rows), flush=True)
+    if not ok:
+        raise AssertionError("RL bf16: the kernel route is farther from the fp32 run than the "
+                             "plain route")
+
+
+def _sdpa_gqa_bwd_ms(q, k, v, do, window):
+    """PyTorch SDPA's backward (forward + backward minus forward) with
+    enable_gqa on the same (B, S, H, D) inputs, causal or with a band mask,
+    as a yardstick only: (ms, note)."""
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw, note = dict(is_causal=True), "SDPA enable_gqa, is_causal"
+    if window is not None:
+        rel = (torch.arange(q.shape[1], device="cuda")[:, None]
+               - torch.arange(k.shape[1], device="cuda")[None])
+        kw, note = dict(attn_mask=(rel >= 0) & (rel < window)), "SDPA enable_gqa, band mask"
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    try:
+        with torch.no_grad():
+            f_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                                   **kw), iters=10, warmup=2)
+        fb_ms = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw), leaves, dot),
+            iters=10, warmup=2)
+        return fb_ms - f_ms, note + " (forward + backward - forward)"
+    except RuntimeError as e:  # no backend takes it: no yardstick
+        return None, f"{note}: refused ({str(e).splitlines()[0][:100]})"
+
+
+def time_rl_kernels(fa, card) -> dict:
+    """Phase 32, kernels: K5's GQA dq and dk/dv at RL_SHAPE causal, window
+    None and GQA_WINDOW, beside the plain backward, the bound and the SDPA
+    yardstick."""
+    g = torch.Generator("cuda").manual_seed(32)
+    b, s, hq, hkv, d = RL_SHAPE
+    q, do = (torch.randn(b, s, hq, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    scale, res = d ** -0.5, {}
+    grads = tuple(torch.empty_like(x) for x in (q, k, v))
+    io = (2 * b * s * hq * d + 2 * b * s * hkv * d) * 2 + 2 * b * hq * s * 4  # q, dO, k, v; lse, delta
+    for window in (None, GQA_WINDOW):
+        with torch.no_grad():
+            out, lse = fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, None, None, window)
+            delta = fa._bwd_delta(out, do)
+            plain_ms = _time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, scale, causal=True, window=window), iters=1)
+        lib_ms, lib_note = _sdpa_gqa_bwd_ms(q, k, v, do, window)
+        pairs = b * hq * _band_pairs(s, window)
+        for kind, flops, out_bytes in (("dq", 6, b * s * hq * d * 2),
+                                       ("dkv", 8, 2 * b * s * hkv * d * 2)):
+            ms = _time_ms(lambda: fa._launch_bwd_causal(
+                kind, q, k, v, do, lse, delta, (None, None), grads, scale, True, 0, window),
+                iters=20, warmup=3)
+            bound = _bound(flops * pairs * d, io + out_bytes)
+            name = _bwd_name(kind, window, True, False)
+            res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_note=lib_note,
+                             bound=bound, shape=[b, s, hq, hkv, d], window=window)
+            print(f"[{card}] K5 {name} {RL_SHAPE} causal window {window} bf16: kernel "
+                  f"{ms:.3f} ms ({flops * pairs * d / ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), plain backward {plain_ms:.3f} ms, yardstick "
+                  + (f"{lib_ms:.3f} ms ({lib_note}, dq + dk/dv)" if lib_ms is not None
+                     else lib_note), flush=True)
+    return res
+
+
+def _timed(obj, name: str, bucket: dict) -> None:
+    """Replace obj.name with a version that synchronises the card before and
+    after each call and adds its wall ms to bucket[name]."""
+    fn = getattr(obj, name)
+    bucket[name] = 0.0
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        bucket[name] += (time.perf_counter() - t0) * 1e3
+        return r
+
+    setattr(obj, name, timed)
+
+
+def time_rl_iteration(card, depth: int = RL_DEPTH) -> dict:
+    """Phase 32, the iteration: after one warm-up iteration, one RL
+    iteration split into rollout prefill, decode, logp_old (and the host's
+    reward / mask), the updates (reference + policy forward, remat, backward
+    over RL_ACCUM microbatches) and the optimizer step; update tokens/s; one
+    microbatch update under torch.profiler."""
+    from internvideo_tpu_torch.train.rl_trainer import RLTrainer
+
+    model = _rl_model(depth)
+    prompts = _rl_prompts()
+    trainer = RLTrainer(model, _rl_cfg(), _rl_reward)
+    trainer.fit(lambda i: prompts, iterations=1, seed=0)  # warm-up
+    ms = {}
+    _timed(model, "prefill", ms)
+    _timed(trainer, "_rollout", ms)
+    _timed(trainer, "rollout_step", ms)
+    _timed(trainer, "train_step", ms)
+    _timed(trainer.optimizer, "step", ms)
+    trainer.rollout_step(prompts, trainer._gen)
+    batch = trainer.buffer.items[0]
+    trainer.train_step()
+    split = {"rollout_prefill": ms["prefill"], "decode": ms["_rollout"] - ms["prefill"],
+             "logp_old_and_reward": ms["rollout_step"] - ms["_rollout"],
+             "updates": ms["train_step"] - ms["step"], "optimizer_step": ms["step"]}
+    total = ms["rollout_step"] + ms["train_step"]
+    tokens = batch["full_ids"].numel()
+    res = {"iteration_ms": total, **{f"{k}_ms": v for k, v in split.items()},
+           "update_tokens_per_sec": tokens * 1e3 / ms["train_step"], "depth": depth}
+    print(f"[{card}] RL iteration {PRESET_GQA} depth {depth}, {tuple(batch['full_ids'].shape)} "
+          f"rows x tokens: {total:.1f} ms = " + ", ".join(
+              f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in split.items())
+          + f"; update {res['update_tokens_per_sec']:.0f} tokens/s", flush=True)
+    micro = RL_SHAPE[0]
+    mb = {k: v[:micro] for k, v in batch.items()}
+
+    def one_microbatch():
+        loss, _ = trainer._loss_of(mb)
+        (loss * mb["mask"].sum()).backward()
+        model.zero_grad(set_to_none=True)
+
+    profile_step(one_microbatch, card, f"RL microbatch update {micro} x {mb['full_ids'].shape[1]}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2823,6 +3292,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     gk = time_gqa_kernel(fa, card)
     print(f"[{card}] multimodal and dense-GQA serving: " + json.dumps(serve_mm), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 29. K5's GQA / window backward vs its plain version
+    rl_err = check_rl_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 30. the RL main path (compiled rollout on qwen3_8b_dense), then the
+    # engine backend on qwen3_8b_mla, counting launches
+    rl_launches, rl_batch, rl_peak = run_rl_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_engine_launches = run_rl_engine_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 31. kernel route vs plain route on one policy update
+    check_rl_routes(rl_batch, card)
+    del rl_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 32. times
+    rk = time_rl_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_iter = time_rl_iteration(card)
+    print(f"[{card}] rl: " + json.dumps({**rl_iter, "peak_gb": rl_peak}), flush=True)
 
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
@@ -2835,7 +3333,8 @@ def main() -> int:
 
     def by_path(name, eval_n=0):
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
-                 "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches}
+                 "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches,
+                 "rl": rl_launches, "rl_engine": rl_engine_launches}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def entry(name, source, line, r, err, shape):
@@ -2955,7 +3454,24 @@ def main() -> int:
                    "bound_by": gw["bound"][1], "library_ms": gw["library_ms"],
                    "library_note": gw["library_note"]},
     })
-    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for kind, line in (("dq", 468), ("dkv", 613)):
+        name, win = f"flash_bwd_causal_{kind}_gqa", f"flash_bwd_causal_{kind}_window"
+        r, w = rk[name], rk[win]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + f"flash_bwd_causal_{kind}.cu",
+            "replaces": jax_fa + str(line), "launches": rl_launches[name],
+            "launches_by_path": by_path(name), "max_abs_err": rl_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "library_note": r["library_note"],
+            "shape": r["shape"],
+            "window": {"window": GQA_WINDOW, "counter": win, "launches_by_path": by_path(win),
+                       "note": "no ported preset sets a window; phase 29 holds it, phase 32 "
+                               "times it",
+                       "max_abs_err": rl_err[win], "ms": w["ms"], "plain_ms": w["plain_ms"],
+                       "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
+                       "library_ms": w["library_ms"], "library_note": w["library_note"]},
+        })
+    print(f"chip_smoke: phases 1-32 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

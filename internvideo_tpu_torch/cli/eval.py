@@ -9,7 +9,7 @@ Port of internvideo_tpu/cli/eval.py. The config file defines
 top-1/top-5); the JAX CLI's other tasks exit with "not yet ported".
 `--device` is explicit: `cuda` (the default) with no GPU is an error, not a
 CPU run. `checkpoint=None` means the seeded init; loading a checkpoint is
-not ported yet (ROADMAP queue 1, item 4).
+not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def run_classification(run: EvalRunConfig, device: torch.device) -> dict:
 
     if run.checkpoint is not None:
         raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP queue 1, item 4)")
+            "checkpoint loading is not ported yet (ROADMAP queue 1, item 9)")
     model = InternVideo2(
         run.model, device=device,
         generator=torch.Generator(device=device).manual_seed(0),

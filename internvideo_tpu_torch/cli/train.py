@@ -113,7 +113,7 @@ def build_pretrain(run: RunConfig, device: torch.device):
         if run.data.get(key):
             raise NotImplementedError(
                 f"data.{key}: loading the convert-CLI's teacher npz is not ported yet "
-                "(ROADMAP queue 1, item 4)")
+                "(ROADMAP queue 1, item 9)")
     seed = run.trainer.seed
     gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
     enc, cfg = run.model.encoder, run.engine
@@ -141,7 +141,7 @@ def build_sft(run: RunConfig, device: torch.device):
     if run.data.get("jsonl"):
         raise NotImplementedError(
             "data.jsonl: the real SFT data path (tokenizer, video decode, mllm_sft_batches) "
-            "is not ported yet (ROADMAP queue 1, item 10)")
+            "is not ported yet (ROADMAP queue 1, item 7)")
     model = VideoMLLM(run.model, device=device,
                       generator=torch.Generator(device=device).manual_seed(run.trainer.seed))
     v, b = run.model.vision, run.data["batch_size"]

@@ -8,7 +8,7 @@ optimizer's, the step, the state's generator and any EMA params, written
 to a temporary name and renamed, so a crash never leaves a partial file.
 Saves are synchronous, so `wait` has nothing to wait for. Orbax
 compatibility is not a goal; the safetensors export bridge is not ported
-yet (ROADMAP queue 1, item 4).
+yet (ROADMAP queue 1, item 9).
 
 The save policy is orbax's default: a step is saved when it is past the
 latest saved one and either no checkpoint exists yet or it is a multiple

@@ -4,7 +4,7 @@ Port of internvideo_tpu/core/mesh.py `MeshConfig` (same axes, same
 `resolve`). The JAX package lays every run on a named-axis mesh; the port
 runs on one device so far, so `single_device` accepts only a mesh that
 resolves to one device and raises NotImplementedError for anything larger
-(torch.distributed / FSDP2: ROADMAP queue 1, item 9).
+(torch.distributed / FSDP2: ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -48,4 +48,4 @@ def single_device(config: MeshConfig) -> dict[str, int]:
     except ValueError as e:
         raise NotImplementedError(
             f"mesh {config} needs more than one device; multi-device training is not "
-            f"ported yet (ROADMAP queue 1, item 9)") from e
+            f"ported yet (ROADMAP queue 1, item 8)") from e

@@ -7,12 +7,24 @@
 // :1009): for each key j, dv_j = sum_i p_ij dO_i and dk_j = scale * sum_i
 // ds_ij q_i over the query rows i that see it.
 //
-// One CTA per (64-key tile, head, batch, column part), the first key tiles
-// (seen by the most queries under the causal mask) launched first; 4 warps
-// of 16 keys; q / dO tiles of 32 rows streamed, double-buffered with
+// One CTA per (64-key tile, K/V head, batch, column part), the first key
+// tiles (seen by the most queries under the causal mask) launched first; 4
+// warps of 16 keys; q / dO tiles of 32 rows streamed, double-buffered with
 // cp.async, with their base-2 LSE, delta and segment ids. A query tile below
-// the causal diagonal's start (rows i < key0 - q_off) or whose segment range
-// misses the key tile's is never loaded.
+// the causal diagonal's start (rows i < key0 - q_off), outside the window's
+// band or whose segment range misses the key tile's is never loaded.
+//
+// Grouped-query heads (`_bwd(group=)`, the JAX grid's (q_head_in_group,
+// q_block) inner dimension :919-940): the CTA of K/V head hk walks the q
+// heads hk * group .. hk * group + group - 1 one after the other, and for
+// each the query tiles whose band reaches its keys, accumulating dk / dv in
+// fp32 registers across all of them and writing once. No atomics, no per-q-
+// head dk buffer and a fixed order, so two calls give bit-identical dk / dv.
+// LSE and delta (= rowsum(dO * O) - dLSE) are per q head. With a window the
+// query rows that can see keys [n0, n0 + 64) are [n0 - q_off - window + 1
+// (n0 - q_off with causal), n0 + 63 - q_off + window) clipped to [0, Sq)
+// (band_rows in causal_bwd.cuh); tiles that cross an edge of the band are
+// masked per element.
 //
 // Registers: at (d_qk, d_v) = (256, 128) a warp's fp32 dk and dv
 // accumulators would be 192 registers a thread on top of the s / dp tiles.
@@ -72,14 +84,10 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
   const int g = lane >> 2, t = lane & 3;
   const int n0 = (blockIdx.x / T::kSplit) * kKeys;
   const int part = blockIdx.x % T::kSplit;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y, b = blockIdx.z;  // the K/V head
   const int Sq = a.Sq, Sk = a.Sk;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + h * a.k_h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + h * a.v_h;
-  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_b + h * a.do_h;
-  const float* lseb = a.lse + ((long long)b * a.H + h) * Sq;
-  const float* deltab = a.delta + ((long long)b * a.H + h) * Sq;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
   const int* qsb = kSeg ? a.q_seg + (long long)b * Sq : nullptr;
   const int kr = warp * 16;  // this warp's first key in the key tile
 
@@ -93,18 +101,28 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
 #pragma unroll
     for (int r = 0; r < 2; ++r) ks_id[r] = keys[r] < Sk ? kvs[keys[r]] : INT_MIN;
   }
-  // Query rows that see a key of this tile start at n0 - q_off (causal).
-  const int q_start = a.causal ? min(Sq, max(0, n0 - a.q_off)) : 0;
-  const int m_tiles = (Sq + kRows - 1) / kRows;
-  auto next_tile = [&](int i) {
+  // The CTA walks n_work = group x n_q (q head, query tile) steps: step w is
+  // q head hk * group + w / n_q, query tile i_first + w % n_q, the tiles
+  // holding the rows that can see a key of this tile.
+  const int2 rows = band_rows(a, n0, min(n0 + kKeys, Sk));
+  const int i_first = rows.x / kRows;
+  const int n_q = rows.y > rows.x ? (rows.y + kRows - 1) / kRows - i_first : 0;
+  const int n_work = a.group * n_q;
+  auto row0_of = [&](int w) { return (i_first + w % n_q) * kRows; };
+  auto next_tile = [&](int w) {
     if constexpr (kSeg) {
-      while (i < m_tiles && !ranges_meet(seg_range(qsb, i * kRows, kRows, Sq, lane), k_range)) ++i;
+      while (w < n_work && !ranges_meet(seg_range(qsb, row0_of(w), kRows, Sq, lane), k_range)) ++w;
     }
-    return i;
+    return w;
   };
   // Rows at or past Sq: q, dO zero-filled, lse +inf (p = 0), delta 0.
-  auto load_q_tile = [&](int buf, int i) {
-    const int row0 = i * kRows;
+  auto load_q_tile = [&](int buf, int w) {
+    const int row0 = row0_of(w);
+    const int h = hk * a.group + w / n_q;  // the q head
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_b + h * a.do_h;
+    const float* lseb = a.lse + ((long long)b * a.H + h) * Sq;
+    const float* deltab = a.delta + ((long long)b * a.H + h) * Sq;
     cp_rows<DQK, kRows, kThreads>(sQ + buf * T::kQ, T::kQStride, qb, a.q_s, row0, Sq, tid);
     cp_rows<DV, kRows, kThreads>(sDO + buf * T::kDO, T::kVStride, dob, a.do_s, row0, Sq, tid);
     if (tid < kRows) {
@@ -115,10 +133,10 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
     }
   };
 
-  int i = next_tile(q_start / kRows);
+  int w = next_tile(0);
   cp_rows<DQK, kKeys, kThreads>(sK, T::kQStride, kb, a.k_s, n0, Sk, tid);
   cp_rows<DV, kKeys, kThreads>(sV, T::kVStride, vb, a.v_s, n0, Sk, tid);
-  if (i < m_tiles) load_q_tile(0, i);
+  if (w < n_work) load_q_tile(0, w);
   cp_async_commit();
 
   float acc_dk[T::kDK / 8][4], acc_dv[T::kDV / 8][4];
@@ -128,10 +146,10 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
   for (int n = 0; n < T::kDV / 8; ++n) acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.f;
 
   int cur = 0;
-  while (i < m_tiles) {
-    const int in = next_tile(i + 1);
-    if (in < m_tiles) {
-      load_q_tile(cur ^ 1, in);
+  while (w < n_work) {
+    const int wn = next_tile(w + 1);
+    if (wn < n_work) {
+      load_q_tile(cur ^ 1, wn);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -175,10 +193,14 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
     }
 
     // p^T and ds^T; element e sits at key keys[e >> 1] and query row
-    // i * 32 + 8 * nt + 2 * t + (e & 1). Rows past Sq have p = 0 through
-    // their +inf LSE; keys past Sk are never stored.
-    const int q0 = i * kRows;
-    const bool masked = kSeg || (a.causal && n0 + kKeys - 1 > q0 + a.q_off);
+    // q0 + 8 * nt + 2 * t + (e & 1). Rows past Sq have p = 0 through their
+    // +inf LSE; keys past Sk are never stored. Only a pair that crosses the
+    // diagonal or an edge of the window's band, or holds segments, is masked.
+    const int q0 = row0_of(w);
+    const bool masked =
+        kSeg || (a.causal && n0 + kKeys - 1 > q0 + a.q_off) ||
+        (a.window > 0 && (q0 + kRows - 1 + a.q_off - n0 >= a.window ||
+                          (!a.causal && n0 + kKeys - 1 - q0 - a.q_off >= a.window)));
 #pragma unroll
     for (int nt = 0; nt < kRows / 8; ++nt) {
 #pragma unroll
@@ -186,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
         const int qc = nt * 8 + 2 * t + (e & 1), r = e >> 1;
         bool ok = true;
         if (masked) {
-          ok = !(a.causal && keys[r] > q0 + qc + a.q_off) && !(kSeg && sQSc[qc] != ks_id[r]);
+          ok = band_sees(a, q0 + qc + a.q_off, keys[r]) && !(kSeg && sQSc[qc] != ks_id[r]);
         }
         const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - sLc[qc]) : 0.f;
         s[nt][e] = p;
@@ -219,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
     }
     __syncthreads();  // the next prefetch overwrites this buffer
     cur ^= 1;
-    i = in;
+    w = wn;
   }
   cp_async_wait<0>();
 
@@ -228,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= Sk) continue;
-    bf16* kout = dk + b * a.dk_b + (long long)keys[r] * a.dk_s + h * a.dk_h + part * T::kDK;
-    bf16* vout = dv + b * a.dv_b + (long long)keys[r] * a.dv_s + h * a.dv_h + part * T::kDV;
+    bf16* kout = dk + b * a.dk_b + (long long)keys[r] * a.dk_s + hk * a.dk_h + part * T::kDK;
+    bf16* vout = dv + b * a.dv_b + (long long)keys[r] * a.dv_s + hk * a.dv_h + part * T::kDV;
 #pragma unroll
     for (int n = 0; n < T::kDK / 8; ++n) {
       *reinterpret_cast<uint32_t*>(kout + n * 8 + 2 * t) =
@@ -244,8 +266,9 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dkv_bf16_kernel(const Cau
 }
 
 // fp32: one thread per key, q / dO tiles of 16 rows in shared memory,
-// CUDA-core FMAs; k and v are read from global memory (L1) per row. Every
-// row of [q_start, Sq) is tested (the parity checks' kernel).
+// CUDA-core FMAs; k and v are read from global memory (L1) per row. For
+// each q head of the group, every row of the key tile's band (band_rows) is
+// tested (the parity checks' kernel).
 constexpr int kF32Keys = 64;
 constexpr int kF32Rows = 16;
 
@@ -258,17 +281,15 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kF32Keys;
   const int key = n0 + tid;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y, b = blockIdx.z;  // the K/V head
   const int Sq = a.Sq, Sk = a.Sk;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
-  const float* dob = static_cast<const float*>(a.dout) + b * a.do_b + h * a.do_h;
-  const long long lrow = ((long long)b * a.H + h) * Sq;
   const bool valid = key < Sk;
   const int r = valid ? key : 0;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_b + (long long)r * a.k_s + h * a.k_h;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_b + (long long)r * a.v_s + h * a.v_h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_b + (long long)r * a.k_s + hk * a.k_h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_b + (long long)r * a.v_s + hk * a.v_h;
   const int ks_id = kSeg && valid ? a.kv_seg[(long long)b * Sk + key] : 0;
-  const int q_start = a.causal ? min(Sq, max(0, n0 - a.q_off)) : 0;
+  const int2 rows = band_rows(a, n0, min(n0 + kF32Keys, Sk));
+  const int n_chunks = (rows.y - rows.x + kF32Rows - 1) / kF32Rows;
 
   float ak[DQK], av[DV];
 #pragma unroll
@@ -276,7 +297,13 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
 #pragma unroll
   for (int c = 0; c < DV; ++c) av[c] = 0.f;
 
-  for (int q0 = q_start; q0 < Sq; q0 += kF32Rows) {
+  for (int step = 0; step < a.group * n_chunks; ++step) {  // (q head, 16-row chunk)
+    const int h = hk * a.group + step / n_chunks;
+    const int q0 = rows.x + (step % n_chunks) * kF32Rows;
+    const int n = min(kF32Rows, rows.y - q0);
+    const float* qb = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
+    const float* dob = static_cast<const float*>(a.dout) + b * a.do_b + h * a.do_h;
+    const long long lrow = ((long long)b * a.H + h) * Sq;
     __syncthreads();
     for (int i = tid; i < kF32Rows * DQK; i += kF32Keys) {
       const int j = i / DQK, c = i - j * DQK;
@@ -293,9 +320,8 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
       if (kSeg) sQS[tid] = ok ? a.q_seg[(long long)b * Sq + q0 + tid] : INT_MIN;
     }
     __syncthreads();
-    const int n = min(kF32Rows, Sq - q0);
     for (int j = 0; j < n; ++j) {
-      if (!valid || (a.causal && key > q0 + j + a.q_off) || (kSeg && sQS[j] != ks_id)) continue;
+      if (!valid || !band_sees(a, q0 + j + a.q_off, key) || (kSeg && sQS[j] != ks_id)) continue;
       float s = 0.f, dp = 0.f;
       for (int c = 0; c < DQK; ++c) s = fmaf(kp[c], sQ[j][c], s);
       for (int c = 0; c < DV; ++c) dp = fmaf(vp[c], sDO[j][c], dp);
@@ -308,8 +334,8 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
     }
   }
   if (!valid) return;
-  float* kout = static_cast<float*>(a.dk) + b * a.dk_b + (long long)key * a.dk_s + h * a.dk_h;
-  float* vout = static_cast<float*>(a.dv) + b * a.dv_b + (long long)key * a.dv_s + h * a.dv_h;
+  float* kout = static_cast<float*>(a.dk) + b * a.dk_b + (long long)key * a.dk_s + hk * a.dk_h;
+  float* vout = static_cast<float*>(a.dv) + b * a.dv_b + (long long)key * a.dv_s + hk * a.dv_h;
 #pragma unroll
   for (int c = 0; c < DQK; ++c) kout[c] = ak[c] * a.scale;
 #pragma unroll
@@ -324,11 +350,11 @@ cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + kKeys - 1) / kKeys * T::kSplit, a.H, B);
+    const dim3 grid((a.Sk + kKeys - 1) / kKeys * T::kSplit, a.H / a.group, B);
     kern<<<grid, kThreads, T::kSmemBytes, stream>>>(a);
   } else {
     causal_bwd_dkv_f32_kernel<DQK, DV, kSeg>
-        <<<dim3((a.Sk + kF32Keys - 1) / kF32Keys, a.H, B), kF32Keys, 0, stream>>>(a);
+        <<<dim3((a.Sk + kF32Keys - 1) / kF32Keys, a.H / a.group, B), kF32Keys, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -336,7 +362,8 @@ cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream
 }  // namespace
 
 // C entry bound with ctypes, with the signature of ivt_flash_bwd_causal_dq
-// (flash_bwd_causal_dq.cu); writes dk and dv (dq is ignored). Returns the
+// (flash_bwd_causal_dq.cu); writes dk and dv of the Hkv K/V heads (dq is
+// ignored). Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for an uninstantiated
 // (Dqk, Dv) or dtype); launches on `stream`; does not synchronise.
 extern "C" int ivt_flash_bwd_causal_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -344,17 +371,20 @@ extern "C" int ivt_flash_bwd_causal_dkv(int dtype, const void* q, const void* k,
                                         const int* q_seg, const int* kv_seg, void* dq, void* dk,
                                         void* dv, int B, int Sq, int Sk, int H, int Dqk, int Dv,
                                         const long long* strides, float scale, int causal,
-                                        int q_offset, void* stream) {
+                                        int q_offset, int Hkv, int window, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
-  const CausalBwdArgs a = make_causal_bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk,
-                                               dv, Sq, Sk, H, strides, scale, causal, q_offset);
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const CausalBwdArgs a =
+      make_causal_bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk, dv, Sq, Sk, H,
+                           strides, scale, causal, q_offset, H / Hkv, window);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seg = q_seg != nullptr;
 #define IVT_CASE(DQK, DV)                                                                   \
   if (Dqk == DQK && Dv == DV)                                                               \
     return seg ? launch<DQK, DV, true>(dtype, B, a, s) : launch<DQK, DV, false>(dtype, B, a, s);
   IVT_CASE(256, 128)
+  IVT_CASE(128, 128)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)

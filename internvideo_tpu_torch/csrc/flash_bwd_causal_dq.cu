@@ -14,6 +14,18 @@
 // is flash_bwd_causal_dkv.cu; as in the JAX package the two run without
 // atomics.
 //
+// Grouped-query heads and the sliding window (the dense-GQA LLM's training
+// attention, qwen3_8b_dense at (128, 128); `_bwd(group=, window=)` :782-785,
+// the K/V index maps `h // group`): the CTA of q head h reads K/V head
+// h / group through the K/V strides, so K/V are never repeated in memory.
+// With window > 0 query position p = i + q_off sees key j only if
+// p - j < window, and without causal also j - p < window (`_mask_block`
+// :40-68). Key tiles outside the band of the CTA's rows are never loaded
+// (band_keys in causal_bwd.cuh: from m0 + q_off - window + 1, and without
+// causal up to row_end - 1 + q_off + window); a tile that crosses an edge of
+// the band is masked per element. A row that sees no key (LSE -inf) gets
+// p = 0, so dq = 0.
+//
 // What does not carry over: the TPU kernel remaps dead (q block, k block)
 // pairs' DMAs with a scalar-prefetched table. Here each CTA (one 64-query
 // tile) walks its key tiles and skips, before loading it, a tile above the
@@ -79,14 +91,19 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
   const int h = blockIdx.y, b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + h * a.k_h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + h * a.v_h;
+  const int hk = h / a.group;  // GQA: the group's K/V head
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
   const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_b + h * a.do_h;
   const int qr = warp * 16;  // this warp's first row in the query tile
 
-  const int row_end = min(m0 + kRows, Sq);
-  const int key_end = a.causal ? max(0, min(Sk, row_end + a.q_off)) : Sk;
-  const int n_tiles = (key_end + kKeys - 1) / kKeys;
+  // Key tiles [lo / kKeys, n_tiles) hold every key a row of this tile sees.
+  const int2 band = band_keys(a, m0, min(m0 + kRows, Sq));
+  const int n_tiles = (band.y + kKeys - 1) / kKeys;
+  // With a window: keys below band_lo_all are outside some row's band, and
+  // (non-causal) so are keys at or above band_hi_all.
+  const int band_lo_all = m0 + kRows + a.q_off - a.window;
+  const int band_hi_all = m0 + a.q_off + a.window;
 
   int rows[2], qs[2] = {0, 0};
   float lse2[2], dlt[2];
@@ -116,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
     cp_rows<DV, kKeys, kThreads>(sV + buf * T::kV, T::kVStride, vb, a.v_s, j * kKeys, Sk, tid);
   };
 
-  int j = next_tile(0);
+  int j = next_tile(band.x / kKeys);
   cp_rows<DQK, kRows, kThreads>(sQ, T::kQStride, qb, a.q_s, m0, Sq, tid);
   cp_rows<DV, kRows, kThreads>(sDO, T::kVStride, dob, a.do_s, m0, Sq, tid);
   if (j < n_tiles) load_kv(0, j);
@@ -176,9 +193,10 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
 
     // ds = p * (dp - delta); element e sits at row g + 8 * (e >> 1) and key
     // key0 + 8 * nt + 2 * t + (e & 1). Only a tile that crosses the diagonal,
-    // the Sk tail or holds segments is masked.
+    // an edge of the window's band, the Sk tail or holds segments is masked.
     const bool masked =
-        kSeg || key0 + kKeys > Sk || (a.causal && key0 + kKeys - 1 > m0 + a.q_off);
+        kSeg || key0 + kKeys > Sk || (a.causal && key0 + kKeys - 1 > m0 + a.q_off) ||
+        (a.window > 0 && (key0 < band_lo_all || (!a.causal && key0 + kKeys > band_hi_all)));
 #pragma unroll
     for (int nt = 0; nt < kKeys / 8; ++nt) {
 #pragma unroll
@@ -186,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
         const int r = e >> 1, kc = nt * 8 + 2 * t + (e & 1), key = key0 + kc;
         bool ok = true;
         if (masked) {
-          ok = key < Sk && !(a.causal && key > rows[r] + a.q_off) && !(kSeg && sKS[kc] != qs[r]);
+          ok = key < Sk && band_sees(a, rows[r] + a.q_off, key) && !(kSeg && sKS[kc] != qs[r]);
         }
         const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - lse2[r]) : 0.f;
         s[nt][e] = p * (dp[nt][e] - dlt[r]);
@@ -227,8 +245,9 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q and dO are read from global memory (L1) per key so that
-// d_qk = 256 needs no register copy of them. Every key of [0, key_end) is
-// tested (no segment tile skipping: the parity checks' kernel).
+// d_qk = 256 needs no register copy of them. Every key of the tile's band
+// (band_keys) is tested (no segment tile skipping: the parity checks'
+// kernel).
 constexpr int kF32Rows = 64;
 constexpr int kF32Keys = 16;
 
@@ -242,8 +261,8 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
   const int row = m0 + tid;
   const int h = blockIdx.y, b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_b + h * a.k_h;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_b + h * a.v_h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_b + (h / a.group) * a.k_h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_b + (h / a.group) * a.v_h;
   const bool valid = row < Sq;
   const int r = valid ? row : 0;
   const float* qp = static_cast<const float*>(a.q) + b * a.q_b + (long long)r * a.q_s + h * a.q_h;
@@ -253,15 +272,13 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
   const float lse2 = valid ? lse_to_base2(a.lse[li]) : INFINITY;
   const float dlt = valid ? a.delta[li] : 0.f;
   const int qs = kSeg && valid ? a.q_seg[(long long)b * Sq + row] : 0;
-  const int row_end = min(m0 + kF32Rows, Sq);
-  const int key_end = a.causal ? max(0, min(Sk, row_end + a.q_off)) : Sk;
-  const int my_end = a.causal ? min(Sk, row + a.q_off + 1) : Sk;
+  const int2 band = band_keys(a, m0, min(m0 + kF32Rows, Sq));
 
   float acc[DQK];
 #pragma unroll
   for (int c = 0; c < DQK; ++c) acc[c] = 0.f;
 
-  for (int k0 = 0; k0 < key_end; k0 += kF32Keys) {
+  for (int k0 = band.x / kF32Keys * kF32Keys; k0 < band.y; k0 += kF32Keys) {
     __syncthreads();
     for (int i = tid; i < kF32Keys * DQK; i += kF32Rows) {
       const int j = i / DQK, c = i - j * DQK;
@@ -276,7 +293,9 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
     }
     __syncthreads();
     for (int j = 0; j < kF32Keys; ++j) {
-      if (!valid || k0 + j >= my_end || (kSeg && sKS[j] != qs)) continue;
+      const int key = k0 + j;
+      if (!valid || key >= Sk || !band_sees(a, row + a.q_off, key) || (kSeg && sKS[j] != qs))
+        continue;
       float s = 0.f, dp = 0.f;
       for (int c = 0; c < DQK; ++c) s = fmaf(qp[c], sK[j][c], s);
       for (int c = 0; c < DV; ++c) dp = fmaf(dop[c], sV[j][c], dp);
@@ -314,26 +333,31 @@ cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream
 // (B, S, H, Dqk), v and dO (B, S, H, Dv); `strides` holds 21 int64, the
 // (batch, seq, head) element strides of q, k, v, dO, dq, dk, dv. lse
 // (natural log) and delta are (B, H, Sq) fp32 contiguous; q_seg / kv_seg are
-// (B, Sq) / (B, Sk) int32 contiguous or both null. Writes dq only (dk, dv
-// are ignored). Returns the cudaError_t of the launch (cudaErrorInvalidValue
-// for an uninstantiated (Dqk, Dv) or dtype); launches on `stream`; does not
-// synchronise.
+// (B, Sq) / (B, Sk) int32 contiguous or both null. H counts the q heads,
+// Hkv the K/V heads (H a multiple of it: grouped-query attention); window
+// <= 0 means none. Writes dq only (dk, dv are ignored). Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for an uninstantiated
+// (Dqk, Dv) or dtype, or H not a multiple of Hkv); launches on `stream`;
+// does not synchronise.
 extern "C" int ivt_flash_bwd_causal_dq(int dtype, const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* delta,
                                        const int* q_seg, const int* kv_seg, void* dq, void* dk,
                                        void* dv, int B, int Sq, int Sk, int H, int Dqk, int Dv,
                                        const long long* strides, float scale, int causal,
-                                       int q_offset, void* stream) {
+                                       int q_offset, int Hkv, int window, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
-  const CausalBwdArgs a = make_causal_bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk,
-                                               dv, Sq, Sk, H, strides, scale, causal, q_offset);
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const CausalBwdArgs a =
+      make_causal_bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk, dv, Sq, Sk, H,
+                           strides, scale, causal, q_offset, H / Hkv, window);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seg = q_seg != nullptr;
 #define IVT_CASE(DQK, DV)                                                                   \
   if (Dqk == DQK && Dv == DV)                                                               \
     return seg ? launch<DQK, DV, true>(dtype, B, a, s) : launch<DQK, DV, false>(dtype, B, a, s);
   IVT_CASE(256, 128)
+  IVT_CASE(128, 128)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)

@@ -5,7 +5,7 @@ Port of the numpy parts of internvideo_tpu/data/mllm_tokenize.py:
 get_rope_index_3), `_pack_one_video_per_row` (:495) and `pack_mllm_items`
 (:529), with the same results. The tokenize function, frame sampling and
 media decode (`MLLMTokenizeFunction`, `mllm_sft_batches`) wait for a
-tokenizer and video files in the repository (ROADMAP queue 1, item 10).
+tokenizer and video files in the repository (ROADMAP queue 1, item 7).
 
 `synthetic_sft_items` / `synthetic_sft_stream` are the port's own: seeded
 random items laid out as the tokenize function lays out a chat sample with

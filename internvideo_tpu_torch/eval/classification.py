@@ -4,7 +4,7 @@ Port of internvideo_tpu/eval/classification.py:22-120. Each video is
 sampled as several views; per-view softmax probabilities are summed per
 video id, then top-1/5 is computed on the ensemble. `forward` may return a
 torch tensor (on any device) or a numpy array. Merging views across hosts
-(`merge_hosts=True`) is not ported yet (ROADMAP queue 1, item 9).
+(`merge_hosts=True`) is not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def final_test(
     """Multi-view softmax ensemble over the views in `view_iter`."""
     if merge_hosts:
         raise NotImplementedError(
-            "merge_hosts is not ported yet (ROADMAP queue 1, item 9)")
+            "merge_hosts is not ported yet (ROADMAP queue 1, item 8)")
     acc = MultiViewAccumulator()
     for batch in view_iter:
         logits = _to_numpy(forward(batch["video"]))

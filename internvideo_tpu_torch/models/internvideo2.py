@@ -112,13 +112,13 @@ class EncoderOutput:
 
 def _unported(cfg: InternVideo2Config) -> Optional[str]:
     if cfg.remat_policy is not None:
-        return f"remat_policy={cfg.remat_policy!r} (ROADMAP queue 1, item 2)"
+        return f"remat_policy={cfg.remat_policy!r} (ROADMAP queue 1, item 9)"
     if cfg.quant is not None:
         return f"quant={cfg.quant!r} (ROADMAP queue 1, item 6)"
     if cfg.pool_type != "attn":
-        return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 11)"
+        return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 9)"
     if cfg.ln_pre:
-        return "ln_pre (ROADMAP queue 1, item 11)"
+        return "ln_pre (ROADMAP queue 1, item 9)"
     return None
 
 

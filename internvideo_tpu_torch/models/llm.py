@@ -66,10 +66,10 @@ def _check_options(cfg: LLMConfig) -> None:
             f"quant={cfg.quant!r} (int8 serving GEMMs) is not ported yet (ROADMAP queue 1, "
             "item 6)")
     if cfg.fp8 is not None:
-        raise NotImplementedError(f"fp8={cfg.fp8!r} is not ported yet (ROADMAP queue 1, item 11)")
+        raise NotImplementedError(f"fp8={cfg.fp8!r} is not ported yet (ROADMAP queue 1, item 10)")
     if cfg.moe is not None:
         raise NotImplementedError("MoE feed-forward (nn/moe.py) is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
+                                  "(ROADMAP queue 1, item 8)")
 
 
 class SwiGLU(nn.Module):

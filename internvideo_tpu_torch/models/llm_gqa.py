@@ -16,7 +16,11 @@ Attention routes, as in JAX:
     causal, with the config's window and `attn_impl`: on the card K5's
     grouped-query / windowed forward (csrc/flash_fwd_causal.cu, K/V heads
     read through their strides, never repeated), on the CPU its plain
-    version. Their backward is not ported (ROADMAP queue 1, item 7);
+    version. The training forward's backward (RL, train/rl_trainer.py) is
+    K5's grouped-query / windowed backward (csrc/flash_bwd_causal_dq.cu,
+    flash_bwd_causal_dkv.cu, the dk/dv kernel summing each group's q
+    heads); with `remat` each layer is recomputed in the backward
+    (`run_layer`);
   * decode attends on the plain route (`impl="xla"`, ops/attention_xla.py)
     over the whole cache, with the unwritten tail and the positions outside
     the window masked by kv segment ids (0 visible, -2 not) against q

@@ -6,7 +6,7 @@ D/4 channels and a spatial 2D embedding on the other 3D/4, in [T, H, W]
 patch order, with an all-zero CLS slot in front. The patch projection is a
 block reshape of channels-last video followed by one Dense, with patch
 content flattened in (ts, p, p, c) order (embeds.py:112-131).
-`interpolate_pos_embed` is not ported yet (ROADMAP queue 1, item 2).
+`interpolate_pos_embed` is not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations

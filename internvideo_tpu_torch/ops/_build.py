@@ -165,7 +165,8 @@ def load_library() -> ctypes.CDLL:
             p, p, p, p, p,           # q / kv segment ids (or null), dq, dk, dv
             i, i, i, i, i, i,        # B, Sq, Sk, H, D_qk, D_v
             ctypes.POINTER(ctypes.c_longlong),  # 21 element strides
-            ctypes.c_float, i, i, p,  # softmax scale, causal, q position offset, stream
+            ctypes.c_float, i, i,    # softmax scale, causal, q position offset
+            i, i, p,                 # K/V heads, window (<= 0: none), stream
         ]
         fn.restype = i
     return lib

@@ -8,11 +8,10 @@ Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
 the InternVideo2 encoder, its teachers and the InternVideo3 vision tower
 run (non-causal, d_v == d_qk), for the one the M2LA LLM's prefill and
 packed SFT training run (causal, a query position offset, d_v != d_qk,
-packed-sequence segment ids) and for the dense-GQA LLM's prefill
-(grouped-query heads, Hq a multiple of Hkv, and the sliding window, causal
-or not), in layout (B, S, H, D) or its permuted view (B, H, S, D). The
-backward of a grouped-query or windowed call raises NotImplementedError
-naming the ROADMAP item that brings it.
+packed-sequence segment ids) and for the dense-GQA LLM's prefill and RL
+training (grouped-query heads, Hq a multiple of Hkv, and the sliding
+window, causal or not), in layout (B, S, H, D) or its permuted view
+(B, H, S, D).
 
 Three autograd Functions, each owning a kernel route (CUDA tensors: the
 kernel, or raise) and a plain route (CPU tensors); there is no fallback
@@ -23,7 +22,8 @@ from one to the other:
     or segmented calls take K5 (forward `csrc/flash_fwd_causal.cu`,
     backward `csrc/flash_bwd_causal_dq.cu` / `flash_bwd_causal_dkv.cu`),
     with segment ids K8 (the same kernels' `kSeg` instantiations), and so
-    do grouped-query and windowed calls (forward only);
+    do grouped-query and windowed calls, forward and backward (the dk/dv
+    kernel sums over a group's q heads);
   * `SmallSAttention` (K2 forward `csrc/small_s_fwd.cu`, K4b backward
     `csrc/small_s_bwd.cu`) for 0 < Sq, Sk <= 1024, the route
     `flash_attention` takes there, as the JAX package's does (:2080-2094);
@@ -64,10 +64,10 @@ KERNEL_HEAD_DIMS = (64, 88)
 SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
 # (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):
 # qwen3_8b_mla, qwen3_2b_mla, qwen3_8b_dense, and small pairs for the parity
-# checks; and of its backward (csrc/flash_bwd_causal_*.cu): the 8B's
-# training pair and the small ones
+# checks; and of its backward (csrc/flash_bwd_causal_*.cu): the training
+# pairs of qwen3_8b_mla and qwen3_8b_dense and the small ones
 CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (64, 64), (64, 32), (32, 32))
-CAUSAL_BWD_HEAD_DIMS = ((256, 128), (64, 64), (64, 32), (32, 32))
+CAUSAL_BWD_HEAD_DIMS = ((256, 128), (128, 128), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 _GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,17 +76,17 @@ _LOG2E = 1.0 / math.log(2.0)
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
 # pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" and
 # "flash_bwd_causal_{dq,dkv}" are K5; their "_seg" names count the launches
-# with segment ids (K8), which the plain names do not. A K5 forward launch
-# counts under one name: "flash_fwd_causal_window" with a window,
-# "flash_fwd_causal_gqa" with grouped-query heads and no window,
-# "flash_fwd_causal_seg" with segment ids and neither, else
-# "flash_fwd_causal".
+# with segment ids (K8), which the plain names do not. A K5 launch, forward
+# or backward, counts under one name: "..._window" with a window, "..._gqa"
+# with grouped-query heads and no window, "..._seg" with segment ids and
+# neither, else the plain name.
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
            "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal",
            "flash_bwd_causal_dq", "flash_bwd_causal_dkv", "flash_fwd_causal_seg",
            "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg", "flash_fwd_causal_gqa",
-           "flash_fwd_causal_window")
+           "flash_fwd_causal_window", "flash_bwd_causal_dq_gqa", "flash_bwd_causal_dkv_gqa",
+           "flash_bwd_causal_dq_window", "flash_bwd_causal_dkv_window")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -209,28 +209,35 @@ def flash_attention_ref(q, k, v, scale: float):
 
 def flash_attention_bwd_ref(q, k, v, out, lse, do, scale: float, lse_ct=None,
                             causal: bool = False, q_position_offset: int = 0,
-                            q_segment_ids=None, kv_segment_ids=None):
+                            q_segment_ids=None, kv_segment_ids=None,
+                            window: Optional[int] = None):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv).
 
     The explicit formulas in fp32 with the JAX kernels' cast chain
     (flash_attention.py:1316-1333): p = exp(s - lse) on the visible (causal,
-    same-segment) keys and 0 elsewhere, dp = dO v^T and delta = rowsum(dO *
-    O) over v's head dim, minus the LSE cotangent `lse_ct` (B, H, Sq) if
-    given, ds = p * (dp - delta) rounded to k's dtype before the ds k and
-    ds^T q products, p rounded to dO's dtype before p^T dO; each gradient in
-    its input's dtype. Loops over the batch, as the forward's plain version
-    does.
+    in-window, same-segment: the forward's `_visible`) keys and 0 elsewhere,
+    dp = dO v^T and delta = rowsum(dO * O) over v's head dim, minus the LSE
+    cotangent `lse_ct` (B, H, Sq) if given, ds = p * (dp - delta) rounded to
+    k's dtype before the ds k and ds^T q products, p rounded to dO's dtype
+    before p^T dO; each gradient in its input's dtype. With grouped-query
+    heads (Hq = group * Hkv) q head h reads K/V head h // group, and dk / dv
+    of a K/V head sum its group's q heads in fp32 before the one rounding,
+    as the JAX dk/dv kernel's accumulator does (:619-620). Loops over the
+    batch, as the forward's plain version does.
     """
     f32 = torch.float32
     sq, sk = q.shape[1], k.shape[1]
+    hq, hkv = q.shape[2], k.shape[2]
+    group = hq // hkv
     dqs, dks, dvs = [], [], []
     for i in range(q.shape[0]):
         mask = _visible(i, sq, sk, q.device, causal, q_position_offset, q_segment_ids,
-                        kv_segment_ids)
+                        kv_segment_ids, window)
         grads = []
-        for hs in _head_chunks(q.shape[2], sq, sk):
-            qi, ki, vi, oi, doi = (x[i, :, hs].transpose(0, 1).to(f32)
-                                   for x in (q, k, v, out, do))
+        for hs in _head_chunks(hq, sq, sk):
+            kv_heads = torch.arange(hs.start, hs.stop, device=q.device) // group
+            qi, oi, doi = (x[i, :, hs].transpose(0, 1).to(f32) for x in (q, out, do))
+            ki, vi = (x[i].index_select(1, kv_heads).transpose(0, 1).to(f32) for x in (k, v))
             lse_i = lse[i, hs][..., None]
             s = torch.matmul(qi, ki.transpose(1, 2)) * scale
             # a row that saw no key (lse -inf) has p = 0
@@ -243,14 +250,14 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, scale: float, lse_ct=None,
                 delta = delta - lse_ct[i, hs].to(f32)
             ds = (p * (dp - delta[..., None])).to(k.dtype).to(f32)
             grads.append((
-                (scale * torch.matmul(ds, ki)).to(q.dtype).transpose(0, 1),
-                (scale * torch.matmul(ds.transpose(1, 2), qi)).to(k.dtype).transpose(0, 1),
-                torch.matmul(p.to(do.dtype).to(f32).transpose(1, 2), doi)
-                .to(v.dtype).transpose(0, 1)))
-        dq_i, dk_i, dv_i = (torch.cat(g, dim=1) for g in zip(*grads))
-        dqs.append(dq_i)
-        dks.append(dk_i)
-        dvs.append(dv_i)
+                (scale * torch.matmul(ds, ki)).to(q.dtype),  # (h, Sq, D)
+                scale * torch.matmul(ds.transpose(1, 2), qi),  # (h, Sk, D) fp32
+                torch.matmul(p.to(do.dtype).to(f32).transpose(1, 2), doi)))
+        dq_i, dk_i, dv_i = (torch.cat(g, dim=0) for g in zip(*grads))
+        dqs.append(dq_i.transpose(0, 1))
+        # (Hq, Sk, D) -> sum over each group's q heads -> (Sk, Hkv, D)
+        dks.append(dk_i.unflatten(0, (hkv, group)).sum(1).to(k.dtype).transpose(0, 1))
+        dvs.append(dv_i.unflatten(0, (hkv, group)).sum(1).to(v.dtype).transpose(0, 1))
     return torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
 
 
@@ -420,10 +427,12 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale: float, lse_ct=None, prefix: st
 
 
 def _launch_bwd_causal(kind: str, q, k, v, do, lse, delta, seg_ptrs, grads, scale: float,
-                       causal: bool, q_position_offset: int) -> None:
+                       causal: bool, q_position_offset: int,
+                       window: Optional[int] = None) -> None:
     """Launch one K5 backward kernel, `kind` "dq" (csrc/flash_bwd_causal_dq.cu,
     writes grads[0]) or "dkv" (flash_bwd_causal_dkv.cu, writes grads[1:]);
-    `grads` = (dq, dk, dv), `seg_ptrs` the segment ids' pointers or Nones."""
+    `grads` = (dq, dk, dv), `seg_ptrs` the segment ids' pointers or Nones;
+    k / v (and dk / dv) may have fewer heads than q (grouped-query)."""
     b, sq, h, d = q.shape
     dq, dk, dv = grads
     lib = _build.load_library()
@@ -436,17 +445,22 @@ def _launch_bwd_causal(kind: str, q, k, v, do, lse, delta, seg_ptrs, grads, scal
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *seg_ptrs, dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, sq, k.shape[1], h, d, v.shape[-1], strides, float(scale),
-            int(causal), int(q_position_offset), stream)
-    name = f"flash_bwd_causal_{kind}" + ("_seg" if seg_ptrs[0] is not None else "")
+            int(causal), int(q_position_offset), k.shape[2],
+            int(window) if window is not None else 0, stream)
+    name = f"flash_bwd_causal_{kind}" + (
+        "_window" if window is not None else "_gqa" if k.shape[2] != h
+        else "_seg" if seg_ptrs[0] is not None else "")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     _launches[name] += 1
 
 
 def _flash_bwd_causal_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
-                           q_position_offset: int, q_seg=None, kv_seg=None, lse_ct=None):
+                           q_position_offset: int, q_seg=None, kv_seg=None, lse_ct=None,
+                           window: Optional[int] = None):
     """Launch the K5 backward kernels (dq, then dk/dv; with segment ids their
-    K8 instantiations) on CUDA tensors; returns (dq, dk, dv)."""
+    K8 instantiations) on CUDA tensors, k / v with Hkv heads (Hq a multiple
+    of Hkv), with a sliding `window` or not; returns (dq, dk, dv)."""
     d, dv_dim = q.shape[-1], v.shape[-1]
     _check_causal_dims(d, dv_dim, CAUSAL_BWD_HEAD_DIMS, "csrc/flash_bwd_causal_*.cu")
     if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
@@ -460,7 +474,7 @@ def _flash_bwd_causal_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
     segs, seg_ptrs = _seg_ptrs(q_seg, kv_seg)  # `segs` keeps the int32 copies alive
     for kind in ("dq", "dkv"):
         _launch_bwd_causal(kind, q, k, v, do, lse, delta, seg_ptrs, grads, scale, causal,
-                           q_position_offset)
+                           q_position_offset, window)
     del segs
     return grads
 
@@ -468,9 +482,9 @@ def _flash_bwd_causal_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
 class FlashAttention(torch.autograd.Function):
     """(q, k, v) -> (out, lse) with the kernels on CUDA, the plain versions
     on the CPU; differentiable in both outputs. Causal, narrow-v (d_v !=
-    d_qk) or segmented calls run K5 (with segment ids its K8 kernels),
-    forward and backward; grouped-query (Hkv < Hq) and windowed calls run
-    K5's forward, and their backward raises; the rest K1 / K4a."""
+    d_qk), segmented, grouped-query (Hkv < Hq) or windowed calls run K5
+    (with segment ids its K8 kernels), forward and backward; the rest K1 /
+    K4a."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool = False, q_position_offset: int = 0,
@@ -490,15 +504,11 @@ class FlashAttention(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
         ctx.scale, ctx.k5, ctx.causal, ctx.q_off = scale, k5, causal, q_position_offset
-        ctx.fwd_only = gqa or window is not None
+        ctx.window = window
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        if ctx.fwd_only:
-            raise NotImplementedError(
-                "the flash backward of grouped-query or sliding-window attention is not ported "
-                "yet (ROADMAP queue 1, item 7; queue 2, K5 leftovers)")
         q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
@@ -506,14 +516,15 @@ class FlashAttention(torch.autograd.Function):
             if ctx.k5:
                 dq, dk, dv = _flash_bwd_causal_cuda(q, k, v, out, lse, dout, ctx.scale,
                                                     ctx.causal, ctx.q_off, q_seg, kv_seg,
-                                                    lse_ct=dlse)
+                                                    lse_ct=dlse, window=ctx.window)
             else:
                 dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse)
         else:
             dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.scale, lse_ct=dlse,
                                                  causal=ctx.causal,
                                                  q_position_offset=ctx.q_off,
-                                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg)
+                                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                                 window=ctx.window)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -761,10 +772,10 @@ def flash_attention_with_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (B, Sq, H, D_v) in q's layout, lse (B, H, Sq) natural log,
     float32), differentiable in both. Non-causal calls with D_v == D and no
-    segment ids run K1 / K4a; causal, narrow-v or segmented calls run K5
-    forward and backward (K8 with segment ids); grouped-query (k / v with
-    fewer heads than q) and windowed calls run K5 forward only. With causal
-    or a window, query row i sits at key index i + q_position_offset."""
+    segment ids run K1 / K4a; causal, narrow-v, segmented, grouped-query (k
+    / v with fewer heads than q) and windowed calls run K5 forward and
+    backward (K8 with segment ids). With causal or a window, query row i
+    sits at key index i + q_position_offset."""
     q, k, v = _to_bshd(layout, q, k, v)
     _check_supported(q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                      window=window, layout=layout)

@@ -11,7 +11,7 @@ With `grad_accum` > 1 the wrapper counts the valid labels of the whole
 batch and hands that count to every micro-batch, so that the micro-batch
 losses add up to the batch's token mean (xtuner's global denominator,
 loss/ce_loss.py). Sequence parallelism (`sp_impl` under a mesh whose `seq`
-axis is > 1) is not ported yet (ROADMAP queue 1, item 9).
+axis is > 1) is not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def make_sft_step(cfg: SFTConfig, mesh=None, *, grad_accum: int = 1):
     if mesh is not None and mesh.seq > 1:
         raise NotImplementedError(
             f"sequence-parallel SFT (sp_impl={cfg.sp_impl!r} over seq={mesh.seq}) is not ported "
-            "yet (ROADMAP queue 1, item 9)")
+            "yet (ROADMAP queue 1, item 8)")
 
     def loss_fn(model, batch, seed: int):
         out = model(batch["input_ids"], batch.get("video"),

@@ -9,7 +9,7 @@ is a CPU torch.Generator from which each step draws its seeds (mixup and
 DropPath), the counterpart of the Trainer's JAX key folded with the step;
 it is part of the state so that a checkpoint resumes the same stream. The
 sharded creation (`create_sharded_state`) is the JAX package's
-multi-device path and is not ported (ROADMAP queue 1, item 9).
+multi-device path and is not ported (ROADMAP queue 1, item 8).
 
 A frozen teacher is a module built on its device from its own seeded
 generator, with every parameter's requires_grad off and in eval mode. It is

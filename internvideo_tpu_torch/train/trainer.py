@@ -16,7 +16,7 @@ Port of internvideo_tpu/train/trainer.py (TrainerConfig, Trainer.fit):
 
 The mesh must resolve to one device (core/mesh.py); `health_check_every`,
 `hf_export_every`, `flops_per_batch` and `tensorboard_dir` raise
-NotImplementedError (ROADMAP queue 1, items 4, 9, 10).
+NotImplementedError (ROADMAP queue 1, items 8 and 9).
 """
 
 from __future__ import annotations
@@ -60,11 +60,11 @@ class TrainerConfig:
 
 def _unported(config: TrainerConfig) -> Optional[str]:
     if config.health_check_every > 0:
-        return "health_check_every > 0 (ROADMAP queue 1, item 9)"
+        return "health_check_every > 0 (ROADMAP queue 1, item 8)"
     if config.hf_export_every > 0:
-        return "hf_export_every > 0 (ROADMAP queue 1, item 4)"
+        return "hf_export_every > 0 (ROADMAP queue 1, item 9)"
     if config.flops_per_batch > 0:
-        return "flops_per_batch > 0 (ROADMAP queue 1, item 10)"
+        return "flops_per_batch > 0 (ROADMAP queue 1, item 9)"
     return None
 
 

@@ -4,7 +4,7 @@ Port of the parts of internvideo_tpu/utils/metrics.py that the Trainer
 uses: SmoothedValue's windowed average, MetricLogger.update / log_step /
 close and the jsonl sink. The JAX logger's MFU carries a table of TPU peaks; the
 port carries none, so `flops_per_batch` reporting and the tensorboard sink
-raise NotImplementedError (ROADMAP queue 1, item 10).
+raise NotImplementedError (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class MetricLogger:
                  print_fn=print, tensorboard_dir: Optional[str] = None):
         if tensorboard_dir:
             raise NotImplementedError(
-                "the tensorboard sink is not ported yet (ROADMAP queue 1, item 10)")
+                "the tensorboard sink is not ported yet (ROADMAP queue 1, item 9)")
         self.meters: dict[str, SmoothedValue] = collections.defaultdict(SmoothedValue)
         self.log_every = log_every
         self.print_fn = print_fn

@@ -130,15 +130,18 @@ def test_dispatch_rejects_unknown_impl_and_unported_cases():
     with pytest.raises(ValueError, match="unknown attention impl"):
         dot_product_attention(q, k, v, impl="triton")
     seg = torch.tensor([[0] * 5 + [1] * 9 + [-1] * 2], dtype=torch.int32)
-    # the window and GQA forward are ported (K5); their backward is not
+    # the window and GQA forward and backward are ported (K5): the kernel
+    # route's gradients are autograd's through the plain attention
     qg, kg, vg = _t(*_qkv(1, 16, 16, 4, 64, seed=7, hkv=2))
     for args, kw in (((q, k, v), dict(window=8)), ((q, k, v), dict(causal=True, window=8)),
                      ((qg.requires_grad_(), kg, vg), {})):
         out = dot_product_attention(*args, impl="kernel", **kw)
-        torch.testing.assert_close(out, attention_xla(*args, **kw), atol=2e-5, rtol=2e-5)
+        want = attention_xla(*args, **kw)
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
         if out.requires_grad:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                out.sum().backward()
+            torch.testing.assert_close(torch.autograd.grad(out.sum(), args[0])[0],
+                                       torch.autograd.grad(want.sum(), args[0])[0],
+                                       atol=5e-4, rtol=5e-4)
     with pytest.raises(ValueError, match="both"):
         dot_product_attention(q, k, v, impl="kernel", q_segment_ids=seg)
     # causal, its query offset, segment ids (K5 / K8) and the bhsd layout

@@ -78,19 +78,21 @@ def test_rows_with_no_key_in_the_band_give_zero_and_minus_inf():
 
 
 def test_backward_with_gqa_or_window_raises():
-    """The K5 family's backward with GQA or a window is not ported (RL,
-    ROADMAP queue 1, item 7): the kernel route's backward raises; the plain
-    dispatcher route differentiates through its explicit mask."""
+    """The K5 family's backward with GQA or a window, which raised until it
+    was ported (RL), now differentiates: on the CPU the kernel route's
+    plain backward gives the gradients that autograd through the plain
+    dispatcher route's explicit band mask gives (fp32, the JAX grad bar
+    5e-4; test_torch_gqa_window_backward.py holds it against JAX)."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 32, 32, 4, 64, seed=3))
-    kg, vg = (torch.from_numpy(x) for x in _qkv(1, 32, 32, 2, 64, seed=4)[1:])
+    kg, vg = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 32, 32, 2, 64, seed=4)[1:])
     for args, kw in (((q, kg, vg), dict(causal=True)), ((q, k, v), dict(causal=True, window=8)),
-                     ((q, k, v), dict(window=8))):
-        out = fa.flash_attention(*args, **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            out.square().sum().backward()
-    g = torch.autograd.grad(dot_product_attention(q, k, v, impl="plain", causal=True,
-                                                  window=8).square().sum(), q)[0]
-    assert torch.isfinite(g).all() and g.abs().sum() > 0
+                     ((q, k, v), dict(window=8)), ((q, kg, vg), dict(causal=True, window=8))):
+        got = torch.autograd.grad(fa.flash_attention(*args, **kw).square().sum(), args)
+        want = torch.autograd.grad(
+            dot_product_attention(*args, impl="plain", **kw).square().sum(), args)
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all() and a.abs().sum() > 0
+            torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
 
 
 def test_gqa_and_window_take_k5_and_no_small_s_route():

@@ -142,7 +142,7 @@ def test_presets_match_jax_and_unported_options_raise():
     assert presets.qwen3_mla_tiny() == cfg
     gen = torch.Generator().manual_seed(0)
     for over, item in ((dict(quant="int8_wo"), "item 6"), (dict(quant="int8_mix"), "item 6"),
-                       (dict(fp8="fwd"), "item 11"), (dict(moe=object()), "item 9")):
+                       (dict(fp8="fwd"), "item 10"), (dict(moe=object()), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             MLATransformer(dataclasses.replace(cfg, **over), device="cpu", generator=gen)
     # remat (the 8B preset's training setting) is ported: per-layer

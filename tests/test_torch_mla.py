@@ -75,23 +75,24 @@ def test_row_that_sees_no_key_gets_zero_and_minus_inf():
 
 
 def test_cuda_only_refusals_raise():
-    """What the kernel route does not take raises on the CPU too: the
-    backward of a windowed or GQA call (their forward is K5's). The causal /
-    narrow-v backward (K5, the SFT slice) runs on the CPU through its plain
-    version and matches autograd through the plain attention."""
+    """The kernel route's backward on the CPU: the causal / narrow-v
+    backward (K5, the SFT slice) and, since RL, the windowed and GQA
+    backward, which raised before, run through their plain versions and
+    match autograd through the plain attention; an unknown layout name is
+    refused."""
     q, k, v = (torch.from_numpy(_rand(1, 16, 2, 64, seed=s)).requires_grad_() for s in (7, 8, 9))
-    for vv, kw in ((v, dict(causal=True)), (v[..., :32], {})):
-        got = torch.autograd.grad(fa.flash_attention(q, k, vv, **kw).square().sum(), (q, k, v))
-        want = torch.autograd.grad(attention.attention_xla(q, k, vv, **kw).square().sum(),
-                                   (q, k, v))
+    kg, vg = (torch.from_numpy(_rand(1, 16, 1, 64, seed=s)).requires_grad_() for s in (10, 11))
+    for kk, vv, kw in ((k, v, dict(causal=True)), (k, v[..., :32], {}),
+                       (k, v, dict(causal=True, window=8)), (kg, vg, dict(causal=True))):
+        leaves = (q, kk, vv if vv.is_leaf else v)
+        got = torch.autograd.grad(fa.flash_attention(q, kk, vv, **kw).square().sum(), leaves)
+        want = torch.autograd.grad(attention.attention_xla(q, kk, vv, **kw).square().sum(),
+                                   leaves)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
-    with pytest.raises(NotImplementedError, match="window"):
-        fa.flash_attention(q, k, v, causal=True, window=8).sum().backward()
-    kg, vg = (torch.from_numpy(_rand(1, 16, 1, 64, seed=s)) for s in (10, 11))
-    with pytest.raises(NotImplementedError, match="grouped-query"):
-        fa.flash_attention(q, kg, vg, causal=True).sum().backward()
     assert attention.native_attention_layout() == "bshd"
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attention.native_attention_layout("triton")
 
 
 def _mla_pair(seed=0, **over):

@@ -219,8 +219,8 @@ def test_sft_config_stream_and_refusals_mirror_jax():
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         cli.build_sft(dataclasses.replace(trun, data={**trun.data, "jsonl": "x.jsonl"}),
                       torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         make_sft_step(SFTConfig(), mesh=MeshConfig(fsdp=1, seq=4))

@@ -206,8 +206,9 @@ def test_small_s_at_72_fp32():
 @pytest.mark.cuda
 def test_refusals():
     """What the kernels do not take raises: the backward at a pair it does
-    not instantiate, and the backward of a windowed or GQA call with
-    segments (their forward is K5's window / GQA path)."""
+    not instantiate, also for a windowed or GQA call with segments (their
+    forward is K5's window / GQA path, their backward K5's at the pairs of
+    CAUSAL_BWD_HEAD_DIMS)."""
     _card()
     seg = segments("halves", 1, 64)
     q = torch.randn(1, 64, 2, 192, device="cuda", requires_grad=True)
@@ -222,5 +223,5 @@ def test_refusals():
                                                  kw.get("causal", False), 0, seg, seg,
                                                  kw.get("window"))
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="K5"):
             out.sum().backward()

@@ -93,8 +93,7 @@ def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
     port's predicate agrees with the JAX dispatcher on each, the eligible
     shape runs SmallSAttention and the over-threshold, causal and segmented
     ones FlashAttention (causal, segmented: K5 / K8); GQA takes no small-S
-    route either: its forward is K5's and its backward raises (not ported,
-    ROADMAP queue 1, item 7)."""
+    route either: its forward and backward are K5's."""
     seg = np.zeros((2, 205), np.int32)
     big = fa.SMALL_S_MAX + 1
     cases = [
@@ -119,8 +118,8 @@ def test_port_routes_to_small_s_exactly_where_jax_does(monkeypatch):
         else:
             out = fa.flash_attention(tq.requires_grad_(), tk, tv, **tkw)
             assert type(out.grad_fn).__name__ == "FlashAttentionBackward", name
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                out.sum().backward()
+            out.sum().backward()
+            assert torch.isfinite(tq.grad).all(), name
 
 
 def test_flash_attention_with_lse_stays_on_k1():

@@ -368,7 +368,7 @@ def test_grad_accum_trainer_and_unported_options(tmp_path):
             _tiny_trainer(tmp_path, 2, **kw)
     from internvideo_tpu_torch.core.mesh import MeshConfig
 
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         _tiny_trainer(tmp_path, 2, mesh=MeshConfig(fsdp=4))
 
 
