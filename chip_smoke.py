@@ -213,7 +213,47 @@ non-zero and prints no result):
      6 / 8 FLOPs or the bytes) and the SDPA enable_gqa backward yardstick;
      one RL iteration at depth RL_DEPTH after a warm-up, split into rollout
      prefill, decode, logp_old, the updates and the optimizer step, and
-     update tokens/s; one microbatch update under torch.profiler.
+     update tokens/s; one microbatch update under torch.profiler;
+ 33. K7, the fused dynamic-int8 GEMM (csrc/int8_gemm.cu), vs its plain
+     version on the card: at the JAX kernel tests' shapes (ragged M, K = 200,
+     a row of zeros and a row of exact .5 ties), f32 and bf16 input, f32 and
+     bf16 output, and at every shape the int8 paths give it (bf16 input):
+     f32 outputs within a relative 1e-6 (bit for bit expected: identical
+     codes, scales and int32 sums), bf16 outputs rel-L2 <= 1e-2, the
+     differing elements printed;
+ 34. the int8 serving main path: qwen3_8b_mla with quant="int8_mix" at full
+     width and 36 layers, its seeded bf16 weights mapped by
+     quantize_params_like (the dense copy freed); a paged generate on a
+     2048-token prompt for 32 tokens (K7 7 per layer at the prefill: q, kv_a
+     for the cache entry and again for the attention, o, gate, up, down; 36
+     K5; 36 K6 per decode step; nothing else), then a ServingEngine (8 slots,
+     12 requests of 100-2048 prompt tokens): 36 K5 per prefill, 252 K7 per
+     prefill of a 2048 bucket (none for a 512 bucket: M < INT8_MIX_DYN_M),
+     36 K6 per decode step, nothing else; every token in the vocabulary;
+ 35. at full depth in bf16 on a 1024-token prompt: K7 against its plain
+     version on the real inputs of every int8 projection of layers 0, 18
+     and 35 (rel-L2 <= 1e-2); end to end (a deep random int8 model is
+     chaotic: one flipped code compounds) the int8_mix kernel route no
+     farther than the plain route (K7's plain version, plain attention),
+     x 1.25, from the same int8 weights run in fp32; int8_mix vs int8_wo
+     and the drift from the dense bf16 model printed; JAX's int8_mix test
+     on the card at its own config (every logit within 0.15 abs + 0.15
+     rel of int8_wo, argmax agreement >= 0.9); fp32 at full width, depth 2:
+     greedy tokens identical across the routes;
+ 36. times with CUDA events: llm_prefill_int8_tokens_per_sec (int8_mix,
+     B = 8 x 2048) and llm_decode_int8_tokens_per_sec (int8_wo, B = 8, seq
+     2048) beside phase 19's bf16 numbers; one int8_mix prefill under
+     torch.profiler; K7 at every path shape: ms, TOPS, the bound (2MKN int8
+     operations at 1,979 TOPS or 2MK + KN + 2MN bytes at 3.35 TB/s), the
+     plain version's ms and two yardsticks (torch's quantize + torch._int_mm
+     + rescale; a bf16 F.linear);
+ 37. InternVideo2-1B with quant="int8" at 16 x 224, B = 16: 160 K7 and 40 K1
+     per forward, nothing else, finite logits, encoder_int8_clips_per_sec
+     beside the bf16 model's; in fp32 at B = 2 with every LayerScale gamma at
+     0.5 (as the JAX test): pooled and tokens against the dense model at
+     the 1B (printed) and at the JAX test's config (rel-L2 <= 5e-3);
+     the internvideo25_hico_2b tower with quant="int8" on 128 frames: 108 K7
+     and 27 K2, its ms beside the bf16 tower's.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -273,6 +313,35 @@ RL_SHAPE = (4, 1152, 32, 8, 128)  # B, L, Hq, Hkv, head_dim of one microbatch's 
 RL_ENGINE_DEPTH, RL_ENGINE_PROMPT, RL_ENGINE_NEW = 4, 256, 32  # the engine backend, qwen3_8b_mla
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+PEAK_INT8_OPS = 1979e12  # int8 tensor cores, dense
+# int8 serving (phases 33-37): the (M, K, N) each path gives K7. 8B prefill at
+# B 8 x 2048: q_proj, kv_a, o_proj, gate / up, down; the 1B encoder at B 16 x
+# 4097: qkv, proj, fc1, fc2 (MLP 6144 = int(1408 * 48 / 11)); the tower at
+# 128 frames (64 x 196 tokens): qkv, proj, fc1, fc2 (K = 4304: a ragged k-tile)
+INT8_SHAPES = {
+    "serve_int8": [(16384, 4096, 8192), (16384, 4096, 1024), (16384, 4096, 4096),
+                   (16384, 4096, 12288), (16384, 12288, 4096)],
+    "encoder_int8": [(65552, 1408, 4224), (65552, 1408, 1408), (65552, 1408, 6144),
+                     (65552, 6144, 1408)],
+    "tower_int8": [(12544, 1152, 3456), (12544, 1152, 1152), (12544, 1152, 4304),
+                   (12544, 4304, 1152)],
+}
+INT8_MAIN_SHAPE = (16384, 4096, 12288)  # the 8B gate / up projection
+# tests/test_int8_gemm.py:24-32's shapes (M shape, K, N), K = 200 and its f32 case
+INT8_TEST_SHAPES = [((256,), 256, 384), ((3, 170), 256, 384), ((130,), 384, 200),
+                    ((64,), 128, 128), ((2, 40), 200, 96), ((192,), 256, 256)]
+# K7 launches per paged prefill layer: q, kv_a twice (the cache entry, then
+# the attention), o, gate, up, down (as JAX's prefill_paged, llm.py:337)
+INT8_PREFILL_PROJ = 7
+INT8_AGREE_SHAPE = (1, 1024)  # B, prompt of the route agreement: M = INT8_MIX_DYN_M
+ENC_INT8_B = 16
+# tests/test_quant_rl_paged.py:216-219's encoder (plain attention: head dim 32
+# has no K1 / K2 instantiation)
+INT8_ENC_TEST = dict(embed_dim=128, depth=2, num_heads=4, mlp_ratio=4.0, patch_size=14,
+                     img_size=56, num_frames=4, tubelet_size=1, clip_embed_dim=64,
+                     num_classes=0, attn_impl="plain",
+                     mlp_act="gelu")
+INT8_TOWER_VIDEO = (1, HICO_FRAMES, 224, 224, 3)
 
 
 def _card() -> str:
@@ -645,6 +714,8 @@ def _sdpa_times(shape, card) -> dict:
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
+    if "int8_" in n:  # K7's row quantizer and GEMM
+        return "int8_gemm"
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_s_fwd", "small_s_dq",
                 "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd", "causal_bwd_dq",
                 "causal_bwd_dkv", "paged_decode"):
@@ -3105,6 +3176,524 @@ def time_rl_iteration(card, depth: int = RL_DEPTH) -> dict:
     return res
 
 
+# -- int8 serving: phases 33-37 -------------------------------------------------------------
+
+def _int8_counts(fa, pd, ig) -> dict:
+    return {**_serve_counts(fa, pd), "int8_gemm": ig.launch_count()}
+
+
+def _int8_reset(fa, pd, ig) -> None:
+    _serve_reset(fa, pd)
+    ig.reset_launch_count()
+
+
+def _int8_inputs(m_shape, k, n, dtype, g):
+    """x (m_shape, K) with row 0 all zero and row 1 of exact .5 ties (amax
+    127: the scale is 1, x / s = x), weights quantized per output channel."""
+    from internvideo_tpu_torch.ops.quant import quantize_int8
+
+    x = torch.randn(*m_shape, k, device="cuda", generator=g)
+    rows = x.view(-1, k)
+    rows[0] = 0.0
+    rows[1] = torch.arange(k, device="cuda") % 5 - 2.5
+    rows[1, 0] = 127.0
+    w_q, w_s = quantize_int8(torch.randn(n, k, device="cuda", generator=g) * 0.05, 1)
+    return x.to(dtype), w_q, w_s.reshape(-1)
+
+
+def _int8_vs_plain(ig, x, w_q, w_s, out_dtype):
+    """(max-abs, rel-L2, elements that differ) of K7 against its plain
+    version; raises past the bars (f32: relative 1e-6, bf16: rel-L2 1e-2)."""
+    with torch.no_grad():
+        got = ig.int8_matmul_fused(x, w_q, w_s, out_dtype)
+        ref = ig.int8_matmul_reference(x, w_q, w_s, out_dtype)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    max_abs, rel = diff.max().item(), _rel(got, ref)
+    differ = int((got != ref).sum())
+    n = got.shape[-1]
+    if not bool((got.reshape(-1, n)[0] == 0).all()):
+        raise AssertionError("K7: an all-zero row of x gave a nonzero output")
+    if out_dtype == torch.float32:
+        if not bool((diff <= 1e-6 + 1e-6 * ref.float().abs()).all()):
+            raise AssertionError(f"K7 f32 output off its plain version: max-abs {max_abs:.3e}")
+    elif rel > 1e-2:
+        raise AssertionError(f"K7 bf16 output rel-L2 {rel:.3e} > 1e-2")
+    return max_abs, rel, differ
+
+
+def check_int8_kernel(ig) -> dict:
+    """Phase 33; returns {(M, K, N): bf16 max-abs} at the path shapes and
+    the largest f32 max-abs under "f32"."""
+    g = torch.Generator("cuda").manual_seed(33)
+    f32_err = 0.0
+    for m_shape, k, n in INT8_TEST_SHAPES:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, w_q, w_s = _int8_inputs(m_shape, k, n, x_dtype, g)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                max_abs, rel, differ = _int8_vs_plain(ig, x, w_q, w_s, out_dtype)
+                if out_dtype == torch.float32:
+                    f32_err = max(f32_err, max_abs)
+                print(f"K7 {str(x_dtype)[6:]} -> {str(out_dtype)[6:]} {(*m_shape, k, n)}: "
+                      f"max-abs {max_abs:.3e}, rel-L2 {rel:.3e}, {differ} elements differ",
+                      flush=True)
+    errs = {"f32": f32_err}
+    for path, shapes in INT8_SHAPES.items():
+        for m, k, n in shapes:
+            x, w_q, w_s = _int8_inputs((m,), k, n, torch.bfloat16, g)
+            f32 = _int8_vs_plain(ig, x, w_q, w_s, torch.float32)
+            bf16 = _int8_vs_plain(ig, x, w_q, w_s, torch.bfloat16)
+            errs["f32"] = max(errs["f32"], f32[0])
+            errs[(m, k, n)] = bf16[0]
+            print(f"K7 {path} bf16 {(m, k, n)}: f32 out max-abs {f32[0]:.3e} ({f32[2]} of "
+                  f"{m * n} differ); bf16 out rel-L2 {bf16[1]:.3e}, {bf16[2]} differ (bars "
+                  "1e-6 relative, 1e-2)", flush=True)
+            del x, w_q, w_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _int8_llm(quant: str, depth: int = LLM_DEPTH_8B, dtype: str = "bfloat16", before=None):
+    """qwen3_8b_mla in `quant` on the card: the seeded dense model (the
+    generate CLI's init), `before(dense)` run on it, its weights mapped by
+    quantize_params_like, the dense copy freed. Returns (model, what
+    `before` gave)."""
+    from internvideo_tpu_torch.models.llm import MLATransformer
+    from internvideo_tpu_torch.ops.quant import quantize_params_like
+
+    dense = _llm(PRESET_8B, num_layers=depth, dtype=dtype, param_dtype=dtype)
+    got = before(dense) if before is not None else None
+    model = MLATransformer(dataclasses.replace(dense.cfg, quant=quant), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0)).eval()
+    model.load_state_dict(quantize_params_like(model, dense.state_dict()), strict=True)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model, got
+
+
+def _set_int8_mix(model, on: bool) -> None:
+    """int8_mix (prefill-sized calls take K7) or, off, int8_wo on the same
+    int8 params."""
+    from internvideo_tpu_torch.ops.quant import INT8_MIX_DYN_M, Int8WoDense
+
+    for name, m in model.named_modules():
+        if isinstance(m, Int8WoDense) and name != "lm_head":
+            m.dyn_m_threshold = INT8_MIX_DYN_M if on else None
+
+
+@contextlib.contextmanager
+def _int8_plain_route(ig, model):
+    """K7's plain version in place of the kernel and the plain attention
+    route on `model`, for route comparisons; launches nothing."""
+    kernel = ig.int8_matmul_fused
+    ig.int8_matmul_fused = ig.int8_matmul_reference
+    _set_llm_impl(model, "plain")
+    try:
+        yield
+    finally:
+        ig.int8_matmul_fused = kernel
+        _set_llm_impl(model, "auto")
+
+
+def run_int8_serve_path(fa, pd, ig, card):
+    """Phase 34; returns (the int8_mix 8B model, launches summed over the
+    generate and engine runs, the dense model's logits on the agreement
+    prompt, that prompt)."""
+    import numpy as np
+
+    from internvideo_tpu_torch.models.generation import generate
+    from internvideo_tpu_torch.ops.quant import INT8_MIX_DYN_M
+    from internvideo_tpu_torch.serve import ServingEngine
+
+    ids_a = torch.randint(1, VOCAB, INT8_AGREE_SHAPE, generator=torch.Generator().manual_seed(35))
+
+    def dense_logits(dense):
+        with torch.no_grad():
+            return dense(ids_a.cuda()).logits
+
+    t0 = time.perf_counter()
+    model, ref_logits = _int8_llm("int8_mix", before=dense_logits)
+    wq = sum(p.numel() for p in model.parameters() if p.dtype == torch.int8)
+    print(f"[{card}] {PRESET_8B} int8_mix (36 layers, full width, seeded bf16 weights through "
+          f"quantize_params_like): {wq / 1e9:.2f} G int8 weights, "
+          f"{_param_bytes(model, skip_embed=False) / 1e9:.2f} GB of parameters "
+          f"({time.perf_counter() - t0:.1f} s incl. the dense init)", flush=True)
+    zero = dict.fromkeys(_int8_counts(fa, pd, ig), 0)
+    per_prefill = INT8_PREFILL_PROJ * LLM_DEPTH_8B
+    ids = torch.randint(1, VOCAB, (1, 2048), generator=torch.Generator().manual_seed(34))
+    _int8_reset(fa, pd, ig)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        toks = generate(model, ids.cuda(), max_new_tokens=32, paged=True,
+                        cache_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = _int8_counts(fa, pd, ig)
+    print(f"[{card}] paged generate {PRESET_8B} int8_mix, 2048-token prompt, 32 new: "
+          f"{toks[0, :8].tolist()}... ({time.perf_counter() - t0:.1f} s); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want = {**zero, "flash_fwd_causal": LLM_DEPTH_8B, "paged_decode": LLM_DEPTH_8B * 31,
+            "int8_gemm": per_prefill}
+    if launches != want or toks.shape != (1, 32) or not ((toks >= 0) & (toks < VOCAB)).all():
+        raise AssertionError(f"int8 generate: launches {launches} (expected {want}), tokens "
+                             f"{toks.tolist()}")
+    total = dict(launches)
+
+    calls = _wrap_calls(model)
+    widths = []
+    prefill = model.prefill_paged
+
+    def recorded(ids, *a, **kw):
+        widths.append(ids.shape[1])
+        return prefill(ids, *a, **kw)
+
+    model.prefill_paged = recorded
+    eng = ServingEngine(model, **SERVE_ENGINE, decode_horizon=1)
+    rng = np.random.default_rng(34)
+    reqs = [(rng.integers(1, VOCAB, size=int(n)).astype(np.int32), int(m))
+            for n, m in zip(rng.integers(100, 2049, 12), rng.integers(32, 65, 12))]
+    calls.update(prefill=0, decode=0)
+    _int8_reset(fa, pd, ig)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rids = [eng.submit(p, m) for p, m in reqs]
+        outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _int8_counts(fa, pd, ig)
+    n_tok = sum(len(outs[r]) for r in rids)
+    dyn = sum(w >= INT8_MIX_DYN_M for w in widths)
+    print(f"[{card}] ServingEngine {PRESET_8B} int8_mix: 12 requests, prompts "
+          f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)}, {n_tok} tokens in "
+          f"{wall:.2f} s ({n_tok / wall:.1f} tokens/s end to end incl. prefill); prefill widths "
+          f"{sorted(widths)} ({dyn} at >= {INT8_MIX_DYN_M} rows), {calls['decode']} decode "
+          f"steps; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    for rid, (p, m) in zip(rids, reqs):
+        out = outs[rid]
+        if len(out) != m or not ((out >= 0) & (out < VOCAB)).all():
+            raise AssertionError(f"request {rid}: {len(out)} of {m} tokens, {out}")
+    want = {**zero, "flash_fwd_causal": LLM_DEPTH_8B * calls["prefill"],
+            "paged_decode": LLM_DEPTH_8B * calls["decode"], "int8_gemm": per_prefill * dyn}
+    if launches != want or calls["prefill"] != 12 or dyn == 0:
+        raise AssertionError(f"int8 engine launches {launches} for {calls}; expected {want}")
+    total = {k: total[k] + launches[k] for k in total}
+    del eng
+    for name in ("prefill_paged", "decode_step_paged"):
+        delattr(model, name)
+    return model, total, ref_logits, ids_a
+
+
+def _int8_mix_vs_wo(model, ids) -> tuple:
+    """(int8_mix logits, int8_wo logits, share within JAX's 0.15 abs + 0.15
+    rel, argmax agreement) on the same int8 params."""
+    with torch.no_grad():
+        mix = model(ids).logits.float()
+        _set_int8_mix(model, False)
+        wo = model(ids).logits.float()
+        _set_int8_mix(model, True)
+    within = ((mix - wo).abs() <= 0.15 + 0.15 * wo.abs()).float().mean().item()
+    return mix, wo, within, (mix.argmax(-1) == wo.argmax(-1)).float().mean().item()
+
+
+def check_int8_routes(model, ig, ref_logits, ids_a, card) -> None:
+    """Phase 35. A random-weight int8 model is chaotic: a code that flips
+    one step on a 1e-6 upstream difference compounds (measured: the two
+    routes 0.24 apart at depth 36 in bf16, 1.5e-2 at depth 2 in fp32). So K7
+    is held against its plain version on the real inputs of every int8
+    projection of layers 0, 18 and 35; end to end at depth 36 the kernel
+    route must be no farther than the plain route (x 1.25) from the same
+    int8 weights run in fp32, as phases 18 / 22 / 27 / 31 hold bf16; JAX's
+    int8_mix-vs-int8_wo bars run at the JAX test's own config; at full
+    width, depth 2, fp32 the greedy tokens of the routes must be identical.
+    The rest is printed."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.generation import generate
+    from internvideo_tpu_torch.models.llm import MLATransformer
+    from internvideo_tpu_torch.ops.quant import INT8_MIX_DYN_M, Int8WoDense, quantize_params_like
+
+    ids = ids_a.cuda()
+    seen = {}
+
+    def record(name):
+        def hook(mod, args):
+            seen.setdefault(name, (mod, args[0].detach()))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(name)) for name, m in model.named_modules()
+             if isinstance(m, Int8WoDense) and name.startswith(("layers.0.", "layers.18.",
+                                                                "layers.35."))]
+    with torch.no_grad():
+        mix = model(ids).logits.float()
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    for name, (mod, x) in seen.items():
+        with torch.no_grad():
+            got = ig.int8_matmul_fused(x, mod.weight_q, mod.scale, torch.bfloat16)
+            want = ig.int8_matmul_reference(x, mod.weight_q, mod.scale, torch.bfloat16)
+        worst = max(worst, _rel(got, want))
+    print(f"[{card}] K7 vs its plain version on the real inputs of the {len(seen)} int8 "
+          f"projections of layers 0, 18, 35 (M = {ids.numel()}): worst rel-L2 {worst:.3e} "
+          "(bar 1e-2)", flush=True)
+    if worst > 1e-2:
+        raise AssertionError(f"K7 on the path's real inputs: rel-L2 {worst:.3e} > 1e-2")
+    with torch.no_grad(), _int8_plain_route(ig, model):
+        mix_plain = model(ids).logits.float()
+    # the same int8 weights in fp32, plain route: the reference of both routes
+    f32 = MLATransformer(dataclasses.replace(model.cfg, dtype="float32", param_dtype="float32"),
+                         device="cuda", generator=torch.Generator("cuda").manual_seed(0)).eval()
+    target = f32.state_dict()
+    f32.load_state_dict({k: v.to(target[k].dtype) for k, v in model.state_dict().items()})
+    with torch.no_grad(), _int8_plain_route(ig, f32):
+        ref32 = f32(ids).logits.float()
+    del f32, target
+    d_kern, d_plain = _rel(mix, ref32), _rel(mix_plain, ref32)
+    _, wo, within, agree = _int8_mix_vs_wo(model, ids)
+    ref = ref_logits.float()
+    print(f"[{card}] {PRESET_8B} int8_mix at depth 36, bf16, prompt {tuple(ids.shape)}: from the "
+          f"fp32 run of the same int8 weights, kernel route {d_kern:.3e}, plain route "
+          f"{d_plain:.3e} (bar: kernel <= 1.25 x plain); kernel vs plain {_rel(mix, mix_plain):.3e}"
+          f"; int8_mix vs int8_wo rel-L2 {_rel(mix, wo):.3e}, {within:.4%} within 0.15 + 0.15 "
+          f"rel, argmax agreement {agree:.4f}; drift from the dense bf16 model: int8_mix "
+          f"{_rel(mix, ref):.3e}, int8_wo {_rel(wo, ref):.3e} (printed)", flush=True)
+    if not (d_kern <= 1.25 * d_plain and all(bool(torch.isfinite(t).all())
+                                             for t in (mix, mix_plain, wo))):
+        raise AssertionError("int8_mix kernel route farther from fp32 than the plain route")
+    del mix, mix_plain, wo, ref, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # JAX's int8_mix test on the card: its config (tests/test_quant_rl_paged.py:
+    # 361-420), b = 2, s = 512 (M = INT8_MIX_DYN_M), fp32, seeded weights
+    tiny_cfg = presets.qwen3_mla_tiny(vocab_size=64, intermediate_size=48)
+    dense = MLATransformer(tiny_cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(35)).eval()
+    tiny = MLATransformer(dataclasses.replace(tiny_cfg, quant="int8_mix"), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(35)).eval()
+    tiny.load_state_dict(quantize_params_like(tiny, dense.state_dict()))
+    _set_llm_impl(tiny, "plain")  # its head dims (16 / 8) have no K5 instantiation
+    tiny_ids = torch.randint(0, 64, (2, INT8_MIX_DYN_M // 2), device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(36))
+    before = ig.launch_count()
+    _, _, within, agree = _int8_mix_vs_wo(tiny, tiny_ids)
+    print(f"[{card}] JAX's int8_mix test config on the card (K7 launched "
+          f"{ig.launch_count() - before} times): int8_mix vs int8_wo {within:.4%} within 0.15 + "
+          f"0.15 rel, argmax agreement {agree:.4f} (JAX's bars: all, 0.9)", flush=True)
+    if not (within == 1.0 and agree >= 0.9):
+        raise AssertionError("int8_mix vs int8_wo past JAX's bars at JAX's test config")
+    del dense, tiny
+
+    # fp32 at the 8B widths, depth 2: greedy tokens identical across the routes
+    small, _ = _int8_llm("int8_mix", depth=2, dtype="float32")
+    with torch.no_grad():
+        mix, wo, within, agree = _int8_mix_vs_wo(small, ids)
+        with _int8_plain_route(ig, small):
+            plain = small(ids).logits.float()
+    prompt = torch.randint(1, VOCAB, (2, INT8_MIX_DYN_M), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(35))
+    with torch.no_grad():
+        kern = generate(small, prompt, max_new_tokens=8, paged=True)
+        with _int8_plain_route(ig, small):
+            plain_toks = generate(small, prompt, max_new_tokens=8, paged=True)
+    print(f"[{card}] {PRESET_8B} int8_mix fp32 depth 2, prompt {tuple(ids.shape)} (printed): kernel "
+          f"vs plain route rel-L2 {_rel(mix, plain):.3e}; int8_mix vs int8_wo {within:.4%} within "
+          f"0.15 + 0.15 rel, argmax agreement {agree:.4f}; greedy on 2 x {INT8_MIX_DYN_M}-token "
+          f"prompts: kernel {kern.tolist()} / plain {plain_toks.tolist()}", flush=True)
+    if not torch.equal(kern, plain_toks):
+        raise AssertionError("fp32 int8_mix greedy tokens differ between the routes")
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_int8_encoder_tower(fa, pd, ig, card) -> dict:
+    """Phase 37: the 1B encoder (B = 16, launches, clips/s beside bf16; fp32
+    accuracy against dense at B = 2 with gammas 0.5) and the HiCo tower on
+    128 frames (launches, ms beside bf16), both quant="int8". Returns the
+    launches of each path and the times."""
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+    from internvideo_tpu_torch.models.vision_tower import VisionTower
+    from internvideo_tpu_torch.ops.quant import quantize_params_like
+
+    def pair(build, cfg):
+        dense = build(cfg)
+        model = build(dataclasses.replace(cfg, quant="int8"))
+        model.load_state_dict(quantize_params_like(model, dense.state_dict()), strict=True)
+        return dense.eval(), model.eval()
+
+    enc = lambda c: InternVideo2(c, device="cuda",  # noqa: E731
+                                 generator=torch.Generator("cuda").manual_seed(0))
+    zero = dict.fromkeys(_int8_counts(fa, pd, ig), 0)
+    res = {}
+    cfg = load_config(CONFIG_1B).model
+    dense, model = pair(enc, cfg)
+    g = torch.Generator("cuda").manual_seed(36)
+    clip = (cfg.num_frames, cfg.img_size, cfg.img_size, 3)
+    video = torch.randn(ENC_INT8_B, *clip, device="cuda", generator=g)
+    _int8_reset(fa, pd, ig)
+    with torch.no_grad():
+        out = model(video)
+    torch.cuda.synchronize()
+    counts = _int8_counts(fa, pd, ig)
+    want = {**zero, "flash_fwd": DEPTH_1B, "int8_gemm": 4 * DEPTH_1B}
+    print(f"[{card}] InternVideo2-1B quant=int8 {clip[0]}x{clip[1]} bf16 B={ENC_INT8_B}: logits "
+          f"{tuple(out.logits.shape)}, launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    if counts != want or not torch.isfinite(out.logits).all():
+        raise AssertionError(f"int8 encoder launches {counts} (expected {want}) or non-finite")
+    res["encoder_int8"] = counts
+    with torch.no_grad():
+        ms_int8 = _time_ms(lambda: model(video), iters=3)
+        ms_bf16 = _time_ms(lambda: dense(video), iters=3)
+    res["encoder_int8_clips_per_sec"] = ENC_INT8_B * 1e3 / ms_int8
+    res["encoder_bf16_clips_per_sec"] = ENC_INT8_B * 1e3 / ms_bf16
+    print(f"[{card}] encoder_int8_clips_per_sec (1B fwd 16x224, B={ENC_INT8_B}): int8 "
+          f"{ms_int8:.1f} ms = {res['encoder_int8_clips_per_sec']:.2f} clips/s; bf16 "
+          f"{ms_bf16:.1f} ms = {res['encoder_bf16_clips_per_sec']:.2f} clips/s", flush=True)
+    del dense, model, out, video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # accuracy against the dense model, fp32, LayerScale gammas at 0.5, B = 2:
+    # at the 1B (printed: 40 int8 blocks compound their rounding) and at the
+    # JAX test's own config (tests/test_quant_rl_paged.py:203-240, its bar)
+    rels = {}
+    for name, c in (("1B", dataclasses.replace(cfg, dtype="float32", param_dtype="float32")),
+                    ("JAX test config", dataclasses.replace(
+                        cfg, **INT8_ENC_TEST, dtype="float32", param_dtype="float32"))):
+        dense, model = pair(enc, c)
+        for m in (dense, model):
+            _raise_gammas(m, 0.5)
+        video = torch.randn(2, c.num_frames, c.img_size, c.img_size, 3, device="cuda",
+                            generator=g)
+        with torch.no_grad():
+            out, ref = model(video), dense(video)
+        rels[name] = {k: _rel(getattr(out, k), getattr(ref, k)) for k in ("pooled", "tokens")}
+        del dense, model, video, out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{card}] InternVideo2 int8 vs dense, fp32, gammas 0.5, B=2: rel-L2 {rels} (bar 5e-3 "
+          "at the JAX test's config)", flush=True)
+    if max(rels["JAX test config"].values()) > 5e-3:
+        raise AssertionError(f"int8 encoder vs dense {rels['JAX test config']} > 5e-3")
+    res["encoder_int8_vs_dense"] = rels
+
+    # the internvideo25_hico_2b tower on 128 frames
+    tcfg = presets.internvideo25_hico_2b().vision
+    dense, model = pair(lambda c: VisionTower(c, device="cuda",
+                                              generator=torch.Generator("cuda").manual_seed(0)),
+                        tcfg)
+    video = torch.randn(*INT8_TOWER_VIDEO, device="cuda", generator=g)
+    _int8_reset(fa, pd, ig)
+    with torch.no_grad():
+        toks, taps = model(video)
+    torch.cuda.synchronize()
+    counts = _int8_counts(fa, pd, ig)
+    depth = tcfg.num_layers
+    want = {**zero, "small_s_fwd": depth, "int8_gemm": 4 * depth}
+    with torch.no_grad():
+        ref_toks, _ = dense(video)
+        rel = _rel(toks, ref_toks)
+        ms_int8 = _time_ms(lambda: model(video), iters=5)
+        ms_bf16 = _time_ms(lambda: dense(video), iters=5)
+    print(f"[{card}] {PRESET_HICO} tower quant=int8, video {INT8_TOWER_VIDEO}: tokens "
+          f"{tuple(toks.shape)}, {len(taps)} taps, rel-L2 to the bf16 tower {rel:.3e}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; tower ms int8 {ms_int8:.2f}, bf16 "
+          f"{ms_bf16:.2f}", flush=True)
+    if counts != want or not torch.isfinite(toks).all():
+        raise AssertionError(f"int8 tower launches {counts} (expected {want}) or non-finite")
+    res.update(tower_int8=counts, tower_int8_ms=ms_int8, tower_bf16_ms=ms_bf16)
+    del dense, model, video, toks, taps, ref_toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _int_mm_ms(x, w_q, w_s):
+    """The library composition: torch's quantize, torch._int_mm (cuBLASLt
+    int8) and the rescale, as one PyTorch function (yardstick only)."""
+    from internvideo_tpu_torch.ops.quant import quantize_int8
+
+    def run():
+        x_q, x_s = quantize_int8(x, -1)
+        return (torch._int_mm(x_q, w_q.t()).float() * x_s * w_s).to(x.dtype)
+
+    try:
+        return _time_ms(run, iters=5)
+    except RuntimeError as e:  # a shape _int_mm refuses: no yardstick there
+        print(f"  torch._int_mm refused {tuple(x.shape)} x {tuple(w_q.shape)}: {e}", flush=True)
+        return None
+
+
+def time_int8(model, ig, card, bf16_serve: dict) -> dict:
+    """Phase 36: the int8 LLM metrics beside the bf16 ones of phase 19, one
+    int8_mix prefill under torch.profiler, K7 at every path shape."""
+    from internvideo_tpu_torch.models.llm import init_paged_cache
+
+    b, s = PREFILL_SHAPE
+    g = torch.Generator("cuda").manual_seed(37)
+    ids = torch.randint(1, VOCAB, (b, s), device="cuda", generator=g)
+    pages, tables = init_paged_cache(model.cfg, b, s + 64, 64, torch.bfloat16, "cuda")
+    tok = torch.randint(1, VOCAB, (b, 1), device="cuda", generator=g)
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        prefill = lambda: model.prefill_paged(ids, pages, tables, 64)  # noqa: E731
+        decode = lambda: model.decode_step_paged(tok, pages, tables, lens, 64)  # noqa: E731
+        prefill_ms = _time_ms(prefill, iters=3)
+        _set_int8_mix(model, False)
+        decode_ms = _time_ms(decode, iters=10, warmup=2)
+        _set_int8_mix(model, True)
+    res = {"llm_prefill_int8_tokens_per_sec": b * s * 1e3 / prefill_ms,
+           "llm_decode_int8_tokens_per_sec": b * 1e3 / decode_ms,
+           "llm_prefill_int8_ms": prefill_ms, "llm_decode_int8_ms": decode_ms}
+    print(f"[{card}] {PRESET_8B} llm_prefill_int8_tokens_per_sec (int8_mix, B={b} x {s}, "
+          f"prefill_paged): {prefill_ms:.1f} ms = {res['llm_prefill_int8_tokens_per_sec']:.0f} "
+          f"tokens/s (bf16 in phase 19: {bf16_serve['prefill_ms']:.1f} ms = "
+          f"{bf16_serve['prefill_tokens_per_sec']:.0f}); llm_decode_int8_tokens_per_sec "
+          f"(int8_wo, B={b}, seq {s}): {decode_ms:.2f} ms = "
+          f"{res['llm_decode_int8_tokens_per_sec']:.1f} tokens/s (bf16: "
+          f"{bf16_serve['decode_ms']:.2f} ms = {bf16_serve['decode_tokens_per_sec']:.1f})",
+          flush=True)
+    with torch.no_grad():
+        profile_step(prefill, card, f"{PRESET_8B} int8_mix prefill B={b} S={s}")
+    del pages
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shapes = []
+    for path, path_shapes in INT8_SHAPES.items():
+        for m, k, n in path_shapes:
+            x, w_q, w_s = _int8_inputs((m,), k, n, torch.bfloat16, g)
+            with torch.no_grad():
+                ms = _time_ms(lambda: ig.int8_matmul_fused(x, w_q, w_s, torch.bfloat16), iters=5)
+                plain = _time_ms(lambda: ig.int8_matmul_reference(x, w_q, w_s, torch.bfloat16),
+                                 iters=1)
+                w_bf16 = (w_q.float() * w_s[:, None]).bfloat16()
+                linear = _time_ms(lambda: F.linear(x, w_bf16), iters=5)
+                comp = _int_mm_ms(x, w_q, w_s)
+            ops = 2 * m * k * n
+            bound = max(ops / PEAK_INT8_OPS, (2 * m * k + k * n + 2 * m * n) / PEAK_BYTES_PER_S)
+            by = "operations" if ops / PEAK_INT8_OPS >= (2 * m * k + k * n + 2 * m * n) \
+                / PEAK_BYTES_PER_S else "bytes"
+            row = {"path": path, "shape": [m, k, n], "ms": ms, "tops": ops / ms / 1e9,
+                   "bound_ms": bound * 1e3, "bound_by": by, "plain_ms": plain,
+                   "library_ms": comp, "bf16_linear_ms": linear}
+            shapes.append(row)
+            print(f"[{card}] K7 {path} {(m, k, n)} bf16: {ms:.3f} ms = {row['tops']:.0f} TOPS "
+                  f"({bound * 1e3 / ms:.1%} of the {by} bound {bound * 1e3:.3f} ms); plain "
+                  f"{plain:.2f} ms; torch quantize + _int_mm + rescale "
+                  f"{'n/a' if comp is None else f'{comp:.3f} ms'}; bf16 F.linear {linear:.3f} ms",
+                  flush=True)
+            del x, w_q, w_s, w_bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["k7"] = shapes
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3116,6 +3705,7 @@ def main() -> int:
     from internvideo_tpu_torch.models.internvideo2 import InternVideo2
     from internvideo_tpu_torch.ops import _build
     from internvideo_tpu_torch.ops import flash_attention as fa
+    from internvideo_tpu_torch.ops import int8_gemm as ig
     from internvideo_tpu_torch.ops import paged_decode as pd
 
     card = _card()
@@ -3321,6 +3911,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     rl_iter = time_rl_iteration(card)
     print(f"[{card}] rl: " + json.dumps({**rl_iter, "peak_gb": rl_peak}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 33. K7 (the fused dynamic-int8 GEMM) vs its plain version
+    i8_err = check_int8_kernel(ig)
+
+    # 34. the int8 serving main path: int8_mix on qwen3_8b_mla, counting launches
+    i8_model, i8_launches, i8_ref, i8_ids = run_int8_serve_path(fa, pd, ig, card)
+
+    # 35. routes, int8_mix vs int8_wo, drift from dense; fp32 depth 2 tokens
+    check_int8_routes(i8_model, ig, i8_ref, i8_ids, card)
+    del i8_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 36. times, while the int8 8B model is on the card
+    i8t = time_int8(i8_model, ig, card, serve_times[PRESET_8B])
+    del i8_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 37. the 1B encoder and the tower with quant="int8"
+    i8_enc = run_int8_encoder_tower(fa, pd, ig, card)
 
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
@@ -3334,7 +3947,8 @@ def main() -> int:
     def by_path(name, eval_n=0):
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
                  "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches,
-                 "rl": rl_launches, "rl_engine": rl_engine_launches}
+                 "rl": rl_launches, "rl_engine": rl_engine_launches, "serve_int8": i8_launches,
+                 "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"]}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def entry(name, source, line, r, err, shape):
@@ -3471,7 +4085,27 @@ def main() -> int:
                        "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
                        "library_ms": w["library_ms"], "library_note": w["library_note"]},
         })
-    print(f"chip_smoke: phases 1-32 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    src_i8 = src + "int8_gemm.cu"
+    k7_main = next(r for r in i8t["k7"] if tuple(r["shape"]) == INT8_MAIN_SHAPE)
+    kernels.append({
+        "name": "int8_gemm", "route": "cuda", "source": src_i8,
+        "replaces": "internvideo_tpu/ops/int8_gemm.py:68", "launches": i8_launches["int8_gemm"],
+        "launches_by_path": by_path("int8_gemm"), "max_abs_err": i8_err["f32"],
+        "ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"], "bound_ms": k7_main["bound_ms"],
+        "bound_by": k7_main["bound_by"], "library_ms": k7_main["library_ms"],
+        "library_note": "torch quantize + torch._int_mm (cuBLASLt int8) + rescale; "
+                        "bf16_linear_ms: F.linear on the dequantized bf16 weight",
+        "bf16_linear_ms": k7_main["bf16_linear_ms"], "shape": list(INT8_MAIN_SHAPE),
+        "max_abs_err_bf16_out": max(v for k, v in i8_err.items() if k != "f32"),
+        "shapes": i8t["k7"],
+    })
+    print(f"[{card}] int8 serving: " + json.dumps({
+        **{k: v for k, v in i8t.items() if k != "k7"},
+        **{k: v for k, v in i8_enc.items() if not k.endswith("_int8")},
+        "llm_prefill_bf16_tokens_per_sec": serve_times[PRESET_8B]["prefill_tokens_per_sec"],
+        "llm_decode_bf16_tokens_per_sec": serve_times[PRESET_8B]["decode_tokens_per_sec"]}),
+        flush=True)
+    print(f"chip_smoke: phases 1-37 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ GQATransformer, VideoMLLM with either text model), unboxed
   * `deepstack_merger_{j}` (VideoMLLM)  -> `deepstack_merger.{j}`
   * the MLP decoder's `head_0` / `head_2` -> `head.0` / `head.2`
   * LayerNorm `scale` / `bias`        -> `weight` / `bias`
+  * int8 serving layers (Int8Dense, Int8WoDense): `kernel_q` (in, out)
+    int8 -> `weight_q` (out, in) [transpose], `scale` (1, out) ->
+    `scale` (out,)
   * RMSNorm `weight`, LayerScale `gamma`, `cls_token`, the pos embeds and
     biases go across as they are; the `encoder` prefix of the pretrain
     student and the CLIP teacher stays.
@@ -79,6 +82,7 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
+        int8 = "kernel_q" in node
         for name, child in node.items():
             m = _INDEXED.match(name)
             key = f"{m.group(1)}.{m.group(2)}" if m else name
@@ -89,6 +93,10 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
             t = _to_tensor(child)
             if name == "kernel":
                 sd[f"{prefix}weight"] = t.t().contiguous()
+            elif int8 and name == "kernel_q":
+                sd[f"{prefix}weight_q"] = t.t().contiguous()
+            elif int8 and name == "scale":
+                sd[f"{prefix}scale"] = t.reshape(-1)
             elif name in ("scale", "embedding"):
                 sd[f"{prefix}weight"] = t
             else:

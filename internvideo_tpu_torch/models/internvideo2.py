@@ -24,8 +24,13 @@ head's attention over the tokens (:248-283), which the CLIP teacher hands
 to attention-guided masking. `norm_type="layernorm"` builds LayerNorm
 blocks (eps `norm_eps`, default 1e-6).
 
+`quant="int8"` (serving) builds every block's qkv, proj, fc1 and fc2 as
+`ops/quant.py:Int8Dense` (K7 on the card); the patch embed and the pooling
+head stay dense. Its weights come from a dense model's state_dict through
+`quantize_params_like`.
+
 Not ported yet (each raises NotImplementedError; ROADMAP queue 1):
-`remat_policy`, `quant`, `pool_type="cls_proj"`, `ln_pre`.
+`remat_policy`, `pool_type="cls_proj"`, `ln_pre`.
 """
 
 from __future__ import annotations
@@ -113,8 +118,6 @@ class EncoderOutput:
 def _unported(cfg: InternVideo2Config) -> Optional[str]:
     if cfg.remat_policy is not None:
         return f"remat_policy={cfg.remat_policy!r} (ROADMAP queue 1, item 9)"
-    if cfg.quant is not None:
-        return f"quant={cfg.quant!r} (ROADMAP queue 1, item 6)"
     if cfg.pool_type != "attn":
         return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 9)"
     if cfg.ln_pre:
@@ -151,7 +154,7 @@ class InternVideo2(nn.Module):
                   qk_normalization=cfg.qk_normalization,
                   init_values=cfg.init_values, drop_path=rate,
                   attn_impl=cfg.attn_impl, mlp_act=cfg.mlp_act,
-                  norm_type=cfg.norm_type, norm_eps=cfg.norm_eps, **kw)
+                  norm_type=cfg.norm_type, norm_eps=cfg.norm_eps, quant=cfg.quant, **kw)
             for rate in self.drop_path_rates
         )
         # single-query attention: the plain route, as the JAX model pins it

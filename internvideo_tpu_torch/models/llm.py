@@ -10,8 +10,12 @@ Surfaces: the full forward (training: packed segment ids, and with
 JAX `nn.remat(_DecoderLayer)` :193-194, when autograd is on), the dense
 latent cache (`init_cache`, `prefill`, `decode_step`) and the paged one
 (`init_paged_cache`, `prefill_paged`, `decode_step_paged`), whose pools are
-written in place. Options outside the ported slices raise
-NotImplementedError naming their ROADMAP item: int8 quant modes, fp8, MoE.
+written in place. `quant="int8_wo"` / `"int8_mix"` (serving) builds the
+attention projections (nn/mla.py), the SwiGLU's gate, up and down and the
+lm_head as `ops/quant.py:Int8WoDense`; under int8_mix the layer projections
+take K7 at >= INT8_MIX_DYN_M flattened rows and the lm_head stays
+weight-only (JAX models/llm.py:85-100, 204-215). Options outside the
+ported slices raise NotImplementedError naming their ROADMAP item: fp8, MoE.
 """
 
 from __future__ import annotations
@@ -24,11 +28,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from internvideo_tpu_torch.nn.dense import Dense, trunc_normal_
+from internvideo_tpu_torch.nn.dense import trunc_normal_
 from internvideo_tpu_torch.nn.mla import MLAConfig, MLAttention
 from internvideo_tpu_torch.nn.norms import RMSNorm
 from internvideo_tpu_torch.nn.paged_cache import paged_write
 from internvideo_tpu_torch.nn.rope import YarnConfig, mrope_cos_sin, rope_cos_sin
+from internvideo_tpu_torch.ops.quant import serving_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +66,8 @@ class LLMOutput:
 
 
 def _check_options(cfg: LLMConfig) -> None:
-    if cfg.quant is not None:
-        raise NotImplementedError(
-            f"quant={cfg.quant!r} (int8 serving GEMMs) is not ported yet (ROADMAP queue 1, "
-            "item 6)")
+    if cfg.quant not in (None, "int8_wo", "int8_mix"):
+        raise ValueError(f"unknown quant {cfg.quant!r}; None, 'int8_wo' or 'int8_mix'")
     if cfg.fp8 is not None:
         raise NotImplementedError(f"fp8={cfg.fp8!r} is not ported yet (ROADMAP queue 1, item 10)")
     if cfg.moe is not None:
@@ -73,13 +76,17 @@ def _check_options(cfg: LLMConfig) -> None:
 
 
 class SwiGLU(nn.Module):
+    """down(silu(gate(x)) * up(x)); with `quant` the three projections are
+    Int8WoDense (int8_mix: K7 at >= INT8_MIX_DYN_M rows)."""
+
     def __init__(self, dim: int, intermediate: int, *, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, quant: Optional[str] = None,
+                 device=None):
         super().__init__()
         kw = dict(bias=False, dtype=dtype, param_dtype=param_dtype, device=device)
-        self.gate_proj = Dense(dim, intermediate, **kw)
-        self.up_proj = Dense(dim, intermediate, **kw)
-        self.down_proj = Dense(intermediate, dim, **kw)
+        self.gate_proj = serving_dense(quant, dim, intermediate, **kw)
+        self.up_proj = serving_dense(quant, dim, intermediate, **kw)
+        self.down_proj = serving_dense(quant, intermediate, dim, **kw)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -96,7 +103,7 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps,
                                                 dtype=dtype, device=device)
         self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size, dtype=dtype,
-                          param_dtype=pdtype, device=device)
+                          param_dtype=pdtype, quant=cfg.quant, device=device)
 
     def forward(self, x, cos, sin, segment_ids=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, q_segment_ids=segment_ids,
@@ -137,8 +144,10 @@ class MLATransformer(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype, device=device)
         if not cfg.tie_word_embeddings:
-            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
-                                 param_dtype=pdtype, device=device)
+            # weight-only even under int8_mix: prefill scores the last position only
+            self.lm_head = serving_dense(cfg.quant and "int8_wo", cfg.hidden_size,
+                                         cfg.vocab_size, bias=False, dtype=dtype,
+                                         param_dtype=pdtype, device=device)
         self.init_weights(generator)
 
     @torch.no_grad()

@@ -14,8 +14,9 @@ each frame, so the frames are folded into the batch, (B * gt, gh * gw, D),
 and attention runs dense at S = gh * gw = 196 (224 px): the small-S kernels
 K2 / K4b at head dim 72 on a CUDA tensor. The tower has no remat, as in JAX.
 
-`quant="int8"` (the JAX serving-time Int8Dense projections) raises: int8
-GEMMs are not ported yet (ROADMAP queue 1, item 6).
+`quant="int8"` (serving) builds each block's qkv, proj, fc1 and fc2 as
+`ops/quant.py:Int8Dense` (K7 on the card), as the JAX `_VisionBlock`
+(:139-170); the patch embed and the patch mergers stay dense.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from internvideo_tpu_torch.nn.dense import Dense
 from internvideo_tpu_torch.nn.norms import LayerNorm
 from internvideo_tpu_torch.nn.rope import apply_rope
 from internvideo_tpu_torch.ops.attention import dot_product_attention
+from internvideo_tpu_torch.ops.quant import serving_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,8 +125,8 @@ class VisionBlock(nn.Module):
         d = cfg.hidden_size
         self.cfg, self.attn_impl = cfg, cfg.attn_impl
         self.norm1 = LayerNorm(d, eps=1e-6, dtype=dtype, device=device)
-        dense = lambda i, o: Dense(i, o, dtype=dtype, param_dtype=pdtype,  # noqa: E731
-                                   device=device)
+        dense = lambda i, o: serving_dense(cfg.quant, i, o, dtype=dtype,  # noqa: E731
+                                           param_dtype=pdtype, device=device)
         self.qkv = dense(d, 3 * d)
         self.proj = dense(d, d)
         self.norm2 = LayerNorm(d, eps=1e-6, dtype=dtype, device=device)
@@ -180,10 +182,8 @@ class VisionTower(nn.Module):
     def __init__(self, cfg: VisionTowerConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.quant is not None:
-            raise NotImplementedError(
-                f"vision tower quant={cfg.quant!r} (int8 serving GEMMs) is not ported yet "
-                "(ROADMAP queue 1, item 6)")
+        if cfg.quant not in (None, "int8"):
+            raise ValueError(f"unknown vision tower quant {cfg.quant!r}; None or 'int8'")
         if cfg.spatial_merge_size != 2:
             raise ValueError("the merge-block order is fixed at spatial_merge_size 2, as in JAX")
         dtype, pdtype = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)

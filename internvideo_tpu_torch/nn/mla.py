@@ -15,6 +15,12 @@ key; per-head K-nope / V are decompressed by `kv_b_proj_kernel`
     route): absorbed single-token decode, q_lat = q_nope @ W_uk, scores over
     the latents, out = (probs . c) @ W_uv.
 
+`quant="int8_wo"` / `"int8_mix"` (serving) builds q_proj (or q_a / q_b),
+kv_a_proj_with_mqa and o_proj as `ops/quant.py:Int8WoDense` (int8_mix:
+with `dyn_m_threshold = INT8_MIX_DYN_M`, so prefill-sized calls take K7);
+kv_b stays a raw parameter in `param_dtype` (it feeds the absorbed-decode
+einsums), as in JAX (nn/mla.py:77-139).
+
 Caches are written in place (`prefill`, `decode`) and returned, where JAX
 returns an updated copy. `attn_impl`: auto | kernel | plain (or the JAX
 spellings pallas | xla). The kernel route on a CPU tensor runs the kernels'
@@ -34,6 +40,7 @@ from internvideo_tpu_torch.nn.dense import Dense, trunc_normal_
 from internvideo_tpu_torch.nn.norms import RMSNorm
 from internvideo_tpu_torch.nn.rope import apply_rope
 from internvideo_tpu_torch.ops.attention import _route, dot_product_attention
+from internvideo_tpu_torch.ops.quant import serving_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +72,11 @@ class MLAttention(nn.Module):
                  param_dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  quant: Optional[str] = None, device=None):
         super().__init__()
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r} (int8 serving GEMMs) is not ported yet (ROADMAP queue 1, "
-                "item 6)")
+        if quant not in (None, "int8_wo", "int8_mix"):
+            raise ValueError(f"unknown quant {quant!r}; None, 'int8_wo' or 'int8_mix'")
         self.cfg, self.dtype, self.attn_impl = cfg, dtype, attn_impl
-        dense = lambda i, o, bias: Dense(i, o, bias=bias, dtype=dtype,  # noqa: E731
-                                         param_dtype=param_dtype, device=device)
+        dense = lambda i, o, bias: serving_dense(quant, i, o, bias=bias, dtype=dtype,  # noqa: E731
+                                                 param_dtype=param_dtype, device=device)
         qd = cfg.num_heads * cfg.q_head_dim
         if cfg.q_lora_rank is None:
             self.q_proj = dense(cfg.hidden_size, qd, cfg.q_bias)

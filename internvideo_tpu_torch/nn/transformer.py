@@ -13,6 +13,11 @@ to the fused qkv + QK-RMSNorm + attention op (ops/attention.py
 `fused_qkv_attention_or_none`, kernel K3), as the JAX module does
 (transformer.py:151-167); where that declines it runs the unfused chain.
 
+`quant="int8"` (serving) builds the qkv, proj, fc1 and fc2 projections as
+`ops/quant.py:Int8Dense` (int8 weights, activations quantized per row by
+K7), as the JAX `_dense(quant=)` does (:29-38); the pooling head stays
+dense.
+
 DropPath takes its per-sample keep mask as a tensor instead of drawing it:
 the caller draws every block's masks before the blocks run, so that a
 recomputed (checkpointed) block reuses the same mask.
@@ -32,6 +37,7 @@ from internvideo_tpu_torch.ops.attention import (
     dot_product_attention,
     fused_qkv_attention_or_none,
 )
+from internvideo_tpu_torch.ops.quant import serving_dense
 
 
 class DropPath(nn.Module):
@@ -83,15 +89,15 @@ _ACTS = {
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, *, act: str = "gelu",
-                 dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if act not in _ACTS:
             raise ValueError(f"unknown mlp act {act!r}; one of {list(_ACTS)}")
         self.act = _ACTS[act]
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.fc1 = Dense(dim, hidden_dim, **kw)
-        self.fc2 = Dense(hidden_dim, dim, **kw)
+        self.fc1 = serving_dense(quant, dim, hidden_dim, **kw)
+        self.fc2 = serving_dense(quant, hidden_dim, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -114,7 +120,7 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = False,
                  qk_normalization: bool = True, attn_impl: str = "auto",
                  norm_type: str = "rmsnorm", norm_eps: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if dim % num_heads:
@@ -123,13 +129,13 @@ class Attention(nn.Module):
         self.attn_impl = attn_impl
         self.norm_type = norm_type
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, **kw)
+        self.qkv = serving_dense(quant, dim, 3 * dim, bias=qkv_bias, **kw)
         if qk_normalization:
             self.q_norm = _make_norm(norm_type, dim, dtype, device, norm_eps)
             self.k_norm = _make_norm(norm_type, dim, dtype, device, norm_eps)
         else:
             self.q_norm = self.k_norm = None
-        self.proj = Dense(dim, dim, **kw)
+        self.proj = serving_dense(quant, dim, dim, **kw)
 
     def _split(self, qkv: torch.Tensor):
         """Flat (B, S, 3D) projection -> q, k, v as (B, S, H, D/H). v (and
@@ -161,18 +167,19 @@ class Block(nn.Module):
     """Pre-norm transformer block: norm -> attn -> LayerScale -> DropPath,
     then norm -> MLP -> LayerScale -> DropPath, each added to the residual
     in `dtype`. `norm_type` "rmsnorm" (InternVideo2) or "layernorm" (the
-    VideoMAE teacher; eps 1e-6 unless `norm_eps`)."""
+    VideoMAE teacher; eps 1e-6 unless `norm_eps`); `quant="int8"` serving
+    projections."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_normalization: bool = True,
                  init_values: Optional[float] = 1e-5, drop_path: float = 0.0,
                  attn_impl: str = "auto", mlp_act: str = "gelu",
                  norm_type: str = "rmsnorm", norm_eps: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.drop_path = drop_path
-        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        kw = dict(quant=quant, dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm1 = _make_norm(norm_type, dim, dtype, device, norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               qk_normalization=qk_normalization, attn_impl=attn_impl,

@@ -133,6 +133,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, p,           # softmax scale, stream
     ]
     lib.ivt_paged_decode.restype = i
+    lib.ivt_int8_gemm.argtypes = [
+        i, i, p, p, i, p,            # x dtype, out dtype, x, w_q, w_q row pitch, w_scale
+        p, p, i, p,                  # x codes / scales scratch, codes row pitch, out
+        i, i, i, p,                  # M, N, K, stream
+    ]
+    lib.ivt_int8_gemm.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.ivt_fused_qkv_rstd.argtypes = [
         i, p, p, p,                  # dtype, qkv, q_rstd, k_rstd

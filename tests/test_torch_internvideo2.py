@@ -203,7 +203,27 @@ def test_params_from_jax_roundtrip_names(jax_params):
     dict(ln_pre=True), dict(remat_policy="offload_mlp"),
 ])
 def test_unported_config_raises(override):
+    """Each unported option raises naming its ROADMAP item; quant="int8"
+    is ported: every block projection is an int8 Int8Dense (its parity
+    with JAX is in test_torch_int8_serving.py), the pooling head stays
+    dense."""
     cfg = iv2.make_config("1B", **{**SMALL, **override})
+    if override == dict(quant="int8"):
+        from internvideo_tpu_torch.ops.quant import Int8Dense
+
+        model = iv2.InternVideo2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        for blk in model.blocks:
+            for name, (n, k) in (("attn.qkv", (3 * 176, 176)), ("attn.proj", (176, 176)),
+                                 ("mlp.fc1", (768, 176)), ("mlp.fc2", (176, 768))):
+                layer = blk.get_submodule(name)
+                assert isinstance(layer, Int8Dense), name
+                assert layer.weight_q.dtype == torch.int8 and layer.weight_q.shape == (n, k)
+                assert layer.scale.dtype == torch.float32 and layer.scale.shape == (n,)
+        assert model.clip_projector.cross_attn.q.weight.dtype == torch.float32
+        with torch.no_grad():
+            out = model(torch.from_numpy(_video(cfg, batch=1)))
+        assert torch.isfinite(out.logits).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         iv2.InternVideo2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 

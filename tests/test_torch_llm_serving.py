@@ -141,10 +141,17 @@ def test_presets_match_jax_and_unported_options_raise():
     cfg = LLMConfig(**{**tiny, "mla": MLAConfig(**tiny["mla"])})
     assert presets.qwen3_mla_tiny() == cfg
     gen = torch.Generator().manual_seed(0)
-    for over, item in ((dict(quant="int8_wo"), "item 6"), (dict(quant="int8_mix"), "item 6"),
-                       (dict(fp8="fwd"), "item 10"), (dict(moe=object()), "item 8")):
+    for over, item in ((dict(fp8="fwd"), "item 10"), (dict(moe=object()), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             MLATransformer(dataclasses.replace(cfg, **over), device="cpu", generator=gen)
+    # int8_wo / int8_mix are ported (parity: test_torch_int8_serving.py): every
+    # projection and the lm_head hold int8 weights with fp32 scales
+    for quant in ("int8_wo", "int8_mix"):
+        qm = MLATransformer(dataclasses.replace(cfg, quant=quant), device="cpu", generator=gen)
+        mlp = qm.layers[0].mlp
+        assert mlp.gate_proj.weight_q.shape == (cfg.intermediate_size, cfg.hidden_size)
+        assert mlp.down_proj.weight_q.dtype == torch.int8
+        assert qm.lm_head.scale.shape == (cfg.vocab_size,)
     # remat (the 8B preset's training setting) is ported: per-layer
     # checkpointing gives the plain forward's logits and gradients
     remat = MLATransformer(dataclasses.replace(cfg, remat=True), device="cpu",

@@ -177,5 +177,18 @@ def test_mla_decode_paged_matches_jax_on_both_routes():
 
 
 def test_mla_quant_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MLAttention(dataclasses.replace(MLAConfig(**MLA_TINY)), quant="int8_wo", device="cpu")
+    """int8_wo / int8_mix are ported: q, kv_a and o become Int8WoDense
+    (int8_mix with INT8_MIX_DYN_M as its threshold) and kv_b stays a raw
+    parameter, as in JAX; an unknown quant mode raises."""
+    from internvideo_tpu_torch.ops.quant import INT8_MIX_DYN_M, Int8WoDense
+
+    cfg = MLAConfig(**MLA_TINY)
+    for quant, thr in (("int8_wo", None), ("int8_mix", INT8_MIX_DYN_M)):
+        attn = MLAttention(cfg, quant=quant, device="cpu")
+        for name in ("q_proj", "kv_a_proj_with_mqa", "o_proj"):
+            layer = getattr(attn, name)
+            assert isinstance(layer, Int8WoDense) and layer.dyn_m_threshold == thr, name
+            assert layer.weight_q.dtype == torch.int8 and layer.scale.dtype == torch.float32
+        assert attn.kv_b_proj_kernel.dtype == torch.float32
+    with pytest.raises(ValueError, match="quant"):
+        MLAttention(cfg, quant="int4", device="cpu")

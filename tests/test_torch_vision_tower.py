@@ -85,5 +85,11 @@ def test_tower_gradients_flow_and_unported_options_raise():
     (tokens.square().sum() + sum(t.sum() for t in taps)).backward()
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in tower.parameters())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tvt.VisionTower(dataclasses.replace(tcfg, quant="int8"), device="cpu")
+    # quant="int8" is ported (parity: test_torch_int8_serving.py): the block
+    # projections hold int8 weights, the patch embed stays dense
+    qtower = tvt.VisionTower(dataclasses.replace(tcfg, quant="int8"), device="cpu")
+    blk = qtower.blocks[0]
+    assert blk.qkv.weight_q.shape == (3 * 144, 144) and blk.fc2.weight_q.shape == (144, 96)
+    assert blk.fc1.scale.dtype == torch.float32 and qtower.patch_embed.weight.dtype == torch.float32
+    with pytest.raises(ValueError, match="quant"):
+        tvt.VisionTower(dataclasses.replace(tcfg, quant="int4"), device="cpu")
