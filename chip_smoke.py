@@ -253,7 +253,36 @@ non-zero and prints no result):
      0.5 (as the JAX test): pooled and tokens against the dense model at
      the 1B (printed) and at the JAX test's config (rel-L2 <= 5e-3);
      the internvideo25_hico_2b tower with quant="int8" on 128 frames: 108 K7
-     and 27 K2, its ms beside the bf16 tower's.
+     and 27 K2, its ms beside the bf16 tower's;
+ 38. K9 (fused add + RMSNorm) and K10 (fused LayerScale + add + RMSNorm)
+     vs their plain versions: fp32 at the JAX tests' (2, 123, 64) and
+     (4, 16, 64) (y max-abs <= 1e-6, the new residual identical); bf16 at the
+     1B encoder's residual stream (16 * 4097 rows x 1408), K9 with an fp32
+     residual, K10 all bf16 (y rel-L2 <= 1e-3, the new residual identical);
+     K10's gradient through its Function against plain autograd (rel-L2 <=
+     1e-2); K9 on a requires-grad input raises;
+ 39. K11 (fused qkv + QK-RMSNorm + blocked-K attention) vs its plain
+     version: fp32 at (1, 1100 / 1040, 2 x 64) (max-abs 2e-5, grads 5e-4),
+     bf16 on one projection at the stage-2 tower's (32, 1025, 16, 88) and
+     the 1B eval's (16, 4097, 16, 88) (rel-L2 <= 1e-2); 39b: the three
+     kernels' only paths, their entry points (`ops.fused_add_rms_norm`,
+     `fused_ls_add_rms_norm`, `fused_qkv_attention_or_none(allow_large=
+     True)` at S = 1025), each once, launches reset before and read after;
+ 40. the retrieval main path: `internvideo_tpu_torch.cli.eval` on
+     configs/torch/eval_retrieval_stage2_1b.py (internvideo2_stage2_1b, 64
+     clips x 64 texts, k 16); launches reset before and read after: 400
+     flash_fwd (2 tower batches x 40 + 64 rerank batches x 5 cross-attention
+     layers) and nothing else; every metric finite, the keys itm_eval's;
+ 41. kernel route vs plain route on the same seeded model (the tower's
+     LayerScale gammas at 0.1, as in phase 5), 2 clips x 2 texts:
+     vision_proj, text_proj and the ITM logits (rel-L2 <= 1e-2, or the
+     kernel route no farther from the fp32 weights' output than the plain
+     route, x 1.25); K1 on fusion layer 19's real cross-attention
+     (rel-L2 <= 1e-2);
+ 42. times: tower clips/s (B 32), text texts/s (B 32 x 32), rerank pairs/s
+     (32 pairs) and the whole eval's wall time; videoclip_retrieval_p50_ms
+     as bench.py:241-317 times it; one query under torch.profiler; K9, K10
+     and K11 beside their plain versions, bounds and yardsticks.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -270,6 +299,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -342,6 +372,12 @@ INT8_ENC_TEST = dict(embed_dim=128, depth=2, num_heads=4, mlp_ratio=4.0, patch_s
                      num_classes=0, attn_impl="plain",
                      mlp_act="gelu")
 INT8_TOWER_VIDEO = (1, HICO_FRAMES, 224, 224, 3)
+# VideoCLIP stage-2 retrieval (phases 38-42): the eval config, the tower's
+# attention shape at 4 x 224 and B 32, and K9 / K10's rows x D: the 1B
+# encoder's residual stream at 16 x 224, B 16
+CONFIG_RETRIEVAL = "configs/torch/eval_retrieval_stage2_1b.py"
+RETRIEVAL_TOWER_SHAPE = (32, 1025, 16, 88)
+NORM_SHAPE = (16 * 4097, 1408)
 
 
 def _card() -> str:
@@ -377,10 +413,13 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def _set_attn_impl(model, impl: str) -> None:
+    """The route of every encoder block's and BERT layer's attention (the
+    pooling head stays on the plain route, as the model pins it)."""
+    from internvideo_tpu_torch.models.bert import BertAttention
     from internvideo_tpu_torch.nn.transformer import Attention
 
     for m in model.modules():
-        if isinstance(m, Attention):
+        if isinstance(m, (Attention, BertAttention)):
             m.attn_impl = impl
 
 
@@ -3694,6 +3733,449 @@ def time_int8(model, ig, card, bf16_serve: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 38-42: K9, K10, K11 and VideoCLIP stage-2 retrieval
+# ---------------------------------------------------------------------------
+
+
+def _all_counts(fa, pd, ig, rms) -> dict:
+    return {**_int8_counts(fa, pd, ig), **{n: rms.launch_count(n) for n in rms.KERNELS}}
+
+
+def _all_reset(fa, pd, ig, rms) -> None:
+    _int8_reset(fa, pd, ig)
+    rms.reset_launch_count()
+
+
+def _norm_inputs(rows: int, d: int, x_dtype, res_dtype, g):
+    x = torch.randn(rows, d, device="cuda", generator=g).to(x_dtype)
+    res = torch.randn(rows, d, device="cuda", generator=g).to(res_dtype)
+    gamma = torch.randn(d, device="cuda", generator=g) * 0.1
+    w = torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0
+    return x, res, gamma, w
+
+
+def check_norm_kernels(rms) -> dict:
+    """Phase 38: K9 and K10 vs their plain versions; returns max-abs errors."""
+    g = torch.Generator("cuda").manual_seed(38)
+    err = {"fused_add_rms_norm": 0.0, "fused_ls_add_rms_norm": 0.0}
+    for shape in ((2, 123, 64), (4, 16, 64)):
+        rows, d = math.prod(shape[:-1]), shape[-1]
+        x, res, gamma, w = _norm_inputs(rows, d, torch.float32, torch.float32, g)
+        x, res = x.reshape(shape), res.reshape(shape)
+        with torch.no_grad():
+            for name, got, ref in (
+                    ("fused_add_rms_norm", rms.fused_add_rms_norm(x, res, w),
+                     rms.fused_add_rms_norm_ref(x, res, w)),
+                    ("fused_ls_add_rms_norm", rms.fused_ls_add_rms_norm(x, res, gamma, w),
+                     rms.fused_ls_add_rms_norm_ref(x, res, gamma, w))):
+                torch.cuda.synchronize()
+                e = (got[0] - ref[0]).abs().max().item()
+                same = torch.equal(got[1], ref[1])
+                err[name] = max(err[name], e)
+                print(f"{name} fp32 {shape}: y max-abs {e:.3e} (bar 1e-6), newres identical "
+                      f"{same}", flush=True)
+                if not (e <= 1e-6 and same):
+                    raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+
+    rows, d = NORM_SHAPE
+    for name, xdt, rdt in (("fused_add_rms_norm", torch.bfloat16, torch.float32),
+                           ("fused_ls_add_rms_norm", torch.bfloat16, torch.bfloat16)):
+        x, res, gamma, w = _norm_inputs(rows, d, xdt, rdt, g)
+        with torch.no_grad():
+            if name == "fused_add_rms_norm":
+                got, ref = rms.fused_add_rms_norm(x, res, w), rms.fused_add_rms_norm_ref(x, res, w)
+            else:
+                got = rms.fused_ls_add_rms_norm(x, res, gamma, w)
+                ref = rms.fused_ls_add_rms_norm_ref(x, res, gamma, w)
+            torch.cuda.synchronize()
+        rel, same = _rel(got[0], ref[0]), torch.equal(got[1], ref[1])
+        e = (got[0].float() - ref[0].float()).abs().max().item()
+        err[f"{name}_bf16"] = e
+        print(f"{name} {NORM_SHAPE} x {str(xdt)[6:]} / residual {str(rdt)[6:]}: y rel-L2 "
+              f"{rel:.3e} (bar 1e-3), max-abs {e:.3e}, newres identical {same}", flush=True)
+        if not (rel <= 1e-3 and same):
+            raise AssertionError(f"{name} disagrees with its plain version at {NORM_SHAPE}")
+        del x, res, got, ref
+
+    # K10's gradient through its Function (backward: the unfused composition)
+    x, res, gamma, w = _norm_inputs(4096, d, torch.bfloat16, torch.bfloat16, g)
+    gy = torch.randn(4096, d, device="cuda", generator=g)
+    leaves = [t.requires_grad_() for t in (x, res, gamma, w)]
+    grads = torch.autograd.grad((rms.fused_ls_add_rms_norm(*leaves)[0].float() * gy).sum(),
+                                leaves)
+    plain = [t.detach().requires_grad_() for t in leaves]
+    ref_grads = torch.autograd.grad(
+        (rms.fused_ls_add_rms_norm_ref(*plain)[0].float() * gy).sum(), plain)
+    rels = [_rel(a, b) for a, b in zip(grads, ref_grads)]
+    print(f"fused_ls_add_rms_norm bf16 (4096, {d}) grads h / residual / gamma / weight rel-L2 "
+          + " / ".join(f"{r:.3e}" for r in rels) + " (bar 1e-2)", flush=True)
+    if not all(r <= 1e-2 for r in rels):
+        raise AssertionError("K10's gradient disagrees with plain autograd")
+    try:
+        rms.fused_add_rms_norm(leaves[0], leaves[1], leaves[3])
+    except RuntimeError as e:
+        print(f"fused_add_rms_norm on a requires-grad input raises: {e}", flush=True)
+    else:
+        raise AssertionError("K9 ran under autograd: it is inference-only")
+    return err
+
+
+def check_large_kernel(fa) -> dict:
+    """Phase 39: K11 vs its plain version; returns max-abs errors."""
+    g = torch.Generator("cuda").manual_seed(39)
+    err = {}
+    for b, s, h, d in ((1, 1100, 2, 64), (1, 1040, 2, 64)):
+        w = h * d
+        qkv = torch.randn(b, s, 3 * w, device="cuda", generator=g)
+        qw, kw = (torch.randn(w, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
+        do = torch.randn(b, s, w, device="cuda", generator=g)
+        leaves = [t.requires_grad_() for t in (qkv, qw, kw)]
+        out = fa.fused_qkv_rmsnorm_attention(*leaves, num_heads=h)
+        grads = torch.autograd.grad((out * do).sum(), leaves)
+        plain = [t.detach().requires_grad_() for t in leaves]
+        ref = fa.fused_qkv_large_ref(*plain, h, d ** -0.5)
+        ref_grads = torch.autograd.grad((ref * do).sum(), plain)
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        ge = [((a - r).abs() / (5e-4 + 5e-4 * r.abs())).max().item()
+              for a, r in zip(grads, ref_grads)]
+        err["fused_qkv_large_fwd"] = max(err.get("fused_qkv_large_fwd", 0.0), e)
+        print(f"K11 fp32 {(b, s, h, d)}: out max-abs {e:.3e} (bar 2e-5); grads qkv / qw / kw "
+              f"at {' / '.join(f'{x:.2f}' for x in ge)} of the 5e-4 bar", flush=True)
+        if not (e <= 2e-5 and all(x <= 1 for x in ge)):
+            raise AssertionError(f"K11 disagrees with its plain version at {(b, s, h, d)}")
+    for shape in (RETRIEVAL_TOWER_SHAPE, MAIN_SHAPE):
+        b, s, h, d = shape
+        w = h * d
+        qkv = (torch.randn(b, s, 3 * w, device="cuda", generator=g) * 2).bfloat16()
+        qw, kw = (torch.randn(w, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
+        with torch.no_grad():
+            out = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+            ref = fa.fused_qkv_large_ref(qkv, qw, kw, h, d ** -0.5)
+            torch.cuda.synchronize()
+        rel, e = _rel(out, ref), (out.float() - ref.float()).abs().max().item()
+        err[f"fused_qkv_large_fwd_{s}"] = e
+        print(f"K11 bf16 {shape} on one (B, S, 3W) projection: out rel-L2 {rel:.3e} "
+              f"(bar 1e-2), max-abs {e:.3e}", flush=True)
+        if rel > 1e-2:
+            raise AssertionError(f"K11 disagrees with its plain version at {shape}")
+        del qkv, out, ref
+    return err
+
+
+def run_norm_entry_points(fa, pd, ig, rms) -> dict:
+    """Phase 39b: the three kernels' only paths are their public entry points
+    (no model calls them, in JAX or here): each driven once at its path
+    shape, counters reset just before and read just after."""
+    from internvideo_tpu_torch import ops
+    from internvideo_tpu_torch.ops.attention import fused_qkv_attention_or_none
+
+    g = torch.Generator("cuda").manual_seed(40)
+    rows, d = NORM_SHAPE
+    x, res, gamma, w = _norm_inputs(rows, d, torch.bfloat16, torch.float32, g)
+    h_ls, res_ls = x, res.bfloat16()
+    b, s, h, hd = RETRIEVAL_TOWER_SHAPE
+    qkv = torch.randn(b, s, 3 * h * hd, device="cuda", generator=g).bfloat16()
+    qw, kw = torch.ones(h * hd, device="cuda"), torch.ones(h * hd, device="cuda")
+    torch.cuda.synchronize()
+    _all_reset(fa, pd, ig, rms)
+    with torch.no_grad():
+        y, newres = ops.fused_add_rms_norm(x, res, w)
+        y2, newres2 = rms.fused_ls_add_rms_norm(h_ls, res_ls, gamma, w)
+        declined = fused_qkv_attention_or_none(qkv, qw, kw, num_heads=h)
+        out = fused_qkv_attention_or_none(qkv, qw, kw, num_heads=h, allow_large=True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    want = {"fused_add_rms_norm": 1, "fused_ls_add_rms_norm": 1, "fused_qkv_rstd": 1,
+            "fused_qkv_large_fwd": 1}
+    finite = all(bool(torch.isfinite(t).all()) for t in (y, newres, y2, newres2, out))
+    print(f"entry points: ops.fused_add_rms_norm {NORM_SHAPE}, fused_ls_add_rms_norm, "
+          f"fused_qkv_attention_or_none at {RETRIEVAL_TOWER_SHAPE} (declines without "
+          f"allow_large: {declined is None}; with it: {tuple(out.shape)}): launches {counts}, "
+          f"finite {finite}", flush=True)
+    if counts != want or declined is not None or not finite:
+        raise AssertionError(f"entry points launched {counts}; expected {want}")
+    return counts
+
+
+def _retrieval_want(run) -> dict:
+    """flash_fwd launches of one retrieval eval: the tower's depth per video
+    batch, the fusion layers' cross-attention per rerank batch (padding
+    masks keep the text tower and every fusion self-attention off the
+    kernels, as in JAX)."""
+    videos, texts, _, _ = run.data()
+    nv, nt = videos["video"].shape[0], texts["input_ids"].shape[0]
+    o = run.options
+    k, kv = min(o["k_test"], nt), min(o["k_test"], nv)
+    batches = -(-nv // max(1, o["rerank_batch"] // k)) + -(-nt // max(1, o["rerank_batch"] // kv))
+    cross = run.model.text.num_layers - run.model.text.fusion_layer
+    return {"flash_fwd": -(-nv // o["batch_size"]) * run.model.vision.depth + batches * cross}
+
+
+def run_retrieval_path(fa, pd, ig, rms, card) -> tuple:
+    """Phase 40: the retrieval main path through cli.eval; returns (launches,
+    the metrics, the wall seconds)."""
+    from internvideo_tpu_torch.cli import eval as cli
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.eval.retrieval import itm_eval
+
+    want = _retrieval_want(load_config(CONFIG_RETRIEVAL))
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_RETRIEVAL, "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[{card}] cli.eval {CONFIG_RETRIEVAL}: {json.dumps(result)} ({wall:.1f} s wall incl. "
+          f"model init and data)", flush=True)
+    print(f"main path (retrieval): launches {counts}, expected {want}", flush=True)
+    keys = set(itm_eval(*(np.eye(2),) * 2, np.arange(2), np.arange(2)))
+    if rc != 0 or set(result) != {"task"} | keys:
+        raise AssertionError(f"cli.eval retrieval printed {sorted(result)}")
+    if not all(math.isfinite(result[k]) for k in keys):
+        raise AssertionError("non-finite retrieval metric")
+    if want != {"flash_fwd": 400} or counts != want:
+        raise AssertionError(f"retrieval launched {counts}; expected {want} (400 flash_fwd)")
+    return counts, result, wall
+
+
+def _videoclip(dtype: str = "bfloat16"):
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.models.videoclip import VideoCLIP
+
+    cfg = load_config(CONFIG_RETRIEVAL).model
+    if dtype != cfg.vision.dtype:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype=dtype),
+                                  text=dataclasses.replace(cfg.text, dtype=dtype))
+    return VideoCLIP(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0)).eval()
+
+
+def _retrieval_outputs(model, video, ids, mask) -> dict:
+    """vision_proj, text_proj and the ITM logits of every (clip, text) pair."""
+    with torch.inference_mode():
+        tokens, pooled, _, _ = model.encode_vision(video)
+        t_tokens, t_pooled = model.encode_text(ids, mask)
+        nv, nt = tokens.shape[0], t_tokens.shape[0]
+        vi, ti = torch.arange(nv).repeat_interleave(nt), torch.arange(nt).repeat(nv)
+        fused = model.fusion(t_tokens[ti], mask[ti], tokens[vi])
+        return {"vision_proj": model.vision_proj(pooled).float(),
+                "text_proj": model.text_proj(t_pooled).float(),
+                "itm_logits": model.itm_logits(fused.pooled).float()}
+
+
+def check_retrieval_routes(fa) -> None:
+    """Phase 41: kernel route vs plain route on the seeded full-width model
+    (the tower's LayerScale gammas at 0.1), 2 clips x 2 texts; K1 on fusion
+    layer 19's real cross-attention. Returns the bf16 model."""
+    from internvideo_tpu_torch.core.config import load_config
+
+    videos, texts, _, _ = load_config(CONFIG_RETRIEVAL).data()
+    video = torch.as_tensor(videos["video"][:2], device="cuda")
+    ids, mask = (torch.as_tensor(texts[k][:2], device="cuda")
+                 for k in ("input_ids", "attention_mask"))
+    model = _videoclip()
+    # at their 1e-5 init the LayerScale gammas keep every block's attention
+    # below the bf16 resolution of the residual: raised, as in phase 5
+    _raise_gammas(model.vision_encoder)
+    res = {}
+    for impl in ("kernel", "plain"):
+        _set_attn_impl(model, impl)
+        res[impl] = _retrieval_outputs(model, video, ids, mask)
+    _set_attn_impl(model, "auto")
+    f32 = _videoclip("float32")
+    f32.load_state_dict(model.state_dict())
+    _set_attn_impl(f32, "plain")
+    anchor = _retrieval_outputs(f32, video, ids, mask)
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, ref in anchor.items():
+        k, p = res["kernel"][name], res["plain"][name]
+        rel, dk, dp = _rel(k, p), _rel(k, ref), _rel(p, ref)
+        print(f"stage-2 bf16 B=2 x 2, {name}: kernel vs plain route rel-L2 {rel:.3e} (bar 1e-2); "
+              f"from the fp32 weights' output: kernel {dk:.3e}, plain {dp:.3e}", flush=True)
+        if not torch.isfinite(k).all() or (rel > 1e-2 and dk > 1.25 * dp):
+            raise AssertionError(f"retrieval routes disagree on {name}")
+
+    layer = model.text_encoder.layer[model.config.text.fusion_layer].crossattention
+    captured = {}
+    hook = layer.register_forward_pre_hook(
+        lambda mod, args: captured.setdefault("qkv", (args[0], args[1])) and None)
+    _retrieval_outputs(model, video, ids, mask)
+    hook.remove()
+    x, kv = captured["qkv"]
+    heads = (model.config.text.num_heads, -1)
+    with torch.inference_mode():
+        q, k, v = (lin(t).unflatten(-1, heads) for lin, t in
+                   ((layer.query, x), (layer.key, kv), (layer.value, kv)))
+        before = fa.launch_count("flash_fwd")
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, q.shape[-1] ** -0.5)
+        torch.cuda.synchronize()
+    rel, e_lse = _rel(out, ref), (lse - ref_lse).abs().max().item()
+    print(f"fusion layer {model.config.text.fusion_layer} real cross-attention q "
+          f"{tuple(q.shape)} x k/v {tuple(k.shape)}: K1 out rel-L2 {rel:.3e}, lse max-abs "
+          f"{e_lse:.3e} (bars 1e-2)", flush=True)
+    if fa.launch_count("flash_fwd") != before + 1 or not (rel <= 1e-2 and e_lse <= 1e-2):
+        raise AssertionError("K1 disagrees with plain on fusion layer 19's cross-attention")
+    return model
+
+
+def _host_ms(fn, n: int) -> float:
+    """bench.py's protocol (:296-315): n back-to-back calls ending in one host
+    sync, minus a one-call baseline, per call; best of 3."""
+    fn().item()
+    fn().item()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn().item()
+        base = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(n):
+            out = fn()
+        out.item()
+        best = min(best, max(time.perf_counter() - t0 - base, 1e-9) / (n - 1))
+    return best * 1e3
+
+
+def time_retrieval(model, fa, rms, card) -> dict:
+    """Phase 42: stage-2 throughput, videoclip_retrieval_p50_ms, one query
+    under torch.profiler, and K9 / K10 / K11 beside their plain versions,
+    bounds and yardsticks."""
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.eval.retrieval import itm_eval, retrieval_evaluation
+    from internvideo_tpu_torch.ops.rmsnorm import rms_norm
+
+    run = load_config(CONFIG_RETRIEVAL)
+    videos, texts, gt_v, gt_t = run.data()
+    g = torch.Generator("cuda").manual_seed(42)
+    bt = run.options["batch_size"]
+    video = torch.as_tensor(videos["video"][:bt], device="cuda")
+    ids, mask = (torch.as_tensor(texts[k][:bt], device="cuda")
+                 for k in ("input_ids", "attention_mask"))
+    r = {}
+    with torch.inference_mode():
+        tokens, pooled, _, _ = model.encode_vision(video)
+        t_tokens, _ = model.encode_text(ids, mask)
+        tower_ms = _time_ms(lambda: model.vision_proj(model.encode_vision(video)[1]), iters=3)
+        text_ms = _time_ms(lambda: model.text_proj(model.encode_text(ids, mask)[1]), iters=10)
+        pairs = run.options["rerank_batch"]
+        vi = torch.arange(pairs, device="cuda") % bt
+        fuse = (t_tokens[vi], mask[vi], tokens[vi])
+        rerank_ms = _time_ms(lambda: model.itm_logits(model.fusion(*fuse).pooled), iters=10)
+    r.update(tower_clips_per_sec=bt * 1e3 / tower_ms, tower_ms=tower_ms,
+             text_texts_per_sec=bt * 1e3 / text_ms, text_ms=text_ms,
+             rerank_pairs_per_sec=pairs * 1e3 / rerank_ms, rerank_ms=rerank_ms)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), device="cuda")
+
+    @torch.inference_mode()
+    def enc_v(batch):
+        tok, pool, _, _ = model.encode_vision(tensor(batch["video"]))
+        return tok, model.vision_proj(pool)
+
+    @torch.inference_mode()
+    def enc_t(batch):
+        tok, pool = model.encode_text(tensor(batch["input_ids"]), tensor(batch["attention_mask"]))
+        return tok, model.text_proj(pool)
+
+    @torch.inference_mode()
+    def rerank(v, t, m):
+        lg = model.itm_logits(model.fusion(t, tensor(m), v).pooled)
+        return lg[:, 1] - lg[:, 0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = itm_eval(*retrieval_evaluation(encode_video=enc_v, encode_text=enc_t,
+                                             rerank_score=rerank, videos=videos, texts=texts,
+                                             **run.options), gt_v, gt_t)
+    torch.cuda.synchronize()
+    r["eval_wall_s"] = time.perf_counter() - t0
+
+    # bench.py:241-317: one (1, 32) text -> text tower -> text_proj -> normalize
+    # -> ITC against a 1000 x 512 bf16 bank -> argmax
+    q_ids = torch.zeros(1, 32, dtype=torch.int32, device="cuda")
+    q_mask = torch.ones(1, 32, dtype=torch.int32, device="cuda")
+    bank = torch.zeros(1000, model.config.embed_dim, dtype=torch.bfloat16, device="cuda")
+
+    @torch.inference_mode()
+    def query():
+        proj = model.text_proj(model.encode_text(q_ids, q_mask)[1])
+        proj = proj / proj.float().norm(dim=-1, keepdim=True)
+        return torch.argmax(proj.to(torch.bfloat16) @ bank.T, dim=-1)[0]
+
+    r["videoclip_retrieval_p50_ms"] = _host_ms(query, 100)
+    r["query_device_ms"] = _time_ms(query, iters=100, warmup=2)
+    print(f"[{card}] stage-2 1B at 4 x 224 bf16: tower {r['tower_clips_per_sec']:.1f} clips/s "
+          f"(B {bt}: {tower_ms:.1f} ms), text tower {r['text_texts_per_sec']:.0f} texts/s "
+          f"(B {bt} x 32: {text_ms:.2f} ms), rerank {r['rerank_pairs_per_sec']:.0f} pairs/s "
+          f"(batch {pairs}: {rerank_ms:.2f} ms), the whole eval ({videos['video'].shape[0]} "
+          f"clips x {texts['input_ids'].shape[0]} texts, k {run.options['k_test']}) "
+          f"{r['eval_wall_s']:.2f} s wall (metrics {json.dumps(metrics)})", flush=True)
+    print(f"[{card}] videoclip_retrieval_p50_ms {r['videoclip_retrieval_p50_ms']:.4f} "
+          f"(bench.py's protocol: host clock, N = 100, one-call baseline subtracted, best of "
+          f"3); device time a query (CUDA events) {r['query_device_ms']:.4f} ms", flush=True)
+    profile_step(query, card, "retrieval query")
+
+    # K9 / K10 at the 1B encoder's residual stream, K11 at the stage-2 tower
+    # and the 1B eval: kernel, plain, bound, yardstick
+    rows, d = NORM_SHAPE
+    k = {}
+    x, res, gamma, w = _norm_inputs(rows, d, torch.bfloat16, torch.float32, g)
+    with torch.no_grad():
+        k["fused_add_rms_norm"] = dict(
+            ms=_time_ms(lambda: rms.fused_add_rms_norm(x, res, w), iters=20, warmup=2),
+            plain_ms=_time_ms(lambda: rms.fused_add_rms_norm_ref(x, res, w), iters=5),
+            library_ms=None, bound=_bound(0, rows * d * (2 + 4 + 2 + 4) + d * 4),
+            shape=[rows, d], dtypes="x bf16, residual fp32")
+        res = res.bfloat16()
+        k["fused_ls_add_rms_norm"] = dict(
+            ms=_time_ms(lambda: rms.fused_ls_add_rms_norm(x, res, gamma, w), iters=20, warmup=2),
+            plain_ms=_time_ms(lambda: rms.fused_ls_add_rms_norm_ref(x, res, gamma, w), iters=5),
+            library_ms=None, bound=_bound(0, rows * d * 2 * 4 + 2 * d * 4),
+            shape=[rows, d], dtypes="h, residual bf16")
+    del x, res
+    for shape in (MAIN_SHAPE, RETRIEVAL_TOWER_SHAPE):
+        b, s, h, hd = shape
+        wd = h * hd
+        qkv = (torch.randn(b, s, 3 * wd, device="cuda", generator=g) * 2).bfloat16()
+        qw, kw = (torch.randn(wd, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
+        scale = hd ** -0.5
+        with torch.no_grad():
+            op_ms = _time_ms(lambda: fa._fused_qkv_cuda(qkv, qw, kw, h, scale, 1e-6,
+                                                        kernel="fused_qkv_large_fwd"),
+                             iters=10, warmup=2)
+            prod_ms = _time_ms(lambda: fa._fused_large_unfused(qkv, qw, kw, h, scale, 1e-6),
+                               iters=10, warmup=2)
+            plain_ms = _time_ms(lambda: fa.fused_qkv_large_ref(qkv, qw, kw, h, scale), iters=1)
+            qn = rms_norm(qkv[..., :wd], qw).unflatten(-1, (h, hd))
+            kn = rms_norm(qkv[..., wd:2 * wd], kw).unflatten(-1, (h, hd))
+            lib_ms = _sdpa_fwd_ms(qn, kn, qkv[..., 2 * wd:].unflatten(-1, (h, hd)))
+        k[f"fused_qkv_large_fwd_{s}"] = dict(
+            ms=op_ms, plain_ms=plain_ms, library_ms=lib_ms, production_route_ms=prod_ms,
+            bound=_bound(4 * b * h * s * s * hd, 4 * b * s * wd * 2 + 2 * wd * 4),
+            shape=list(shape))
+        del qkv, qn, kn
+    for name, v in k.items():
+        print(f"[{card}] {name} {v['shape']}: kernel {v['ms']:.3f} ms, bound "
+              f"{v['bound'][0]:.3f} ms ({v['bound'][1]}), plain {v['plain_ms']:.3f} ms, "
+              + (f"SDPA on pre-normed q / k {v['library_ms']:.3f} ms, the production route "
+                 f"(2 rms_norm + K1) {v['production_route_ms']:.3f} ms"
+                 if v["library_ms"] is not None
+                 else "no single PyTorch call computes it (plain = the composition)"),
+              flush=True)
+    r["kernels"] = k
+    return r
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3707,6 +4189,7 @@ def main() -> int:
     from internvideo_tpu_torch.ops import flash_attention as fa
     from internvideo_tpu_torch.ops import int8_gemm as ig
     from internvideo_tpu_torch.ops import paged_decode as pd
+    from internvideo_tpu_torch.ops import rmsnorm as rms
 
     card = _card()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -3934,6 +4417,37 @@ def main() -> int:
 
     # 37. the 1B encoder and the tower with quant="int8"
     i8_enc = run_int8_encoder_tower(fa, pd, ig, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 38. K9 and K10 vs their plain versions
+    norm_err = check_norm_kernels(rms)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 39. K11 vs its plain version; 39b. the three kernels' entry points
+    large_err = check_large_kernel(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_launches = run_norm_entry_points(fa, pd, ig, rms)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 40. the VideoCLIP stage-2 retrieval main path, counting launches
+    ret_launches, _, ret_wall = run_retrieval_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 41. kernel route vs plain route on the stage-2 model
+    vclip = check_retrieval_routes(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 42. times
+    ret = time_retrieval(vclip, fa, rms, card)
+    del vclip
+    gc.collect()
+    torch.cuda.empty_cache()
 
     b, s, h, d = MAIN_SHAPE
     fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
@@ -3948,7 +4462,8 @@ def main() -> int:
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
                  "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches,
                  "rl": rl_launches, "rl_engine": rl_engine_launches, "serve_int8": i8_launches,
-                 "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"]}
+                 "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"],
+                 "retrieval": ret_launches, "entry_points": entry_launches}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def entry(name, source, line, r, err, shape):
@@ -3961,11 +4476,14 @@ def main() -> int:
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
         "replaces": jax_fa + "153",
-        "launches": launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"],
+        "launches": (launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"]
+                     + ret_launches["flash_fwd"]),
         "launches_by_path": by_path("flash_fwd", launches),
         "max_abs_err": max_abs, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
         "library_ms": t["sdpa"]["eval"]["fwd"], "shape": list(MAIN_SHAPE),
+        "retrieval_shapes": {"tower": list(RETRIEVAL_TOWER_SHAPE),
+                             "fusion_cross_attention": "(32, 32, 16, 64) x (32, 1025, 16, 64)"},
     }] + [{
         "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
         "replaces": jax_fa + str(line),
@@ -4105,7 +4623,42 @@ def main() -> int:
         "llm_prefill_bf16_tokens_per_sec": serve_times[PRESET_8B]["prefill_tokens_per_sec"],
         "llm_decode_bf16_tokens_per_sec": serve_times[PRESET_8B]["decode_tokens_per_sec"]}),
         flush=True)
-    print(f"chip_smoke: phases 1-37 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    k = ret.pop("kernels")
+    for name, line, src_file, counter, r, err in (
+            ("fused_add_rms_norm", "internvideo_tpu/ops/rmsnorm.py:52", "rmsnorm.cu",
+             "fused_add_rms_norm", k["fused_add_rms_norm"], norm_err["fused_add_rms_norm"]),
+            ("fused_ls_add_rms_norm", "internvideo_tpu/ops/rmsnorm.py:127", "rmsnorm.cu",
+             "fused_ls_add_rms_norm", k["fused_ls_add_rms_norm"],
+             norm_err["fused_ls_add_rms_norm"]),
+            ("fused_qkv_large_fwd", jax_fa + "1897", "fused_qkv_large.cu",
+             "fused_qkv_large_fwd", k[f"fused_qkv_large_fwd_{MAIN_SHAPE[1]}"],
+             large_err["fused_qkv_large_fwd"])):
+        entry_k = {
+            "name": name, "route": "cuda", "source": src + src_file, "replaces": line,
+            "launches": entry_launches[counter], "launches_by_path": by_path(counter),
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "note": "no model calls it (JAX or port): its path is the public entry point"}
+        if r["library_ms"] is None:
+            entry_k.update(library_note="no single PyTorch call computes it; plain_ms is the "
+                                        "composition", dtypes=r["dtypes"],
+                           max_abs_err_bf16=norm_err[f"{name}_bf16"])
+        else:
+            s2 = k[f"fused_qkv_large_fwd_{RETRIEVAL_TOWER_SHAPE[1]}"]
+            entry_k.update(
+                library_note="flash SDPA on q / k normed beforehand",
+                production_route_ms=r["production_route_ms"],
+                max_abs_err_bf16=large_err[f"fused_qkv_large_fwd_{MAIN_SHAPE[1]}"],
+                stage2_tower={"shape": s2["shape"], "ms": s2["ms"], "plain_ms": s2["plain_ms"],
+                              "bound_ms": s2["bound"][0], "bound_by": s2["bound"][1],
+                              "library_ms": s2["library_ms"],
+                              "production_route_ms": s2["production_route_ms"],
+                              "max_abs_err": large_err[
+                                  f"fused_qkv_large_fwd_{RETRIEVAL_TOWER_SHAPE[1]}"]})
+        kernels.append(entry_k)
+    print(f"[{card}] retrieval: " + json.dumps({**ret, "cli_wall_s": ret_wall}), flush=True)
+    print(f"chip_smoke: phases 1-42 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,11 @@
         --config configs/torch/eval_classification_1b.py --device cuda
 
 Port of internvideo_tpu/cli/eval.py. The config file defines
-`config = EvalRunConfig(...)`; dotlist overrides follow. Only the
-`classification` task is ported (encoder multi-view softmax ensemble ->
-top-1/top-5); the JAX CLI's other tasks exit with "not yet ported".
+`config = EvalRunConfig(...)`; dotlist overrides follow. Two tasks are
+ported: `classification` (encoder multi-view softmax ensemble ->
+top-1/top-5) and `retrieval` (VideoCLIP ITC + the cross-encoder ITM rerank
+-> R@K / mdR / meanR; `options.no_rerank` skips the rerank); the JAX CLI's
+other tasks exit with "not yet ported".
 `--device` is explicit: `cuda` (the default) with no GPU is an error, not a
 CPU run. `checkpoint=None` means the seeded init; loading a checkpoint is
 not ported yet (ROADMAP queue 1, item 9).
@@ -58,7 +60,52 @@ def run_classification(run: EvalRunConfig, device: torch.device) -> dict:
     return final_test(forward, run.data(), **run.options)
 
 
-TASKS = {"classification": run_classification}
+def run_retrieval(run: EvalRunConfig, device: torch.device) -> dict:
+    """`run.data()` -> (videos {"video"}, texts {"input_ids",
+    "attention_mask"}, gt text ids per video, gt video id per text), as
+    internvideo_tpu/cli/eval.py:71-129."""
+    from internvideo_tpu_torch.eval.retrieval import itm_eval, retrieval_evaluation
+    from internvideo_tpu_torch.models.videoclip import VideoCLIP
+
+    if run.checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoint loading is not ported yet (ROADMAP queue 1, item 9)")
+    model = VideoCLIP(
+        run.model, device=device,
+        generator=torch.Generator(device=device).manual_seed(0),
+    ).eval()
+    videos, texts, gt_v, gt_t = run.data()
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), device=device)
+
+    @torch.inference_mode()
+    def encode_video(batch):
+        tokens, pooled, _, _ = model.encode_vision(tensor(batch["video"]))
+        return tokens, model.vision_proj(pooled)
+
+    @torch.inference_mode()
+    def encode_text(batch):
+        tokens, pooled = model.encode_text(tensor(batch["input_ids"]),
+                                           tensor(batch["attention_mask"]))
+        return tokens, model.text_proj(pooled)
+
+    @torch.inference_mode()
+    def rerank(vis_embeds, txt_embeds, txt_mask):
+        fused = model.fusion(txt_embeds, tensor(txt_mask), vis_embeds)
+        logits = model.itm_logits(fused.pooled)
+        return logits[:, 1] - logits[:, 0]
+
+    opts = dict(run.options)
+    s_v2t, s_t2v = retrieval_evaluation(
+        encode_video=encode_video, encode_text=encode_text,
+        rerank_score=None if opts.pop("no_rerank", False) else rerank,
+        videos=videos, texts=texts, **opts,
+    )
+    return itm_eval(s_v2t, s_t2v, gt_v, gt_t)
+
+
+TASKS = {"classification": run_classification, "retrieval": run_retrieval}
 
 
 def main(argv=None):

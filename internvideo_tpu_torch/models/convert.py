@@ -7,7 +7,8 @@ GQATransformer, VideoMLLM with either text model), unboxed
 `{"params": ...}` wrapper is accepted. Translations:
 
   * flax Dense `kernel` (in, out)     -> torch `weight` (out, in) [transpose]
-  * `blocks_{i}`, `layers_{i}`        -> `blocks.{i}`, `layers.{i}`
+  * `blocks_{i}`, `layers_{i}`, `layer_{i}` (BERT) -> `blocks.{i}`,
+    `layers.{i}`, `layer.{i}`
   * flax Embed `embedding` (vocab, D) -> `weight`
   * `clip_decoder_{j}`, `mae_decoder_{j}` -> `clip_decoder.{j}`, `mae_decoder.{j}`
   * `deepstack_merger_{j}` (VideoMLLM)  -> `deepstack_merger.{j}`
@@ -33,6 +34,12 @@ VideoMLLM tree keeps its JAX top level:
 `vision_tower.{patch_embed, pos_embed, blocks.{i}.{norm1, qkv, proj, norm2,
 fc1, fc2}}`, `merger.{norm, linear_fc1, linear_fc2}`,
 `deepstack_merger.{j}.*` and `language_model.*` (the LLM names above).
+VideoCLIP keeps its flax names too: `vision_encoder.*` (the InternVideo2 or
+pretrain-student names above), `text_encoder.{word,position,token_type}_
+embeddings.weight`, `text_encoder.layer.{i}.{attention,crossattention}.
+{query,key,value,proj}`, `..._norm`, `intermediate`, `output`,
+`mlm_{transform,norm,decoder}`, `vision_proj`, `text_proj`, `itm_head` and
+the scalar `temp`.
 
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
 weights load exactly. The module's `load_state_dict(sd, strict=True)` then
@@ -47,9 +54,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^(?:blocks|layers)_(\d+)$")
+_BLOCK = re.compile(r"^(?:blocks|layers|layer)_(\d+)$")
 # flax module names with an index -> torch ModuleList / Sequential entries
-_INDEXED = re.compile(r"^(blocks|layers|clip_decoder|mae_decoder|head|deepstack_merger)_(\d+)$")
+_INDEXED = re.compile(
+    r"^(blocks|layers|layer|clip_decoder|mae_decoder|head|deepstack_merger)_(\d+)$")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -68,13 +76,18 @@ def _check_depth(tree: Mapping, depth: int) -> None:
 
 def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
-    InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig
-    or VisionTowerConfig with `num_layers`, or an MLLMConfig) the
-    `blocks_{i}` / `layers_{i}` of each tower must be exactly range(depth)."""
+    InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig,
+    VisionTowerConfig or BertConfig with `num_layers`, an MLLMConfig or a
+    VideoCLIPConfig) the `blocks_{i}` / `layers_{i}` / `layer_{i}` of each
+    tower must be exactly range(depth)."""
     if "params" in params:
         params = params["params"]
     if cfg is not None:
-        if hasattr(cfg, "vision") and hasattr(cfg, "text"):
+        if hasattr(cfg, "embed_dim") and hasattr(cfg, "text"):  # VideoCLIPConfig
+            vision = params["vision_encoder"]
+            _check_depth(vision["encoder"] if "encoder" in vision else vision, cfg.vision.depth)
+            _check_depth(params["text_encoder"], cfg.text.num_layers)
+        elif hasattr(cfg, "vision") and hasattr(cfg, "text"):
             _check_depth(params["vision_tower"], cfg.vision.num_layers)
             _check_depth(params["language_model"], cfg.text.num_layers)
         else:

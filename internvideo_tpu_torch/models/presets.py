@@ -1,9 +1,9 @@
 """Model config presets of the ported families.
 
-Port of the M2LA LLM presets, the InternVideo3-8B and InternVideo2.5-HiCo
-MLLM presets and the dense-GQA Qwen3-8B of internvideo_tpu/models/presets.py
-(:45-131, :256-268), field for field; the other presets wait with their
-families (ROADMAP queue 1, items 6, 8 and 10). `qwen3_mla_tiny` and
+Port of the stage-2 VideoCLIP-1B, the M2LA LLM presets, the InternVideo3-8B
+and InternVideo2.5-HiCo MLLM presets and the dense-GQA Qwen3-8B of
+internvideo_tpu/models/presets.py (:26-42, :45-131, :256-268), field for
+field; the other presets wait with their families (ROADMAP queue 1, items 6, 8 and 10). `qwen3_mla_tiny` and
 `qwen3_dense_tiny` are the port's own: each architecture at test widths, so
 that `cli.generate` runs on a CPU in seconds.
 """
@@ -12,11 +12,34 @@ from __future__ import annotations
 
 import dataclasses
 
+from internvideo_tpu_torch.models.bert import BertConfig
+from internvideo_tpu_torch.models.internvideo2 import make_config
 from internvideo_tpu_torch.models.llm import LLMConfig
 from internvideo_tpu_torch.models.llm_gqa import GQAConfig
 from internvideo_tpu_torch.models.mllm import MLLMConfig
+from internvideo_tpu_torch.models.videoclip import VideoCLIPConfig
 from internvideo_tpu_torch.models.vision_tower import VisionTowerConfig
 from internvideo_tpu_torch.nn.mla import MLAConfig
+
+
+def internvideo2_stage2_1b(**overrides) -> VideoCLIPConfig:
+    """Stage-2 VideoCLIP-1B: the 1B vision tower at 4 x 224 (bf16, fp32
+    params; S = 1025) + the bert-large fusion tower (d 1024, 24 layers, 16
+    heads, intermediate 4096, fusion_layer 19; bf16, fp32 params),
+    embed_dim 512."""
+    cfg = VideoCLIPConfig(
+        vision=make_config(
+            "1B", num_frames=4, img_size=224,
+            dtype="bfloat16", param_dtype="float32",
+        ),
+        text=BertConfig(
+            vocab_size=30522, hidden_size=1024, num_layers=24, num_heads=16,
+            intermediate_size=4096, fusion_layer=19,
+            dtype="bfloat16", param_dtype="float32",
+        ),
+        embed_dim=512,
+    )
+    return dataclasses.replace(cfg, **overrides)
 
 
 def qwen3_8b_mla(**overrides) -> LLMConfig:

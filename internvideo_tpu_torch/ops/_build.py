@@ -153,6 +153,18 @@ def load_library() -> ctypes.CDLL:
         f, p,                        # softmax scale, stream
     ]
     lib.ivt_fused_qkv_fwd.restype = i
+    lib.ivt_fused_qkv_large_fwd.argtypes = lib.ivt_fused_qkv_fwd.argtypes
+    lib.ivt_fused_qkv_large_fwd.restype = i
+    lib.ivt_fused_add_rms_norm.argtypes = [
+        i, i, i, p, p, p,            # x / residual / weight dtypes, x, residual, weight
+        p, p, ll, i, f, p,           # y, newres, rows, D, eps, stream
+    ]
+    lib.ivt_fused_add_rms_norm.restype = i
+    lib.ivt_fused_ls_add_rms_norm.argtypes = [
+        i, i, i, i, p, p, p, p,      # h / residual / gamma / weight dtypes, h, residual, gamma, weight
+        p, p, ll, i, f, p,           # y, newres, rows, D, eps, stream
+    ]
+    lib.ivt_fused_ls_add_rms_norm.restype = i
     for name, outs in (("ivt_flash_bwd_dq", [p]), ("ivt_flash_bwd_dkv", [p, p]),
                        ("ivt_small_s_bwd_dq", [p]), ("ivt_small_s_bwd_dkv", [p, p])):
         fn = getattr(lib, name)

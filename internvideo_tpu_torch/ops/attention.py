@@ -30,6 +30,7 @@ from internvideo_tpu_torch.ops.attention_xla import attention_xla
 from internvideo_tpu_torch.ops.flash_attention import (
     flash_attention,
     fused_qkv_eligible,
+    fused_qkv_large_eligible,
     fused_qkv_rmsnorm_attention,
 )
 
@@ -59,18 +60,18 @@ def fused_qkv_attention_or_none(
     the caller then runs the unfused path. Declines on the plain route
     ("auto" for a CPU tensor, as the JAX dispatcher declines off the TPU)
     and outside `fused_qkv_eligible`. `allow_large=True`, the JAX opt-in to
-    the blocked-K large-S variant, raises: that kernel (K11) is not ported
-    yet (ROADMAP queue 2)."""
-    if allow_large:
-        raise NotImplementedError(
-            "allow_large: the blocked-K fused qkv kernel is not ported yet (ROADMAP queue 2, K11)")
+    the blocked-K large-S variant, also takes K11 where
+    `fused_qkv_large_eligible` holds (1024 < S <= 8192); no model sets it,
+    as in JAX (:90-101), so the encoder keeps K1 at S > 1024."""
     if _route(impl, qkv) != "kernel":
         return None
     _, s, w3 = qkv.shape
     w = w3 // 3
     if w3 != 3 * w or w % num_heads:
         return None
-    if not fused_qkv_eligible(s, num_heads, w // num_heads, qkv.element_size()):
+    d, itemsize = w // num_heads, qkv.element_size()
+    if not (fused_qkv_eligible(s, num_heads, d, itemsize)
+            or (allow_large and fused_qkv_large_eligible(s, num_heads, d, itemsize))):
         return None
     return fused_qkv_rmsnorm_attention(qkv, q_weight, k_weight, num_heads=num_heads,
                                        eps=eps, softmax_scale=softmax_scale)

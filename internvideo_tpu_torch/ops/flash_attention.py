@@ -3,8 +3,9 @@ the Hopper CUDA kernels and their plain versions.
 
 Counterpart of internvideo_tpu/ops/flash_attention.py `flash_attention`
 (:2037), `flash_attention_with_lse` (:1188), `_small_s_attention` (:1606),
-`_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784) and
-`fused_qkv_rmsnorm_attention` (:1801) with their custom VJPs, for the case
+`_fused_qkv_small_s` (:1730), `fused_qkv_eligible` (:1784),
+`fused_qkv_rmsnorm_attention` (:1801), `_fused_qkv_large` (:1961) and
+`fused_qkv_large_eligible` (:2026) with their custom VJPs, for the case
 the InternVideo2 encoder, its teachers and the InternVideo3 vision tower
 run (non-causal, d_v == d_qk), for the one the M2LA LLM's prefill and
 packed SFT training run (causal, a query position offset, d_v != d_qk,
@@ -13,7 +14,7 @@ training (grouped-query heads, Hq a multiple of Hkv, and the sliding
 window, causal or not), in layout (B, S, H, D) or its permuted view
 (B, H, S, D).
 
-Three autograd Functions, each owning a kernel route (CUDA tensors: the
+Four autograd Functions, each owning a kernel route (CUDA tensors: the
 kernel, or raise) and a plain route (CPU tensors); there is no fallback
 from one to the other:
 
@@ -30,7 +31,11 @@ from one to the other:
   * `FusedQKVAttention` (K3 `csrc/fused_qkv.cu`: a row-statistics
     pre-pass and the attention kernel), whose backward differentiates the
     unfused composition slice -> rms_norm -> SmallSAttention, as
-    `_fused_qkv_bwd_rule` (:1770-1778) does.
+    `_fused_qkv_bwd_rule` (:1770-1778) does;
+  * `FusedQKVLargeAttention` (K11 `csrc/fused_qkv_large.cu`: K3's pre-pass,
+    then K1's blocked-K online-softmax body on the normalized tiles) for
+    1024 < S <= 8192, whose backward differentiates slice -> rms_norm ->
+    FlashAttention (K1 / K4a), as `_fused_large_bwd_rule` (:2012-2020).
 
 The JAX package's TPU-only routing conditions (`_ss_fits`, a VMEM budget;
 W % 128, Mosaic lane alignment) are replaced by the Hopper kernels' own:
@@ -69,12 +74,15 @@ SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
 CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (64, 64), (64, 32), (32, 32))
 CAUSAL_BWD_HEAD_DIMS = ((256, 128), (128, 128), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
+FUSED_LARGE_MAX = 8192  # the JAX package's _FUSED_LARGE_MAX
+_FUSED_LARGE_MAX_HEADS = 128  # fused_qkv_large_eligible (:2032)
 _GRID_MAX = 65535  # grid y (heads) and z (batch) of every attention kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = 1.0 / math.log(2.0)
 
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
-# pre-pass, launched once per "fused_qkv_fwd"; "flash_fwd_causal" and
+# pre-pass, launched once per "fused_qkv_fwd" (K3) and once per
+# "fused_qkv_large_fwd" (K11); "flash_fwd_causal" and
 # "flash_bwd_causal_{dq,dkv}" are K5; their "_seg" names count the launches
 # with segment ids (K8), which the plain names do not. A K5 launch, forward
 # or backward, counts under one name: "..._window" with a window, "..._gqa"
@@ -82,7 +90,7 @@ _LOG2E = 1.0 / math.log(2.0)
 # neither, else the plain name.
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv",
-           "fused_qkv_rstd", "fused_qkv_fwd", "flash_fwd_causal",
+           "fused_qkv_rstd", "fused_qkv_fwd", "fused_qkv_large_fwd", "flash_fwd_causal",
            "flash_bwd_causal_dq", "flash_bwd_causal_dkv", "flash_fwd_causal_seg",
            "flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg", "flash_fwd_causal_gqa",
            "flash_fwd_causal_window", "flash_bwd_causal_dq_gqa", "flash_bwd_causal_dkv_gqa",
@@ -597,12 +605,13 @@ def small_s_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     return out.flatten(-2)
 
 
-def _small_s_kernel_takes(x: torch.Tensor, num_heads: int, head_dim: int) -> bool:
-    """The Hopper conditions of the small-S kernels (K2, K4b, K3) for a
-    (B, S, ...) tensor: dtype, an instantiated head dim, the grid limits,
-    and for bf16 16-byte rows (unit last stride, strides multiples of 8, a
-    16-byte aligned base)."""
-    if x.dtype not in _DTYPE_CODES or head_dim not in SMALL_S_HEAD_DIMS:
+def _small_s_kernel_takes(x: torch.Tensor, num_heads: int, head_dim: int,
+                          head_dims=SMALL_S_HEAD_DIMS) -> bool:
+    """The Hopper conditions of the small-S kernels (K2, K4b, K3; K11 with
+    its `head_dims`) for a (B, S, ...) tensor: dtype, an instantiated head
+    dim, the grid limits, and for bf16 16-byte rows (unit last stride,
+    strides multiples of 8, a 16-byte aligned base)."""
+    if x.dtype not in _DTYPE_CODES or head_dim not in head_dims:
         return False
     if x.shape[0] > _GRID_MAX or num_heads > _GRID_MAX or x.stride(-1) != 1:
         return False
@@ -650,9 +659,19 @@ def fused_qkv_ref(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: fl
     return _fused_qkv_unfused(qkv, q_weight, k_weight, num_heads, scale, eps, plain=True)
 
 
-def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float):
-    """Launch K3 (csrc/fused_qkv.cu) on a CUDA (B, S, 3W) tensor: the
-    row-statistics pre-pass, then the attention kernel; (B, S, W)."""
+# fused kernel -> (head dims its source instantiates, source, (lo, hi]: its S range)
+_FUSED = {"fused_qkv_fwd": (SMALL_S_HEAD_DIMS, "csrc/fused_qkv.cu", (0, SMALL_S_MAX)),
+          "fused_qkv_large_fwd": (KERNEL_HEAD_DIMS, "csrc/fused_qkv_large.cu",
+                                  (SMALL_S_MAX, FUSED_LARGE_MAX))}
+
+
+def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float,
+                    kernel: str = "fused_qkv_fwd"):
+    """Launch K3 (`kernel` "fused_qkv_fwd", csrc/fused_qkv.cu) or K11
+    ("fused_qkv_large_fwd", csrc/fused_qkv_large.cu) on a CUDA (B, S, 3W)
+    tensor: the row-statistics pre-pass, then the attention kernel;
+    (B, S, W)."""
+    head_dims, source, (lo, hi) = _FUSED[kernel]
     b, s, w3 = qkv.shape
     w = w3 // 3
     d = w // num_heads
@@ -660,12 +679,11 @@ def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: 
         raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, S, 3 * {num_heads} * D)")
     if qkv.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"fused qkv kernel takes float32 or bfloat16, got {qkv.dtype}")
-    if d not in SMALL_S_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dim {d} is not instantiated in csrc/fused_qkv.cu {SMALL_S_HEAD_DIMS}")
-    if not 0 < s <= SMALL_S_MAX:
-        raise ValueError(f"fused qkv kernel takes 0 < S <= {SMALL_S_MAX}, got {s}")
-    if not _small_s_kernel_takes(qkv, num_heads, d):
+    if d not in head_dims:
+        raise NotImplementedError(f"head dim {d} is not instantiated in {source} {head_dims}")
+    if not lo < s <= hi:
+        raise ValueError(f"{kernel} kernel takes {lo} < S <= {hi}, got {s}")
+    if not _small_s_kernel_takes(qkv, num_heads, d, head_dims):
         raise ValueError(
             f"qkv: the kernel needs a unit last stride, batch {b} / heads {num_heads} within "
             f"{_GRID_MAX}, and for bf16 16-byte rows (strides {qkv.stride()}, "
@@ -690,12 +708,13 @@ def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: 
         if rc != 0:
             raise RuntimeError(f"fused_qkv_rstd kernel launch failed: cudaError_t {rc}")
         _launches["fused_qkv_rstd"] += 1
-        rc = lib.ivt_fused_qkv_fwd(code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(),
-                                   qw.data_ptr(), kw.data_ptr(), out.data_ptr(), b, s,
-                                   num_heads, d, s_b, s_s, s * w, w, d, float(scale), stream)
+        rc = getattr(lib, f"ivt_{kernel}")(
+            code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(), qw.data_ptr(),
+            kw.data_ptr(), out.data_ptr(), b, s, num_heads, d, s_b, s_s, s * w, w, d,
+            float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_qkv_fwd kernel launch failed: cudaError_t {rc}")
-    _launches["fused_qkv_fwd"] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {rc}")
+    _launches[kernel] += 1
     return out
 
 
@@ -736,6 +755,68 @@ def fused_qkv_eligible(s: int, num_heads: int, head_dim: int, itemsize: int) -> 
             and itemsize in (2, 4) and num_heads <= _GRID_MAX)
 
 
+def _fused_large_unfused(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float,
+                         plain: bool = False):
+    """slice -> rms_norm -> flash attention on (B, S, 3W) `qkv`, (B, S, W):
+    the composition K11's backward differentiates (`_fused_large_unfused_ref`
+    :1995; K1 / K4a on CUDA), or with `plain` the flash plain version."""
+    w = qkv.shape[-1] // 3
+    heads = (num_heads, w // num_heads)
+    q = rms_norm(qkv[..., :w], q_weight, eps=eps).unflatten(-1, heads)
+    k = rms_norm(qkv[..., w:2 * w], k_weight, eps=eps).unflatten(-1, heads)
+    v = qkv[..., 2 * w:].unflatten(-1, heads)
+    if plain:
+        return flash_attention_ref(q, k, v, scale).flatten(-2)
+    return FlashAttention.apply(q, k, v, scale)[0].flatten(-2)
+
+
+def fused_qkv_large_ref(qkv, q_weight, k_weight, num_heads: int, scale: float,
+                        eps: float = 1e-6):
+    """Plain PyTorch version of K11: rms_norm of the q and k slices of
+    (B, S, 3W) `qkv` with the (W,) weights, then the flash plain version;
+    (B, S, W)."""
+    return _fused_large_unfused(qkv, q_weight, k_weight, num_heads, scale, eps, plain=True)
+
+
+class FusedQKVLargeAttention(torch.autograd.Function):
+    """(qkv (B, S, 3W), q_weight, k_weight) -> (B, S, W) for 1024 < S <=
+    8192: K11 on CUDA, its plain version on the CPU; the backward is
+    autograd through the unfused composition, as `_fused_large_bwd_rule`
+    (:2012-2020), so the gradients are the production path's (on CUDA: K1
+    recompute, then K4a)."""
+
+    @staticmethod
+    def forward(ctx, qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float):
+        if qkv.is_cuda:
+            out = _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads, scale, eps,
+                                  kernel="fused_qkv_large_fwd")
+        elif qkv.device.type == "cpu":
+            out = fused_qkv_large_ref(qkv, q_weight, k_weight, num_heads, scale, eps)
+        else:
+            raise NotImplementedError(f"no fused qkv attention for device {qkv.device}")
+        ctx.save_for_backward(qkv, q_weight, k_weight)
+        ctx.args = (num_heads, scale, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _fused_large_unfused(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None)
+
+
+def fused_qkv_large_eligible(s: int, num_heads: int, head_dim: int, itemsize: int) -> bool:
+    """Can (B, S, 3W) self-attention take K11? The JAX condition (:2026-2034):
+    1024 < S <= 8192 and at most 128 heads, without its TPU-only parts (W %
+    128 lane alignment, the `_fused_large_block` VMEM fit) and with the
+    kernel's own: a head dim csrc/fused_qkv_large.cu instantiates, fp32 or
+    bf16."""
+    return (SMALL_S_MAX < s <= FUSED_LARGE_MAX and num_heads <= _FUSED_LARGE_MAX_HEADS
+            and head_dim in KERNEL_HEAD_DIMS and itemsize in (2, 4))
+
+
 def fused_qkv_rmsnorm_attention(
     qkv: torch.Tensor,  # (B, S, 3W): one flat projection GEMM output
     q_weight: torch.Tensor,  # (W,) fp32 RMSNorm weight over the flattened dim
@@ -745,16 +826,23 @@ def fused_qkv_rmsnorm_attention(
     eps: float = 1e-6,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused qkv slice + whole-dim QK-RMSNorm + small-S attention; returns
-    (B, S, W) in the projection layout. The caller checks
-    `fused_qkv_eligible` (the CUDA wrapper raises on what K3 cannot take)."""
+    """Fused qkv slice + whole-dim QK-RMSNorm + attention; returns (B, S, W)
+    in the projection layout. Routes as the JAX op (:1820-1838): S <= 1024
+    takes K3 (`FusedQKVAttention`), 1024 < S <= 8192 K11
+    (`FusedQKVLargeAttention`). The caller checks `fused_qkv_eligible` /
+    `fused_qkv_large_eligible` (the CUDA wrappers raise on what the kernels
+    cannot take)."""
     b, s, w3 = qkv.shape
     w = w3 // 3
     if w3 != 3 * w or w % num_heads:
         raise ValueError(f"qkv {tuple(qkv.shape)} does not split into 3 x {num_heads} heads")
     d = w // num_heads
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    return FusedQKVAttention.apply(qkv, q_weight, k_weight, num_heads, scale, eps)
+    if s <= SMALL_S_MAX:
+        return FusedQKVAttention.apply(qkv, q_weight, k_weight, num_heads, scale, eps)
+    if s <= FUSED_LARGE_MAX:
+        return FusedQKVLargeAttention.apply(qkv, q_weight, k_weight, num_heads, scale, eps)
+    raise ValueError(f"fused qkv attention takes S <= {FUSED_LARGE_MAX}, got {s}")
 
 
 def flash_attention_with_lse(

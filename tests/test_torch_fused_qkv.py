@@ -57,8 +57,9 @@ def test_fused_qkv_plain_matches_jax_forward_and_grads(shape):
 
 def test_dispatcher_declines_where_jax_declines():
     """On the CPU "auto" declines in both packages (JAX resolves it to xla
-    off the TPU); on the kernel route an over-threshold S declines; an
-    eligible S on the forced kernel route runs the op."""
+    off the TPU); on the kernel route an over-threshold S declines unless
+    `allow_large` opts in to K11; an eligible S on the forced kernel route
+    runs the op."""
     qkv, qw, kw, _ = _inputs(1, 413, 8, 24, seed=1)
     assert jax_fused_or_none(qkv, qw, kw, num_heads=8) is None
     tqkv, tqw, tkw = (torch.from_numpy(x) for x in (qkv, qw, kw))
@@ -68,9 +69,14 @@ def test_dispatcher_declines_where_jax_declines():
     assert jax_fused_or_none(big, np.ones(64), np.ones(64), num_heads=4, impl="pallas") is None
     assert fused_qkv_attention_or_none(
         torch.from_numpy(big), torch.ones(64), torch.ones(64), num_heads=4, impl="kernel") is None
-    with pytest.raises(NotImplementedError, match="K11"):
-        fused_qkv_attention_or_none(torch.from_numpy(big), torch.ones(64), torch.ones(64),
-                                    num_heads=4, impl="kernel", allow_large=True)
+    # with allow_large the forced kernel route takes K11 (1024 < S <= 8192) at a
+    # head dim csrc/fused_qkv_large.cu instantiates (64), and still declines at 16
+    assert fused_qkv_attention_or_none(torch.from_numpy(big), torch.ones(64), torch.ones(64),
+                                       num_heads=4, impl="kernel", allow_large=True) is None
+    out = fused_qkv_attention_or_none(torch.from_numpy(big).requires_grad_(), torch.ones(64),
+                                      torch.ones(64), num_heads=1, impl="kernel",
+                                      allow_large=True)
+    assert out is not None and type(out.grad_fn).__name__ == "FusedQKVLargeAttentionBackward"
 
     # the kernel route takes an eligible shape (head dim 88: the student's)
     qkv, qw, kw, _ = _inputs(1, 65, 2, 88, seed=2)
