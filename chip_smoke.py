@@ -8,7 +8,9 @@ non-zero and prints no result):
 
   1. device: needs torch.cuda; prints torch/CUDA versions and the card's
      name and power limit from nvidia-smi;
-  2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc;
+  2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
+     the ptxas report and, on a line of its own, the registers and spill
+     bytes of each instantiation of K5's wgmma forward;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5) and at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -75,7 +77,12 @@ non-zero and prints no result):
      72 / 200 / 128 query offset, d_v 32 < d_qk 64; max-abs 2e-5) and bf16
      at the prefill's (8, 2048, 32, 256 / 128) and the 2B preset's
      (8, 2048, 20, 192 / 128) with k / v as strided views of one tensor
-     (out rel-L2 <= 1e-2);
+     (out rel-L2 <= 1e-2); then at both pairs in bf16 the edges of the
+     wgmma kernel's 128-row query tile and 64-key tiles (Sq 1, 127,
+     129, 1056; Sk < Sq; query offsets 203, 299, 1000; a window edge and
+     segment boundaries inside a key tile, a key tile of pads; groups of 4
+     and 8), q at a base 16 bytes off a 128-byte boundary (out rel-L2 <=
+     1e-2, finite LSE within 1e-2, the same rows -inf);
  16. the paged decode kernel (K6) vs its plain version: fp32 with ragged
      lengths and unused block-table columns on a page of NaN (max-abs
      1e-4), bf16 at the 8B decode shape (B 8, H 32, R 896, P 128, page 64,
@@ -144,6 +151,10 @@ non-zero and prints no result):
      offset 72 and a ragged S = 200; max-abs 2e-5 on out and LSE) and bf16
      at the dense-GQA prefill's (8, 2048, 32 / 8, 128) causal, window none
      and 128, on k / v as strided views (rel-L2 <= 1e-2);
+ 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions
+     (bf16 rel-L2 <= 1e-2): the tower's (64, 196, 16, 72) on qkv views and
+     the video prefill's (1, 1056, 20, 192 / 128) causal on k / v views;
+     K5 timed there beside its plain version, bound and SDPA yardstick;
  25. the dense-GQA main path: `internvideo_tpu_torch.cli.generate --preset
      qwen3_8b_dense` (36 layers, 32 / 8 heads of 128, bf16, seeded weights)
      on a 512-token prompt for 32 tokens, launches reset before and read
@@ -380,6 +391,13 @@ RETRIEVAL_TOWER_SHAPE = (32, 1025, 16, 88)
 NORM_SHAPE = (16 * 4097, 1408)
 
 
+# K5's earlier forward design, which the wgmma one replaced; its times, taken
+# on the same card in one run beside the wgmma kernel's, are in PERF.md
+# (tools_torch/compare_k5_fwd.py), not measured here.
+K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
+              "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_fwd.py"}
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -410,6 +428,32 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     operations and `nbytes` of device-memory traffic."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ptxas_k5(log: str) -> dict:
+    """Registers at entry and spill bytes of each instantiation of K5's bf16
+    forward (`causal_fwd_bf16_kernel<d_qk, d_v, kSeg>`) from the build log."""
+    import re
+
+    res, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*causal_fwd_bf16_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                      line)
+        if m:
+            name = f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})"
+            res[name] = {}
+        elif "Compiling entry function" in line:
+            name = None
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                res[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                res[name]["registers"] = int(m[1])
+    if len(res) != 12 or any(len(v) != 3 for v in res.values()):
+        raise AssertionError(f"the build log lacks K5's ptxas report: {res}")
+    return res
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -1247,7 +1291,77 @@ def check_causal_kernel(fa) -> float:
             raise AssertionError(f"bf16 causal flash kernel disagrees at {(b, s, h, d, dv)}")
         err = max_abs if err is None else err
         del q, kv, k, v, out, lse, ref, ref_lse
+    check_causal_tile_edges(fa, g)
     return err
+
+
+# Phase 15's tile-edge cases, bf16 at both MLA pairs: (B, Sq, Sk, Hq, Hkv,
+# keyword arguments) across the kernel's 128-row query tile and its 64-key
+# tiles: one row, a tile less or more one row, the HiCo prompt's 1056 rows,
+# fewer keys than queries, query offsets no multiple of 128, a window edge
+# inside a key tile, segment boundaries inside tiles with whole tiles of
+# pads (-1), groups of 4 and 8.
+K5_EDGE_CASES = [
+    (1, 1, 300, 2, 2, dict(causal=True, q_position_offset=299)),
+    (1, 127, 127, 2, 2, dict(causal=True)),
+    (1, 129, 129, 2, 2, dict(causal=True)),
+    (1, 1056, 1056, 4, 4, dict(causal=True)),
+    (1, 300, 200, 2, 2, dict(causal=True)),
+    (1, 129, 400, 2, 2, dict(causal=True, q_position_offset=203)),
+    (1, 100, 1100, 2, 2, dict(causal=True, q_position_offset=1000)),
+    (1, 300, 300, 2, 2, dict(causal=True, window=100)),
+    (1, 700, 700, 2, 2, dict(causal=True, segments=True)),
+    (1, 257, 257, 8, 2, dict(causal=True)),
+    (1, 257, 257, 8, 1, dict(causal=True)),
+]
+
+
+def _edge_segments(s: int) -> torch.Tensor:
+    """(1, S) int32 ids: runs of 50, 80, 190 and 100 (boundaries inside 64-
+    key tiles), then pads of -1 over whole key and query tiles."""
+    lens = [50, 80, 190, 100]
+    ids = np.repeat([0, 1, 2, 3, -1], lens + [s - sum(lens)])
+    return torch.from_numpy(ids[None].astype(np.int32)).cuda()
+
+
+def check_causal_tile_edges(fa, g) -> None:
+    """Phase 15's tile edges: K5_EDGE_CASES at (256, 128) and (192, 128) in bf16,
+    q at a base 16 bytes past a 128-byte boundary, k / v strided views of
+    one tensor; out rel-L2 <= 1e-2, the finite LSE within 1e-2 and the same
+    rows -inf as the plain version."""
+    for d, dv in (CAUSAL_SHAPE[3:], CAUSAL_SHAPE_2B[3:]):
+        worst = (0.0, 0.0)
+        for b, sq, sk, hq, hkv, kw in K5_EDGE_CASES:
+            kw = dict(kw)
+            if kw.pop("segments", False):
+                seg = _edge_segments(sq)
+                kw.update(q_segment_ids=seg, kv_segment_ids=seg)
+            n = b * sq * hq * d
+            q = torch.randn(n + 8, device="cuda", generator=g).bfloat16()[8:].view(b, sq, hq, d)
+            kv = torch.randn(b, sk, hkv, d + dv, device="cuda", generator=g).bfloat16()
+            k, v = kv[..., :d], kv[..., d:]
+            name = ("flash_fwd_causal_window" if kw.get("window") else "flash_fwd_causal_gqa"
+                    if hkv != hq else "flash_fwd_causal_seg" if "q_segment_ids" in kw
+                    else "flash_fwd_causal")
+            before = fa.launch_count(name)
+            out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.launch_count(name) != before + 1:
+                raise AssertionError(f"{(b, sq, sk, hq, hkv, d, dv)} {kw.keys()} did not "
+                                     f"launch {name}")
+            ref, ref_lse = fa.flash_attention_ref_with_lse(
+                q, k, v, d ** -0.5, True, kw.get("q_position_offset", 0),
+                kw.get("q_segment_ids"), kw.get("kv_segment_ids"), kw.get("window"))
+            rel, e_lse = _rel(out, ref), _lse_err(lse, ref_lse)
+            worst = (max(worst[0], rel), max(worst[1], e_lse))
+            if not (rel <= 1e-2 and e_lse <= 1e-2):
+                raise AssertionError(f"bf16 K5 disagrees at the tile edge {(b, sq, sk, hq, hkv)}"
+                                     f" ({d}, {dv}) {kw.keys()}: rel-L2 {rel:.3e}, lse {e_lse}")
+            del q, kv, k, v, out, lse, ref, ref_lse
+        print(f"K5 bf16 ({d}, {dv}) tile edges, {len(K5_EDGE_CASES)} cases (Sq 1 / 127 / 129 / "
+              f"1056, Sk < Sq, offsets 203 / 299 / 1000, window 100, segments mid-tile + a "
+              f"pad tile, groups 4 / 8; q base +16 B, k / v strided views): worst out rel-L2 "
+              f"{worst[0]:.3e} (bar 1e-2), lse max-abs {worst[1]:.3e}", flush=True)
 
 
 def _paged_inputs(b, h, r, p_dim, page_size, max_pages, lens, dtype, seed):
@@ -2230,6 +2344,33 @@ def check_hico_kernels(fa) -> dict:
         if not rel <= 1e-2:
             raise AssertionError(f"bf16 {name} disagrees with its plain version at {shape}")
     return res
+
+
+def time_hico_k5(fa, card) -> dict:
+    """Phase 24b, times: K5 at HICO_ATTN_SHAPE (the video prefill's causal
+    (1, 1056, 20, 192 / 128), k / v strided views) beside the plain
+    version, the bound and the SDPA yardstick."""
+    g = torch.Generator("cuda").manual_seed(242)
+    b, s, h, d, dv = HICO_ATTN_SHAPE
+    q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+    kv = torch.randn(b, s, h, d + dv, device="cuda", generator=g).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]
+    scale = d ** -0.5
+    with torch.no_grad():
+        ms = _time_ms(lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0), iters=50,
+                      warmup=5)
+        plain_ms = _time_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, scale, True),
+                            iters=3)
+        lib_ms, lib_note = _sdpa_causal_ms(q, k, v)
+    pairs = b * h * s * (s + 1) // 2
+    bound = _bound(2 * pairs * (d + dv), (2 * b * s * h * d + 2 * b * s * h * dv) * 2
+                   + b * h * s * 4)
+    print(f"[{card}] K5 flash_fwd_causal {HICO_ATTN_SHAPE} (the HiCo video prefill) bf16: "
+          f"kernel {ms:.4f} ms ({2 * pairs * (d + dv) / ms / 1e9:.1f} TFLOP/s), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, SDPA yardstick "
+          + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None else lib_note), flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_note=lib_note,
+                bound=bound, shape=list(HICO_ATTN_SHAPE))
 
 
 def _compose_prompt(cfg, frames: int, n_text: int, seed: int):
@@ -4201,9 +4342,14 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    k5_ptxas = _ptxas_k5(build_log)
+    print("ptxas, K5 forward bf16 (wgmma + TMA): " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
+        f"spilled (stores / loads)" for k, v in k5_ptxas.items()), flush=True)
 
     # 3. kernel vs plain
     check_kernel(fa)
@@ -4335,8 +4481,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions
+    # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions;
+    # K5 timed there
     hico_err = check_hico_kernels(fa)
+    hico_k5 = time_hico_k5(fa, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4523,7 +4671,8 @@ def main() -> int:
         "launches_by_path": by_path("flash_fwd_causal"), "max_abs_err": k5_err,
         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
         "bound_by": k5["bound"][1], "library_ms": k5["library_ms"],
-        "library_note": k5["library_note"], "shape": k5["shape"],
+        "library_note": k5["library_note"], "shape": k5["shape"], "design": "wgmma + TMA, warp-specialised", "earlier_design": K5_EARLIER,
+        "ptxas": k5_ptxas,
         "preset_2b": {"shape": k5_2b["shape"], "ms": k5_2b["ms"],
                       "plain_ms": k5_2b["plain_ms"], "bound_ms": k5_2b["bound"][0],
                       "bound_by": k5_2b["bound"][1], "library_ms": k5_2b["library_ms"],
@@ -4570,6 +4719,13 @@ def main() -> int:
             shape, max_abs, rel = hico_err[entry["name"]]
             entry["hico_2b"] = {"shape": shape, "launches_serve_mllm": mllm_launches[entry["name"]],
                                 "max_abs_err": max_abs, "rel_l2": rel}
+            if entry["name"] == "flash_fwd_causal":
+                entry["hico_2b"].update(
+                    ms=hico_k5["ms"], plain_ms=hico_k5["plain_ms"],
+                    bound_ms=hico_k5["bound"][0], bound_by=hico_k5["bound"][1],
+                    library_ms=hico_k5["library_ms"], library_note=hico_k5["library_note"])
+        if entry["name"] == "flash_fwd_causal_seg":
+            entry.update(design="wgmma + TMA, warp-specialised", earlier_design=K5_EARLIER)
     gq, gw = gk["flash_fwd_causal_gqa"], gk["flash_fwd_causal_window"]
     kernels.append({
         "name": "flash_fwd_causal_gqa", "route": "cuda", "source": src + "flash_fwd_causal.cu",
@@ -4578,6 +4734,7 @@ def main() -> int:
         "max_abs_err": gqa_err["flash_fwd_causal_gqa"], "ms": gq["ms"],
         "plain_ms": gq["plain_ms"], "bound_ms": gq["bound"][0], "bound_by": gq["bound"][1],
         "library_ms": gq["library_ms"], "library_note": gq["library_note"], "shape": gq["shape"],
+        "design": "wgmma + TMA, warp-specialised", "earlier_design": K5_EARLIER,
         "window": {"window": GQA_WINDOW, "counter": "flash_fwd_causal_window",
                    "launches_by_path": by_path("flash_fwd_causal_window"),
                    "note": "no ported preset sets a window; phase 24 holds it, phase 28 times it",

@@ -1,7 +1,7 @@
 // Packed-sequence segment ids (K8) for the causal / narrow-v flash kernels
 // (sm_90a): the per-tile range test that lets a kernel skip a (query tile,
-// key tile) pair before loading it, and a cp.async row loader shared by the
-// K5 forward and backward.
+// key tile) pair before loading it, and the cp.async row loader of the K5
+// backward.
 //
 // Replaces the TPU devices `_segs_overlap` (internvideo_tpu/ops/
 // flash_attention.py:75) and `_build_remap` (:96). There the grid runs in

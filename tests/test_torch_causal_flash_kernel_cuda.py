@@ -105,3 +105,76 @@ def test_mla_views_rows_without_keys_and_refusals():
     leaf = q.transpose(1, 2).float().requires_grad_()
     with pytest.raises(NotImplementedError, match="K5"):
         fa.flash_attention(leaf, k.float(), v.float(), causal=True).sum().backward()
+
+
+# (B, Sq, Sk, H, d_qk, d_v, causal, q_position_offset): the edges of the
+# kernel's 128-row query tile (two warpgroups of 64) and its 64-key
+# tiles: one row, a tile less or more one row, the HiCo
+# prompt's 1056 rows (a ragged 32-row tail), fewer keys than queries, query
+# offsets that are no multiple of 128, and each small pair.
+EDGE_CASES = [
+    (1, 1, 1, 2, 256, 128, True, 0),
+    (2, 1, 300, 2, 192, 128, True, 299),
+    (1, 127, 127, 2, 256, 128, True, 0),
+    (1, 129, 129, 2, 192, 128, True, 0),
+    (1, 1056, 1056, 4, 192, 128, True, 0),
+    (1, 1056, 1056, 2, 256, 128, True, 0),
+    (2, 300, 130, 2, 256, 128, False, 0),
+    (1, 300, 200, 2, 192, 128, True, 0),
+    (1, 129, 400, 2, 256, 128, True, 203),
+    (1, 100, 1100, 2, 192, 128, True, 1000),
+    (1, 257, 257, 2, 64, 32, True, 0),
+    (1, 129, 129, 2, 32, 32, True, 0),
+]
+
+
+def _offset_view(shape, g, dtype, pad):
+    """A (B, S, H, D) tensor whose storage starts `pad` elements into its
+    buffer: a base 2 * pad bytes past the allocation's alignment."""
+    n = 1
+    for x in shape:
+        n *= x
+    buf = torch.randn(n + pad, device="cuda", generator=g).to(dtype)
+    return buf[pad:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_edges(dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(2)
+    for b, sq, sk, h, d, dv, causal, off in EDGE_CASES:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=g).to(dt)
+        kv = torch.randn(b, sk, h, d + dv, device="cuda", generator=g).to(dt)
+        k, v = kv[..., :d], kv[..., d:]  # strided views of one tensor
+        before = fa.launch_count("flash_fwd_causal")
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_position_offset=off)
+        torch.cuda.synchronize()
+        assert fa.launch_count("flash_fwd_causal") == before + 1
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, causal, off)
+        case = (b, sq, sk, h, d, dv, causal, off)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=str(case))
+            torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=0, msg=str(case))
+        else:
+            assert _rel(out, ref) <= 1e-2, (case, _rel(out, ref))
+            torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0, msg=str(case))
+
+
+@pytest.mark.cuda
+def test_base_offset_by_16_bytes():
+    """q, k and v whose base pointers sit 16 bytes past a 128-byte boundary
+    (the wrapper asks for 16-byte alignment, TMA for no more), k / v with a
+    row stride that is not their width."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(3)
+    for b, s, h, d, dv in ((2, 300, 4, 256, 128), (1, 1056, 2, 192, 128)):
+        q = _offset_view((b, s, h, d), g, torch.bfloat16, 8)
+        kv = _offset_view((b, s, h, d + dv + 8), g, torch.bfloat16, 0)
+        k, v = kv[..., 8:8 + d], kv[..., 8 + d:]
+        assert q.data_ptr() % 128 == 16 and k.data_ptr() % 16 == 0
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True)
+        assert _rel(out, ref) <= 1e-2, ((b, s, h, d, dv), _rel(out, ref))
+        torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0)

@@ -90,3 +90,45 @@ def test_strided_views_and_empty_rows():
     out, lse = fa.flash_attention_with_lse(q2, k2, v2, window=50)
     assert (out[:, 113:] == 0).all() and torch.isinf(lse[:, :, 113:]).all()
     assert torch.isfinite(lse[:, :, :113]).all()
+
+
+# (B, Sq, Sk, Hq, Hkv, D, keyword arguments): groups of 4 and 8 across the
+# kernel's 128-row query tile and 64-key tiles, band edges that fall inside
+# a key tile (windows of 100, 70, 200, 50, 30), query offsets that are no
+# multiple of 128, one row, fewer keys than queries.
+EDGE_CASES = [
+    (1, 129, 129, 8, 2, 128, dict(causal=True)),
+    (2, 1056, 1056, 8, 1, 128, dict(causal=True)),
+    (1, 300, 300, 8, 1, 128, dict(causal=True, window=100)),
+    (1, 257, 257, 4, 1, 128, dict(window=70)),
+    (1, 127, 500, 8, 2, 128, dict(causal=True, window=200, q_position_offset=203)),
+    (1, 1, 300, 4, 1, 128, dict(causal=True, window=50, q_position_offset=299)),
+    (1, 200, 100, 8, 2, 64, dict(window=30)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_edges(dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(2)
+    for b, sq, sk, hq, hkv, d, kw in EDGE_CASES:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=g).to(dt)
+        kv = torch.randn(b, sk, 2 * hkv, d, device="cuda", generator=g).to(dt)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]  # strided views of one tensor
+        name = _counter(kw, True)
+        before = fa.launch_count(name)
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.launch_count(name) == before + 1, (name, kw)
+        ref, ref_lse = fa.flash_attention_ref_with_lse(
+            q, k, v, d ** -0.5, kw.get("causal", False), kw.get("q_position_offset", 0),
+            None, None, kw.get("window"))
+        case = (b, sq, sk, hq, hkv, d, kw)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=str(case))
+        else:
+            rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+            assert rel <= 1e-2, (case, rel)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0, msg=str(case))

@@ -225,3 +225,44 @@ def test_refusals():
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
         with pytest.raises(NotImplementedError, match="K5"):
             out.sum().backward()
+
+
+def edge_segments(s):
+    """(1, S) ids whose boundaries fall inside the forward's 64-key tiles
+    (runs of 50, 80, 190, 100) and whose tail of pads (-1) fills whole key
+    tiles and a whole 128-row query tile."""
+    lens = [50, 80, 190, 100]
+    ids = np.repeat([0, 1, 2, 3, -1], lens + [s - sum(lens)])
+    return torch.from_numpy(ids[None].astype(np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_tile_edges(dtype):
+    """K8 in K5's forward with segment boundaries mid-tile and a key tile of
+    pad ids only, causal and not, at the training pairs and the 2B's (192,
+    128)."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(4)
+    for d, dv in ((256, 128), (192, 128), (128, 128), (64, 32)):
+        for causal in (True, False):
+            s = 700
+            seg = edge_segments(s)
+            q = torch.randn(1, s, 2, d, device="cuda", generator=g).to(dt)
+            kv = torch.randn(1, s, 2, d + dv, device="cuda", generator=g).to(dt)
+            k, v = kv[..., :d], kv[..., d:]
+            before = fa.launch_count("flash_fwd_causal_seg")
+            out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_segment_ids=seg,
+                                                   kv_segment_ids=seg)
+            torch.cuda.synchronize()
+            assert fa.launch_count("flash_fwd_causal_seg") == before + 1
+            ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, causal, 0, seg,
+                                                           seg)
+            case = (d, dv, causal, dtype)
+            if dt == torch.float32:
+                torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=str(case))
+                torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=0, msg=str(case))
+            else:
+                assert _rel(out, ref) <= 1e-2, (case, _rel(out, ref))
+                torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0, msg=str(case))
