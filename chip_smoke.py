@@ -9,8 +9,9 @@ non-zero and prints no result):
   1. device: needs torch.cuda; prints torch/CUDA versions and the card's
      name and power limit from nvidia-smi;
   2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
-     the ptxas report and, on a line of its own, the registers and spill
-     bytes of each instantiation of K5's wgmma forward;
+     the ptxas report and, on a line of its own for each, the registers
+     and spill bytes of each instantiation of K5's wgmma forward, dq and
+     dk/dv kernels;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5) and at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -396,6 +397,9 @@ NORM_SHAPE = (16 * 4097, 1408)
 # (tools_torch/compare_k5_fwd.py), not measured here.
 K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_fwd.py"}
+K5_BWD_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows; dk/dv at d_qk "
+                            "256 split over two CTAs that each recompute P^T and dS^T",
+                  "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_bwd.py"}
 
 
 def _card() -> str:
@@ -430,14 +434,16 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _ptxas_k5(log: str) -> dict:
-    """Registers at entry and spill bytes of each instantiation of K5's bf16
-    forward (`causal_fwd_bf16_kernel<d_qk, d_v, kSeg>`) from the build log."""
+def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 12) -> dict:
+    """Registers at entry and spill bytes of each instantiation of one of
+    K5's bf16 kernels (`<kernel><d_qk, d_v, kSeg>`: the forward, or the
+    backward's `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`,
+    10 each) from the build log."""
     import re
 
     res, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*causal_fwd_bf16_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+        m = re.search(r"Compiling entry function '\S*" + kernel + r"ILi(\d+)ELi(\d+)ELb(\d)E",
                       line)
         if m:
             name = f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})"
@@ -451,8 +457,8 @@ def _ptxas_k5(log: str) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 res[name]["registers"] = int(m[1])
-    if len(res) != 12 or any(len(v) != 3 for v in res.values()):
-        raise AssertionError(f"the build log lacks K5's ptxas report: {res}")
+    if len(res) != count or any(len(v) != 3 for v in res.values()):
+        raise AssertionError(f"the build log lacks {kernel}'s ptxas report: {res}")
     return res
 
 
@@ -4346,10 +4352,13 @@ def main() -> int:
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    k5_ptxas = _ptxas_k5(build_log)
-    print("ptxas, K5 forward bf16 (wgmma + TMA): " + "; ".join(
-        f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
-        f"spilled (stores / loads)" for k, v in k5_ptxas.items()), flush=True)
+    k5_ptxas = {what: _ptxas_k5(build_log, kernel, count) for what, kernel, count in (
+        ("forward", "causal_fwd_bf16_kernel", 12), ("dq", "causal_bwd_dq_bf16_kernel", 10),
+        ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
+    for what, rep in k5_ptxas.items():
+        print(f"ptxas, K5 {what} bf16 (wgmma + TMA): " + "; ".join(
+            f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
+            f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
 
     # 3. kernel vs plain
     check_kernel(fa)
@@ -4672,7 +4681,7 @@ def main() -> int:
         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound"][0],
         "bound_by": k5["bound"][1], "library_ms": k5["library_ms"],
         "library_note": k5["library_note"], "shape": k5["shape"], "design": "wgmma + TMA, warp-specialised", "earlier_design": K5_EARLIER,
-        "ptxas": k5_ptxas,
+        "ptxas": k5_ptxas["forward"],
         "preset_2b": {"shape": k5_2b["shape"], "ms": k5_2b["ms"],
                       "plain_ms": k5_2b["plain_ms"], "bound_ms": k5_2b["bound"][0],
                       "bound_by": k5_2b["bound"][1], "library_ms": k5_2b["library_ms"],
@@ -4817,6 +4826,10 @@ def main() -> int:
     print(f"[{card}] retrieval: " + json.dumps({**ret, "cli_wall_s": ret_wall}), flush=True)
     print(f"chip_smoke: phases 1-42 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
+    for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
+        if entry["name"].startswith("flash_bwd_causal_"):
+            entry.update(design="wgmma + TMA, warp-specialised", earlier_design=K5_BWD_EARLIER,
+                         ptxas=k5_ptxas["dq" if "_dq" in entry["name"] else "dk/dv"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 // Shared parts of the causal / narrow-v / segmented / grouped-query /
 // windowed flash-attention backward (K5 backward + K8) for Hopper (sm_90a):
-// its argument block, the base-2 LSE and the visibility test. The dq kernel is in flash_bwd_causal_dq.cu, the dk/dv kernel in
-// flash_bwd_causal_dkv.cu; each keeps its own __global__ names, C entry and
-// launch count. The design is described in flash_bwd_causal_dq.cu.
+// its argument block, the warp-specialised CTA's shape, the base-2 LSE and
+// the visibility tests. The dq kernel is in flash_bwd_causal_dq.cu, the
+// dk/dv kernel in flash_bwd_causal_dkv.cu; each keeps its own __global__
+// names, C entry and launch count. The design is described in
+// flash_bwd_causal_dq.cu.
 #pragma once
 
+#include "hopper.cuh"
 #include "segments.cuh"
 
 namespace ivt {
@@ -23,6 +26,14 @@ struct CausalBwdArgs {
   int group;          // q heads per K/V head: q head h reads K/V head h / group
   int window;         // > 0: |i + q_off - j| < window (j <= i + q_off with causal); 0: none
 };
+
+// The bf16 kernels' CTA: a producer warpgroup (one warp walks the tiles and
+// issues the TMA loads, the other three leave at once) and two consumer
+// warpgroups; setmaxnreg moves registers to the consumers: 128 x 40 +
+// 256 x 232 <= 384 x 168 (the walk's look-ahead spilled at 24).
+constexpr int kBwdThreads = 384;
+constexpr int kBwdProducerRegs = 40;
+constexpr int kBwdConsumerRegs = 232;
 
 inline CausalBwdArgs make_causal_bwd_args(const void* q, const void* k, const void* v,
                                           const void* dout, const float* lse, const float* delta,

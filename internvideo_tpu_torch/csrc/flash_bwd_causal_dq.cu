@@ -1,8 +1,8 @@
 // Flash-attention backward, dq kernel, for the causal / narrow-v /
-// segmented case (K5 backward + K8) on Hopper (sm_90a): the gradient of the
-// M2LA LLM's training attention, q/k at d_qk = nope + rope (256 on
-// qwen3_8b_mla) and v/dO at d_v = 128, causal, with packed-sequence segment
-// ids, inputs in (B, S, H, D) with any element strides.
+// segmented / grouped-query / windowed case (K5 backward + K8) on Hopper
+// (sm_90a): the gradient of the LLMs' training attention, q/k at d_qk =
+// nope + rope (256 on qwen3_8b_mla) and v/dO at d_v = 128, or (128, 128) on
+// qwen3_8b_dense, inputs in (B, S, H, D) with any 16-byte-multiple strides.
 //
 // Replaces internvideo_tpu/ops/flash_attention.py:468 `_bwd_dq_kernel` as
 // `_bwd` (:782) drives it on its causal / segmented remap path (:830-908,
@@ -14,97 +14,230 @@
 // is flash_bwd_causal_dkv.cu; as in the JAX package the two run without
 // atomics.
 //
-// Grouped-query heads and the sliding window (the dense-GQA LLM's training
-// attention, qwen3_8b_dense at (128, 128); `_bwd(group=, window=)` :782-785,
-// the K/V index maps `h // group`): the CTA of q head h reads K/V head
-// h / group through the K/V strides, so K/V are never repeated in memory.
+// Grouped-query heads and the sliding window (`_bwd(group=, window=)`
+// :782-785, the K/V index maps `h // group`): the CTA of q head h reads K/V
+// head h / group through the K/V maps, so K/V are never repeated in memory.
 // With window > 0 query position p = i + q_off sees key j only if
 // p - j < window, and without causal also j - p < window (`_mask_block`
-// :40-68). Key tiles outside the band of the CTA's rows are never loaded
-// (band_keys in causal_bwd.cuh: from m0 + q_off - window + 1, and without
-// causal up to row_end - 1 + q_off + window); a tile that crosses an edge of
-// the band is masked per element. A row that sees no key (LSE -inf) gets
-// p = 0, so dq = 0.
+// :40-68). A row that sees no key (LSE -inf) gets p = 0, so dq = 0.
 //
 // What does not carry over: the TPU kernel remaps dead (q block, k block)
-// pairs' DMAs with a scalar-prefetched table. Here each CTA (one 64-query
-// tile) walks its key tiles and skips, before loading it, a tile above the
-// causal diagonal (the loop ends at the last visible key) or one whose
-// segment range misses the query tile's (segments.cuh). Tiles that cross the
-// diagonal, the Sk tail or hold segments are masked element by element.
+// pairs' DMAs with a scalar-prefetched table. Here the producer warp of each
+// CTA walks its key tiles and skips, before loading it, a tile outside its
+// rows' band (band_keys) or whose segment range misses the query tile's
+// (segments.cuh).
 //
-// Registers: at d_qk = 256 the fp32 dq accumulator of a warp's 16 rows is
-// 128 registers a thread. So the streamed K/V tiles are 32 keys (s and dp
-// then take 32 more), and the A fragments of q and dO are read from shared
-// memory at every k-step instead of being held (they would take 96).
+// What bounds it: 2 * S_vis * (2 d_qk + d_v) tensor-core operations per
+// (row, head) over the visible keys S_vis, against reading q, k, v, dO once:
+// operations, with the exp2 between the products.
 //
-// What bounds it: 2 * S_vis * (2 d_qk + d_v) operations per (row, head)
-// over the visible keys S_vis, against reading q, k, v, dO once: the tensor
-// cores and the exp2 between the products, not device memory.
-//
-// Design (right and simple first): one CTA per (64-query tile, head,
-// batch), the last query tiles (the most key tiles) launched first; 4 warps
-// of 16 rows on mma.sync.m16n8k16 (bf16 in, fp32 accumulate); K (d_qk) and V
-// (d_v) tiles double-buffered with cp.async; ds (rounded to bf16, as the JAX
-// kernel rounds it to k's dtype) becomes the A operand of ds k in registers,
-// k's B fragments come transposed via ldmatrix. fp32 inputs take a CUDA-core
-// kernel (the parity checks, not the bf16 main path). wgmma, TMA and warp
-// specialisation are later work.
+// Design (the forward's, flash_fwd_causal.cu, on hopper.cuh): one CTA of
+// three warpgroups per (query tile, head, batch), the last query tiles (the
+// most key tiles) launched first.
+// - A producer warp loads the q and dO tiles once by TMA, before it walks
+//   the key tiles, then fills a ring of K + V stages (full / empty
+//   mbarriers). It alone decides each tile's skip and hands the tile index,
+//   and with segments the tile's ids, to the consumers with the stage; -1
+//   ends the walk.
+// - Two consumer warpgroups: S = Q K^T and dP = dO V^T as wgmma with both
+//   operands in shared memory (K-major, 128-byte swizzle; 64-byte at d 32);
+//   P and dS stay in the fp32 accumulator fragments; dS, rounded to bf16 (as
+//   the JAX kernel rounds it to k's dtype), is the A operand of dQ += dS K,
+//   with K read MN-major through the transpose bit.
+// - d_qk <= 128: 128 rows a CTA, 64 per warpgroup (m64n64k16 for S and dP),
+//   dq of all columns in registers (64 at 128) and dS as A fragments in
+//   registers (the RS form). A warpgroup skips a tile none of its rows sees.
+// - d_qk 256 (kSplit): dq alone would be 128 registers a thread; beside S
+//   and dP, ptxas spilled it and serialized every wgmma (a wait after each).
+//   So both warpgroups take the CTA's 64 rows: each computes S and dP for
+//   half the tile's keys (m64n32k16), writes its dS in bf16 to a swizzled
+//   shared tile (two buffers, so one named barrier a tile orders both
+//   writes before both reads) and accumulates half of dq's columns (64
+//   registers) from the whole tile (A from shared memory).
+// - Masks: per row the kept keys of a tile are one interval of the
+//   compile-time column (causal, window, Sk tail), so a masked element costs
+//   two integer compares (plus the id equality with segments); only tiles
+//   that straddle the diagonal, a band edge or the Sk tail, or carry
+//   segments, are masked.
+// - 64 keys a stage; 4 stages (3 at d_qk 256) in the 227 KB.
+// TMA zero-fills rows past Sq / Sk; rows past Sq have p = 0 (LSE +inf) and
+// are not stored. fp32 inputs take a CUDA-core kernel (the parity checks,
+// not the bf16 main path).
 
 #include "causal_bwd.cuh"
 
 namespace {
 
 using namespace ivt;
+namespace hp = ivt::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;     // query rows per CTA (4 warps x 16)
-constexpr int kKeys = 32;     // keys per streamed K/V tile
-constexpr int kThreads = 128;
+constexpr int kBlockN = 64;  // keys per K/V stage
 
 template <int DQK, int DV>
 struct DqTile {
-  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
-  static constexpr int kQStride = DQK + 8;  // smem row: +16 B avoids bank conflicts
-  static constexpr int kVStride = DV + 8;
-  static constexpr int kQ = kRows * kQStride;   // q tile
-  static constexpr int kDO = kRows * kVStride;  // dO tile
-  static constexpr int kK = kKeys * kQStride;   // one K buffer
-  static constexpr int kV = kKeys * kVStride;   // one V buffer
-  // q, dO, two K and two V buffers, the key tile's segment ids
-  static constexpr int kSmemBytes = (kQ + kDO + 2 * (kK + kV)) * 2 + kKeys * 4;
+  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims must be multiples of 32");
+  // kSplit (d_qk 256): both consumer warpgroups on the CTA's 64 rows, each
+  // accumulating half of dq's columns from dS passed through shared memory;
+  // otherwise 128 rows, 64 per warpgroup, all columns in registers.
+  static constexpr bool kSplit = DQK > 128;
+  static_assert(!kSplit || DQK % 128 == 0, "the column halves must be whole 64-column panels");
+  static constexpr int kRows = kSplit ? 64 : 128;  // query rows per CTA
+  static constexpr int kDQ = kSplit ? DQK / 2 : DQK;  // dq columns a warpgroup accumulates
+  static constexpr int kStages = kSplit ? 3 : 4;
+  static constexpr int kQCols = DQK < 64 ? DQK : 64;  // columns of a panel (one TMA box)
+  static constexpr int kVCols = DV < 64 ? DV : 64;
+  static constexpr int kQRow = 2 * kQCols;  // bytes of a panel row = the swizzle span
+  static constexpr int kVRow = 2 * kVCols;
+  static constexpr int kQBytes = kRows * DQK * 2;
+  static constexpr int kDOBytes = kRows * DV * 2;
+  static constexpr int kKBytes = kBlockN * DQK * 2;
+  static constexpr int kVBytes = kBlockN * DV * 2;
+  static constexpr int kDSBytes = kSplit ? kRows * kBlockN * 2 : 0;  // one bf16 dS tile
+  // From a 1024-byte boundary: q, dO, each stage's K, each stage's V, two
+  // dS buffers (kSplit), each stage's key segment ids and tile index, then
+  // the barriers.
+  static constexpr int kDOOff = kQBytes;
+  static constexpr int kKOff = kDOOff + kDOBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kDSOff = kVOff + kStages * kVBytes;
+  static constexpr int kSegOff = kDSOff + 2 * kDSBytes;
+  static constexpr int kTileOff = kSegOff + kStages * kBlockN * 4;
+  static constexpr int kBarOff = (kTileOff + kStages * 4 + 7) / 8 * 8;
+  static constexpr int kSmemBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a CTA may use");
 };
 
 template <int DQK, int DV, bool kSeg>
-__global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const CausalBwdArgs a) {
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    causal_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const CausalBwdArgs a) {
   using T = DqTile<DQK, DV>;
+  constexpr int kStages = T::kStages, kRows = T::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + T::kQ;
-  bf16* sK = sDO + T::kDO;    // two buffers
-  bf16* sV = sK + 2 * T::kK;  // two buffers
-  int* sKS = reinterpret_cast<int*>(sV + 2 * T::kV);
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = smem + T::kDOOff;
+  unsigned char* sK = smem + T::kKOff;  // stage s at s * kKBytes, panels of kBlockN rows
+  unsigned char* sV = smem + T::kVOff;
+  unsigned char* sDS = smem + T::kDSOff;  // [buffer]: dS (kSplit)
+  int* sKS = reinterpret_cast<int*>(smem + T::kSegOff);    // [stage][key]: kv segment ids
+  int* sTile = reinterpret_cast<int*>(smem + T::kTileOff);  // [stage]: key tile, -1 = the end
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
-  const int hk = h / a.group;  // GQA: the group's K/V head
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
-  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_b + h * a.do_h;
-  const int qr = warp * 16;  // this warp's first row in the query tile
 
-  // Key tiles [lo / kKeys, n_tiles) hold every key a row of this tile sees.
-  const int2 band = band_keys(a, m0, min(m0 + kRows, Sq));
-  const int n_tiles = (band.y + kKeys - 1) / kKeys;
-  // With a window: keys below band_lo_all are outside some row's band, and
-  // (non-causal) so are keys at or above band_hi_all.
-  const int band_lo_all = m0 + kRows + a.q_off - a.window;
-  const int band_hi_all = m0 + a.q_off + a.window;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 32);  // every producer lane (lane 0 with the bytes)
+      hp::mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    hp::mbar_init(q_full, 1);
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
 
+  if (warp < 4) {
+    // Producer warpgroup: warp 0 walks the key tiles and issues every load.
+    hp::setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp != 0) return;
+    const int2 band = band_keys(a, m0, min(m0 + kRows, Sq));
+    const int n_tiles = (band.y + kBlockN - 1) / kBlockN;
+    const int* kvs = kSeg ? a.kv_seg + (long long)b * Sk : nullptr;
+    int2 q_range = make_int2(INT_MIN, INT_MAX);
+    if constexpr (kSeg) q_range = seg_range(a.q_seg + (long long)b * Sq, m0, kRows, Sq, lane);
+    int win = INT_MIN;  // the window of 32 tiles whose skip tests `meets` holds
+    unsigned meets = 0;
+    auto next_tile = [&](int j) {
+      if constexpr (kSeg) {
+        j = next_meeting(j, n_tiles, win, meets, lane, [&](int jj) {
+          return ranges_meet(ids_range(kvs, jj * kBlockN, kBlockN, Sk), q_range);
+        });
+      }
+      return j;
+    };
+    int ids[2];  // the next tile's key ids, loaded while the ring is full
+    auto load_ids = [&](int j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = j * kBlockN + lane + 32 * r;
+        ids[r] = key < Sk ? kvs[key] : INT_MIN;
+      }
+    };
+    if (lane == 0) {
+      hp::prefetch_map(&q_map);
+      hp::prefetch_map(&k_map);
+      hp::prefetch_map(&v_map);
+      hp::prefetch_map(&do_map);
+      hp::mbar_arrive_expect_tx(q_full, T::kQBytes + T::kDOBytes);
+#pragma unroll
+      for (int p = 0; p < DQK / T::kQCols; ++p)
+        hp::tma_load_4d(sQ + p * kRows * T::kQRow, &q_map, q_full, p * T::kQCols, m0, h, b);
+#pragma unroll
+      for (int p = 0; p < DV / T::kVCols; ++p)
+        hp::tma_load_4d(sDO + p * kRows * T::kVRow, &do_map, q_full, p * T::kVCols, m0, h, b);
+    }
+    const int hk = h / a.group;  // GQA: the group's K/V head
+    int j = next_tile(band.x / kBlockN);
+    if (kSeg && j < n_tiles) load_ids(j);
+    int stage = 0;
+    unsigned phase = 0;
+    while (true) {
+      hp::mbar_wait(&empty[stage], phase ^ 1);
+      const bool more = j < n_tiles;
+      const int key0 = j * kBlockN;
+      if (kSeg && more) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) sKS[stage * kBlockN + lane + 32 * r] = ids[r];
+      }
+      if (lane == 0 && more) {
+        sTile[stage] = j;
+        hp::mbar_arrive_expect_tx(&full[stage], T::kKBytes + T::kVBytes);
+        unsigned char* kd = sK + stage * T::kKBytes;
+        unsigned char* vd = sV + stage * T::kVBytes;
+#pragma unroll
+        for (int p = 0; p < DQK / T::kQCols; ++p)
+          hp::tma_load_4d(kd + p * kBlockN * T::kQRow, &k_map, &full[stage], p * T::kQCols, key0,
+                          hk, b);
+#pragma unroll
+        for (int p = 0; p < DV / T::kVCols; ++p)
+          hp::tma_load_4d(vd + p * kBlockN * T::kVRow, &v_map, &full[stage], p * T::kVCols, key0,
+                          hk, b);
+      } else {
+        if (lane == 0) sTile[stage] = -1;
+        hp::mbar_arrive(&full[stage]);
+      }
+      if (!more) break;
+      j = next_tile(j + 1);
+      if (kSeg && j < n_tiles) load_ids(j);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups. kSplit: both on the CTA's 64 rows, warpgroup wg
+  // taking keys [32 wg, 32 wg + 32) of each tile for S and dP and dq's
+  // columns [128 wg, 128 wg + 128); otherwise rows [64 wg, 64 wg + 64).
+  hp::setmaxnreg_inc<kBwdConsumerRegs>();
+  const int wg = warp / 4 - 1;
+  const int g = lane >> 2, t = lane & 3;  // accumulator fragment row group / column pair
+  constexpr int kKeys = T::kSplit ? kBlockN / 2 : kBlockN;  // keys of S / dP a warpgroup takes
+  const int wrow = T::kSplit ? 0 : 64 * wg;  // this warpgroup's first row in the tile
+  const int wkey = T::kSplit ? kKeys * wg : 0;  // and its first key of S / dP in a K tile
+  const int r0 = m0 + wrow, r_last = r0 + 63;
+  const int qr = wrow + (warp & 3) * 16;  // this warp's first row in the tile
+  const int q_off = a.q_off, window = a.window, causal = a.causal;
   int rows[2], qs[2] = {0, 0};
   float lse2[2], dlt[2];
 #pragma unroll
@@ -113,132 +246,158 @@ __global__ void __launch_bounds__(kThreads) causal_bwd_dq_bf16_kernel(const Caus
     const long long i = ((long long)b * a.H + h) * Sq + rows[r];
     lse2[r] = rows[r] < Sq ? lse_to_base2(a.lse[i]) : INFINITY;  // rows past Sq: p = 0
     dlt[r] = rows[r] < Sq ? a.delta[i] : 0.f;
+    if constexpr (kSeg) qs[r] = rows[r] < Sq ? a.q_seg[(long long)b * Sq + rows[r]] : INT_MIN;
   }
-  const int* kvs = kSeg ? a.kv_seg + (long long)b * Sk : nullptr;
-  int2 q_range = make_int2(INT_MIN, INT_MAX);
-  if constexpr (kSeg) {
-    const int* qsb = a.q_seg + (long long)b * Sq;
-    q_range = seg_range(qsb, m0, kRows, Sq, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) qs[r] = rows[r] < Sq ? qsb[rows[r]] : INT_MIN;
-  }
-  auto next_tile = [&](int j) {
-    if constexpr (kSeg) {
-      while (j < n_tiles && !ranges_meet(seg_range(kvs, j * kKeys, kKeys, Sk, lane), q_range)) ++j;
-    }
-    return j;
-  };
-  auto load_kv = [&](int buf, int j) {
-    cp_rows<DQK, kKeys, kThreads>(sK + buf * T::kK, T::kQStride, kb, a.k_s, j * kKeys, Sk, tid);
-    cp_rows<DV, kKeys, kThreads>(sV + buf * T::kV, T::kVStride, vb, a.v_s, j * kKeys, Sk, tid);
-  };
+  const unsigned char* sQw = sQ + wrow * T::kQRow;  // this warpgroup's rows
+  const unsigned char* sDOw = sDO + wrow * T::kVRow;
 
-  int j = next_tile(band.x / kKeys);
-  cp_rows<DQK, kRows, kThreads>(sQ, T::kQStride, qb, a.q_s, m0, Sq, tid);
-  cp_rows<DV, kRows, kThreads>(sDO, T::kVStride, dob, a.do_s, m0, Sq, tid);
-  if (j < n_tiles) load_kv(0, j);
-  cp_async_commit();
-
-  float acc[DQK / 8][4];
+  float acc[T::kDQ / 2];
 #pragma unroll
-  for (int n = 0; n < DQK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < T::kDQ / 2; ++i) acc[i] = 0.f;
 
-  int cur = 0;
-  while (j < n_tiles) {
-    const int jn = next_tile(j + 1);
-    if (jn < n_tiles) {
-      load_kv(cur ^ 1, jn);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    const int key0 = j * kKeys;
-    if constexpr (kSeg) {
-      if (tid < kKeys) sKS[tid] = key0 + tid < Sk ? kvs[key0 + tid] : INT_MIN;
-    }
-    __syncthreads();
-    const bf16* sKc = sK + cur * T::kK;
-    const bf16* sVc = sV + cur * T::kV;
+  hp::mbar_wait(q_full, 0);
+  int stage = 0, buf = 0;
+  unsigned phase = 0;
+  while (true) {
+    hp::mbar_wait(&full[stage], phase);
+    __syncwarp();
+    const int j = sTile[stage];
+    if (j < 0) break;
+    const int key0 = j * kBlockN, key_last = key0 + kBlockN - 1;
+    // Does some row of this warpgroup see some key of the tile? (kSplit:
+    // the same answer for both warpgroups, which meet at a barrier.)
+    const bool sees = r0 < Sq && (!causal || key0 <= r_last + q_off) &&
+                      (window == 0 || (key_last > r0 + q_off - window &&
+                                       (causal || key0 < r_last + q_off + window)));
+    if (sees) {
+      // S = Q K^T and dP = dO V^T on this warpgroup's rows and keys, all
+      // operands K-major; descriptors of the first k-step.
+      const unsigned char* kt = sK + stage * T::kKBytes;
+      const uint64_t dq0 = hp::make_desc(sQw, T::kQRow, 16, 8 * T::kQRow);
+      const uint64_t do0 = hp::make_desc(sDOw, T::kVRow, 16, 8 * T::kVRow);
+      const uint64_t k0 = hp::make_desc(kt + wkey * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
+      const uint64_t v0 =
+          hp::make_desc(sV + stage * T::kVBytes + wkey * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
+      float s[kKeys / 2], dp[kKeys / 2];
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DQK / 16; ++ks) {
+        const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
+        hp::wgmma_ss<0, 0>(s, hp::desc_add(dq0, p * kRows * T::kQRow + c),
+                           hp::desc_add(k0, p * kBlockN * T::kQRow + c), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < DV / 16; ++ks) {
+        const int p = ks * 16 / T::kVCols, c = ks * 16 % T::kVCols * 2;
+        hp::wgmma_ss<0, 0>(dp, hp::desc_add(do0, p * kRows * T::kVRow + c),
+                           hp::desc_add(v0, p * kBlockN * T::kVRow + c), ks > 0);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
 
-    // s = q k^T (over d_qk) and dp = dO v^T (over d_v), 16 rows x 32 keys.
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
+      // ds = p * (dp - delta), masked only where the tile straddles the
+      // diagonal, a band edge or the Sk tail, or carries segments. Element e
+      // of n-tile nt sits at row g + 8 (e >> 1) of the warp and key key0 +
+      // wkey + 2 t + c, c = 8 nt + (e & 1) a compile-time constant: row r
+      // keeps it iff lo[r] <= c <= hi[r] (and the ids match).
+      const bool masked =
+          kSeg || key0 + kBlockN > Sk || (causal && key_last > r0 + q_off) ||
+          (window > 0 &&
+           (r_last + q_off - key0 >= window || (!causal && key_last - r0 - q_off >= window)));
+      const int kb = key0 + wkey + 2 * t;  // the thread's key base
+      const int* ids = sKS + stage * kBlockN + wkey + 2 * t;
+      int lo[2], hi[2];
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll 4
-    for (int ks = 0; ks < DQK / 16; ++ks) {
-      uint32_t af[4];
-      load_a_frag(af, sQ, T::kQStride, qr, ks, g, t);
+      for (int r = 0; r < 2; ++r) {
+        const int rel = rows[r] + q_off - kb;  // position - key base
+        hi[r] = Sk - 1 - kb;
+        if (causal) hi[r] = min(hi[r], rel);
+        if (window > 0 && !causal) hi[r] = min(hi[r], rel + window - 1);
+        lo[r] = window > 0 ? rel - window + 1 : INT_MIN;
+      }
 #pragma unroll
       for (int nt = 0; nt < kKeys / 8; ++nt) {
-        uint32_t bf[2];
-        load_bt_frag(bf, sKc, T::kQStride, nt * 8, ks, g, t);
-        mma_16816(s[nt], af, bf);
-      }
-    }
-#pragma unroll 4
-    for (int ks = 0; ks < DV / 16; ++ks) {
-      uint32_t af[4];
-      load_a_frag(af, sDO, T::kVStride, qr, ks, g, t);
 #pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt) {
-        uint32_t bf[2];
-        load_bt_frag(bf, sVc, T::kVStride, nt * 8, ks, g, t);
-        mma_16816(dp[nt], af, bf);
-      }
-    }
-
-    // ds = p * (dp - delta); element e sits at row g + 8 * (e >> 1) and key
-    // key0 + 8 * nt + 2 * t + (e & 1). Only a tile that crosses the diagonal,
-    // an edge of the window's band, the Sk tail or holds segments is masked.
-    const bool masked =
-        kSeg || key0 + kKeys > Sk || (a.causal && key0 + kKeys - 1 > m0 + a.q_off) ||
-        (a.window > 0 && (key0 < band_lo_all || (!a.causal && key0 + kKeys > band_hi_all)));
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kc = nt * 8 + 2 * t + (e & 1), key = key0 + kc;
-        bool ok = true;
-        if (masked) {
-          ok = key < Sk && band_sees(a, rows[r] + a.q_off, key) && !(kSeg && sKS[kc] != qs[r]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * nt + (e & 1), r = e >> 1;
+          float p = exp2f(s[4 * nt + e] * a.scale_log2 - lse2[r]);
+          if (masked && (c > hi[r] || c < lo[r] || (kSeg && ids[c] != qs[r]))) p = 0.f;
+          s[4 * nt + e] = p * (dp[4 * nt + e] - dlt[r]);
         }
-        const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - lse2[r]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dlt[r]);
       }
-    }
 
-    // dq += ds k over two k-steps of 16 keys.
+      // dQ += dS K over four k-steps of 16 keys, K MN-major (transposed B).
+      const uint64_t kmn = hp::make_desc(kt, T::kQRow, kBlockN * T::kQRow, 8 * T::kQRow);
+      if constexpr (!T::kSplit) {
+        uint32_t ds[kBlockN / 16][4];  // dS in bf16 A fragments
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t af[4];
-      acc_to_a_frag(af, s[2 * kk], s[2 * kk + 1]);
-      const bf16* krow = sKc + (kk * 16 + (lane & 15)) * T::kQStride;
+        for (int kk = 0; kk < kBlockN / 16; ++kk)
+          acc_to_a_frag(ds[kk], &s[8 * kk], &s[8 * kk + 4]);
+        hp::fence_regs(acc);
+        hp::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < DQK / 8; ++n) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, krow + n * 8);
-        mma_16816(acc[n], af, bf);
+        for (int kk = 0; kk < kBlockN / 16; ++kk)
+          hp::wgmma_rs_mn<DQK, T::kQCols>(acc, ds[kk], hp::desc_add(kmn, kk * 16 * T::kQRow),
+                                          kBlockN * T::kQRow);
+      } else {
+        // dS in bf16 into this buffer's (64 rows, 64 keys) tile, 128-byte
+        // rows with the 128-byte swizzle (the 16-byte chunk of a row XOR-ed
+        // with the row % 8), keys [32 wg, 32 wg + 32); then all of dS, from
+        // shared memory, times this warpgroup's half of K's columns.
+        unsigned char* dst = sDS + buf * T::kDSBytes;
+#pragma unroll
+        for (int nt = 0; nt < kKeys / 8; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = 16 * (warp & 3) + g + 8 * r;
+            const int off = row * 128 + (((4 * wg + nt) ^ (row & 7)) << 4) + 4 * t;
+            *reinterpret_cast<uint32_t*>(dst + off) =
+                pack_bf16(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]);
+          }
+        }
+        hp::fence_proxy_async();
+        hp::bar_sync(1, 2 * 128);  // both halves written (the other buffer's reads are done)
+        const uint64_t ads = hp::make_desc(dst, 128, 16, 1024);
+        hp::fence_regs(acc);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+          for (int c = 0; c < T::kDQ / 64; ++c)
+            hp::wgmma_ss<0, 1>(
+                hp::cols<32>(acc, c), hp::desc_add(ads, kk * 32),
+                hp::desc_add(kmn, ((wg * T::kDQ / 64 + c) * kBlockN + kk * 16) * T::kQRow), 1);
+        }
+        buf ^= 1;
       }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
     }
-    __syncthreads();  // the next prefetch overwrites this buffer (and sKS)
-    cur ^= 1;
-    j = jn;
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[stage]);  // this warp is done with the stage
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
-  cp_async_wait<0>();
 
   bf16* dq = static_cast<bf16*>(a.dq);
+  const int col0 = T::kSplit ? wg * T::kDQ : 0;  // this warpgroup's first dq column
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= Sq) continue;
-    bf16* out = dq + b * a.dq_b + (long long)rows[r] * a.dq_s + h * a.dq_h;
+    bf16* out = dq + b * a.dq_b + (long long)rows[r] * a.dq_s + h * a.dq_h + col0;
 #pragma unroll
-    for (int n = 0; n < DQK / 8; ++n) {
+    for (int n = 0; n < T::kDQ / 8; ++n) {
       *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r] * a.scale, acc[n][2 * r + 1] * a.scale);
+          pack_bf16(acc[4 * n + 2 * r] * a.scale, acc[4 * n + 2 * r + 1] * a.scale);
     }
   }
 }
@@ -313,12 +472,26 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
 template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream) {
   if (dtype == 1) {
-    auto kern = causal_bwd_dq_bf16_kernel<DQK, DV, kSeg>;
-    const int smem = DqTile<DQK, DV>::kSmemBytes;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    using T = DqTile<DQK, DV>;
+    const int Hkv = a.H / a.group;
+    CUtensorMap maps[4];  // q, k, v, dO
+    cudaError_t err = hp::encode_bshd(&maps[0], a.q, B, a.Sq, a.H, DQK, a.q_b, a.q_s, a.q_h,
+                                      T::kRows, T::kQCols);
+    if (err == cudaSuccess)
+      err = hp::encode_bshd(&maps[1], a.k, B, a.Sk, Hkv, DQK, a.k_b, a.k_s, a.k_h, kBlockN,
+                            T::kQCols);
+    if (err == cudaSuccess)
+      err = hp::encode_bshd(&maps[2], a.v, B, a.Sk, Hkv, DV, a.v_b, a.v_s, a.v_h, kBlockN,
+                            T::kVCols);
+    if (err == cudaSuccess)
+      err = hp::encode_bshd(&maps[3], a.dout, B, a.Sq, a.H, DV, a.do_b, a.do_s, a.do_h, T::kRows,
+                            T::kVCols);
     if (err != cudaSuccess) return err;
-    kern<<<dim3((a.Sq + kRows - 1) / kRows, a.H, B), kThreads, smem, stream>>>(a);
+    auto kern = causal_bwd_dq_bf16_kernel<DQK, DV, kSeg>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3((a.Sq + T::kRows - 1) / T::kRows, a.H, B), kBwdThreads, T::kSmemBytes,
+           stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   } else {
     causal_bwd_dq_f32_kernel<DQK, DV, kSeg>
         <<<dim3((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B), kF32Rows, 0, stream>>>(a);
@@ -337,8 +510,9 @@ cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream
 // Hkv the K/V heads (H a multiple of it: grouped-query attention); window
 // <= 0 means none. Writes dq only (dk, dv are ignored). Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for an uninstantiated
-// (Dqk, Dv) or dtype, or H not a multiple of Hkv); launches on `stream`;
-// does not synchronise.
+// (Dqk, Dv) or dtype, H not a multiple of Hkv, or a bf16 tensor
+// cuTensorMapEncodeTiled refuses a TMA map for); launches on `stream`; does
+// not synchronise.
 extern "C" int ivt_flash_bwd_causal_dq(int dtype, const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* delta,
                                        const int* q_seg, const int* kv_seg, void* dq, void* dk,

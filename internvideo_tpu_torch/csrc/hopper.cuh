@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma / TMA kernels: the tensor-map
 // encoder (host), mbarrier init / arrive / expect-tx / wait, TMA tile loads,
 // named barriers, register reallocation between warpgroups, wgmma
-// shared-memory descriptors and the bf16 wgmma instructions (fp32
-// accumulators) in both operand forms.
+// shared-memory descriptors, the bf16 wgmma instructions (fp32
+// accumulators) in both operand forms, and the proxy fence between
+// threads' shared-memory writes and wgmma reads of them.
 //
 // Layout convention (the one TMA's swizzle and wgmma's descriptors share): a
 // tile of R rows whose row is `row_bytes` = 128 (64 bf16) or 64 (32 bf16)
@@ -183,6 +184,17 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, unsigned row_bytes,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
+// A descriptor whose start address is `bytes` further (within the 256 KB the
+// 14-bit field holds, so the sum never carries into LBO). The empty volatile
+// asm makes `desc` opaque at this point of the program, so the sum is
+// formed where it is used: computed ahead for every k-step of a product,
+// the descriptors would hold a register pair each (spills beside large
+// accumulators).
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, unsigned bytes) {
+  asm volatile("" : "+l"(desc));
+  return desc + (bytes >> 4);
+}
+
 // Orders register accesses of non-wgmma instructions before the wgmma
 // instructions that follow (accumulators rescaled, A fragments written).
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,6 +238,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
@@ -287,6 +313,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// Registers [c * R, (c + 1) * R) of an accumulator as an array of its own:
+// the fragment of output columns [2 c R, 2 (c + 1) R), since the layout
+// repeats every 8 columns (4 registers). c must be a compile-time constant
+// after unrolling.
+template <int R, int N>
+__device__ __forceinline__ float (&cols(float (&d)[N], int c))[R] {
+  return *reinterpret_cast<float(*)[R]>(&d[c * R]);
+}
+
+// D(64 x N) += A(64 x 16, registers) B(16 x N) with B MN-major in panels of
+// kCols columns, `panel` bytes apart; `b` is the descriptor of the k-step's
+// first row in panel 0 (LBO = panel). One wgmma of up to 128 columns per
+// chunk (N = 256 is two).
+template <int N, int kCols>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t b, unsigned panel) {
+  constexpr int kChunk = N > 128 ? 128 : N;
+#pragma unroll
+  for (int c = 0; c < N / kChunk; ++c)
+    wgmma_rs<1>(cols<kChunk / 2>(d, c), a, desc_add(b, c * (kChunk / kCols) * panel), 1);
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before later async-proxy reads of them (wgmma operands); follow with a
+// barrier that the reading warps wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace hopper

@@ -1,7 +1,7 @@
 // Packed-sequence segment ids (K8) for the causal / narrow-v flash kernels
 // (sm_90a): the per-tile range test that lets a kernel skip a (query tile,
-// key tile) pair before loading it, and the cp.async row loader of the K5
-// backward.
+// key tile) pair before loading it, per warp or (the backward's walks) 32
+// tiles at a time.
 //
 // Replaces the TPU devices `_segs_overlap` (internvideo_tpu/ops/
 // flash_attention.py:75) and `_build_remap` (:96). There the grid runs in
@@ -47,20 +47,40 @@ __device__ __forceinline__ int2 seg_range(const int* __restrict__ ids, int row0,
 // Can some id in range a equal some id in range b?
 __device__ __forceinline__ bool ranges_meet(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
 
-// cp.async rows [row0, row0 + ROWS) of a (S, D) bf16 matrix with row stride
-// `s_stride` into a shared tile of row stride `dst_stride`; rows at or past
-// `valid` are zero-filled (finite, so a masked element's p is exactly 0).
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, int dst_stride,
-                                        const __nv_bfloat16* src, long long s_stride, int row0,
-                                        int valid, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = row0 + r < valid;
-    const __nv_bfloat16* p = ok ? src + (long long)(row0 + r) * s_stride + c * 8 : src;
-    cp_async_16(dst + r * dst_stride + c * 8, p, ok);
+// (min, max) of ids[row0, row0 + n) clipped to [0, valid), by one thread
+// (the loads are independent, so they overlap).
+__device__ __forceinline__ int2 ids_range(const int* __restrict__ ids, int row0, int n,
+                                          int valid) {
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll 8
+  for (int r = 0; r < n; ++r) {
+    if (row0 + r < valid) {
+      const int s = ids[row0 + r];
+      lo = min(lo, s);
+      hi = max(hi, s);
+    }
   }
+  return make_int2(lo, hi);
+}
+
+// The first step j' in [j, n) for which meets(j') holds (n if none), by the
+// calling warp: lane l tests step base + l, and the ballot of that window of
+// 32 steps answers the calls that fall into it, so a run of skipped steps
+// costs one round of loads per 32 steps instead of one per step. `base` and
+// `mask` carry the window from call to call (start with base = INT_MIN).
+template <class Meets>
+__device__ __forceinline__ int next_meeting(int j, int n, int& base, unsigned& mask, int lane,
+                                            Meets meets) {
+  while (j < n) {
+    if (j < base || j >= base + 32) {
+      base = j;
+      mask = __ballot_sync(0xffffffffu, j + lane < n && meets(j + lane));
+    }
+    const unsigned m = mask >> (j - base);
+    if (m) return j + __ffs(m) - 1;
+    j = base + 32;
+  }
+  return j;
 }
 
 }  // namespace ivt

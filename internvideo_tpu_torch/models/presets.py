@@ -3,9 +3,10 @@
 Port of the stage-2 VideoCLIP-1B, the M2LA LLM presets, the InternVideo3-8B
 and InternVideo2.5-HiCo MLLM presets and the dense-GQA Qwen3-8B of
 internvideo_tpu/models/presets.py (:26-42, :45-131, :256-268), field for
-field; the other presets wait with their families (ROADMAP queue 1, items 6, 8 and 10). `qwen3_mla_tiny` and
-`qwen3_dense_tiny` are the port's own: each architecture at test widths, so
-that `cli.generate` runs on a CPU in seconds.
+field; the other presets wait with their families (ROADMAP queue 1, items
+8 and 10). `qwen3_mla_tiny` and `qwen3_dense_tiny` are the port's own:
+each architecture at test widths, so that `cli.generate` runs on a CPU in
+seconds.
 """
 
 from __future__ import annotations

@@ -115,3 +115,63 @@ def test_rows_without_keys_and_determinism():
         first, second = (_kernel_grads(q, k, v, do, dlse, kw) for _ in range(2))
         for a, b in zip(first[1:], second[1:]):
             assert torch.equal(a, b)
+
+
+# Every instantiated (d_qk, d_v) pair at the tile edges of the wgmma
+# backward (128-row dq CTAs over 64-key stages; dk/dv CTAs of 128 keys, or
+# 64 at d_qk 256, over 64-row q steps): (B, Sq, Sk, Hq, Hkv, keyword
+# arguments) with a ragged Sq < Sk and a query offset, groups of 8, 4 and 2,
+# window band edges inside a tile (causal and not), and rows without keys.
+PAIRS = [(256, 128), (128, 128), (64, 64), (64, 32), (32, 32)]
+EDGE_CASES = [
+    (1, 70, 150, 4, 2, dict(causal=True, q_position_offset=80)),
+    (1, 200, 200, 8, 1, dict(causal=True, window=40)),
+    (1, 130, 190, 4, 1, dict(window=70, q_position_offset=30)),
+    (2, 333, 333, 2, 1, dict(causal=True)),
+    (1, 256, 64, 2, 2, dict(window=50)),
+]
+
+
+def _views(b, s, h, d, dv, dtype, g):
+    """k and v as strided views of one (B, S, H, 8 + d + dv) tensor whose
+    first 8 elements are skipped: a base 16 bytes past the allocation's in
+    bf16."""
+    kv = torch.randn(b, s, h, 8 + d + dv, device="cuda", generator=g).to(dtype)
+    return kv[..., 8:8 + d], kv[..., 8 + d:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}_{p[1]}")
+def test_backward_tile_edges(pair, dtype):
+    """fp32: max-abs 5e-4; bf16: rel-L2 <= 1e-2; rows without keys get
+    dq = 0; each launch counted under its name (window > GQA)."""
+    _card()
+    d, dv = pair
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(2)
+    for b, sq, sk, hq, hkv, kw in EDGE_CASES:
+        q = torch.randn(b, sq, hq, d, device="cuda", generator=g).to(dt)
+        k, v = _views(b, sk, hkv, d, dv, dt, g)
+        assert k.data_ptr() % 16 == 0 and k.stride(1) != d
+        do = torch.randn(b, sq, hq, dv, device="cuda", generator=g).to(dt)
+        dlse = torch.randn(b, hq, sq, device="cuda", generator=g)
+        names = [_counter(kind, kw, hkv != hq) for kind in ("dq", "dkv")]
+        before = [fa.launch_count(n) for n in names]
+        got = _kernel_grads(q, k, v, do, dlse, kw)
+        torch.cuda.synchronize()
+        case = (b, sq, sk, hq, hkv, d, dv, kw, dtype)
+        assert [fa.launch_count(n) for n in names] == [c + 1 for c in before], case
+        want = _plain_grads(q, k, v, do, dlse, kw)
+        _, lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, kw.get("causal", False),
+                                                 kw.get("q_position_offset", 0), None, None,
+                                                 kw.get("window"))
+        empty = torch.isinf(lse).any(dim=(0, 1))
+        assert (got[0][:, empty] == 0).all(), case
+        for what, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == w.shape and a.dtype == w.dtype, (case, what)
+            if dt == torch.float32:
+                torch.testing.assert_close(a, w, atol=5e-4, rtol=0, msg=f"{case} {what}")
+            else:
+                rel = ((a.float() - w.float()).norm() / w.float().norm()).item()
+                assert rel <= 1e-2, (case, what, rel)

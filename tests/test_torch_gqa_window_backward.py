@@ -70,6 +70,14 @@ CASES = {
                                     dict(causal=True, window=50, q_position_offset=72), False),
     "gqa_segments_pads": ((1, 256, 256, 4, 2, 64), dict(causal=True), True),
     "window_rows_without_keys": ((1, 256, 64, 2, 2, 64), dict(window=50), False),
+    # tile edges of the CUDA backward (128-row dq tiles, 64-key stages; 128-
+    # key dk/dv tiles over 64-row q steps): ragged Sq < Sk with a query
+    # offset, groups of 8 and 4, band edges inside a tile, causal and not
+    "ragged_short_q_offset": ((1, 70, 150, 4, 2, 64), dict(causal=True, q_position_offset=80),
+                              False),
+    "group8_window_mid_tile": ((1, 150, 150, 8, 1, 32), dict(causal=True, window=40), False),
+    "group4_window_dense_offset": ((1, 130, 190, 4, 1, 32),
+                                   dict(window=70, q_position_offset=30), False),
 }
 
 

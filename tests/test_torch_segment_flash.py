@@ -30,6 +30,8 @@ def _segments(kind, b, s):
         ids = np.repeat([0, 1], [s // 2, s - s // 2])
     elif kind == "packed":
         ids = np.repeat(np.arange(4), [130, 100, 200, 82])
+    elif kind == "edges":  # boundaries inside the CUDA tiles, then whole tiles of pads
+        ids = np.repeat([0, 1, 2, -1], [50, 60, 30, s - 140])
     else:  # three samples, then pads of -1 as pack_mllm_items leaves them
         ids = np.repeat([0, 1, 2, -1], [50, 40, 30, s - 120])
     return np.tile(ids[None], (b, 1)).astype(np.int32)
@@ -44,6 +46,11 @@ CASES = {
     "narrow_v_causal": (2, 200, 200, 4, 64, 32, True, 0, None),
     "narrow_v_dense": (2, 200, 200, 4, 64, 32, False, 0, None),
     "pads_causal": (1, 160, 160, 2, 64, 32, True, 0, "pads"),
+    # the SFT pair (256 / 128) with segment boundaries inside the CUDA
+    # backward's tiles and the last 64- and 128-row tiles all pads; the same
+    # ids non-causal at (64, 64)
+    "edges_narrow_v_causal": (1, 320, 320, 2, 256, 128, True, 0, "edges"),
+    "edges_dense": (1, 320, 320, 2, 64, 64, False, 0, "edges"),
 }
 
 

@@ -266,3 +266,40 @@ def test_segment_tile_edges(dtype):
             else:
                 assert _rel(out, ref) <= 1e-2, (case, _rel(out, ref))
                 torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0, msg=str(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_tile_edges_backward(dtype):
+    """K8 in K5's backward at every instantiated pair, causal and not, with
+    segment boundaries inside the dq / dk/dv tiles and whole tiles of pads
+    (edge_segments), k / v as strided views at a 16-byte base offset: fp32
+    max-abs 5e-4, bf16 rel-L2 <= 1e-2 on dq / dk / dv."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(5)
+    s = 700
+    seg = edge_segments(s)
+    for d, dv in ((256, 128), (128, 128), (64, 64), (64, 32), (32, 32)):
+        for causal in (True, False):
+            q = torch.randn(1, s, 2, d, device="cuda", generator=g).to(dt)
+            kv = torch.randn(1, s, 2, 8 + d + dv, device="cuda", generator=g).to(dt)
+            k, v = kv[..., 8:8 + d], kv[..., 8 + d:]  # base 16 bytes in (bf16)
+            do = torch.randn(1, s, 2, dv, device="cuda", generator=g).to(dt)
+            names = ("flash_bwd_causal_dq_seg", "flash_bwd_causal_dkv_seg")
+            before = [fa.launch_count(n) for n in names]
+            got = _grads(q, k, v, do, lambda q, k, v: fa.flash_attention(
+                q, k, v, causal=causal, q_segment_ids=seg, kv_segment_ids=seg))
+            torch.cuda.synchronize()
+            assert [fa.launch_count(n) for n in names] == [c + 1 for c in before]
+            ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, causal, 0, seg,
+                                                           seg)
+            want = fa.flash_attention_bwd_ref(q, k, v, ref, ref_lse, do, d ** -0.5,
+                                              causal=causal, q_segment_ids=seg,
+                                              kv_segment_ids=seg)
+            case = (d, dv, causal, dtype)
+            for name, a, w in zip(("dq", "dk", "dv"), got[1:], want):
+                if dt == torch.float32:
+                    torch.testing.assert_close(a, w, atol=5e-4, rtol=0, msg=f"{case} {name}")
+                else:
+                    assert _rel(a, w) <= 1e-2, (case, name, _rel(a, w))

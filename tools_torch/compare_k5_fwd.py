@@ -38,7 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _card() -> str:
     if not torch.cuda.is_available():
-        raise SystemExit("compare_k5_fwd: needs a CUDA card")
+        raise SystemExit(f"{Path(sys.argv[0]).stem}: needs a CUDA card")
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
 
