@@ -11,7 +11,7 @@ non-zero and prints no result):
   2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
      the ptxas report and, on a line of its own for each, the registers
      and spill bytes of each instantiation of K5's wgmma forward, dq and
-     dk/dv kernels;
+     dk/dv kernels, and of K4a's (the same dq / dk/dv bodies at d 64, 88);
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5) and at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -155,7 +155,8 @@ non-zero and prints no result):
  24b. K2 and K5 at the HiCo video path's shapes vs their plain versions
      (bf16 rel-L2 <= 1e-2): the tower's (64, 196, 16, 72) on qkv views and
      the video prefill's (1, 1056, 20, 192 / 128) causal on k / v views;
-     K5 timed there beside its plain version, bound and SDPA yardstick;
+     both timed there beside their plain versions, bounds and SDPA
+     yardsticks;
  25. the dense-GQA main path: `internvideo_tpu_torch.cli.generate --preset
      qwen3_8b_dense` (36 layers, 32 / 8 heads of 128, bf16, seeded weights)
      on a 512-token prompt for 32 tokens, launches reset before and read
@@ -294,7 +295,10 @@ non-zero and prints no result):
  42. times: tower clips/s (B 32), text texts/s (B 32 x 32), rerank pairs/s
      (32 pairs) and the whole eval's wall time; videoclip_retrieval_p50_ms
      as bench.py:241-317 times it; one query under torch.profiler; K9, K10
-     and K11 beside their plain versions, bounds and yardsticks.
+     and K11 beside their plain versions, bounds and yardsticks; K1 at the
+     shapes the retrieval eval gives it (the tower's (32, 1025, 16, 88) on
+     qkv views, the rerank cross-attention's 32 queries on 1025 keys at
+     head dim 64) beside its plain version, bound and flash SDPA.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -389,6 +393,8 @@ INT8_TOWER_VIDEO = (1, HICO_FRAMES, 224, 224, 3)
 # encoder's residual stream at 16 x 224, B 16
 CONFIG_RETRIEVAL = "configs/torch/eval_retrieval_stage2_1b.py"
 RETRIEVAL_TOWER_SHAPE = (32, 1025, 16, 88)
+# the rerank fusion's cross-attention to the tower's tokens: (B, Sq, Sk, H, D)
+RETRIEVAL_CROSS_SHAPE = (32, 32, 1025, 16, 64)
 NORM_SHAPE = (16 * 4097, 1408)
 
 
@@ -434,19 +440,17 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 12) -> dict:
-    """Registers at entry and spill bytes of each instantiation of one of
-    K5's bf16 kernels (`<kernel><d_qk, d_v, kSeg>`: the forward, or the
-    backward's `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`,
-    10 each) from the build log."""
+def _ptxas(log: str, pattern: str, label, count: int) -> dict:
+    """Registers at entry and spill bytes of each kernel whose mangled name
+    matches `pattern` in the build log, keyed by `label(match)`; raises
+    unless there are `count` of them, each with its report."""
     import re
 
     res, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*" + kernel + r"ILi(\d+)ELi(\d+)ELb(\d)E",
-                      line)
+        m = re.search(r"Compiling entry function '\S*" + pattern, line)
         if m:
-            name = f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})"
+            name = label(m)
             res[name] = {}
         elif "Compiling entry function" in line:
             name = None
@@ -458,8 +462,23 @@ def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 12)
             if m:
                 res[name]["registers"] = int(m[1])
     if len(res) != count or any(len(v) != 3 for v in res.values()):
-        raise AssertionError(f"the build log lacks {kernel}'s ptxas report: {res}")
+        raise AssertionError(f"the build log lacks {pattern}'s ptxas report: {res}")
     return res
+
+
+def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 12) -> dict:
+    """The ptxas report of each instantiation of one of K5's bf16 kernels
+    (`<kernel><d_qk, d_v, kSeg>`: the forward, or the backward's
+    `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`, 10 each)."""
+    return _ptxas(log, kernel + r"ILi(\d+)ELi(\d+)ELb(\d)E",
+                  lambda m: f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})", count)
+
+
+def _ptxas_k4a(log: str) -> dict:
+    """The ptxas report of K4a's bf16 kernels (flash_bwd_{dq,dkv}_wgmma_kernel
+    <D>, K5's bodies at D = 64 and 88)."""
+    return _ptxas(log, r"flash_bwd_(dq|dkv)_wgmma_kernelILi(\d+)E",
+                  lambda m: f"{m[1]} ({m[2]}, {m[2]})", 4)
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -850,8 +869,6 @@ def profile_step(step, card, what: str = "train step") -> None:
 def time_train(fa, run, card) -> dict:
     """Phase 10; returns each backward kernel's ms, the plain backward's ms
     and the SDPA yardsticks."""
-    from internvideo_tpu_torch.cli import train as cli
-
     b, s, h, d = TRAIN_SHAPE
     g = torch.Generator("cuda").manual_seed(6)
     q, k, v, do = (torch.randn(*TRAIN_SHAPE, device="cuda", generator=g).bfloat16()
@@ -880,6 +897,19 @@ def time_train(fa, run, card) -> dict:
     del q, k, v, do, out, lse, delta, dq, dk, dv
     sdpa = {"train": _sdpa_times(TRAIN_SHAPE, card), "eval": _sdpa_times(MAIN_SHAPE, card)}
 
+    ms["train_step"] = time_finetune_step(run, card, profile=True)
+    ms["sdpa"] = sdpa
+    return ms
+
+
+def time_finetune_step(run, card, profile: bool = False) -> float:
+    """Phase 10's train step: the finetune config's trainer at B = 32 on a
+    device-resident batch (CUDA events, 3 steps after 1); with `profile`
+    one more step under torch.profiler. Returns the step's ms."""
+    from internvideo_tpu_torch.cli import train as cli
+
+    b = TRAIN_SHAPE[0]
+    g = torch.Generator("cuda").manual_seed(6)
     trainer, _ = cli.build_finetune(dataclasses.replace(
         run, trainer=dataclasses.replace(run.trainer, checkpoint_dir=None)), torch.device("cuda"))
     c = run.model
@@ -890,10 +920,9 @@ def time_train(fa, run, card) -> dict:
     print(f"[{card}] InternVideo2-1B finetune train step 8x224 bf16 B={b} (remat, drop-path, "
           f"mixup/cutmix, AdamW), device-resident batch: {step_ms:.1f} ms = "
           f"{b * 1e3 / step_ms:.2f} clips/s", flush=True)
-    ms["train_step"] = step_ms
-    profile_step(lambda: trainer._step(trainer.state, batch), card)
-    ms["sdpa"] = sdpa
-    return ms
+    if profile:
+        profile_step(lambda: trainer._step(trainer.state, batch), card)
+    return step_ms
 
 
 def _qkv_views(b, s, h, d, g, dtype=torch.bfloat16):
@@ -2156,11 +2185,14 @@ def time_sft_kernels(fa, card) -> dict:
     f_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20, warmup=3)
     fb_ms = _time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*lk), lk,
                                                  do.transpose(1, 2)), iters=20, warmup=3)
-    io = 4 * b * s * h * d * 2 + 2 * b * h * s * 4
     flops = {"small_s_fwd": 4, "small_s_bwd_dq": 6, "small_s_bwd_dkv": 8}
+    # bytes: q, k, v and the output(s) (and dO in the backward), each once;
+    # the forward writes lse, the backward reads lse and delta
+    t_bytes, r_bytes = b * s * h * d * 2, b * h * s * 4
+    nbytes = {"small_s_fwd": 4 * t_bytes + r_bytes, "small_s_bwd_dq": 5 * t_bytes + 2 * r_bytes,
+              "small_s_bwd_dkv": 6 * t_bytes + 2 * r_bytes}
     for name, n in flops.items():
-        bound = _bound(n * b * h * s * s * d, io + (b * s * h * d * 2 if name != "small_s_fwd"
-                                                    else 0))
+        bound = _bound(n * b * h * s * s * d, nbytes[name])
         plain = plain_f if name == "small_s_fwd" else plain_b
         lms = f_ms if name == "small_s_fwd" else fb_ms - f_ms
         res[f"{name}_72"] = dict(ms=ms[name], plain_ms=plain, library_ms=lms, bound=bound,
@@ -2352,10 +2384,12 @@ def check_hico_kernels(fa) -> dict:
     return res
 
 
-def time_hico_k5(fa, card) -> dict:
+def time_hico_kernels(fa, card) -> dict:
     """Phase 24b, times: K5 at HICO_ATTN_SHAPE (the video prefill's causal
-    (1, 1056, 20, 192 / 128), k / v strided views) beside the plain
-    version, the bound and the SDPA yardstick."""
+    (1, 1056, 20, 192 / 128), k / v strided views) and K2 at
+    HICO_TOWER_SHAPE (the tower's (64, 196, 16, 72) at 128 frames, qkv
+    views), each beside its plain version, its bound and the SDPA
+    yardstick. Returns kernel name -> times."""
     g = torch.Generator("cuda").manual_seed(242)
     b, s, h, d, dv = HICO_ATTN_SHAPE
     q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
@@ -2375,8 +2409,26 @@ def time_hico_k5(fa, card) -> dict:
           f"kernel {ms:.4f} ms ({2 * pairs * (d + dv) / ms / 1e9:.1f} TFLOP/s), bound "
           f"{bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, SDPA yardstick "
           + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None else lib_note), flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_note=lib_note,
-                bound=bound, shape=list(HICO_ATTN_SHAPE))
+    res = {"flash_fwd_causal": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                    library_note=lib_note, bound=bound,
+                                    shape=list(HICO_ATTN_SHAPE))}
+    del q, kv, k, v
+    b, s, h, d = HICO_TOWER_SHAPE
+    _, (q, k, v) = _qkv_views(b, s, h, d, g)
+    scale = d ** -0.5
+    with torch.no_grad():
+        ms = _time_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd"),
+                      iters=50, warmup=5)
+        plain_ms = _time_ms(lambda: fa.small_s_attention_ref(q, k, v, scale), iters=3)
+        lib_ms = _sdpa_fwd_ms(q, k, v)
+    bound = _bound(4 * b * h * s * s * d, 4 * b * s * h * d * 2 + b * h * s * 4)
+    print(f"[{card}] K2 small_s_fwd {HICO_TOWER_SHAPE} (the HiCo tower at 128 frames) bf16: "
+          f"kernel {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, "
+          f"flash SDPA yardstick {lib_ms:.4f} ms", flush=True)
+    res["small_s_fwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              library_note="flash SDPA forward", bound=bound,
+                              shape=list(HICO_TOWER_SHAPE))
+    return res
 
 
 def _compose_prompt(cfg, frames: int, n_text: int, seed: int):
@@ -4311,7 +4363,33 @@ def time_retrieval(model, fa, rms, card) -> dict:
             bound=_bound(4 * b * h * s * s * hd, 4 * b * s * wd * 2 + 2 * wd * 4),
             shape=list(shape))
         del qkv, qn, kn
+    # K1 at the retrieval eval's shapes: (B, Sq, Sk, H, D)
+    b, s, h, hd = RETRIEVAL_TOWER_SHAPE
+    for tag, (b, sq, sk, h, hd) in (("tower", (b, s, s, h, hd)),
+                                    ("rerank_cross_attention", RETRIEVAL_CROSS_SHAPE)):
+        if sq == sk:
+            _, (q, kk, vv) = _qkv_views(b, sq, h, hd, g)
+        else:
+            q = torch.randn(b, sq, h, hd, device="cuda", generator=g).bfloat16()
+            kk, vv = (torch.randn(b, sk, h, hd, device="cuda", generator=g).bfloat16()
+                      for _ in range(2))
+        scale = hd ** -0.5
+        with torch.no_grad():
+            k[f"flash_fwd_{tag}"] = dict(
+                ms=_time_ms(lambda: fa._flash_fwd_cuda(q, kk, vv, scale), iters=20, warmup=3),
+                plain_ms=_time_ms(lambda: fa.flash_attention_ref_with_lse(q, kk, vv, scale),
+                                  iters=2),
+                library_ms=_sdpa_fwd_ms(q, kk, vv),
+                bound=_bound(4 * b * h * sq * sk * hd,
+                             (2 * b * sq + 2 * b * sk) * h * hd * 2 + b * h * sq * 4),
+                shape=[b, sq, sk, h, hd])
+        del q, kk, vv
     for name, v in k.items():
+        if name.startswith("flash_fwd_"):
+            print(f"[{card}] K1 {name} (B, Sq, Sk, H, D) {v['shape']}: kernel {v['ms']:.4f} ms, "
+                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), plain {v['plain_ms']:.3f} "
+                  f"ms, flash SDPA yardstick {v['library_ms']:.4f} ms", flush=True)
+            continue
         print(f"[{card}] {name} {v['shape']}: kernel {v['ms']:.3f} ms, bound "
               f"{v['bound'][0]:.3f} ms ({v['bound'][1]}), plain {v['plain_ms']:.3f} ms, "
               + (f"SDPA on pre-normed q / k {v['library_ms']:.3f} ms, the production route "
@@ -4355,8 +4433,9 @@ def main() -> int:
     k5_ptxas = {what: _ptxas_k5(build_log, kernel, count) for what, kernel, count in (
         ("forward", "causal_fwd_bf16_kernel", 12), ("dq", "causal_bwd_dq_bf16_kernel", 10),
         ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
-    for what, rep in k5_ptxas.items():
-        print(f"ptxas, K5 {what} bf16 (wgmma + TMA): " + "; ".join(
+    k4a_ptxas = _ptxas_k4a(build_log)
+    for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas)):
+        print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what} bf16 (wgmma + TMA): " + "; ".join(
             f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
             f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
 
@@ -4490,10 +4569,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions;
-    # K5 timed there
+    # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions,
+    # and timed there
     hico_err = check_hico_kernels(fa)
-    hico_k5 = time_hico_k5(fa, card)
+    hico_t = time_hico_kernels(fa, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4642,13 +4721,17 @@ def main() -> int:
         "retrieval_shapes": {"tower": list(RETRIEVAL_TOWER_SHAPE),
                              "fusion_cross_attention": "(32, 32, 16, 64) x (32, 1025, 16, 64)"},
     }] + [{
-        "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
-        "replaces": jax_fa + str(line),
+        "name": name, "route": "cuda", "source": src + body,
+        "c_entry": src + "flash_bwd.cu", "replaces": jax_fa + str(line),
         "launches": train_launches[name], "launches_by_path": by_path(name),
         "max_abs_err": bwd_err[name], "ms": t[name], "plain_ms": t["plain_bwd"],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": t["sdpa"]["train"]["bwd"], "shape": list(TRAIN_SHAPE),
-    } for name, line in (("flash_bwd_dq", 468), ("flash_bwd_dkv", 613))] + [
+        "design": "K5's wgmma + TMA body at (D, D), non-causal",
+        "ptxas": {k: v for k, v in k4a_ptxas.items() if k.startswith(kind + " ")},
+    } for name, line, body, kind in (
+        ("flash_bwd_dq", 468, "flash_bwd_causal_dq.cu", "dq"),
+        ("flash_bwd_dkv", 613, "flash_bwd_causal_dkv.cu", "dkv"))] + [
         entry("small_s_fwd", "small_s_fwd.cu", 1505, pk["small_s_fwd"],
               pre_err["small_s_fwd"], PRETRAIN_SHAPE),
         entry("small_s_bwd_dq", "small_s_bwd.cu", 1524, pk["small_s_bwd_dq"],
@@ -4728,11 +4811,11 @@ def main() -> int:
             shape, max_abs, rel = hico_err[entry["name"]]
             entry["hico_2b"] = {"shape": shape, "launches_serve_mllm": mllm_launches[entry["name"]],
                                 "max_abs_err": max_abs, "rel_l2": rel}
-            if entry["name"] == "flash_fwd_causal":
-                entry["hico_2b"].update(
-                    ms=hico_k5["ms"], plain_ms=hico_k5["plain_ms"],
-                    bound_ms=hico_k5["bound"][0], bound_by=hico_k5["bound"][1],
-                    library_ms=hico_k5["library_ms"], library_note=hico_k5["library_note"])
+            t_h = hico_t[entry["name"]]
+            entry["hico_2b"].update(
+                ms=t_h["ms"], plain_ms=t_h["plain_ms"], bound_ms=t_h["bound"][0],
+                bound_by=t_h["bound"][1], library_ms=t_h["library_ms"],
+                library_note=t_h["library_note"])
         if entry["name"] == "flash_fwd_causal_seg":
             entry.update(design="wgmma + TMA, warp-specialised", earlier_design=K5_EARLIER)
     gq, gw = gk["flash_fwd_causal_gqa"], gk["flash_fwd_causal_window"]
@@ -4790,6 +4873,13 @@ def main() -> int:
         "llm_decode_bf16_tokens_per_sec": serve_times[PRESET_8B]["decode_tokens_per_sec"]}),
         flush=True)
     k = ret.pop("kernels")
+    k1 = next(e for e in kernels if e["name"] == "flash_fwd")
+    k1["retrieval_times"] = {
+        tag: {"shape_b_sq_sk_h_d": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              "library_ms": r["library_ms"]}
+        for tag, r in (("tower", k["flash_fwd_tower"]),
+                       ("rerank_cross_attention", k["flash_fwd_rerank_cross_attention"]))}
     for name, line, src_file, counter, r, err in (
             ("fused_add_rms_norm", "internvideo_tpu/ops/rmsnorm.py:52", "rmsnorm.cu",
              "fused_add_rms_norm", k["fused_add_rms_norm"], norm_err["fused_add_rms_norm"]),

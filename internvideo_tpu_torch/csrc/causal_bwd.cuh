@@ -48,6 +48,20 @@ inline CausalBwdArgs make_causal_bwd_args(const void* q, const void* k, const vo
                        group, window > 0 ? window : 0};
 }
 
+// K4a's 18 strides (q, k, v, dO, then its two outputs' layouts) as the 21
+// of CausalBwdArgs (q, k, v, dO, dq, dk, dv): dq takes the first output's,
+// dk the first's and dv the second's (K4a's dq call passes dq's twice, its
+// dk/dv call dk's and dv's).
+struct K4aStrides {
+  long long s[21];
+};
+inline K4aStrides k4a_strides(const long long* s18) {
+  K4aStrides r;
+  for (int i = 0; i < 15; ++i) r.s[i] = s18[i];
+  for (int i = 0; i < 6; ++i) r.s[15 + i] = s18[12 + i];
+  return r;
+}
+
 // Does query position p (= row + q_off) see key j, causality and the
 // window alone (segments and the Sk tail are the callers')?
 __device__ __forceinline__ bool band_sees(const CausalBwdArgs& a, int p, int j) {

@@ -6,10 +6,10 @@
 // S = 2049 / 4097 by `_ragged_bwd_rule` :1374) for the encoder's case. As in
 // the JAX package the backward is two kernels without atomics:
 //
-//   dq kernel,  one CTA per (64-query tile, head, batch), loops over K/V:
+//   dq kernel,  one CTA per (query tile, head, batch), loops over K/V:
 //     s = q k^T * scale, p = exp(s - lse), dp = dO v^T,
 //     ds = p * (dp - delta), dq += ds k; writes scale * dq.
-//   dkv kernel, one CTA per (64-key tile, head, batch), loops over Q/dO:
+//   dkv kernel, one CTA per (key tile, head, batch), loops over Q/dO:
 //     dv += p^T dO, dk += ds^T q; writes scale * dk and dv.
 //
 // p is recomputed from the forward's natural-log LSE (turned into base 2
@@ -30,25 +30,67 @@
 // q, k, v, dO once (+ L2 re-reads per tile), so the tensor cores and the
 // exp2 work between products bound it, not device memory.
 //
-// Design (right and simple first, as the forward; the bodies are in
-// attn_bwd.cuh, which K4b shares): 4 warps of 16 rows on
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate); the streamed tiles are
-// double-buffered in shared memory with cp.async; the accumulator fragments
-// of p / ds become A operands in registers; the transposed B operands come
-// from ldmatrix.trans. Head dim 88 is zero-padded to 96 in shared memory for
-// the products that reduce over d (q k^T, dO v^T); the products with d as
-// their n dimension (ds k, p^T dO, ds^T q) run 88 / 8 = 11 n-tiles, no pad.
-// fp32 inputs take CUDA-core kernels (one thread per row; used by the
-// parity checks, not by the bf16 main path). wgmma, TMA and warp
-// specialisation are later work.
+// Design: the bf16 kernels are K5's warp-specialised wgmma + TMA bodies
+// (flash_bwd_causal_dq.cu, flash_bwd_causal_dkv.cu; their design notes are
+// there), instantiated at (D, D) for D = 64 and 88 under this kernel's own
+// __global__ names (flash_bwd_{dq,dkv}_wgmma_kernel) and launched from those
+// files, non-causal, without segments, window or groups. Head dim 88 is
+// stored as three 32-column panels (96 columns, 64-byte swizzle); the TMA
+// maps keep the true width, so the columns past 88 load as zeros and add
+// nothing to the products that reduce over d, and the stores write 88. The
+// dq kernel holds 128 query rows a CTA and dq of all columns in registers,
+// and walks pipelined (the next key tile's S / dP issued before this one's
+// dQ). The dk/dv kernel holds 128 keys a CTA and dk and dv in registers;
+// at d 88 it walks each 64-row step in two halves of 32 rows, so S^T /
+// dP^T fit beside the two accumulators. fp32 inputs take the
+// CUDA-core kernels of attn_bwd.cuh (one thread per row; the parity route,
+// not the bf16 main path).
 
 #include "attn_bwd.cuh"
+
+namespace ivt {
+
+// The bf16 launches (flash_bwd_causal_dq.cu / flash_bwd_causal_dkv.cu), with
+// this file's C entries' arguments.
+cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dq, int B, int Sq,
+                               int Sk, int H, int D, const long long* strides, float scale,
+                               void* stream);
+cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dk, void* dv, int B,
+                                int Sq, int Sk, int H, int D, const long long* strides,
+                                float scale, void* stream);
+
+}  // namespace ivt
 
 namespace {
 
 using namespace ivt;
 
 IVT_BWD_KERNELS(flash_bwd)
+
+// The fp32 kernels on grid (ceil(S / kBwdF32Rows), H, B): dq over the query
+// rows, dk/dv over the keys.
+template <int D>
+cudaError_t launch_dq_f32(const BwdArgs& a) {
+  const dim3 grid((a.Sq + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
+  flash_bwd_dq_f32_kernel<D><<<grid, kBwdF32Rows, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const BwdArgs& a) {
+  const dim3 grid((a.Sk + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
+  flash_bwd_dkv_f32_kernel<D><<<grid, kBwdF32Rows, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
+      a.scale_log2);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -57,33 +99,34 @@ IVT_BWD_KERNELS(flash_bwd)
 // dk/dv (dk and dv share a layout). lse and delta are (B, H, Sq) fp32,
 // contiguous; lse is natural-log, delta = rowsum(dO * O) - dLSE. Each
 // returns the cudaError_t of its launch (cudaErrorInvalidValue for an
-// unsupported head dim or dtype); launches on `stream`; does not synchronise.
-#define IVT_BWD_DISPATCH(LAUNCH, KIND)                       \
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue; \
-  switch (D) {                                           \
-    case 64:                                             \
-      return LAUNCH<64>(flash_bwd_##KIND##_bf16_kernel<64>, flash_bwd_##KIND##_f32_kernel<64>, dtype, a); \
-    case 88:                                             \
-      return LAUNCH<88>(flash_bwd_##KIND##_bf16_kernel<88>, flash_bwd_##KIND##_f32_kernel<88>, dtype, a); \
-    default:                                             \
-      return cudaErrorInvalidValue;                      \
-  }
-
+// unsupported head dim or dtype, or a bf16 tensor cuTensorMapEncodeTiled
+// refuses a TMA map for); launches on `stream`; does not synchronise.
 extern "C" int ivt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* delta, void* dq,
                                 int B, int Sq, int Sk, int H, int D, const long long* strides,
                                 float scale, void* stream) {
+  if (dtype == 1)
+    return flash_bwd_dq_wgmma(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, strides, scale,
+                              stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
   const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Sq, Sk, H,
-                              strides, scale, stream);
-  IVT_BWD_DISPATCH(launch_bwd_dq, dq)
+                                  strides, scale, stream);
+  if (D == 64) return launch_dq_f32<64>(a);
+  if (D == 88) return launch_dq_f32<88>(a);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int ivt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
                                  const long long* strides, float scale, void* stream) {
-  const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Sq, Sk, H, strides,
-                              scale, stream);
-  IVT_BWD_DISPATCH(launch_bwd_dkv, dkv)
+  if (dtype == 1)
+    return flash_bwd_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, strides,
+                               scale, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Sq, Sk, H,
+                                  strides, scale, stream);
+  if (D == 64) return launch_dkv_f32<64>(a);
+  if (D == 88) return launch_dkv_f32<88>(a);
+  return cudaErrorInvalidValue;
 }
-#undef IVT_BWD_DISPATCH

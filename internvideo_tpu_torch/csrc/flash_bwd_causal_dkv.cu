@@ -52,6 +52,15 @@
 //   compile-time column (causal, window, Sq tail), two integer compares an
 //   element (plus the id equality with segments); only steps that straddle
 //   the diagonal, a band edge or the Sq tail, or carry segments, are masked.
+// - Head dim 88 (kHalfSteps; K4a's flash_bwd_dkv_wgmma_kernel, the
+//   encoder's non-causal backward, flash_bwd.cu): three 32-column panels as
+//   in the dq kernel. The register form over whole 64-row steps would hold
+//   dk 48 + dv 48 + S^T 32 + dP^T 32 registers and the fragments: ptxas
+//   spilled 168 bytes and serialized every wgmma. Splitting the outputs
+//   between the warpgroups (64 keys a CTA, P^T / dS^T through shared
+//   memory, warpgroup 0 all of dv and 1 all of dk) ran at 255 TFLOP/s. So
+//   the register form walks each step in two halves of 32 rows (S^T and
+//   dP^T m64n32k16: 16 + 16 registers, fragments 16), 0 spills.
 // TMA zero-fills rows past Sq / Sk; keys past Sk are not stored.
 
 #include "causal_bwd.cuh"
@@ -66,22 +75,30 @@ constexpr int kBlockM = 64;  // query rows per streamed q / dO stage
 
 template <int DQK, int DV>
 struct DkvTile {
-  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims must be multiples of 32");
+  static_assert(DQK % 8 == 0 && DV % 8 == 0, "head dims must be multiples of 8 (16-byte rows)");
+  // Panels and stored widths as in the dq kernel's DqTile (88 -> 96).
+  static constexpr int kQCols = DQK % 64 == 0 ? 64 : 32;
+  static constexpr int kVCols = DV % 64 == 0 ? 64 : 32;
+  static constexpr int kQW = (DQK + kQCols - 1) / kQCols * kQCols;
+  static constexpr int kVW = (DV + kVCols - 1) / kVCols * kVCols;
   static constexpr bool kShare = DQK >= 128;  // P^T / dS^T through shared memory
   static_assert(!kShare || (DQK % 128 == 0 && DV % 128 == 0),
                 "the column halves must be whole 64-column panels");
+  // The register form in half steps (kHalfSteps, the 32-column panels of
+  // d 88): S^T / dP^T of 32 rows at a time.
+  static constexpr bool kHalfSteps = DQK % 32 != 0 || DV % 32 != 0;
+  static_assert(!kHalfSteps || !kShare, "half steps are a register-form walk");
   static constexpr int kKeys = kShare ? 64 : 128;  // keys per CTA
   static constexpr int kStages = DQK > 128 ? 2 : 4;
-  static constexpr int kDK = kShare ? DQK / 2 : DQK;  // dk columns a warpgroup accumulates
-  static constexpr int kDV = kShare ? DV / 2 : DV;
-  static constexpr int kQCols = DQK < 64 ? DQK : 64;  // columns of a panel (one TMA box)
-  static constexpr int kVCols = DV < 64 ? DV : 64;
+  // dk / dv columns a warpgroup accumulates (of the stored widths)
+  static constexpr int kDK = kShare ? kQW / 2 : kQW;
+  static constexpr int kDV = kShare ? kVW / 2 : kVW;
   static constexpr int kQRow = 2 * kQCols;  // bytes of a panel row = the swizzle span
   static constexpr int kVRow = 2 * kVCols;
-  static constexpr int kKBytes = kKeys * DQK * 2;
-  static constexpr int kVBytes = kKeys * DV * 2;
-  static constexpr int kQBytes = kBlockM * DQK * 2;
-  static constexpr int kDOBytes = kBlockM * DV * 2;
+  static constexpr int kKBytes = kKeys * kQW * 2;
+  static constexpr int kVBytes = kKeys * kVW * 2;
+  static constexpr int kQBytes = kBlockM * kQW * 2;
+  static constexpr int kDOBytes = kBlockM * kVW * 2;
   static constexpr int kPBytes = kShare ? kKeys * kBlockM * 2 : 0;  // one bf16 P^T or dS^T tile
   // From a 1024-byte boundary: K, V, each stage's q, each stage's dO, two
   // buffers of [P^T | dS^T], each stage's [lse2 | delta | q ids] rows,
@@ -132,13 +149,12 @@ __device__ __forceinline__ void p_and_ds(float (&s)[4 * NT], float (&dp)[4 * NT]
   }
 }
 
+// The bf16 kernel's body, behind K5's kernel and K4a's (below); the maps are
+// the kernel's __grid_constant__ parameters.
 template <int DQK, int DV, bool kSeg>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    causal_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
-                               const __grid_constant__ CUtensorMap k_map,
-                               const __grid_constant__ CUtensorMap v_map,
-                               const __grid_constant__ CUtensorMap do_map,
-                               const CausalBwdArgs a) {
+__device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                              const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                              const CausalBwdArgs& a) {
   using T = DkvTile<DQK, DV>;
   constexpr int kKeys = T::kKeys, kStages = T::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -216,10 +232,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       hp::prefetch_map(&do_map);
       hp::mbar_arrive_expect_tx(kv_full, T::kKBytes + T::kVBytes);
 #pragma unroll
-      for (int p = 0; p < DQK / T::kQCols; ++p)
+      for (int p = 0; p < T::kQW / T::kQCols; ++p)
         hp::tma_load_4d(sK + p * kKeys * T::kQRow, &k_map, kv_full, p * T::kQCols, n0, hk, b);
 #pragma unroll
-      for (int p = 0; p < DV / T::kVCols; ++p)
+      for (int p = 0; p < T::kVW / T::kVCols; ++p)
         hp::tma_load_4d(sV + p * kKeys * T::kVRow, &v_map, kv_full, p * T::kVCols, n0, hk, b);
     }
     int w = next_step(0);
@@ -246,11 +262,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         unsigned char* qd = sQ + stage * T::kQBytes;
         unsigned char* dd = sDO + stage * T::kDOBytes;
 #pragma unroll
-        for (int p = 0; p < DQK / T::kQCols; ++p)
+        for (int p = 0; p < T::kQW / T::kQCols; ++p)
           hp::tma_load_4d(qd + p * kBlockM * T::kQRow, &q_map, &full[stage], p * T::kQCols,
                           row0, h, b);
 #pragma unroll
-        for (int p = 0; p < DV / T::kVCols; ++p)
+        for (int p = 0; p < T::kVW / T::kVCols; ++p)
           hp::tma_load_4d(dd + p * kBlockM * T::kVRow, &do_map, &full[stage], p * T::kVCols,
                           row0, h, b);
       } else {
@@ -321,7 +337,69 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const bool sees = k_first < Sk && (!causal || k_first <= row_last + q_off) &&
                         (window == 0 || (row0 + q_off - k_last < window &&
                                          (causal || k_first - row_last - q_off < window)));
-      if (sees) {
+      if (T::kHalfSteps && sees) {
+        // Two halves of 32 rows: S^T / dP^T (m64n32k16), P^T / dS^T, then
+        // dV += P^T dO and dK += dS^T Q over the half's two k-steps.
+        const uint64_t k0 = hp::make_desc(sKw, T::kQRow, 16, 8 * T::kQRow);
+        const uint64_t v0 = hp::make_desc(sVw, T::kVRow, 16, 8 * T::kVRow);
+        const uint64_t omn = hp::make_desc(dt, T::kVRow, kBlockM * T::kVRow, 8 * T::kVRow);
+        const uint64_t qmn = hp::make_desc(qt, T::kQRow, kBlockM * T::kQRow, 8 * T::kQRow);
+        constexpr int kHalf = kBlockM / 2;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint64_t q0 =
+              hp::make_desc(qt + hh * kHalf * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
+          const uint64_t o0 =
+              hp::make_desc(dt + hh * kHalf * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
+          float s[kHalf / 2], dp[kHalf / 2];
+#pragma unroll
+          for (int i = 0; i < kHalf / 2; ++i) s[i] = dp[i] = 0.f;
+          hp::fence_regs(s);
+          hp::fence_regs(dp);
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < T::kQW / 16; ++kk) {
+            const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;
+            hp::wgmma_ss<0, 0>(s, hp::desc_add(k0, p * kKeys * T::kQRow + c),
+                               hp::desc_add(q0, p * kBlockM * T::kQRow + c), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < T::kVW / 16; ++kk) {
+            const int p = kk * 16 / T::kVCols, c = kk * 16 % T::kVCols * 2;
+            hp::wgmma_ss<0, 0>(dp, hp::desc_add(v0, p * kKeys * T::kVRow + c),
+                               hp::desc_add(o0, p * kBlockM * T::kVRow + c), kk > 0);
+          }
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::fence_regs(s);
+          hp::fence_regs(dp);
+          p_and_ds<kHalf / 8, kSeg>(s, dp, hh * kHalf, masked, kept, ks, rs, rs + kBlockM, QS,
+                                    a.scale_log2);
+          uint32_t pa[kHalf / 16][4], da[kHalf / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kHalf / 16; ++kk) {
+            acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+            acc_to_a_frag(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+          }
+          hp::fence_regs(acc_dv);
+          hp::fence_regs(acc_dk);
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kHalf / 16; ++kk) {
+            const int row = hh * kHalf + kk * 16;
+            hp::wgmma_rs_mn<T::kVW, T::kVCols>(acc_dv, pa[kk],
+                                               hp::desc_add(omn, row * T::kVRow),
+                                               kBlockM * T::kVRow);
+            hp::wgmma_rs_mn<T::kQW, T::kQCols>(acc_dk, da[kk],
+                                               hp::desc_add(qmn, row * T::kQRow),
+                                               kBlockM * T::kQRow);
+          }
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::fence_regs(acc_dv);
+          hp::fence_regs(acc_dk);
+        }
+      } else if (sees) {
         // Descriptors of the operands' first k-step.
         const uint64_t k0 = hp::make_desc(sKw, T::kQRow, 16, 8 * T::kQRow);
         const uint64_t v0 = hp::make_desc(sVw, T::kVRow, 16, 8 * T::kVRow);
@@ -334,13 +412,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         hp::fence_regs(dp);
         hp::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DQK / 16; ++kk) {  // S^T = K Q^T, both K-major
+        for (int kk = 0; kk < T::kQW / 16; ++kk) {  // S^T = K Q^T, both K-major
           const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;  // panel, byte column
           hp::wgmma_ss<0, 0>(s, hp::desc_add(k0, p * kKeys * T::kQRow + c),
                              hp::desc_add(q0, p * kBlockM * T::kQRow + c), kk > 0);
         }
 #pragma unroll
-        for (int kk = 0; kk < DV / 16; ++kk) {  // dP^T = V dO^T, both K-major
+        for (int kk = 0; kk < T::kVW / 16; ++kk) {  // dP^T = V dO^T, both K-major
           const int p = kk * 16 / T::kVCols, c = kk * 16 % T::kVCols * 2;
           hp::wgmma_ss<0, 0>(dp, hp::desc_add(v0, p * kKeys * T::kVRow + c),
                              hp::desc_add(o0, p * kBlockM * T::kVRow + c), kk > 0);
@@ -368,9 +446,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlockM / 16; ++kk) {
-          hp::wgmma_rs_mn<DV, T::kVCols>(acc_dv, pa[kk], hp::desc_add(omn, kk * 16 * T::kVRow),
+          hp::wgmma_rs_mn<T::kVW, T::kVCols>(acc_dv, pa[kk], hp::desc_add(omn, kk * 16 * T::kVRow),
                                          kBlockM * T::kVRow);
-          hp::wgmma_rs_mn<DQK, T::kQCols>(acc_dk, da[kk], hp::desc_add(qmn, kk * 16 * T::kQRow),
+          hp::wgmma_rs_mn<T::kQW, T::kQCols>(acc_dk, da[kk], hp::desc_add(qmn, kk * 16 * T::kQRow),
                                           kBlockM * T::kQRow);
         }
         hp::wgmma_commit();
@@ -406,13 +484,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       hp::fence_regs(dp);
       hp::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk) {
+      for (int kk = 0; kk < T::kQW / 16; ++kk) {
         const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;
         hp::wgmma_ss<0, 0>(s, hp::desc_add(k0, p * kKeys * T::kQRow + c),
                            hp::desc_add(q0, p * kBlockM * T::kQRow + c), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk) {
+      for (int kk = 0; kk < T::kVW / 16; ++kk) {
         const int p = kk * 16 / T::kVCols, c = kk * 16 % T::kVCols * 2;
         hp::wgmma_ss<0, 0>(dp, hp::desc_add(v0, p * kKeys * T::kVRow + c),
                            hp::desc_add(o0, p * kBlockM * T::kVRow + c), kk > 0);
@@ -508,16 +586,39 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     bf16* kout = dk + b * a.dk_b + (long long)keys[r] * a.dk_s + hk * a.dk_h + ck;
     bf16* vout = dv + b * a.dv_b + (long long)keys[r] * a.dv_s + hk * a.dv_h + cv;
 #pragma unroll
-    for (int n = 0; n < T::kDK / 8; ++n) {
+    for (int n = 0; n < (T::kShare ? T::kDK : DQK) / 8; ++n) {  // the true width
       *reinterpret_cast<uint32_t*>(kout + n * 8 + 2 * t) =
           pack_bf16(acc_dk[4 * n + 2 * r] * a.scale, acc_dk[4 * n + 2 * r + 1] * a.scale);
     }
 #pragma unroll
-    for (int n = 0; n < T::kDV / 8; ++n) {
+    for (int n = 0; n < (T::kShare ? T::kDV : DV) / 8; ++n) {
       *reinterpret_cast<uint32_t*>(vout + n * 8 + 2 * t) =
           pack_bf16(acc_dv[4 * n + 2 * r], acc_dv[4 * n + 2 * r + 1]);
     }
   }
+}
+
+// K5's bf16 dk/dv kernel.
+template <int DQK, int DV, bool kSeg>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    causal_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const CausalBwdArgs a) {
+  dkv_bf16_body<DQK, DV, kSeg>(q_map, k_map, v_map, do_map, a);
+}
+
+// K4a's bf16 dk/dv kernel (flash_bwd.cu's ivt_flash_bwd_dkv): the same body
+// at d_v = d_qk = D, launched non-causal, without segments, window or groups.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const CausalBwdArgs a) {
+  dkv_bf16_body<D, D, false>(q_map, k_map, v_map, do_map, a);
 }
 
 // fp32: one thread per key, q / dO tiles of 16 rows in shared memory,
@@ -598,33 +699,38 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
 }
 
 
+// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's or
+// K4a's) of tile DkvTile<DQK, DV>.
+template <int DQK, int DV, typename Kernel>
+cudaError_t launch_bf16(Kernel kern, int B, const CausalBwdArgs& a, cudaStream_t stream) {
+  using T = DkvTile<DQK, DV>;
+  const int Hkv = a.H / a.group;
+  CUtensorMap maps[4];  // q, k, v, dO
+  cudaError_t err = hp::encode_bshd(&maps[0], a.q, B, a.Sq, a.H, DQK, a.q_b, a.q_s, a.q_h,
+                                    kBlockM, T::kQCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[1], a.k, B, a.Sk, Hkv, DQK, a.k_b, a.k_s, a.k_h, T::kKeys,
+                          T::kQCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[2], a.v, B, a.Sk, Hkv, DV, a.v_b, a.v_s, a.v_h, T::kKeys,
+                          T::kVCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[3], a.dout, B, a.Sq, a.H, DV, a.do_b, a.do_s, a.do_h, kBlockM,
+                          T::kVCols);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((a.Sk + T::kKeys - 1) / T::kKeys, Hkv, B), kBwdThreads, T::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
 template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream) {
-  const int Hkv = a.H / a.group;
-  if (dtype == 1) {
-    using T = DkvTile<DQK, DV>;
-    CUtensorMap maps[4];  // q, k, v, dO
-    cudaError_t err = hp::encode_bshd(&maps[0], a.q, B, a.Sq, a.H, DQK, a.q_b, a.q_s, a.q_h,
-                                      kBlockM, T::kQCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[1], a.k, B, a.Sk, Hkv, DQK, a.k_b, a.k_s, a.k_h, T::kKeys,
-                            T::kQCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[2], a.v, B, a.Sk, Hkv, DV, a.v_b, a.v_s, a.v_h, T::kKeys,
-                            T::kVCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[3], a.dout, B, a.Sq, a.H, DV, a.do_b, a.do_s, a.do_h, kBlockM,
-                            T::kVCols);
-    if (err != cudaSuccess) return err;
-    auto kern = causal_bwd_dkv_bf16_kernel<DQK, DV, kSeg>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3((a.Sk + T::kKeys - 1) / T::kKeys, Hkv, B), kBwdThreads, T::kSmemBytes, stream>>>(
-        maps[0], maps[1], maps[2], maps[3], a);
-  } else {
-    causal_bwd_dkv_f32_kernel<DQK, DV, kSeg>
-        <<<dim3((a.Sk + kF32Keys - 1) / kF32Keys, Hkv, B), kF32Keys, 0, stream>>>(a);
-  }
+  if (dtype == 1)
+    return launch_bf16<DQK, DV>(causal_bwd_dkv_bf16_kernel<DQK, DV, kSeg>, B, a, stream);
+  causal_bwd_dkv_f32_kernel<DQK, DV, kSeg>
+      <<<dim3((a.Sk + kF32Keys - 1) / kF32Keys, a.H / a.group, B), kF32Keys, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -661,3 +767,24 @@ extern "C" int ivt_flash_bwd_causal_dkv(int dtype, const void* q, const void* k,
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }
+
+namespace ivt {
+
+// K4a's bf16 dk/dv launch, called by flash_bwd.cu's ivt_flash_bwd_dkv (whose
+// arguments it takes): this file's body at (D, D), non-causal, no segments,
+// window or groups. Returns cudaErrorInvalidValue for a head dim other than
+// 64 or 88.
+cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dk, void* dv, int B,
+                                int Sq, int Sk, int H, int D, const long long* strides,
+                                float scale, void* stream) {
+  const CausalBwdArgs a =
+      make_causal_bwd_args(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv, Sq, Sk,
+                           H, k4a_strides(strides).s, scale, 0, 0, 1, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_bf16<64, 64>(flash_bwd_dkv_wgmma_kernel<64>, B, a, s);
+  if (D == 88) return launch_bf16<88, 88>(flash_bwd_dkv_wgmma_kernel<88>, B, a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace ivt

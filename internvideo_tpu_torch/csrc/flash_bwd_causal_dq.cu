@@ -60,6 +60,16 @@
 //   that straddle the diagonal, a band edge or the Sk tail, or carry
 //   segments, are masked.
 // - 64 keys a stage; 4 stages (3 at d_qk 256) in the 227 KB.
+// - Head dim 88 (K4a, the InternVideo2 encoder's backward): stored as three
+//   32-column panels (64-byte swizzle, 96 columns); the maps keep the true
+//   width, so TMA zero-fills columns 88-95, which add nothing to S or dP, and
+//   dQ's 96 accumulator columns are stored as 88 (48 + 32 + 32 registers
+//   of dq, S and dP a thread).
+// - K4a's kernel (flash_bwd_dq_wgmma_kernel, the encoder's non-causal
+//   backward; flash_bwd.cu) walks pipelined (kPipelined): tile t + 1's S and
+//   dP are issued before tile t's dQ and waited for alone, so its exp2 and
+//   ds run while dQ of tile t is on the tensor cores. K5's kernel keeps the
+//   walk that waits for each product.
 // TMA zero-fills rows past Sq / Sk; rows past Sq have p = 0 (LSE +inf) and
 // are not stored. fp32 inputs take a CUDA-core kernel (the parity checks,
 // not the bf16 main path).
@@ -76,23 +86,28 @@ constexpr int kBlockN = 64;  // keys per K/V stage
 
 template <int DQK, int DV>
 struct DqTile {
-  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims must be multiples of 32");
+  static_assert(DQK % 8 == 0 && DV % 8 == 0, "head dims must be multiples of 8 (16-byte rows)");
+  // Panels of 64 columns where a head dim is a multiple of 64, else of 32
+  // (one TMA box each); the stored widths kQW / kVW round up to whole panels
+  // (88 -> 96), the columns past the true width zero-filled by TMA.
+  static constexpr int kQCols = DQK % 64 == 0 ? 64 : 32;
+  static constexpr int kVCols = DV % 64 == 0 ? 64 : 32;
+  static constexpr int kQW = (DQK + kQCols - 1) / kQCols * kQCols;
+  static constexpr int kVW = (DV + kVCols - 1) / kVCols * kVCols;
   // kSplit (d_qk 256): both consumer warpgroups on the CTA's 64 rows, each
   // accumulating half of dq's columns from dS passed through shared memory;
   // otherwise 128 rows, 64 per warpgroup, all columns in registers.
   static constexpr bool kSplit = DQK > 128;
   static_assert(!kSplit || DQK % 128 == 0, "the column halves must be whole 64-column panels");
   static constexpr int kRows = kSplit ? 64 : 128;  // query rows per CTA
-  static constexpr int kDQ = kSplit ? DQK / 2 : DQK;  // dq columns a warpgroup accumulates
+  static constexpr int kDQ = kSplit ? kQW / 2 : kQW;  // dq columns a warpgroup accumulates
   static constexpr int kStages = kSplit ? 3 : 4;
-  static constexpr int kQCols = DQK < 64 ? DQK : 64;  // columns of a panel (one TMA box)
-  static constexpr int kVCols = DV < 64 ? DV : 64;
   static constexpr int kQRow = 2 * kQCols;  // bytes of a panel row = the swizzle span
   static constexpr int kVRow = 2 * kVCols;
-  static constexpr int kQBytes = kRows * DQK * 2;
-  static constexpr int kDOBytes = kRows * DV * 2;
-  static constexpr int kKBytes = kBlockN * DQK * 2;
-  static constexpr int kVBytes = kBlockN * DV * 2;
+  static constexpr int kQBytes = kRows * kQW * 2;
+  static constexpr int kDOBytes = kRows * kVW * 2;
+  static constexpr int kKBytes = kBlockN * kQW * 2;
+  static constexpr int kVBytes = kBlockN * kVW * 2;
   static constexpr int kDSBytes = kSplit ? kRows * kBlockN * 2 : 0;  // one bf16 dS tile
   // From a 1024-byte boundary: q, dO, each stage's K, each stage's V, two
   // dS buffers (kSplit), each stage's key segment ids and tile index, then
@@ -108,13 +123,12 @@ struct DqTile {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a CTA may use");
 };
 
-template <int DQK, int DV, bool kSeg>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    causal_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
-                              const __grid_constant__ CUtensorMap k_map,
-                              const __grid_constant__ CUtensorMap v_map,
-                              const __grid_constant__ CUtensorMap do_map,
-                              const CausalBwdArgs a) {
+// The bf16 kernel's body, behind K5's kernel and K4a's (below); the maps are
+// the kernel's __grid_constant__ parameters.
+template <int DQK, int DV, bool kSeg, bool kPipelined>
+__device__ __forceinline__ void dq_bf16_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                             const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                             const CausalBwdArgs& a) {
   using T = DqTile<DQK, DV>;
   constexpr int kStages = T::kStages, kRows = T::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -179,10 +193,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       hp::prefetch_map(&do_map);
       hp::mbar_arrive_expect_tx(q_full, T::kQBytes + T::kDOBytes);
 #pragma unroll
-      for (int p = 0; p < DQK / T::kQCols; ++p)
+      for (int p = 0; p < T::kQW / T::kQCols; ++p)
         hp::tma_load_4d(sQ + p * kRows * T::kQRow, &q_map, q_full, p * T::kQCols, m0, h, b);
 #pragma unroll
-      for (int p = 0; p < DV / T::kVCols; ++p)
+      for (int p = 0; p < T::kVW / T::kVCols; ++p)
         hp::tma_load_4d(sDO + p * kRows * T::kVRow, &do_map, q_full, p * T::kVCols, m0, h, b);
     }
     const int hk = h / a.group;  // GQA: the group's K/V head
@@ -204,11 +218,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         unsigned char* kd = sK + stage * T::kKBytes;
         unsigned char* vd = sV + stage * T::kVBytes;
 #pragma unroll
-        for (int p = 0; p < DQK / T::kQCols; ++p)
+        for (int p = 0; p < T::kQW / T::kQCols; ++p)
           hp::tma_load_4d(kd + p * kBlockN * T::kQRow, &k_map, &full[stage], p * T::kQCols, key0,
                           hk, b);
 #pragma unroll
-        for (int p = 0; p < DV / T::kVCols; ++p)
+        for (int p = 0; p < T::kVW / T::kVCols; ++p)
           hp::tma_load_4d(vd + p * kBlockN * T::kVRow, &v_map, &full[stage], p * T::kVCols, key0,
                           hk, b);
       } else {
@@ -255,151 +269,258 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
   for (int i = 0; i < T::kDQ / 2; ++i) acc[i] = 0.f;
 
-  hp::mbar_wait(q_full, 0);
-  int stage = 0, buf = 0;
-  unsigned phase = 0;
-  while (true) {
-    hp::mbar_wait(&full[stage], phase);
-    __syncwarp();
-    const int j = sTile[stage];
-    if (j < 0) break;
+  // Does some row of this warpgroup see some key of tile j? (kSplit: the
+  // same answer for both warpgroups, which meet at a barrier.)
+  auto tile_sees = [&](int j) {
     const int key0 = j * kBlockN, key_last = key0 + kBlockN - 1;
-    // Does some row of this warpgroup see some key of the tile? (kSplit:
-    // the same answer for both warpgroups, which meet at a barrier.)
-    const bool sees = r0 < Sq && (!causal || key0 <= r_last + q_off) &&
-                      (window == 0 || (key_last > r0 + q_off - window &&
-                                       (causal || key0 < r_last + q_off + window)));
-    if (sees) {
-      // S = Q K^T and dP = dO V^T on this warpgroup's rows and keys, all
-      // operands K-major; descriptors of the first k-step.
-      const unsigned char* kt = sK + stage * T::kKBytes;
-      const uint64_t dq0 = hp::make_desc(sQw, T::kQRow, 16, 8 * T::kQRow);
-      const uint64_t do0 = hp::make_desc(sDOw, T::kVRow, 16, 8 * T::kVRow);
-      const uint64_t k0 = hp::make_desc(kt + wkey * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
-      const uint64_t v0 =
-          hp::make_desc(sV + stage * T::kVBytes + wkey * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
-      float s[kKeys / 2], dp[kKeys / 2];
+    return r0 < Sq && (!causal || key0 <= r_last + q_off) &&
+           (window == 0 || (key_last > r0 + q_off - window &&
+                            (causal || key0 < r_last + q_off + window)));
+  };
+  // S = Q K^T and dP = dO V^T on this warpgroup's rows and its keys of the
+  // tile in stage st, all operands K-major, as one committed group.
+  auto issue_sdp = [&](int st, float (&s)[kKeys / 2], float (&dp)[kKeys / 2]) {
+    const uint64_t dq0 = hp::make_desc(sQw, T::kQRow, 16, 8 * T::kQRow);
+    const uint64_t do0 = hp::make_desc(sDOw, T::kVRow, 16, 8 * T::kVRow);
+    const uint64_t k0 =
+        hp::make_desc(sK + st * T::kKBytes + wkey * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
+    const uint64_t v0 =
+        hp::make_desc(sV + st * T::kVBytes + wkey * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
 #pragma unroll
-      for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
-      hp::fence_regs(s);
-      hp::fence_regs(dp);
-      hp::wgmma_fence();
+    for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
+    hp::fence_regs(s);
+    hp::fence_regs(dp);
+    hp::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < DQK / 16; ++ks) {
-        const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
-        hp::wgmma_ss<0, 0>(s, hp::desc_add(dq0, p * kRows * T::kQRow + c),
-                           hp::desc_add(k0, p * kBlockN * T::kQRow + c), ks > 0);
+    for (int ks = 0; ks < T::kQW / 16; ++ks) {
+      const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
+      hp::wgmma_ss<0, 0>(s, hp::desc_add(dq0, p * kRows * T::kQRow + c),
+                         hp::desc_add(k0, p * kBlockN * T::kQRow + c), ks > 0);
+    }
+#pragma unroll
+    for (int ks = 0; ks < T::kVW / 16; ++ks) {
+      const int p = ks * 16 / T::kVCols, c = ks * 16 % T::kVCols * 2;
+      hp::wgmma_ss<0, 0>(dp, hp::desc_add(do0, p * kRows * T::kVRow + c),
+                         hp::desc_add(v0, p * kBlockN * T::kVRow + c), ks > 0);
+    }
+    hp::wgmma_commit();
+  };
+  // ds = p * (dp - delta) into s for tile j in stage st (its S / dP group
+  // waited for), masked only where the tile straddles the diagonal, a band
+  // edge or the Sk tail, or carries segments. Element e of n-tile nt sits at
+  // row g + 8 (e >> 1) of the warp and key key0 + wkey + 2 t + c, c = 8 nt +
+  // (e & 1) a compile-time constant: row r keeps it iff lo[r] <= c <= hi[r]
+  // (and the ids match).
+  auto to_ds = [&](int j, int st, float (&s)[kKeys / 2], float (&dp)[kKeys / 2]) {
+    hp::fence_regs(s);
+    hp::fence_regs(dp);
+    const int key0 = j * kBlockN, key_last = key0 + kBlockN - 1;
+    const bool masked =
+        kSeg || key0 + kBlockN > Sk || (causal && key_last > r0 + q_off) ||
+        (window > 0 &&
+         (r_last + q_off - key0 >= window || (!causal && key_last - r0 - q_off >= window)));
+    const int kb = key0 + wkey + 2 * t;  // the thread's key base
+    const int* ids = sKS + st * kBlockN + wkey + 2 * t;
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rel = rows[r] + q_off - kb;  // position - key base
+      hi[r] = Sk - 1 - kb;
+      if (causal) hi[r] = min(hi[r], rel);
+      if (window > 0 && !causal) hi[r] = min(hi[r], rel + window - 1);
+      lo[r] = window > 0 ? rel - window + 1 : INT_MIN;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * nt + (e & 1), r = e >> 1;
+        float p = exp2f(s[4 * nt + e] * a.scale_log2 - lse2[r]);
+        if (masked && (c > hi[r] || c < lo[r] || (kSeg && ids[c] != qs[r]))) p = 0.f;
+        s[4 * nt + e] = p * (dp[4 * nt + e] - dlt[r]);
       }
+    }
+  };
+  // dQ += dS K (all columns; not kSplit) over four k-steps of 16 keys, dS in
+  // bf16 A fragments, K of stage st MN-major (transposed B); one group.
+  auto issue_dq = [&](int st, uint32_t (&ds)[kBlockN / 16][4]) {
+    const uint64_t kmn =
+        hp::make_desc(sK + st * T::kKBytes, T::kQRow, kBlockN * T::kQRow, 8 * T::kQRow);
+    hp::fence_regs(acc);
+    hp::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < DV / 16; ++ks) {
-        const int p = ks * 16 / T::kVCols, c = ks * 16 % T::kVCols * 2;
-        hp::wgmma_ss<0, 0>(dp, hp::desc_add(do0, p * kRows * T::kVRow + c),
-                           hp::desc_add(v0, p * kBlockN * T::kVRow + c), ks > 0);
-      }
-      hp::wgmma_commit();
-      hp::wgmma_wait<0>();
-      hp::fence_regs(s);
-      hp::fence_regs(dp);
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+      hp::wgmma_rs_mn<T::kDQ, T::kQCols>(acc, ds[kk], hp::desc_add(kmn, kk * 16 * T::kQRow),
+                                         kBlockN * T::kQRow);
+    hp::wgmma_commit();
+  };
 
-      // ds = p * (dp - delta), masked only where the tile straddles the
-      // diagonal, a band edge or the Sk tail, or carries segments. Element e
-      // of n-tile nt sits at row g + 8 (e >> 1) of the warp and key key0 +
-      // wkey + 2 t + c, c = 8 nt + (e & 1) a compile-time constant: row r
-      // keeps it iff lo[r] <= c <= hi[r] (and the ids match).
-      const bool masked =
-          kSeg || key0 + kBlockN > Sk || (causal && key_last > r0 + q_off) ||
-          (window > 0 &&
-           (r_last + q_off - key0 >= window || (!causal && key_last - r0 - q_off >= window)));
-      const int kb = key0 + wkey + 2 * t;  // the thread's key base
-      const int* ids = sKS + stage * kBlockN + wkey + 2 * t;
-      int lo[2], hi[2];
+  hp::mbar_wait(q_full, 0);
+  int stage = 0;
+  unsigned phase = 0;
+  if constexpr (!kPipelined) {
+    int buf = 0;  // kSplit: the dS buffer of this tile
+    while (true) {
+      hp::mbar_wait(&full[stage], phase);
+      __syncwarp();
+      const int j = sTile[stage];
+      if (j < 0) break;
+      if (tile_sees(j)) {
+        float s[kKeys / 2], dp[kKeys / 2];
+        issue_sdp(stage, s, dp);
+        hp::wgmma_wait<0>();
+        to_ds(j, stage, s, dp);
+        if constexpr (!T::kSplit) {
+          uint32_t ds[kBlockN / 16][4];  // dS in bf16 A fragments
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int rel = rows[r] + q_off - kb;  // position - key base
-        hi[r] = Sk - 1 - kb;
-        if (causal) hi[r] = min(hi[r], rel);
-        if (window > 0 && !causal) hi[r] = min(hi[r], rel + window - 1);
-        lo[r] = window > 0 ? rel - window + 1 : INT_MIN;
-      }
+          for (int kk = 0; kk < kBlockN / 16; ++kk)
+            acc_to_a_frag(ds[kk], &s[8 * kk], &s[8 * kk + 4]);
+          issue_dq(stage, ds);
+        } else {
+          // dS in bf16 into this buffer's (64 rows, 64 keys) tile, 128-byte
+          // rows with the 128-byte swizzle (the 16-byte chunk of a row
+          // XOR-ed with the row % 8), keys [32 wg, 32 wg + 32); then all of
+          // dS, from shared memory, times this warpgroup's half of K's
+          // columns (K MN-major).
+          const uint64_t kmn = hp::make_desc(sK + stage * T::kKBytes, T::kQRow,
+                                             kBlockN * T::kQRow, 8 * T::kQRow);
+          unsigned char* dst = sDS + buf * T::kDSBytes;
 #pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt) {
+          for (int nt = 0; nt < kKeys / 8; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * nt + (e & 1), r = e >> 1;
-          float p = exp2f(s[4 * nt + e] * a.scale_log2 - lse2[r]);
-          if (masked && (c > hi[r] || c < lo[r] || (kSeg && ids[c] != qs[r]))) p = 0.f;
-          s[4 * nt + e] = p * (dp[4 * nt + e] - dlt[r]);
+            for (int r = 0; r < 2; ++r) {
+              const int row = 16 * (warp & 3) + g + 8 * r;
+              const int off = row * 128 + (((4 * wg + nt) ^ (row & 7)) << 4) + 4 * t;
+              *reinterpret_cast<uint32_t*>(dst + off) =
+                  pack_bf16(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]);
+            }
+          }
+          hp::fence_proxy_async();
+          hp::bar_sync(1, 2 * 128);  // both halves written (the other buffer's reads are done)
+          const uint64_t ads = hp::make_desc(dst, 128, 16, 1024);
+          hp::fence_regs(acc);
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+            for (int c = 0; c < T::kDQ / 64; ++c)
+              hp::wgmma_ss<0, 1>(
+                  hp::cols<32>(acc, c), hp::desc_add(ads, kk * 32),
+                  hp::desc_add(kmn, ((wg * T::kDQ / 64 + c) * kBlockN + kk * 16) * T::kQRow), 1);
+          }
+          hp::wgmma_commit();
+          buf ^= 1;
         }
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
       }
-
-      // dQ += dS K over four k-steps of 16 keys, K MN-major (transposed B).
-      const uint64_t kmn = hp::make_desc(kt, T::kQRow, kBlockN * T::kQRow, 8 * T::kQRow);
-      if constexpr (!T::kSplit) {
-        uint32_t ds[kBlockN / 16][4];  // dS in bf16 A fragments
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[stage]);  // this warp is done with the stage
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // Pipelined (K4a: non-causal, no window or segments, so a warpgroup
+    // sees every tile or, past Sq, none): tile t + 1's S / dP are issued
+    // before tile t's dQ, then waited for alone, so its ds is computed while
+    // dQ of tile t runs; the dS fragments dQ reads stay in their registers
+    // until it is done. The last tile's dQ is peeled off the loop, so no
+    // wgmma is issued under a condition inside it.
+    static_assert(!T::kSplit, "the pipelined walk keeps dS in registers");
+    if (r0 < Sq) {
+      float s[kKeys / 2], dp[kKeys / 2];
+      uint32_t ds[kBlockN / 16][4];
+      auto frags = [&] {
 #pragma unroll
         for (int kk = 0; kk < kBlockN / 16; ++kk)
           acc_to_a_frag(ds[kk], &s[8 * kk], &s[8 * kk + 4]);
-        hp::fence_regs(acc);
-        hp::wgmma_fence();
+      };
+      hp::mbar_wait(&full[stage], phase);
+      __syncwarp();
+      const int j = sTile[stage];
+      if (j >= 0) {
+        issue_sdp(stage, s, dp);
+        hp::wgmma_wait<0>();
+        to_ds(j, stage, s, dp);
+        frags();
+        while (true) {
+          const int nst = stage + 1 == kStages ? 0 : stage + 1;
+          const unsigned nph = nst == 0 ? phase ^ 1 : phase;
+          hp::mbar_wait(&full[nst], nph);
+          __syncwarp();
+          const int nj = sTile[nst];
+          if (nj < 0) break;
+          issue_sdp(nst, s, dp);
+          issue_dq(stage, ds);
+          hp::wgmma_wait<1>();  // S / dP of tile t + 1; dQ of tile t may run on
+          to_ds(nj, nst, s, dp);
+          hp::wgmma_wait<0>();
+          hp::fence_regs(acc);
 #pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk)
-          hp::wgmma_rs_mn<DQK, T::kQCols>(acc, ds[kk], hp::desc_add(kmn, kk * 16 * T::kQRow),
-                                          kBlockN * T::kQRow);
-      } else {
-        // dS in bf16 into this buffer's (64 rows, 64 keys) tile, 128-byte
-        // rows with the 128-byte swizzle (the 16-byte chunk of a row XOR-ed
-        // with the row % 8), keys [32 wg, 32 wg + 32); then all of dS, from
-        // shared memory, times this warpgroup's half of K's columns.
-        unsigned char* dst = sDS + buf * T::kDSBytes;
-#pragma unroll
-        for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = 16 * (warp & 3) + g + 8 * r;
-            const int off = row * 128 + (((4 * wg + nt) ^ (row & 7)) << 4) + 4 * t;
-            *reinterpret_cast<uint32_t*>(dst + off) =
-                pack_bf16(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]);
-          }
+          for (int kk = 0; kk < kBlockN / 16; ++kk) hp::fence_regs(ds[kk]);
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(&empty[stage]);  // this warp is done with tile t
+          frags();
+          stage = nst;
+          phase = nph;
         }
-        hp::fence_proxy_async();
-        hp::bar_sync(1, 2 * 128);  // both halves written (the other buffer's reads are done)
-        const uint64_t ads = hp::make_desc(dst, 128, 16, 1024);
+        issue_dq(stage, ds);
+        hp::wgmma_wait<0>();
         hp::fence_regs(acc);
-        hp::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-          for (int c = 0; c < T::kDQ / 64; ++c)
-            hp::wgmma_ss<0, 1>(
-                hp::cols<32>(acc, c), hp::desc_add(ads, kk * 32),
-                hp::desc_add(kmn, ((wg * T::kDQ / 64 + c) * kBlockN + kk * 16) * T::kQRow), 1);
-        }
-        buf ^= 1;
       }
-      hp::wgmma_commit();
-      hp::wgmma_wait<0>();
-      hp::fence_regs(acc);
-    }
-    __syncwarp();
-    if (lane == 0) hp::mbar_arrive(&empty[stage]);  // this warp is done with the stage
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
+    } else {
+      // rows past Sq: hand every stage back
+      while (true) {
+        hp::mbar_wait(&full[stage], phase);
+        __syncwarp();
+        if (sTile[stage] < 0) break;
+        if (lane == 0) hp::mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
   }
 
   bf16* dq = static_cast<bf16*>(a.dq);
   const int col0 = T::kSplit ? wg * T::kDQ : 0;  // this warpgroup's first dq column
+  constexpr int kStoreN = T::kSplit ? T::kDQ / 8 : DQK / 8;  // 8-column tiles, true width
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= Sq) continue;
     bf16* out = dq + b * a.dq_b + (long long)rows[r] * a.dq_s + h * a.dq_h + col0;
 #pragma unroll
-    for (int n = 0; n < T::kDQ / 8; ++n) {
+    for (int n = 0; n < kStoreN; ++n) {
       *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t) =
           pack_bf16(acc[4 * n + 2 * r] * a.scale, acc[4 * n + 2 * r + 1] * a.scale);
     }
   }
+}
+
+// K5's bf16 dq kernel.
+template <int DQK, int DV, bool kSeg>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    causal_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const CausalBwdArgs a) {
+  dq_bf16_body<DQK, DV, kSeg, false>(q_map, k_map, v_map, do_map, a);
+}
+
+// K4a's bf16 dq kernel (flash_bwd.cu's ivt_flash_bwd_dq): the same body at
+// d_v = d_qk = D, launched non-causal, without segments, window or groups.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const CausalBwdArgs a) {
+  dq_bf16_body<D, D, false, true>(q_map, k_map, v_map, do_map, a);
 }
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
@@ -469,33 +590,38 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
   for (int c = 0; c < DQK; ++c) out[c] = acc[c] * a.scale;
 }
 
+// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's or
+// K4a's) of tile DqTile<DQK, DV>.
+template <int DQK, int DV, typename Kernel>
+cudaError_t launch_bf16(Kernel kern, int B, const CausalBwdArgs& a, cudaStream_t stream) {
+  using T = DqTile<DQK, DV>;
+  const int Hkv = a.H / a.group;
+  CUtensorMap maps[4];  // q, k, v, dO
+  cudaError_t err = hp::encode_bshd(&maps[0], a.q, B, a.Sq, a.H, DQK, a.q_b, a.q_s, a.q_h,
+                                    T::kRows, T::kQCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[1], a.k, B, a.Sk, Hkv, DQK, a.k_b, a.k_s, a.k_h, kBlockN,
+                          T::kQCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[2], a.v, B, a.Sk, Hkv, DV, a.v_b, a.v_s, a.v_h, kBlockN,
+                          T::kVCols);
+  if (err == cudaSuccess)
+    err = hp::encode_bshd(&maps[3], a.dout, B, a.Sq, a.H, DV, a.do_b, a.do_s, a.do_h, T::kRows,
+                          T::kVCols);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((a.Sq + T::kRows - 1) / T::kRows, a.H, B), kBwdThreads, T::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
 template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, int B, const CausalBwdArgs& a, cudaStream_t stream) {
-  if (dtype == 1) {
-    using T = DqTile<DQK, DV>;
-    const int Hkv = a.H / a.group;
-    CUtensorMap maps[4];  // q, k, v, dO
-    cudaError_t err = hp::encode_bshd(&maps[0], a.q, B, a.Sq, a.H, DQK, a.q_b, a.q_s, a.q_h,
-                                      T::kRows, T::kQCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[1], a.k, B, a.Sk, Hkv, DQK, a.k_b, a.k_s, a.k_h, kBlockN,
-                            T::kQCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[2], a.v, B, a.Sk, Hkv, DV, a.v_b, a.v_s, a.v_h, kBlockN,
-                            T::kVCols);
-    if (err == cudaSuccess)
-      err = hp::encode_bshd(&maps[3], a.dout, B, a.Sq, a.H, DV, a.do_b, a.do_s, a.do_h, T::kRows,
-                            T::kVCols);
-    if (err != cudaSuccess) return err;
-    auto kern = causal_bwd_dq_bf16_kernel<DQK, DV, kSeg>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3((a.Sq + T::kRows - 1) / T::kRows, a.H, B), kBwdThreads, T::kSmemBytes,
-           stream>>>(maps[0], maps[1], maps[2], maps[3], a);
-  } else {
-    causal_bwd_dq_f32_kernel<DQK, DV, kSeg>
-        <<<dim3((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B), kF32Rows, 0, stream>>>(a);
-  }
+  if (dtype == 1)
+    return launch_bf16<DQK, DV>(causal_bwd_dq_bf16_kernel<DQK, DV, kSeg>, B, a, stream);
+  causal_bwd_dq_f32_kernel<DQK, DV, kSeg>
+      <<<dim3((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B), kF32Rows, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -538,3 +664,24 @@ extern "C" int ivt_flash_bwd_causal_dq(int dtype, const void* q, const void* k, 
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }
+
+namespace ivt {
+
+// K4a's bf16 dq launch, called by flash_bwd.cu's ivt_flash_bwd_dq (whose
+// arguments it takes: 18 strides, dk and dv sharing the last three): this
+// file's body at (D, D), non-causal, no segments, window or groups.
+// Returns cudaErrorInvalidValue for a head dim other than 64 or 88.
+cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dq, int B, int Sq,
+                               int Sk, int H, int D, const long long* strides, float scale,
+                               void* stream) {
+  const CausalBwdArgs a =
+      make_causal_bwd_args(q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr, Sq,
+                           Sk, H, k4a_strides(strides).s, scale, 0, 0, 1, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_bf16<64, 64>(flash_bwd_dq_wgmma_kernel<64>, B, a, s);
+  if (D == 88) return launch_bf16<88, 88>(flash_bwd_dq_wgmma_kernel<88>, B, a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace ivt

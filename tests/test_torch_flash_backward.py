@@ -22,12 +22,18 @@ from internvideo_tpu_torch.ops import flash_attention as fa
 from internvideo_tpu_torch.ops.attention import dot_product_attention
 
 # (B, Sq, Sk, H, D): the JAX kernel tests' shape, the ragged route at head
-# dim 88, and both one-sided tails.
+# dim 88, and both one-sided tails; then the edges of the card kernels'
+# tiles (128 query rows, 64 keys a step; 64 keys, 64 rows a step at d 88):
+# one past 128 and 64, one short of 128 and 64, Sq != Sk both ways, Sq < 64.
 SHAPES = [
     (2, 256, 256, 2, 64),
     (1, 257, 257, 2, 88),
     (1, 256, 263, 2, 64),
     (1, 263, 256, 2, 64),
+    (1, 129, 200, 2, 88),
+    (1, 200, 129, 2, 88),
+    (2, 65, 191, 2, 64),
+    (1, 63, 127, 2, 88),
 ]
 
 
@@ -61,6 +67,20 @@ def test_backward_matches_jax_grad(shape):
 
 def test_lse_cotangent_matches_jax_grad():
     q, k, v, g, gl = _inputs(1, 256, 256, 2, 64, seed=1)
+
+    def loss(q, k, v):
+        out, lse = jax_flash_lse(q, k, v, interpret=True, block_q=128, block_k=128)
+        return jnp.sum(out * g) + jnp.sum(lse * gl)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    for name, a, r in zip(("dq", "dk", "dv"), _port_grads(q, k, v, g, gl), ref):
+        np.testing.assert_allclose(a, np.asarray(r), atol=5e-4, rtol=5e-4, err_msg=name)
+
+
+def test_lse_cotangent_matches_jax_grad_d88_ragged():
+    """The LSE cotangent at head dim 88 on a ragged Sq != Sk (one past 128
+    query rows, one short of 192 keys)."""
+    q, k, v, g, gl = _inputs(1, 129, 191, 2, 88, seed=5)
 
     def loss(q, k, v):
         out, lse = jax_flash_lse(q, k, v, interpret=True, block_q=128, block_k=128)

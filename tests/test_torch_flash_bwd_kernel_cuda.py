@@ -107,3 +107,64 @@ def test_gradients_reach_the_projection():
     assert torch.isfinite(gw).all()
     for i in range(3):
         assert gw[i * 176:(i + 1) * 176].abs().sum() > 0, "qkv"[i]
+
+
+# The edges of the bf16 kernels' tiles (csrc/flash_bwd_causal_{dq,dkv}.cu:
+# 128 query rows a dq CTA, 64 keys a step; 64 keys a dk/dv CTA at d 88 and
+# 128 at d 64, 64 rows a step): (B, Sq, Sk, H) one past and one short of 64
+# and 128, Sq != Sk both ways, Sq < 64.
+EDGE_SHAPES = [
+    (1, 65, 63, 2),
+    (1, 63, 65, 2),
+    (1, 129, 127, 2),
+    (1, 127, 129, 2),
+    (2, 33, 200, 2),
+    (1, 200, 33, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 88])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_edges_with_lse_cotangent(dtype, d):
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator("cuda").manual_seed(3)
+    for b, sq, sk, h in EDGE_SHAPES:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+        k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dt) for _ in range(2))
+        g = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+        gl = torch.randn(b, h, sq, device="cuda", generator=gen)
+        out, lse, grads = _grads(q, k, v, g, gl)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, g, d ** -0.5, lse_ct=gl)
+        for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
+            assert x.dtype == dt and x.shape == r.shape, name
+            if dt == torch.float32:
+                torch.testing.assert_close(x, r, atol=5e-4, rtol=0,
+                                           msg=f"{(b, sq, sk, h, d)} {name}")
+            else:
+                assert _rel(x, r) <= 1e-2, ((b, sq, sk, h, d), name, _rel(x, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 88])
+def test_offset_projection_views_and_determinism(d):
+    """q / k / v as strided views of one (B, S, 3 H d) projection whose base
+    is 16 bytes past its allocation's, in bf16 against the plain version;
+    two calls give bit-identical dq, dk and dv (two kernels, no atomics)."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(4)
+    b, s, h = 2, 193, 4
+    flat = torch.randn(b * s * 3 * h * d + 8, device="cuda", generator=gen).bfloat16()
+    qkv = flat[8:].view(b, s, 3 * h * d)  # 8 bf16 = 16 bytes past the allocation
+    q, k, v = (x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1))
+    assert q.data_ptr() % 128 == 16
+    g = torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
+    out, lse, first = _grads(q, k, v, g)
+    _, _, second = _grads(q, k, v, g)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, g, d ** -0.5)
+    for name, x, y, r in zip(("dq", "dk", "dv"), first, second, ref):
+        assert torch.equal(x, y), f"{name} differs between two calls"
+        assert _rel(x, r) <= 1e-2, (name, _rel(x, r))
