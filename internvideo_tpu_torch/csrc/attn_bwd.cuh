@@ -484,67 +484,67 @@ inline BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const 
                  scale, scale * kLog2e, static_cast<cudaStream_t>(stream)};
 }
 
+// Launch an fp32 dq kernel (static shared memory) on grid
+// (ceil(Sq / kBwdF32Rows), H, B).
+template <typename KF32>
+cudaError_t launch_bwd_dq_f32(KF32 kf32, const BwdArgs& a) {
+  const dim3 g32((a.Sq + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
+  kf32<<<g32, kBwdF32Rows, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
+  return cudaGetLastError();
+}
+
+// The same for an fp32 dk/dv kernel, on grid (ceil(Sk / kBwdF32Rows), H, B).
+template <typename KF32>
+cudaError_t launch_bwd_dkv_f32(KF32 kf32, const BwdArgs& a) {
+  const dim3 g32((a.Sk + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
+  kf32<<<g32, kBwdF32Rows, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
+      a.scale_log2);
+  return cudaGetLastError();
+}
+
 // Launch a dq kernel pair (bf16 kernel on grid (ceil(Sq / 64), H, B) with
-// BwdTile<D>::kSmemBytes of dynamic shared memory, fp32 kernel with static
-// shared memory) for `dtype` (0 = float32, 1 = bfloat16).
+// BwdTile<D>::kSmemBytes of dynamic shared memory, fp32 kernel as above)
+// for `dtype` (0 = float32, 1 = bfloat16).
 template <int D, typename KBf16, typename KF32>
 cudaError_t launch_bwd_dq(KBf16 kbf16, KF32 kf32, int dtype, const BwdArgs& a) {
-  if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(kbf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           BwdTile<D>::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + kBwdBlock - 1) / kBwdBlock, a.H, a.B);
-    kbf16<<<grid, kBwdThreads, BwdTile<D>::kSmemBytes, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
-  } else {
-    const dim3 g32((a.Sq + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
-    kf32<<<g32, kBwdF32Rows, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
-  }
+  if (dtype != 1) return launch_bwd_dq_f32(kf32, a);
+  cudaError_t err = cudaFuncSetAttribute(kbf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         BwdTile<D>::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + kBwdBlock - 1) / kBwdBlock, a.H, a.B);
+  kbf16<<<grid, kBwdThreads, BwdTile<D>::kSmemBytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
   return cudaGetLastError();
 }
 
 // The same for a dk/dv kernel pair, on grid (ceil(Sk / 64), H, B).
 template <int D, typename KBf16, typename KF32>
 cudaError_t launch_bwd_dkv(KBf16 kbf16, KF32 kf32, int dtype, const BwdArgs& a) {
-  if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(kbf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           BwdTile<D>::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + kBwdBlock - 1) / kBwdBlock, a.H, a.B);
-    kbf16<<<grid, kBwdThreads, BwdTile<D>::kSmemBytes, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
-        a.scale_log2);
-  } else {
-    const dim3 g32((a.Sk + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
-    kf32<<<g32, kBwdF32Rows, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
-        a.scale_log2);
-  }
+  if (dtype != 1) return launch_bwd_dkv_f32(kf32, a);
+  cudaError_t err = cudaFuncSetAttribute(kbf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         BwdTile<D>::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sk + kBwdBlock - 1) / kBwdBlock, a.H, a.B);
+  kbf16<<<grid, kBwdThreads, BwdTile<D>::kSmemBytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
+      a.scale_log2);
   return cudaGetLastError();
 }
 
-// Declares the four __global__ kernels of one backward (PREFIX##_dq_bf16_kernel,
-// PREFIX##_dq_f32_kernel, PREFIX##_dkv_bf16_kernel, PREFIX##_dkv_f32_kernel),
-// each a thin wrapper of the bodies above, so that every TPU kernel ported
-// onto them keeps kernels of its own name.
-#define IVT_BWD_KERNELS(PREFIX)                                                                 \
-  template <int D>                                                                            \
-  __global__ void __launch_bounds__(kBwdThreads) PREFIX##_dq_bf16_kernel(                     \
-      const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,    \
-      const bf16* __restrict__ dout, const float* __restrict__ lse,                          \
-      const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H,          \
-      BwdStrides st, float scale, float scale_log2) {                                        \
-    attn_bwd_dq_bf16<D>(q, k, v, dout, lse, delta, dq, Sq, Sk, H, st, scale, scale_log2);    \
-  }                                                                                          \
+// Declares the fp32 __global__ kernels of one backward (PREFIX##_dq_f32_kernel,
+// PREFIX##_dkv_f32_kernel), each a thin wrapper of the bodies above, so that
+// every TPU kernel ported onto them keeps kernels of its own name.
+#define IVT_BWD_F32_KERNELS(PREFIX)                                                             \
   template <int D>                                                                            \
   __global__ void __launch_bounds__(kBwdF32Rows) PREFIX##_dq_f32_kernel(                      \
       const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, \
@@ -554,6 +554,27 @@ cudaError_t launch_bwd_dkv(KBf16 kbf16, KF32 kf32, int dtype, const BwdArgs& a) 
     attn_bwd_dq_f32<D>(q, k, v, dout, lse, delta, dq, Sq, Sk, H, st, scale, scale_log2);     \
   }                                                                                          \
   template <int D>                                                                            \
+  __global__ void __launch_bounds__(kBwdF32Rows) PREFIX##_dkv_f32_kernel(                     \
+      const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, \
+      const float* __restrict__ dout, const float* __restrict__ lse,                         \
+      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,       \
+      int Sq, int Sk, int H, BwdStrides st, float scale, float scale_log2) {                 \
+    attn_bwd_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, st, scale, scale_log2); \
+  }
+
+// The four kernels: the fp32 pair and PREFIX##_dq_bf16_kernel,
+// PREFIX##_dkv_bf16_kernel.
+#define IVT_BWD_KERNELS(PREFIX)                                                                 \
+  IVT_BWD_F32_KERNELS(PREFIX)                                                                 \
+  template <int D>                                                                            \
+  __global__ void __launch_bounds__(kBwdThreads) PREFIX##_dq_bf16_kernel(                     \
+      const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,    \
+      const bf16* __restrict__ dout, const float* __restrict__ lse,                          \
+      const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H,          \
+      BwdStrides st, float scale, float scale_log2) {                                        \
+    attn_bwd_dq_bf16<D>(q, k, v, dout, lse, delta, dq, Sq, Sk, H, st, scale, scale_log2);    \
+  }                                                                                          \
+  template <int D>                                                                            \
   __global__ void __launch_bounds__(kBwdThreads) PREFIX##_dkv_bf16_kernel(                    \
       const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,    \
       const bf16* __restrict__ dout, const float* __restrict__ lse,                          \
@@ -561,14 +582,6 @@ cudaError_t launch_bwd_dkv(KBf16 kbf16, KF32 kf32, int dtype, const BwdArgs& a) 
       int Sk, int H, BwdStrides st, float scale, float scale_log2) {                         \
     attn_bwd_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, st, scale,           \
                          scale_log2);                                                        \
-  }                                                                                          \
-  template <int D>                                                                            \
-  __global__ void __launch_bounds__(kBwdF32Rows) PREFIX##_dkv_f32_kernel(                     \
-      const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, \
-      const float* __restrict__ dout, const float* __restrict__ lse,                         \
-      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,       \
-      int Sq, int Sk, int H, BwdStrides st, float scale, float scale_log2) {                 \
-    attn_bwd_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, st, scale, scale_log2); \
   }
 
 }  // namespace ivt

@@ -48,18 +48,19 @@ inline CausalBwdArgs make_causal_bwd_args(const void* q, const void* k, const vo
                        group, window > 0 ? window : 0};
 }
 
-// K4a's 18 strides (q, k, v, dO, then its two outputs' layouts) as the 21
-// of CausalBwdArgs (q, k, v, dO, dq, dk, dv): dq takes the first output's,
-// dk the first's and dv the second's (K4a's dq call passes dq's twice, its
-// dk/dv call dk's and dv's).
-struct K4aStrides {
-  long long s[21];
-};
-inline K4aStrides k4a_strides(const long long* s18) {
-  K4aStrides r;
-  for (int i = 0; i < 15; ++i) r.s[i] = s18[i];
-  for (int i = 0; i < 6; ++i) r.s[15 + i] = s18[12 + i];
-  return r;
+// K4a's arguments (flash_bwd.cu: 18 strides, q, k, v, dO, then its two
+// outputs' layouts) as a non-causal call without segments, window or groups:
+// dq takes the first output's strides, dk the first's and dv the second's
+// (K4a's dq call passes dq's twice, its dk/dv call dk's and dv's).
+inline CausalBwdArgs make_k4a_bwd_args(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* delta,
+                                       void* dq, void* dk, void* dv, int Sq, int Sk, int H,
+                                       const long long* s, float scale) {
+  return CausalBwdArgs{q,     k,     v,     dout,  lse,   delta, nullptr, nullptr, dq,
+                       dk,    dv,    Sq,    Sk,    H,     s[0],  s[1],  s[2],    s[3],
+                       s[4],  s[5],  s[6],  s[7],  s[8],  s[9],  s[10], s[11],   s[12],
+                       s[13], s[14], s[12], s[13], s[14], s[15], s[16], s[17],   scale,
+                       scale * kLog2e, /*causal=*/0, /*q_off=*/0, /*group=*/1, /*window=*/0};
 }
 
 // Does query position p (= row + q_off) see key j, causality and the

@@ -67,30 +67,7 @@ namespace {
 
 using namespace ivt;
 
-IVT_BWD_KERNELS(flash_bwd)
-
-// The fp32 kernels on grid (ceil(S / kBwdF32Rows), H, B): dq over the query
-// rows, dk/dv over the keys.
-template <int D>
-cudaError_t launch_dq_f32(const BwdArgs& a) {
-  const dim3 grid((a.Sq + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
-  flash_bwd_dq_f32_kernel<D><<<grid, kBwdF32Rows, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.st, a.scale, a.scale_log2);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv_f32(const BwdArgs& a) {
-  const dim3 grid((a.Sk + kBwdF32Rows - 1) / kBwdF32Rows, a.H, a.B);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kBwdF32Rows, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.st, a.scale,
-      a.scale_log2);
-  return cudaGetLastError();
-}
+IVT_BWD_F32_KERNELS(flash_bwd)
 
 }  // namespace
 
@@ -111,8 +88,8 @@ extern "C" int ivt_flash_bwd_dq(int dtype, const void* q, const void* k, const v
   if (dtype != 0) return cudaErrorInvalidValue;
   const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Sq, Sk, H,
                                   strides, scale, stream);
-  if (D == 64) return launch_dq_f32<64>(a);
-  if (D == 88) return launch_dq_f32<88>(a);
+  if (D == 64) return launch_bwd_dq_f32(flash_bwd_dq_f32_kernel<64>, a);
+  if (D == 88) return launch_bwd_dq_f32(flash_bwd_dq_f32_kernel<88>, a);
   return cudaErrorInvalidValue;
 }
 
@@ -126,7 +103,7 @@ extern "C" int ivt_flash_bwd_dkv(int dtype, const void* q, const void* k, const 
   if (dtype != 0) return cudaErrorInvalidValue;
   const BwdArgs a = make_bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, Sq, Sk, H,
                                   strides, scale, stream);
-  if (D == 64) return launch_dkv_f32<64>(a);
-  if (D == 88) return launch_dkv_f32<88>(a);
+  if (D == 64) return launch_bwd_dkv_f32(flash_bwd_dkv_f32_kernel<64>, a);
+  if (D == 88) return launch_bwd_dkv_f32(flash_bwd_dkv_f32_kernel<88>, a);
   return cudaErrorInvalidValue;
 }

@@ -85,7 +85,7 @@ struct DkvTile {
   static_assert(!kShare || (DQK % 128 == 0 && DV % 128 == 0),
                 "the column halves must be whole 64-column panels");
   // The register form in half steps (kHalfSteps, the 32-column panels of
-  // d 88): S^T / dP^T of 32 rows at a time.
+  // d 88): S^T / dP^T of 32 rows at a time, each step in two parts.
   static constexpr bool kHalfSteps = DQK % 32 != 0 || DV % 32 != 0;
   static_assert(!kHalfSteps || !kShare, "half steps are a register-form walk");
   static constexpr int kKeys = kShare ? 64 : 128;  // keys per CTA
@@ -337,29 +337,30 @@ __device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CU
       const bool sees = k_first < Sk && (!causal || k_first <= row_last + q_off) &&
                         (window == 0 || (row0 + q_off - k_last < window &&
                                          (causal || k_first - row_last - q_off < window)));
-      if (T::kHalfSteps && sees) {
-        // Two halves of 32 rows: S^T / dP^T (m64n32k16), P^T / dS^T, then
-        // dV += P^T dO and dK += dS^T Q over the half's two k-steps.
+      if (sees) {
+        // The step in kSub parts of kSubRows rows (two of 32 with kHalfSteps,
+        // else one of 64): S^T = K Q^T and dP^T = V dO^T (both K-major), P^T
+        // and dS^T, then dV += P^T dO and dK += dS^T Q over the part's
+        // k-steps of 16 rows, dO and q MN-major (transposed B).
+        constexpr int kSub = T::kHalfSteps ? 2 : 1, kSubRows = kBlockM / kSub;
         const uint64_t k0 = hp::make_desc(sKw, T::kQRow, 16, 8 * T::kQRow);
         const uint64_t v0 = hp::make_desc(sVw, T::kVRow, 16, 8 * T::kVRow);
         const uint64_t omn = hp::make_desc(dt, T::kVRow, kBlockM * T::kVRow, 8 * T::kVRow);
         const uint64_t qmn = hp::make_desc(qt, T::kQRow, kBlockM * T::kQRow, 8 * T::kQRow);
-        constexpr int kHalf = kBlockM / 2;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const uint64_t q0 =
-              hp::make_desc(qt + hh * kHalf * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
-          const uint64_t o0 =
-              hp::make_desc(dt + hh * kHalf * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
-          float s[kHalf / 2], dp[kHalf / 2];
+        for (int hh = 0; hh < kSub; ++hh) {
+          const int rb = hh * kSubRows;  // the part's first row in the step
+          const uint64_t q0 = hp::make_desc(qt + rb * T::kQRow, T::kQRow, 16, 8 * T::kQRow);
+          const uint64_t o0 = hp::make_desc(dt + rb * T::kVRow, T::kVRow, 16, 8 * T::kVRow);
+          float s[kSubRows / 2], dp[kSubRows / 2];
 #pragma unroll
-          for (int i = 0; i < kHalf / 2; ++i) s[i] = dp[i] = 0.f;
+          for (int i = 0; i < kSubRows / 2; ++i) s[i] = dp[i] = 0.f;
           hp::fence_regs(s);
           hp::fence_regs(dp);
           hp::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < T::kQW / 16; ++kk) {
-            const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;
+            const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;  // panel, byte column
             hp::wgmma_ss<0, 0>(s, hp::desc_add(k0, p * kKeys * T::kQRow + c),
                                hp::desc_add(q0, p * kBlockM * T::kQRow + c), kk > 0);
           }
@@ -373,11 +374,11 @@ __device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CU
           hp::wgmma_wait<0>();
           hp::fence_regs(s);
           hp::fence_regs(dp);
-          p_and_ds<kHalf / 8, kSeg>(s, dp, hh * kHalf, masked, kept, ks, rs, rs + kBlockM, QS,
-                                    a.scale_log2);
-          uint32_t pa[kHalf / 16][4], da[kHalf / 16][4];
+          p_and_ds<kSubRows / 8, kSeg>(s, dp, rb, masked, kept, ks, rs, rs + kBlockM, QS,
+                                       a.scale_log2);
+          uint32_t pa[kSubRows / 16][4], da[kSubRows / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < kHalf / 16; ++kk) {
+          for (int kk = 0; kk < kSubRows / 16; ++kk) {
             acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
             acc_to_a_frag(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
           }
@@ -385,13 +386,11 @@ __device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CU
           hp::fence_regs(acc_dk);
           hp::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kHalf / 16; ++kk) {
-            const int row = hh * kHalf + kk * 16;
-            hp::wgmma_rs_mn<T::kVW, T::kVCols>(acc_dv, pa[kk],
-                                               hp::desc_add(omn, row * T::kVRow),
+          for (int kk = 0; kk < kSubRows / 16; ++kk) {
+            const int row = rb + kk * 16;
+            hp::wgmma_rs_mn<T::kVW, T::kVCols>(acc_dv, pa[kk], hp::desc_add(omn, row * T::kVRow),
                                                kBlockM * T::kVRow);
-            hp::wgmma_rs_mn<T::kQW, T::kQCols>(acc_dk, da[kk],
-                                               hp::desc_add(qmn, row * T::kQRow),
+            hp::wgmma_rs_mn<T::kQW, T::kQCols>(acc_dk, da[kk], hp::desc_add(qmn, row * T::kQRow),
                                                kBlockM * T::kQRow);
           }
           hp::wgmma_commit();
@@ -399,62 +398,6 @@ __device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CU
           hp::fence_regs(acc_dv);
           hp::fence_regs(acc_dk);
         }
-      } else if (sees) {
-        // Descriptors of the operands' first k-step.
-        const uint64_t k0 = hp::make_desc(sKw, T::kQRow, 16, 8 * T::kQRow);
-        const uint64_t v0 = hp::make_desc(sVw, T::kVRow, 16, 8 * T::kVRow);
-        const uint64_t q0 = hp::make_desc(qt, T::kQRow, 16, 8 * T::kQRow);
-        const uint64_t o0 = hp::make_desc(dt, T::kVRow, 16, 8 * T::kVRow);
-        float s[kBlockM / 2], dp[kBlockM / 2];
-#pragma unroll
-        for (int i = 0; i < kBlockM / 2; ++i) s[i] = dp[i] = 0.f;
-        hp::fence_regs(s);
-        hp::fence_regs(dp);
-        hp::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < T::kQW / 16; ++kk) {  // S^T = K Q^T, both K-major
-          const int p = kk * 16 / T::kQCols, c = kk * 16 % T::kQCols * 2;  // panel, byte column
-          hp::wgmma_ss<0, 0>(s, hp::desc_add(k0, p * kKeys * T::kQRow + c),
-                             hp::desc_add(q0, p * kBlockM * T::kQRow + c), kk > 0);
-        }
-#pragma unroll
-        for (int kk = 0; kk < T::kVW / 16; ++kk) {  // dP^T = V dO^T, both K-major
-          const int p = kk * 16 / T::kVCols, c = kk * 16 % T::kVCols * 2;
-          hp::wgmma_ss<0, 0>(dp, hp::desc_add(v0, p * kKeys * T::kVRow + c),
-                             hp::desc_add(o0, p * kBlockM * T::kVRow + c), kk > 0);
-        }
-        hp::wgmma_commit();
-        hp::wgmma_wait<0>();
-        hp::fence_regs(s);
-        hp::fence_regs(dp);
-        p_and_ds<kBlockM / 8, kSeg>(s, dp, 0, masked, kept, ks, rs, rs + kBlockM, QS,
-                                    a.scale_log2);
-        uint32_t pa[kBlockM / 16][4], da[kBlockM / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < kBlockM / 16; ++kk) {
-          acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
-          acc_to_a_frag(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
-        }
-        // dV += P^T dO and dK += dS^T Q over four k-steps of 16 rows, dO and
-        // q MN-major (transposed B).
-        const uint64_t omn =
-            hp::make_desc(dt, T::kVRow, kBlockM * T::kVRow, 8 * T::kVRow);  // dO MN-major
-        const uint64_t qmn =
-            hp::make_desc(qt, T::kQRow, kBlockM * T::kQRow, 8 * T::kQRow);  // q MN-major
-        hp::fence_regs(acc_dv);
-        hp::fence_regs(acc_dk);
-        hp::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBlockM / 16; ++kk) {
-          hp::wgmma_rs_mn<T::kVW, T::kVCols>(acc_dv, pa[kk], hp::desc_add(omn, kk * 16 * T::kVRow),
-                                         kBlockM * T::kVRow);
-          hp::wgmma_rs_mn<T::kQW, T::kQCols>(acc_dk, da[kk], hp::desc_add(qmn, kk * 16 * T::kQRow),
-                                          kBlockM * T::kQRow);
-        }
-        hp::wgmma_commit();
-        hp::wgmma_wait<0>();
-        hp::fence_regs(acc_dv);
-        hp::fence_regs(acc_dk);
       }
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(&empty[stage]);  // this warp is done with the stage
@@ -779,8 +722,7 @@ cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, con
                                 int Sq, int Sk, int H, int D, const long long* strides,
                                 float scale, void* stream) {
   const CausalBwdArgs a =
-      make_causal_bwd_args(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv, Sq, Sk,
-                           H, k4a_strides(strides).s, scale, 0, 0, 1, 0);
+      make_k4a_bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv, Sq, Sk, H, strides, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dkv_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dkv_wgmma_kernel<88>, B, a, s);

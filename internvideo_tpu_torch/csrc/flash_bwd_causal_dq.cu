@@ -69,7 +69,10 @@
 //   backward; flash_bwd.cu) walks pipelined (kPipelined): tile t + 1's S and
 //   dP are issued before tile t's dQ and waited for alone, so its exp2 and
 //   ds run while dQ of tile t is on the tensor cores. K5's kernel keeps the
-//   walk that waits for each product.
+//   walk that waits for each product: its causal and windowed tiles are
+//   skipped per warpgroup, and the pipelined walk with that skip spilled at
+//   (128, 128) and ran 0.74-0.82 x at the RL shapes (its skip loop alone
+//   cost K4a's dq 0.81 x; PERF.md, PR 12).
 // TMA zero-fills rows past Sq / Sk; rows past Sq have p = 0 (LSE +inf) and
 // are not stored. fp32 inputs take a CUDA-core kernel (the parity checks,
 // not the bf16 main path).
@@ -676,8 +679,7 @@ cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, cons
                                int Sk, int H, int D, const long long* strides, float scale,
                                void* stream) {
   const CausalBwdArgs a =
-      make_causal_bwd_args(q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr, Sq,
-                           Sk, H, k4a_strides(strides).s, scale, 0, 0, 1, 0);
+      make_k4a_bwd_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, Sq, Sk, H, strides, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dq_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dq_wgmma_kernel<88>, B, a, s);

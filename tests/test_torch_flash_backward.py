@@ -23,7 +23,8 @@ from internvideo_tpu_torch.ops.attention import dot_product_attention
 
 # (B, Sq, Sk, H, D): the JAX kernel tests' shape, the ragged route at head
 # dim 88, and both one-sided tails; then the edges of the card kernels'
-# tiles (128 query rows, 64 keys a step; 64 keys, 64 rows a step at d 88):
+# tiles (dq: 128 query rows, 64 keys a step; dk/dv: 128 keys, 64 rows a
+# step, walked in halves of 32 rows at d 88):
 # one past 128 and 64, one short of 128 and 64, Sq != Sk both ways, Sq < 64.
 SHAPES = [
     (2, 256, 256, 2, 64),

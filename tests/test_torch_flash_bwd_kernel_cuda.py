@@ -110,9 +110,9 @@ def test_gradients_reach_the_projection():
 
 
 # The edges of the bf16 kernels' tiles (csrc/flash_bwd_causal_{dq,dkv}.cu:
-# 128 query rows a dq CTA, 64 keys a step; 64 keys a dk/dv CTA at d 88 and
-# 128 at d 64, 64 rows a step): (B, Sq, Sk, H) one past and one short of 64
-# and 128, Sq != Sk both ways, Sq < 64.
+# 128 query rows a dq CTA, 64 keys a step; 128 keys a dk/dv CTA at d 64 and
+# 88, 64 rows a step, walked in halves of 32 rows at d 88): (B, Sq, Sk, H)
+# one past and one short of 64 and 128, Sq != Sk both ways, Sq < 64.
 EDGE_SHAPES = [
     (1, 65, 63, 2),
     (1, 63, 65, 2),
