@@ -11,11 +11,14 @@ non-zero and prints no result):
   2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
      the ptxas report and, on a line of its own for each, the registers
      and spill bytes of each instantiation of K5's wgmma forward, dq and
-     dk/dv kernels, and of K4a's (the same dq / dk/dv bodies at d 64, 88);
+     dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88) and
+     of K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128);
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
-     kernel tests' shapes (fp32, max-abs 2e-5) and at the encoder's
+     kernel tests' shapes (fp32, max-abs 2e-5), at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
-     tensor (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2);
+     tensor (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2), and in bf16 at the
+     edges of the wgmma kernel's 128-row query tile and 64-key stages (Sq
+     1, 127, 129 against Sk 65, 129, 193; d 64 and 88; the same bars);
   4. the main path: `internvideo_tpu_torch.cli.eval` on
      configs/torch/eval_classification_1b.py (InternVideo2-1B, 16 x 224 px,
      bf16, B = 16); every kernel launch count is reset just before and
@@ -53,7 +56,9 @@ non-zero and prints no result):
      K4b) in fp32 at small shapes of every instantiated head dim (max-abs
      2e-5 forward, 5e-4 grads), and in bf16 at the path's shapes on views of
      one (B, S, 3W) tensor: (32, 833, 16, 88) for K2 / K4b / K3 and the CLIP
-     teacher's (512, 257, 25, 128) for K3 (rel-L2 <= 1e-2);
+     teacher's (512, 257, 25, 128) for K3 (rel-L2 <= 1e-2); K2 in bf16 at
+     the wgmma kernel's tile edges (phase 3's, and S = 196) at every
+     instantiated head dim (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2);
  12. the pretrain main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/pretrain_1b_umt.py (1B student at 16 x 224, S = 833,
      CLIP-6B and MAE-g14 teachers, B = 32) for 3 steps; the launch counts are
@@ -71,8 +76,9 @@ non-zero and prints no result):
  14. times with CUDA events: the pretrain step at B = 32 on a device-resident
      batch (ms, clips/s) split into CLIP teacher, MAE teacher and the
      student's forward + backward + update; each new kernel at its path
-     shape beside its plain version, its bound and the SDPA yardstick; one
-     more step under torch.profiler;
+     shape beside its plain version, its bound and the SDPA yardstick, and
+     K1 at the MAE teacher's (32, 4096, 16, 88); one more step under
+     torch.profiler;
  15. the causal / narrow-v flash kernel (K5) vs its plain version on the
      card: fp32 at the JAX kernel tests' causal shapes (ragged S = 200, the
      72 / 200 / 128 query offset, d_v 32 < d_qk 64; max-abs 2e-5) and bf16
@@ -328,6 +334,7 @@ TRAIN_STEPS = 3
 CONFIG_PRETRAIN = "configs/torch/pretrain_1b_umt.py"
 PRETRAIN_SHAPE = (32, 833, 16, 88)  # B, S, H, head_dim of the masked 1B student
 TEACHER_SHAPE = (512, 257, 25, 128)  # B*T, S, H, head_dim of the CLIP-6B teacher
+MAE_TEACHER_SHAPE = (32, 4096, 16, 88)  # B, S, H, head_dim of the VideoMAE-g14 teacher (K1)
 PRETRAIN_STEPS = 3
 PRESET_8B, PRESET_2B = "qwen3_8b_mla", "qwen3_2b_mla"
 LLM_DEPTH_8B, VOCAB = 36, 151936
@@ -403,6 +410,9 @@ NORM_SHAPE = (16 * 4097, 1408)
 # (tools_torch/compare_k5_fwd.py), not measured here.
 K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_fwd.py"}
+K1K2_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows (attn_fwd.cuh's "
+                          "bf16 body, which K3 and K11 keep)",
+                "times_beside_ms": "PERF.md section 6, tools_torch/compare_fwd_k1k2.py"}
 K5_BWD_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows; dk/dv at d_qk "
                             "256 split over two CTAs that each recompute P^T and dS^T",
                   "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_bwd.py"}
@@ -438,6 +448,12 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     operations and `nbytes` of device-memory traffic."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fwd_bound(b, s, h, d) -> tuple[float, str]:
+    """_bound of a non-causal attention forward at (B, S, H, D) bf16: 4 B H
+    S^2 d operations; q, k, v read and out written once, the LSE written."""
+    return _bound(4 * b * h * s * s * d, 4 * b * s * h * d * 2 + b * h * s * 4)
 
 
 def _ptxas(log: str, pattern: str, label, count: int) -> dict:
@@ -479,6 +495,41 @@ def _ptxas_k4a(log: str) -> dict:
     <D>, K5's bodies at D = 64 and 88)."""
     return _ptxas(log, r"flash_bwd_(dq|dkv)_wgmma_kernelILi(\d+)E",
                   lambda m: f"{m[1]} ({m[2]}, {m[2]})", 4)
+
+
+def _ptxas_k1k2(log: str) -> dict:
+    """The ptxas report of K1's and K2's bf16 kernels ({flash,small_s}_fwd_
+    wgmma_kernel<D>, K5's forward body at D = 64, 88 and 64, 72, 88, 128)."""
+    return _ptxas(log, r"(flash|small_s)_fwd_wgmma_kernelILi(\d+)E",
+                  lambda m: f"{m[1]}_fwd ({m[2]}, {m[2]})", 6)
+
+
+# The edges of the wgmma forward's 128-row query tile (one row, one short,
+# one past) against those of its 64-key stages (one key past one, two and
+# three stages): (Sq, Sk).
+FWD_TILE_EDGES = [(sq, sk) for sq in (1, 127, 129) for sk in (65, 129, 193)]
+
+
+def _fwd_edges_bf16(fa, kernel: str, dims, edges, g) -> None:
+    """`kernel` ("flash_fwd": K1, "small_s_fwd": K2) in bf16 at each (Sq, Sk)
+    of `edges` and head dim of `dims`, held to the plain version: out rel-L2
+    <= 1e-2, LSE max-abs <= 1e-2."""
+    worst = (0.0, 0.0)
+    for d in dims:
+        for sq, sk in edges:
+            q = torch.randn(2, sq, 4, d, device="cuda", generator=g).bfloat16()
+            k, v = (torch.randn(2, sk, 4, d, device="cuda", generator=g).bfloat16()
+                    for _ in range(2))
+            out, lse = fa._flash_fwd_cuda(q, k, v, d ** -0.5, kernel=kernel)
+            ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5)
+            torch.cuda.synchronize()
+            rel, e_lse = _rel(out, ref), (lse - ref_lse).abs().max().item()
+            if not (rel <= 1e-2 and e_lse <= 1e-2):
+                raise AssertionError(f"{kernel} bf16 disagrees with its plain version at "
+                                     f"(Sq, Sk, d) {(sq, sk, d)}: rel-L2 {rel}, lse {e_lse}")
+            worst = (max(worst[0], rel), max(worst[1], e_lse))
+    print(f"{kernel} bf16 tile edges (Sq, Sk) {edges} x d {list(dims)}: worst out rel-L2 "
+          f"{worst[0]:.3e}, lse max-abs {worst[1]:.3e} (bars 1e-2)", flush=True)
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -533,6 +584,7 @@ def check_kernel(fa) -> None:
           flush=True)
     if not (rel <= 1e-2 and e_lse <= 1e-2):
         raise AssertionError("bf16 kernel disagrees with its plain version")
+    _fwd_edges_bf16(fa, "flash_fwd", fa.KERNEL_HEAD_DIMS, FWD_TILE_EDGES, g)
 
 
 def run_main_path(fa) -> int:
@@ -1024,6 +1076,7 @@ def check_pretrain_kernels(fa) -> dict:
           flush=True)
     if not max(rels) <= 2e-2:
         raise AssertionError("bf16 fused qkv gradients disagree with the plain composition")
+    _fwd_edges_bf16(fa, "small_s_fwd", fa.SMALL_S_HEAD_DIMS, FWD_TILE_EDGES + [(196, 196)], g)
     return out_err
 
 
@@ -1188,11 +1241,22 @@ def time_pretrain_kernels(fa, card) -> dict:
                             iters=20, warmup=2),
                 plain_ms=plain_bwd, library_ms=sdpa_bwd)
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
-    res["small_s_fwd"]["bound"] = _bound(4 * b * h * s * s * d, 4 * b * s * h * d * 2 + b * h * s * 4)
+    res["small_s_fwd"]["bound"] = _fwd_bound(b, s, h, d)
     res["small_s_bwd_dq"]["bound"] = _bound(6 * b * h * s * s * d, io_bytes + b * s * h * d * 2)
     res["small_s_bwd_dkv"]["bound"] = _bound(8 * b * h * s * s * d,
                                              io_bytes + 2 * b * s * h * d * 2)
     del q, k, v, do, out, lse, delta, dq, dk, dv
+
+    b, s, h, d = MAE_TEACHER_SHAPE  # K1 in the MAE teacher (qkv views, as its Block gives)
+    _, (q, k, v) = _qkv_views(b, s, h, d, g)
+    with torch.no_grad():
+        res["flash_fwd_mae_teacher"] = dict(
+            ms=_time_ms(lambda: fa._flash_fwd_cuda(q, k, v, d ** -0.5), iters=10, warmup=2),
+            plain_ms=_time_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5),
+                              iters=1),
+            library_ms=_sdpa_fwd_ms(q, k, v),
+            bound=_fwd_bound(b, s, h, d))
+    del q, k, v
 
     for tag, (b, s, h, d) in (("student", PRETRAIN_SHAPE), ("teacher", TEACHER_SHAPE)):
         w = h * d
@@ -2421,7 +2485,7 @@ def time_hico_kernels(fa, card) -> dict:
                       iters=50, warmup=5)
         plain_ms = _time_ms(lambda: fa.small_s_attention_ref(q, k, v, scale), iters=3)
         lib_ms = _sdpa_fwd_ms(q, k, v)
-    bound = _bound(4 * b * h * s * s * d, 4 * b * s * h * d * 2 + b * h * s * 4)
+    bound = _fwd_bound(b, s, h, d)
     print(f"[{card}] K2 small_s_fwd {HICO_TOWER_SHAPE} (the HiCo tower at 128 frames) bf16: "
           f"kernel {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, "
           f"flash SDPA yardstick {lib_ms:.4f} ms", flush=True)
@@ -4434,7 +4498,9 @@ def main() -> int:
         ("forward", "causal_fwd_bf16_kernel", 12), ("dq", "causal_bwd_dq_bf16_kernel", 10),
         ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
     k4a_ptxas = _ptxas_k4a(build_log)
-    for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas)):
+    k1k2_ptxas = _ptxas_k1k2(build_log)
+    for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas),
+                      ("K1 and K2", k1k2_ptxas)):
         print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what} bf16 (wgmma + TMA): " + "; ".join(
             f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
             f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
@@ -4685,8 +4751,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    b, s, h, d = MAIN_SHAPE
-    fwd_bound = _bound(4 * b * h * s * s * d, (4 * b * s * h * d) * 2 + b * h * s * 4)
+    fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
     bounds = {"flash_bwd_dq": _bound(6 * b * h * s * s * d, io_bytes + b * s * h * d * 2),
@@ -4710,8 +4775,8 @@ def main() -> int:
                 "library_ms": r["library_ms"], "shape": list(shape)}
 
     kernels = [{
-        "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-        "replaces": jax_fa + "153",
+        "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd_causal.cu",
+        "c_entry": src + "flash_fwd.cu", "replaces": jax_fa + "153",
         "launches": (launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"]
                      + ret_launches["flash_fwd"]),
         "launches_by_path": by_path("flash_fwd", launches),
@@ -4720,6 +4785,17 @@ def main() -> int:
         "library_ms": t["sdpa"]["eval"]["fwd"], "shape": list(MAIN_SHAPE),
         "retrieval_shapes": {"tower": list(RETRIEVAL_TOWER_SHAPE),
                              "fusion_cross_attention": "(32, 32, 16, 64) x (32, 1025, 16, 64)"},
+        "finetune": {"shape": list(TRAIN_SHAPE), "ms": t["flash_fwd"],
+                     "library_ms": t["sdpa"]["train"]["fwd"],
+                     "bound_ms": _fwd_bound(*TRAIN_SHAPE)[0]},
+        "mae_teacher": {"shape": list(MAE_TEACHER_SHAPE),
+                        **{k: pk["flash_fwd_mae_teacher"][k]
+                           for k in ("ms", "plain_ms", "library_ms")},
+                        "bound_ms": pk["flash_fwd_mae_teacher"]["bound"][0],
+                        "bound_by": pk["flash_fwd_mae_teacher"]["bound"][1]},
+        "design": "K5's wgmma + TMA forward body at (D, D), non-causal",
+        "earlier_design": K1K2_EARLIER,
+        "ptxas": {k: v for k, v in k1k2_ptxas.items() if k.startswith("flash_fwd ")},
     }] + [{
         "name": name, "route": "cuda", "source": src + body,
         "c_entry": src + "flash_bwd.cu", "replaces": jax_fa + str(line),
@@ -4732,8 +4808,11 @@ def main() -> int:
     } for name, line, body, kind in (
         ("flash_bwd_dq", 468, "flash_bwd_causal_dq.cu", "dq"),
         ("flash_bwd_dkv", 613, "flash_bwd_causal_dkv.cu", "dkv"))] + [
-        entry("small_s_fwd", "small_s_fwd.cu", 1505, pk["small_s_fwd"],
-              pre_err["small_s_fwd"], PRETRAIN_SHAPE),
+        {**entry("small_s_fwd", "flash_fwd_causal.cu", 1505, pk["small_s_fwd"],
+                 pre_err["small_s_fwd"], PRETRAIN_SHAPE),
+         "c_entry": src + "small_s_fwd.cu", "design": "K5's wgmma + TMA forward body at (D, D), non-causal",
+         "earlier_design": K1K2_EARLIER,
+         "ptxas": {k: v for k, v in k1k2_ptxas.items() if k.startswith("small_s_fwd ")}},
         entry("small_s_bwd_dq", "small_s_bwd.cu", 1524, pk["small_s_bwd_dq"],
               pre_err["small_s_bwd_dq"], PRETRAIN_SHAPE),
         entry("small_s_bwd_dkv", "small_s_bwd.cu", 1553, pk["small_s_bwd_dkv"],

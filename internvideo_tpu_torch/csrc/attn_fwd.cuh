@@ -1,11 +1,14 @@
-// Device bodies of the attention forward kernels (sm_90a), shared by
-// flash_fwd.cu (K1), small_s_fwd.cu (K2) and fused_qkv.cu (K3). Each of
-// those files defines its own __global__ kernels, which call these bodies,
-// so every TPU kernel keeps its own symbol, entry point and launch count.
+// Device bodies of the attention forward kernels (sm_90a). The bf16
+// mma.sync body is K3's and K11's (fused_qkv.cu, fused_qkv_large.cu, with
+// their norm on load); the fp32 body is also K1's and K2's (flash_fwd.cu,
+// small_s_fwd.cu), whose bf16 kernels run K5's wgmma + TMA body
+// (flash_fwd_causal.cu) instead. Each of those files defines its own
+// __global__ kernels, which call these bodies, so every TPU kernel keeps
+// its own symbol, entry point and launch count.
 //
-// One CTA per (64-query tile, head, batch); 4 warps of 16 query rows; K/V
-// tiles of 64 keys double-buffered in shared memory with cp.async; QK^T and
-// PV on mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with P kept in
+// bf16: one CTA per (64-query tile, head, batch); 4 warps of 16 query rows;
+// K/V tiles of 64 keys double-buffered in shared memory with cp.async; QK^T
+// and PV on mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with P kept in
 // registers between the two; online softmax in the base-2 domain (scale *
 // log2(e) folded into the score scale). Head dims that are not a multiple of
 // 16 (88) are zero-padded to the next one in shared memory for the QK^T
@@ -13,9 +16,10 @@
 // -inf, query rows >= Sq are never stored. fp32 inputs take a CUDA-core FMA
 // body (the parity checks, not the bf16 main path).
 //
-// kNorm = true applies K3's whole-dim QK-RMSNorm to each q and k tile as it
-// lands in shared memory (or registers, fp32), from per-row 1/rms factors a
-// pre-pass wrote (fused_qkv.cu): x -> w * (x * rstd) with the cast chain of
+// The bf16 body, and the fp32 body with kNorm = true, apply K3's whole-dim
+// QK-RMSNorm to each q and k tile as it lands in shared memory (registers,
+// fp32), from per-row 1/rms factors a pre-pass wrote (fused_qkv.cu):
+// x -> w * (x * rstd) with the cast chain of
 // internvideo_tpu/ops/flash_attention.py:1706-1710 (bf16: the normed value
 // is rounded to bf16, multiplied by the fp32 weight, rounded again). The
 // normalized q and k never reach device memory.
@@ -84,12 +88,13 @@ __device__ __forceinline__ void rms_norm_tile(__nv_bfloat16* tile, const float* 
   }
 }
 
-template <int D, bool kNorm>
+// The bf16 body applies the norm on load (K3 and K11 are its only users)
+// and writes no LSE.
+template <int D>
 __device__ __forceinline__ void attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                                               const __nv_bfloat16* __restrict__ k,
                                               const __nv_bfloat16* __restrict__ v,
-                                              __nv_bfloat16* __restrict__ o,
-                                              float* __restrict__ lse, int Sq, int Sk, int H,
+                                              __nv_bfloat16* __restrict__ o, int Sq, int Sk,
                                               const FwdStrides& st, float scale_log2,
                                               const QkNorm& nrm) {
   using T = FwdTile<D>;
@@ -156,12 +161,10 @@ __device__ __forceinline__ void attn_fwd_bf16(const __nv_bfloat16* __restrict__ 
     }
     __syncthreads();
 
-    if constexpr (kNorm) {
-      if (j == 0) rms_norm_tile<D>(sQ, nrm.q_rstd + (long long)b * Sq, nrm.q_w + h * D, m0, Sq, tid);
-      rms_norm_tile<D>(sK + cur * T::kTile, nrm.k_rstd + (long long)b * Sk, nrm.k_w + h * D,
-                       j * kFwdBlockN, Sk, tid);
-      __syncthreads();
-    }
+    if (j == 0) rms_norm_tile<D>(sQ, nrm.q_rstd + (long long)b * Sq, nrm.q_w + h * D, m0, Sq, tid);
+    rms_norm_tile<D>(sK + cur * T::kTile, nrm.k_rstd + (long long)b * Sk, nrm.k_w + h * D,
+                     j * kFwdBlockN, Sk, tid);
+    __syncthreads();
 
     if (j == 0) {
 #pragma unroll
@@ -268,9 +271,6 @@ __device__ __forceinline__ void attn_fwd_bf16(const __nv_bfloat16* __restrict__ 
     for (int n = 0; n < T::kNV; ++n) {
       *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) =
           pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    }
-    if (lse != nullptr && t == 0) {
-      lse[((long long)b * H + h) * Sq + row] = l > 0.f ? (m_run[r] + log2f(l)) * kLn2 : -INFINITY;
     }
   }
 }

@@ -57,14 +57,14 @@
 //   the K stage, so every role follows one walk, and an index of -1 ends it;
 // - two consumer warpgroups of 64 query rows each run S = Q K^T as wgmma
 //   m64n64k16 with both operands in shared memory (K-major, 128-byte
-//   swizzle; 64-byte at d 32), the online softmax in the base-2 domain on
-//   the fp32 accumulator fragments, then O += P V as wgmma with P
-//   converted to bf16 A fragments in registers (the RS form) and V read
-//   from its (keys, d_v) tile with the transpose bit. A tile's P V is
-//   issued together with the next tile's S (wait_group 1), so the softmax
-//   of one tile runs while the other product is in flight, and the two
-//   warpgroups take turns to issue (named barriers 1 and 2: ping-pong), so
-//   one's softmax also runs under the other's products;
+//   swizzle; 64-byte at widths no multiple of 64), the online softmax in
+//   the base-2 domain on the fp32 accumulator fragments, then O += P V as
+//   wgmma with P converted to bf16 A fragments in registers (the RS form)
+//   and V read from its (keys, d_v) tile with the transpose bit. A tile's
+//   P V is issued together with the next tile's S (wait_group 1), so the
+//   softmax of one tile runs while the other product is in flight, and the
+//   two warpgroups take turns to issue (named barriers 1 and 2: ping-pong),
+//   so one's softmax also runs under the other's products;
 // - masks: the wgmma accumulator of a warp is mma.sync's m16n8 fragment
 //   repeated over 8-column chunks: element e of chunk n sits at row
 //   16 * warp + lane / 4 + 8 * (e >> 1) and key 8 * n + 2 * (lane % 4) +
@@ -83,6 +83,20 @@
 // box never reads into the next head or batch); stores check the row.
 // fp32 inputs take a CUDA-core FMA kernel (the parity checks and the fp32
 // token-identity check, not the bf16 main path).
+//
+// K1 and K2 (flash_fwd.cu, small_s_fwd.cu: the InternVideo2 encoder and its
+// finetune, the MAE teacher, the retrieval tower and rerank, the UMT
+// student, the InternVideo3 / HiCo vision towers) run this body in bf16
+// under their own kernel names (flash_fwd_wgmma_kernel,
+// small_s_fwd_wgmma_kernel) at (D, D), non-causal, without segments, window
+// or groups, launched by flash_fwd_wgmma (the end of this file). A head dim
+// that is no multiple of 32 (88, 72) is stored as three 32-column panels of
+// 64-byte swizzle (96 columns); each TMA map keeps the true width, so the
+// columns past it load as zeros and add nothing to S, P V accumulates all
+// 96 columns (48 registers, one m64n96 wgmma a k-step) and the stores write
+// the true width. Every exp2 of the softmax is ex2.approx.ftz (hopper.cuh
+// exp2_ftz), one SFU instruction: exp2f's subnormal handling cost K1 0.5-3 %
+// and changed no output bit at its path shapes (PERF.md, section 6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC, linked with the other sources into one shared
@@ -108,16 +122,21 @@ struct Strides {  // element strides of (batch, sequence, head); the head dim is
 
 template <int DQK, int DV>
 struct Tile {
-  static_assert(DQK % 32 == 0 && DV % 32 == 0, "head dims must be multiples of 32");
+  static_assert(DQK % 8 == 0 && DV % 8 == 0, "head dims must be multiples of 8 (16-byte rows)");
   static constexpr int kBlockN = 64;  // keys per K/V stage
-  static constexpr int kStages = DQK >= 256 ? 3 : 4;
-  static constexpr int kQCols = DQK < 64 ? DQK : 64;  // columns of a panel (one TMA box)
-  static constexpr int kVCols = DV < 64 ? DV : 64;
+  // Panels of 64 columns where a head dim is a multiple of 64, else of 32
+  // (one TMA box each); the stored widths kQW / kVW round up to whole panels
+  // (88 -> 96, 72 -> 96), the columns past the true width zero-filled by TMA.
+  static constexpr int kQCols = DQK % 64 == 0 ? 64 : 32;
+  static constexpr int kVCols = DV % 64 == 0 ? 64 : 32;
+  static constexpr int kQW = (DQK + kQCols - 1) / kQCols * kQCols;
+  static constexpr int kVW = (DV + kVCols - 1) / kVCols * kVCols;
+  static constexpr int kStages = kQW >= 256 ? 3 : 4;
   static constexpr int kQRow = 2 * kQCols;  // bytes of a panel row = the swizzle span
   static constexpr int kVRow = 2 * kVCols;
-  static constexpr int kQBytes = kBlockM * DQK * 2;
-  static constexpr int kKBytes = kBlockN * DQK * 2;
-  static constexpr int kVBytes = kBlockN * DV * 2;
+  static constexpr int kQBytes = kBlockM * kQW * 2;
+  static constexpr int kKBytes = kBlockN * kQW * 2;
+  static constexpr int kVBytes = kBlockN * kVW * 2;
   // Shared memory from a 1024-byte boundary: Q, each stage's K, each
   // stage's V (all whole swizzle atoms), each stage's key segment ids and
   // tile index, then the barriers; + 1024 to align the base.
@@ -140,15 +159,18 @@ __device__ __forceinline__ int2 key_span(int r0, int rows, int Sq, int Sk, int c
   return make_int2(lo, end);
 }
 
+// The bf16 kernel's body, behind K5's kernel and K1's and K2's (below); the
+// maps are the kernel's __grid_constant__ parameters.
 template <int DQK, int DV, bool kSeg>
-__global__ void __launch_bounds__(kThreads, 1)
-    causal_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
-                           const __grid_constant__ CUtensorMap k_map,
-                           const __grid_constant__ CUtensorMap v_map,
-                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                           const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int Sq,
-                           int Sk, int H, long long o_b, long long o_s, long long o_h,
-                           float scale_log2, int causal, int q_off, int group, int window) {
+__device__ __forceinline__ void fwd_bf16_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                              const CUtensorMap& v_map,
+                                              __nv_bfloat16* __restrict__ o,
+                                              float* __restrict__ lse,
+                                              const int* __restrict__ q_seg,
+                                              const int* __restrict__ kv_seg, int Sq, int Sk,
+                                              int H, long long o_b, long long o_s, long long o_h,
+                                              float scale_log2, int causal, int q_off, int group,
+                                              int window) {
   using T = Tile<DQK, DV>;
   constexpr int kBlockN = T::kBlockN, kStages = T::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -206,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::prefetch_map(&v_map);
       hp::mbar_arrive_expect_tx(q_full, T::kQBytes);
 #pragma unroll
-      for (int p = 0; p < DQK / T::kQCols; ++p)
+      for (int p = 0; p < T::kQW / T::kQCols; ++p)
         hp::tma_load_4d(smem + p * kBlockM * T::kQRow, &q_map, q_full, p * T::kQCols, m0, h, b);
     }
     const int hk = h / group;  // GQA: the group's K/V head
@@ -226,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hp::mbar_arrive_expect_tx(&k_full[stage], T::kKBytes);
         unsigned char* dst = sK + stage * T::kKBytes;
 #pragma unroll
-        for (int p = 0; p < DQK / T::kQCols; ++p)
+        for (int p = 0; p < T::kQW / T::kQCols; ++p)
           hp::tma_load_4d(dst + p * kBlockN * T::kQRow, &k_map, &k_full[stage], p * T::kQCols,
                           key0, hk, b);
       } else {
@@ -239,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hp::mbar_arrive_expect_tx(&v_full[stage], T::kVBytes);
         unsigned char* dst = sV + stage * T::kVBytes;
 #pragma unroll
-        for (int p = 0; p < DV / T::kVCols; ++p)
+        for (int p = 0; p < T::kVW / T::kVCols; ++p)
           hp::tma_load_4d(dst + p * kBlockN * T::kVRow, &v_map, &v_full[stage], p * T::kVCols,
                           key0, hk, b);
       }
@@ -274,9 +296,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int my_turn = 1 + wg, their_turn = 2 - wg;
     if (wg == 1) hp::bar_arrive(1, 2 * 128);  // warpgroup 0 goes first
 
-    float acc[DV / 2];
+    float acc[T::kVW / 2];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::kVW / 2; ++i) acc[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};  // running max of base-2 scores, rows g and g+8
     float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
     // S of the current tile (fp32) and P of the previous one (bf16 A
@@ -290,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::wgmma_fence();
       const unsigned char* kt = sK + stage * T::kKBytes;
 #pragma unroll
-      for (int ks = 0; ks < DQK / 16; ++ks) {
+      for (int ks = 0; ks < T::kQW / 16; ++ks) {
         const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
         const uint64_t da =
             hp::make_desc(sQw + p * kBlockM * T::kQRow + c, T::kQRow, 16, 8 * T::kQRow);
@@ -351,14 +373,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         const float m_use = mx[r] == -INFINITY ? 0.f : mx[r];  // row fully masked so far
-        alpha[r] = exp2f(m_run[r] - m_use);
+        alpha[r] = hp::exp2_ftz(m_run[r] - m_use);
         m_run[r] = mx[r];
         mx[r] = m_use;
       }
       float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < kBlockN / 2; ++i) {
-        const float p = exp2f(s[i] - mx[(i >> 1) & 1]);
+        const float p = hp::exp2_ftz(s[i] - mx[(i >> 1) & 1]);
         s[i] = p;
         rs[(i >> 1) & 1] += p;
       }
@@ -412,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hp::fence_regs(acc);
         release(&v_empty[p_stage]);
 #pragma unroll
-        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < T::kVW / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
         for (int kk = 0; kk < kBlockN / 16; ++kk)
           acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
@@ -445,6 +467,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 }
+
+// K5's bf16 kernel.
+template <int DQK, int DV, bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+    causal_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                           const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int Sq,
+                           int Sk, int H, long long o_b, long long o_s, long long o_h,
+                           float scale_log2, int causal, int q_off, int group, int window) {
+  fwd_bf16_body<DQK, DV, kSeg>(q_map, k_map, v_map, o, lse, q_seg, kv_seg, Sq, Sk, H, o_b, o_s,
+                               o_h, scale_log2, causal, q_off, group, window);
+}
+
+// K1's and K2's bf16 kernels (flash_fwd.cu's ivt_flash_fwd, small_s_fwd.cu's
+// ivt_small_s_fwd): the same body at d_v = d_qk = D, non-causal, without
+// segments, window or groups (compile-time constants here, so the per-tile
+// mask test reduces to the Sk tail).
+#define IVT_FWD_WGMMA_KERNEL(NAME)                                                            \
+  template <int D>                                                                            \
+  __global__ void __launch_bounds__(kThreads, 1)                                              \
+      NAME(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map, \
+           const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,          \
+           float* __restrict__ lse, int Sq, int Sk, int H, long long o_b, long long o_s,      \
+           long long o_h, float scale_log2) {                                                 \
+    fwd_bf16_body<D, D, false>(q_map, k_map, v_map, o, lse, nullptr, nullptr, Sq, Sk, H, o_b, \
+                               o_s, o_h, scale_log2, 0, 0, 1, 0);                             \
+  }
+IVT_FWD_WGMMA_KERNEL(flash_fwd_wgmma_kernel)
+IVT_FWD_WGMMA_KERNEL(small_s_fwd_wgmma_kernel)
+#undef IVT_FWD_WGMMA_KERNEL
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q is read from global memory (L1) per key tile so that
@@ -544,32 +598,39 @@ __global__ void __launch_bounds__(kF32Rows)
   lse[((long long)b * H + h) * Sq + row] = l_run > 0.f ? (m_run + log2f(l_run)) * kLn2 : -INFINITY;
 }
 
+// The three TMA maps (q, k, v) of a bf16 launch of tile Tile<DQK, DV>, and
+// `kern`'s shared-memory size set.
+template <int DQK, int DV, typename Kernel>
+cudaError_t prepare_bf16(Kernel kern, CUtensorMap (&maps)[3], const void* q, const void* k,
+                         const void* v, int B, int Sq, int Sk, int H, int Hkv, const Strides& st) {
+  using T = Tile<DQK, DV>;
+  cudaError_t err = hp::encode_bshd(&maps[0], q, B, Sq, H, DQK, st.q_b, st.q_s, st.q_h, kBlockM,
+                                    T::kQCols);
+  if (err == cudaSuccess && Sk > 0)
+    err = hp::encode_bshd(&maps[1], k, B, Sk, Hkv, DQK, st.k_b, st.k_s, st.k_h, T::kBlockN,
+                          T::kQCols);
+  if (err == cudaSuccess && Sk > 0)
+    err = hp::encode_bshd(&maps[2], v, B, Sk, Hkv, DV, st.v_b, st.v_s, st.v_h, T::kBlockN,
+                          T::kVCols);
+  if (err != cudaSuccess) return err;
+  if (Sk == 0) maps[1] = maps[2] = maps[0];  // no key tile is loaded: Q's map stands in
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+}
+
 template <int DQK, int DV, bool kSeg>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* q_seg, const int* kv_seg, int B, int Sq, int Sk, int H, int Hkv,
                    const Strides& st, float scale_log2, int causal, int q_off, int group,
                    int window, cudaStream_t stream) {
   if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    using T = Tile<DQK, DV>;
-    CUtensorMap maps[3];
-    cudaError_t err = hp::encode_bshd(&maps[0], q, B, Sq, H, DQK, st.q_b, st.q_s, st.q_h,
-                                      kBlockM, T::kQCols);
-    if (err == cudaSuccess && Sk > 0)
-      err = hp::encode_bshd(&maps[1], k, B, Sk, Hkv, DQK, st.k_b, st.k_s, st.k_h, T::kBlockN,
-                            T::kQCols);
-    if (err == cudaSuccess && Sk > 0)
-      err = hp::encode_bshd(&maps[2], v, B, Sk, Hkv, DV, st.v_b, st.v_s, st.v_h, T::kBlockN,
-                            T::kVCols);
-    if (err != cudaSuccess) return err;
-    if (Sk == 0) maps[1] = maps[2] = maps[0];  // no key tile is loaded: Q's map stands in
     auto kern = causal_fwd_bf16_kernel<DQK, DV, kSeg>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    CUtensorMap maps[3];
+    const cudaError_t err = prepare_bf16<DQK, DV>(kern, maps, q, k, v, B, Sq, Sk, H, Hkv, st);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
-    kern<<<grid, kThreads, T::kSmemBytes, stream>>>(
-        maps[0], maps[1], maps[2], static_cast<bf*>(o), lse, q_seg, kv_seg, Sq, Sk, H, st.o_b,
-        st.o_s, st.o_h, scale_log2, causal, q_off, group, window);
+    kern<<<dim3((Sq + kBlockM - 1) / kBlockM, H, B), kThreads, Tile<DQK, DV>::kSmemBytes,
+           stream>>>(maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, q_seg,
+                     kv_seg, Sq, Sk, H, st.o_b, st.o_s, st.o_h, scale_log2, causal, q_off, group,
+                     window);
   } else {
     const dim3 grid((Sq + kF32Rows - 1) / kF32Rows, H, B);
     causal_fwd_f32_kernel<DQK, DV, kSeg><<<grid, kF32Rows, 0, stream>>>(
@@ -578,6 +639,24 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
         scale_log2, causal, q_off, group, window);
   }
   return cudaGetLastError();
+}
+
+// A bf16 launch of K1's or K2's kernel `kern` at head dim D.
+template <int D, typename Kernel>
+cudaError_t launch_wgmma(Kernel kern, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Sq, int Sk, int H, const Strides& st,
+                         float scale_log2, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const cudaError_t err = prepare_bf16<D, D>(kern, maps, q, k, v, B, Sq, Sk, H, H, st);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((Sq + kBlockM - 1) / kBlockM, H, B), kThreads, Tile<D, D>::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, st.o_b, st.o_s,
+      st.o_h, scale_log2);
+  return cudaGetLastError();
+}
+
+Strides make_strides(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
 }  // namespace
@@ -598,9 +677,7 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
                                     int B, int Sq, int Sk, int H, int Dqk, int Dv,
                                     const long long* strides, float scale, int causal,
                                     int q_offset, int Hkv, int window, void* stream) {
-  const Strides st{strides[0], strides[1], strides[2],  strides[3],
-                   strides[4], strides[5], strides[6],  strides[7],
-                   strides[8], strides[9], strides[10], strides[11]};
+  const Strides st = make_strides(strides);
   const float scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
@@ -625,3 +702,36 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }
+
+namespace ivt {
+
+// K1's and K2's bf16 launches, called by flash_fwd.cu's ivt_flash_fwd
+// (small_s = false: flash_fwd_wgmma_kernel, head dims 64 and 88) and
+// small_s_fwd.cu's ivt_small_s_fwd (small_s = true: small_s_fwd_wgmma_kernel,
+// 64, 72, 88 and 128), with their C entries' arguments (12 strides: q, k, v,
+// o): this file's body at (D, D), non-causal, without segments, window or
+// groups. Returns cudaErrorInvalidValue for another head dim, or a tensor
+// cuTensorMapEncodeTiled refuses a TMA map for.
+cudaError_t flash_fwd_wgmma(bool small_s, const void* q, const void* k, const void* v, void* o,
+                            float* lse, int B, int Sq, int Sk, int H, int D,
+                            const long long* strides, float scale, void* stream) {
+  const Strides st = make_strides(strides);
+  const float sl2 = scale * kLog2e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define IVT_CASE(KERNEL, DIM)                                                              \
+  if (D == DIM)                                                                            \
+    return launch_wgmma<DIM>(KERNEL<DIM>, q, k, v, o, lse, B, Sq, Sk, H, st, sl2, s);
+  if (small_s) {
+    IVT_CASE(small_s_fwd_wgmma_kernel, 64)
+    IVT_CASE(small_s_fwd_wgmma_kernel, 72)
+    IVT_CASE(small_s_fwd_wgmma_kernel, 88)
+    IVT_CASE(small_s_fwd_wgmma_kernel, 128)
+  } else {
+    IVT_CASE(flash_fwd_wgmma_kernel, 64)
+    IVT_CASE(flash_fwd_wgmma_kernel, 88)
+  }
+#undef IVT_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace ivt

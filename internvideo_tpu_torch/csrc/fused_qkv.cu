@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(kFwdThreads)
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                               int S, int H, FwdStrides st, float scale_log2, QkNorm nrm) {
-  attn_fwd_bf16<D, true>(q, k, v, o, nullptr, S, S, H, st, scale_log2, nrm);
+  attn_fwd_bf16<D>(q, k, v, o, S, S, st, scale_log2, nrm);
 }
 
 template <int D>

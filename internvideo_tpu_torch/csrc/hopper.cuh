@@ -2,8 +2,8 @@
 // encoder (host), mbarrier init / arrive / expect-tx / wait, TMA tile loads,
 // named barriers, register reallocation between warpgroups, wgmma
 // shared-memory descriptors, the bf16 wgmma instructions (fp32
-// accumulators) in both operand forms, and the proxy fence between
-// threads' shared-memory writes and wgmma reads of them.
+// accumulators) in both operand forms, the proxy fence between threads'
+// shared-memory writes and wgmma reads of them, and exp2 on the SFU.
 //
 // Layout convention (the one TMA's swizzle and wgmma's descriptors share): a
 // tile of R rows whose row is `row_bytes` = 128 (64 bf16) or 64 (32 bf16)
@@ -368,6 +368,15 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&
 #pragma unroll
   for (int c = 0; c < N / kChunk; ++c)
     wgmma_rs<1>(cols<kChunk / 2>(d, c), a, desc_add(b, c * (kChunk / kCols) * panel), 1);
+}
+
+// 2^x on the SFU with subnormal results flushed to zero (ex2.approx.ftz:
+// one MUFU.EX2; exp2f without fast math adds a range test and two scalings
+// around it).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Orders this thread's generic-proxy writes to shared memory (st.shared)

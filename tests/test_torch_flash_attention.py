@@ -25,14 +25,17 @@ from internvideo_tpu_torch.ops.attention import dot_product_attention
 from internvideo_tpu_torch.ops.attention_xla import attention_xla
 
 # (B, Sq, Sk, H, D): the JAX kernel tests' shape, the ragged route at
-# head dim 88, both one-sided tails, and a single query row.
+# head dim 88, both one-sided tails, and a single query row; then the edges
+# of the Hopper kernel's 128-row query tile (one row, one short of it, one
+# past it) against those of its 64-key stages (one key past one stage, past
+# two, past three) at both head dims.
 SHAPES = [
     (2, 256, 256, 2, 64),
     (1, 257, 257, 2, 88),
     (1, 256, 263, 2, 64),
     (1, 263, 256, 2, 64),
     (1, 1, 257, 2, 88),
-]
+] + [(1, sq, sk, 1, d) for d in (88, 64) for sq in (1, 127, 129) for sk in (65, 129, 193)]
 
 
 def _qkv(b, sq, sk, h, d, seed=0, hkv=None):

@@ -77,3 +77,53 @@ def test_kernel_takes_strided_qkv_views_and_rejects_what_it_cannot_take():
     misaligned = torch.randn(1, 8, 2, 65, device="cuda").bfloat16()[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_with_lse(misaligned, misaligned, misaligned)
+
+
+# The edges of the Hopper kernel's tiles: 128 query rows a CTA (one row, one
+# short, one past), 64 keys a stage (one key past one, two and three stages).
+EDGES = [(sq, sk) for sq in (1, 127, 129) for sk in (65, 129, 193)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
+def test_kernel_tile_edges(dtype, d):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(d)
+    for sq, sk in EDGES:
+        q = torch.randn(2, sq, 3, d, device="cuda", generator=g).to(dt)
+        k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=g).to(dt) for _ in range(2))
+        before = fa.launch_count()
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.launch_count() == before + 1
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=str((sq, sk, d)))
+            torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=0, msg=str((sq, sk, d)))
+        else:
+            rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+            assert rel <= 1e-2, ((sq, sk, d), rel)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0, msg=str((sq, sk, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
+def test_kernel_on_projection_views_off_a_128_byte_boundary_is_deterministic(d):
+    """q / k / v as views of one (B, S, 3 H d) projection whose base sits 16
+    bytes past a 128-byte boundary (TMA's least alignment), k / v at their
+    H d offsets; two calls give bit-identical outputs."""
+    _card()
+    b, s, h = 2, 300, 4
+    flat = torch.randn(b * s * 3 * h * d + 8, device="cuda").bfloat16()
+    qkv = flat[8:].view(b, s, 3 * h * d)
+    assert qkv.data_ptr() % 128 == 16
+    q, k, v = (x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1))
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    again, lse_again = fa.flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5)
+    assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() <= 1e-2
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)

@@ -23,11 +23,17 @@ from internvideo_tpu_torch.ops import _build
 from internvideo_tpu_torch.ops import flash_attention as fa
 
 # (B, Sq, Sk, H, D): the masked-pretrain shape family scaled down as the JAX
-# test has it, a second head count, and a ragged Sq != Sk.
+# test has it, a second head count, and a ragged Sq != Sk; then the vision
+# towers' S = 196 at the head dims whose Hopper kernel stores 96 columns (72,
+# 88), and Sq != Sk on either side of the kernel's 128-row query tile.
 SHAPES = [
     (2, 205, 205, 4, 24),
     (1, 413, 413, 8, 24),
     (1, 205, 300, 2, 24),
+    (1, 196, 196, 2, 72),
+    (1, 196, 196, 2, 88),
+    (1, 129, 127, 2, 72),
+    (1, 127, 193, 2, 88),
 ]
 
 

@@ -86,3 +86,56 @@ def test_small_s_takes_strided_qkv_views_and_rejects_what_it_cannot_take():
     misaligned = torch.randn(1, 8, 2, 65, device="cuda").bfloat16()[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         apply(misaligned, misaligned, misaligned)
+
+
+# The edges of the Hopper forward's tiles: 128 query rows a CTA (one row, one
+# short, one past), 64 keys a stage (one key past one, two and three stages),
+# and the vision towers' S = 196.
+EDGES = [(sq, sk) for sq in (1, 127, 129) for sk in (65, 129, 193)] + [(196, 196)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa.SMALL_S_HEAD_DIMS)
+def test_small_s_forward_tile_edges(dtype, d):
+    """K2's output and LSE (the LSE K4b reads) at the tile edges."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(d)
+    for sq, sk in EDGES:
+        q = torch.randn(2, sq, 3, d, device="cuda", generator=g).to(dt)
+        k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=g).to(dt) for _ in range(2))
+        before = fa.launch_count("small_s_fwd")
+        out, lse = fa._flash_fwd_cuda(q, k, v, d ** -0.5, kernel="small_s_fwd")
+        torch.cuda.synchronize()
+        assert fa.launch_count("small_s_fwd") == before + 1
+        ref, ref_lse = fa.small_s_attention_ref(q, k, v, d ** -0.5)
+        shape = (sq, sk, d)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=str(shape))
+            torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=0, msg=str(shape))
+        else:
+            assert _rel(out, ref) <= 1e-2, (shape, _rel(out, ref))
+            torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0, msg=str(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.SMALL_S_HEAD_DIMS)
+def test_small_s_on_projection_views_off_a_128_byte_boundary_is_deterministic(d):
+    """q / k / v as (B, S, H*D) views of one projection whose base sits 16
+    bytes past a 128-byte boundary (TMA's least alignment); two calls give
+    bit-identical outputs."""
+    _card()
+    b, s, h = 2, 196, 4
+    flat = torch.randn(b * s * 3 * h * d + 8, device="cuda").bfloat16()
+    qkv = flat[8:].view(b, s, 3 * h * d)
+    assert qkv.data_ptr() % 128 == 16
+    q, k, v = qkv.split(h * d, dim=-1)
+    before = fa.launch_count("small_s_fwd")
+    out = fa.small_s_attention(q, k, v, h, d ** -0.5)
+    again = fa.small_s_attention(q, k, v, h, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launch_count("small_s_fwd") == before + 2
+    ref, _ = fa.small_s_attention_ref(*(x.unflatten(-1, (h, d)) for x in (q, k, v)), d ** -0.5)
+    assert _rel(out, ref.flatten(-2)) <= 1e-2
+    assert torch.equal(out, again)
