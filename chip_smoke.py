@@ -11,8 +11,10 @@ non-zero and prints no result):
   2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
      the ptxas report and, on a line of its own for each, the registers
      and spill bytes of each instantiation of K5's wgmma forward, dq and
-     dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88) and
-     of K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128);
+     dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88), of
+     K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128), of
+     K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128) and of K7's wgmma
+     s8 GEMM (f32 and bf16 output); fails on a spill in K4b's or K7's;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5), at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -58,7 +60,10 @@ non-zero and prints no result):
      one (B, S, 3W) tensor: (32, 833, 16, 88) for K2 / K4b / K3 and the CLIP
      teacher's (512, 257, 25, 128) for K3 (rel-L2 <= 1e-2); K2 in bf16 at
      the wgmma kernel's tile edges (phase 3's, and S = 196) at every
-     instantiated head dim (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2);
+     instantiated head dim (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2); K4b
+     in bf16 at its tiles' edges (Sq and Sk each 1, 63, 65, 127, 129, 833;
+     every instantiated head dim; q, k, v views of projections; dq / dk /
+     dv rel-L2 <= 1e-2 each);
  12. the pretrain main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/pretrain_1b_umt.py (1B student at 16 x 224, S = 833,
      CLIP-6B and MAE-g14 teachers, B = 32) for 3 steps; the launch counts are
@@ -239,7 +244,10 @@ non-zero and prints no result):
      bf16 output, and at every shape the int8 paths give it (bf16 input):
      f32 outputs within a relative 1e-6 (bit for bit expected: identical
      codes, scales and int32 sums), bf16 outputs rel-L2 <= 1e-2, the
-     differing elements printed;
+     differing elements printed; then at the wgmma GEMM's tile edges (M 1,
+     63, 65, 129, 16385; N 1, 255, 257; K 4, 132, 1408, the weight pitch
+     padded to 16) in all four dtype pairs, bit-identical to the plain
+     version;
  34. the int8 serving main path: qwen3_8b_mla with quant="int8_mix" at full
      width and 36 layers, its seeded bf16 weights mapped by
      quantize_params_like (the dense copy freed); a paged generate on a
@@ -413,6 +421,12 @@ K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
 K1K2_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows (attn_fwd.cuh's "
                           "bf16 body, which K3 and K11 keep)",
                 "times_beside_ms": "PERF.md section 6, tools_torch/compare_fwd_k1k2.py"}
+K4B_EARLIER = {"design": "mma.sync m16n8k16 + double-buffered cp.async, 4 warps and 64-row "
+                          "tiles (attn_bwd.cuh's bf16 body, deleted with this redesign)",
+               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k4b_k7.py"}
+K7_EARLIER = {"design": "mma.sync m16n8k32 s8, 128 x 128 CTA tiles of 8 warps, 3-stage cp.async, "
+                        "ldmatrix",
+              "times_beside_ms": "PERF.md section 6, tools_torch/compare_k4b_k7.py"}
 K5_BWD_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows; dk/dv at d_qk "
                             "256 split over two CTAs that each recompute P^T and dS^T",
                   "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_bwd.py"}
@@ -504,6 +518,21 @@ def _ptxas_k1k2(log: str) -> dict:
                   lambda m: f"{m[1]}_fwd ({m[2]}, {m[2]})", 6)
 
 
+def _ptxas_k4b_k7(log: str) -> dict:
+    """The ptxas report of K4b's bf16 kernels (small_s_bwd_{dq,dkv}_wgmma_
+    kernel<D>, K4a's bodies at D = 64, 72, 88, 128) and of K7's GEMM
+    (int8_gemm_wgmma_kernel<out type>); raises on a spill (the kernels they
+    replace had none)."""
+    rep = {**_ptxas(log, r"small_s_bwd_(dq|dkv)_wgmma_kernelILi(\d+)E",
+                    lambda m: f"small_s_bwd_{m[1]} ({m[2]}, {m[2]})", 8),
+           **_ptxas(log, r"int8_gemm_wgmma_kernelI(f|13__nv_bfloat16)E",
+                    lambda m: f"int8_gemm ({'f32' if m[1] == 'f' else 'bf16'} out)", 2)}
+    spilled = {k: v for k, v in rep.items() if v["spill_stores"] or v["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"K4b / K7 kernels spill: {spilled}")
+    return rep
+
+
 # The edges of the wgmma forward's 128-row query tile (one row, one short,
 # one past) against those of its 64-key stages (one key past one, two and
 # three stages): (Sq, Sk).
@@ -530,6 +559,49 @@ def _fwd_edges_bf16(fa, kernel: str, dims, edges, g) -> None:
             worst = (max(worst[0], rel), max(worst[1], e_lse))
     print(f"{kernel} bf16 tile edges (Sq, Sk) {edges} x d {list(dims)}: worst out rel-L2 "
           f"{worst[0]:.3e}, lse max-abs {worst[1]:.3e} (bars 1e-2)", flush=True)
+
+
+# The edges of K4b's tiles, for Sq and Sk each: one row, one short of and one
+# past a 64-row / 64-key stage and a 128-row / 128-key CTA, the student's 833.
+BWD_TILE_EDGES = (1, 63, 65, 127, 129, 833)
+
+
+def _bwd_edges_bf16(fa, g) -> None:
+    """K4b in bf16 at each (Sq, Sk) of BWD_TILE_EDGES x BWD_TILE_EDGES and
+    each instantiated head dim, q from one projection and k / v from another
+    (views, as the models pass them), held to the plain backward: dq, dk, dv
+    rel-L2 <= 1e-2 each; with one key (Sk = 1: a constant softmax, dq and dk
+    zero in exact arithmetic, both routes fp32 rounding noise) dq and dk of
+    both max-abs <= 1e-4."""
+    worst = 0.0
+    b, h = 2, 4
+    for d in fa.SMALL_S_HEAD_DIMS:
+        for sq in BWD_TILE_EDGES:
+            for sk in BWD_TILE_EDGES:
+                qp = torch.randn(b, sq, 3 * h * d, device="cuda", generator=g).bfloat16()
+                kvp = torch.randn(b, sk, 3 * h * d, device="cuda", generator=g).bfloat16()
+                q = qp[..., :h * d].unflatten(-1, (h, d))
+                k, v = (x.unflatten(-1, (h, d)) for x in kvp[..., h * d:].split(h * d, dim=-1))
+                do = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
+                with torch.no_grad():
+                    out, lse = fa._flash_fwd_cuda(q, k, v, d ** -0.5, kernel="small_s_fwd")
+                got = fa._flash_bwd_cuda(q, k, v, out, lse, do, d ** -0.5, prefix="small_s")
+                refs = fa.small_s_attention_bwd_ref(q, k, v, out, lse, do, d ** -0.5)
+                torch.cuda.synchronize()
+                if sk == 1:  # dq, dk: zero in exact arithmetic
+                    tiny = max(x.abs().max().item() for x in (*got[:2], *refs[:2]))
+                    if not tiny <= 1e-4:
+                        raise AssertionError(f"K4b bf16 at one key, d {d}: dq / dk max-abs "
+                                             f"{tiny} (zero in exact arithmetic)")
+                    got, refs = got[2:], refs[2:]
+                rels = [_rel(x, r) for x, r in zip(got, refs)]
+                if not max(rels) <= 1e-2:
+                    raise AssertionError(f"K4b bf16 disagrees with its plain version at (Sq, Sk,"
+                                         f" d) {(sq, sk, d)}: dq / dk / dv rel-L2 {rels}")
+                worst = max(worst, *rels)
+    print(f"small_s_bwd bf16 tile edges Sq x Sk {BWD_TILE_EDGES}^2 x d "
+          f"{list(fa.SMALL_S_HEAD_DIMS)}, projection views: worst dq / dk / dv rel-L2 "
+          f"{worst:.3e} (bar 1e-2)", flush=True)
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -1077,6 +1149,7 @@ def check_pretrain_kernels(fa) -> dict:
     if not max(rels) <= 2e-2:
         raise AssertionError("bf16 fused qkv gradients disagree with the plain composition")
     _fwd_edges_bf16(fa, "small_s_fwd", fa.SMALL_S_HEAD_DIMS, FWD_TILE_EDGES + [(196, 196)], g)
+    _bwd_edges_bf16(fa, g)
     return out_err
 
 
@@ -3551,6 +3624,26 @@ def check_int8_kernel(ig) -> dict:
                   f"{m * n} differ); bf16 out rel-L2 {bf16[1]:.3e}, {bf16[2]} differ (bars "
                   "1e-6 relative, 1e-2)", flush=True)
             del x, w_q, w_s
+    # the wgmma GEMM's tile edges: rows of a warpgroup / tile / 128 tiles,
+    # columns of a 256-wide tile, 128-byte k-tiles (K 4: a padded pitch)
+    edges = [(m, k, n) for m in (1, 63, 65, 129, 16385) for k in (4, 132, 1408)
+             for n in (1, 255, 257)]
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in edges:
+            x, w_q, w_s = _int8_inputs((max(m, 2),), k, n, x_dtype, g)
+            x = x[-m:]  # M = 1: the row of ties alone
+            for out_dtype in (torch.float32, torch.bfloat16):
+                with torch.no_grad():
+                    got = ig.int8_matmul_fused(x, w_q, w_s, out_dtype)
+                ref = ig.int8_matmul_reference(x, w_q, w_s, out_dtype)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"K7 {x_dtype} -> {out_dtype} at the tile edge {(m, k, n)}: "
+                        f"{int((got != ref).sum())} elements differ from the plain version")
+    print(f"K7 tile edges (M, K, N) in {{1, 63, 65, 129, 16385}} x {{4, 132, 1408}} x "
+          f"{{1, 255, 257}}, f32 / bf16 x -> f32 / bf16 out: all {4 * len(edges)} bit-identical "
+          "to the plain version", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return errs
@@ -4499,9 +4592,10 @@ def main() -> int:
         ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
     k4a_ptxas = _ptxas_k4a(build_log)
     k1k2_ptxas = _ptxas_k1k2(build_log)
+    k4b_k7_ptxas = _ptxas_k4b_k7(build_log)
     for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas),
-                      ("K1 and K2", k1k2_ptxas)):
-        print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what} bf16 (wgmma + TMA): " + "; ".join(
+                      ("K1 and K2", k1k2_ptxas), ("K4b and K7", k4b_k7_ptxas)):
+        print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what} (wgmma + TMA): " + "; ".join(
             f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
             f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
 
@@ -4813,10 +4907,12 @@ def main() -> int:
          "c_entry": src + "small_s_fwd.cu", "design": "K5's wgmma + TMA forward body at (D, D), non-causal",
          "earlier_design": K1K2_EARLIER,
          "ptxas": {k: v for k, v in k1k2_ptxas.items() if k.startswith("small_s_fwd ")}},
-        entry("small_s_bwd_dq", "small_s_bwd.cu", 1524, pk["small_s_bwd_dq"],
-              pre_err["small_s_bwd_dq"], PRETRAIN_SHAPE),
-        entry("small_s_bwd_dkv", "small_s_bwd.cu", 1553, pk["small_s_bwd_dkv"],
-              pre_err["small_s_bwd_dkv"], PRETRAIN_SHAPE),
+        *({**entry(name, body, line, pk[name], pre_err[name], PRETRAIN_SHAPE),
+           "c_entry": src + "small_s_bwd.cu",
+           "design": "K4a's wgmma + TMA body at (D, D), non-causal", "earlier_design": K4B_EARLIER,
+           "ptxas": {k: v for k, v in k4b_k7_ptxas.items() if k.startswith(name + " ")}}
+          for name, line, body in (("small_s_bwd_dq", 1524, "flash_bwd_causal_dq.cu"),
+                                   ("small_s_bwd_dkv", 1553, "flash_bwd_causal_dkv.cu"))),
         {**entry("fused_qkv_fwd", "fused_qkv.cu", 1703, pk["fused_qkv_student"],
                  pre_err["fused_qkv_fwd"], PRETRAIN_SHAPE),
          "attn_kernel_ms": pk["fused_qkv_student"]["attn_ms"],
@@ -4944,6 +5040,9 @@ def main() -> int:
         "bf16_linear_ms": k7_main["bf16_linear_ms"], "shape": list(INT8_MAIN_SHAPE),
         "max_abs_err_bf16_out": max(v for k, v in i8_err.items() if k != "f32"),
         "shapes": i8t["k7"],
+        "design": "persistent warp-specialised wgmma m64n256k32 s8 + TMA, 128 x 256 tiles",
+        "earlier_design": K7_EARLIER,
+        "ptxas": {k: v for k, v in k4b_k7_ptxas.items() if k.startswith("int8_gemm ")},
     })
     print(f"[{card}] int8 serving: " + json.dumps({
         **{k: v for k, v in i8t.items() if k != "k7"},

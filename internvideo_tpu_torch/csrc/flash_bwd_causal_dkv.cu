@@ -52,9 +52,11 @@
 //   compile-time column (causal, window, Sq tail), two integer compares an
 //   element (plus the id equality with segments); only steps that straddle
 //   the diagonal, a band edge or the Sq tail, or carry segments, are masked.
-// - Head dim 88 (kHalfSteps; K4a's flash_bwd_dkv_wgmma_kernel, the
-//   encoder's non-causal backward, flash_bwd.cu): three 32-column panels as
-//   in the dq kernel. The register form over whole 64-row steps would hold
+// - Head dims 88 and 72 (kHalfSteps; K4a's flash_bwd_dkv_wgmma_kernel, the
+//   encoder's non-causal backward, flash_bwd.cu, and K4b's
+//   small_s_bwd_dkv_wgmma_kernel, small_s_bwd.cu, which also runs this body
+//   at 64 and, in the kShare form, 128): three 32-column panels as in the
+//   dq kernel. The register form over whole 64-row steps would hold
 //   dk 48 + dv 48 + S^T 32 + dP^T 32 registers and the fragments: ptxas
 //   spilled 168 bytes and serialized every wgmma. Splitting the outputs
 //   between the warpgroups (64 keys a CTA, P^T / dS^T through shared
@@ -149,8 +151,8 @@ __device__ __forceinline__ void p_and_ds(float (&s)[4 * NT], float (&dp)[4 * NT]
   }
 }
 
-// The bf16 kernel's body, behind K5's kernel and K4a's (below); the maps are
-// the kernel's __grid_constant__ parameters.
+// The bf16 kernel's body, behind K5's kernel, K4a's and K4b's (below); the
+// maps are the kernel's __grid_constant__ parameters.
 template <int DQK, int DV, bool kSeg>
 __device__ __forceinline__ void dkv_bf16_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                               const CUtensorMap& v_map, const CUtensorMap& do_map,
@@ -564,6 +566,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   dkv_bf16_body<D, D, false>(q_map, k_map, v_map, do_map, a);
 }
 
+// K4b's bf16 dk/dv kernel (small_s_bwd.cu's ivt_small_s_bwd_dkv): the same
+// body under K4b's own name, at D = 64, 72, 88 (half steps) and 128 (kShare).
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    small_s_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap do_map,
+                                 const CausalBwdArgs a) {
+  dkv_bf16_body<D, D, false>(q_map, k_map, v_map, do_map, a);
+}
+
 // fp32: one thread per key, q / dO tiles of 16 rows in shared memory,
 // CUDA-core FMAs; k and v are read from global memory (L1) per row. For
 // each q head of the group, every row of the key tile's band (band_rows) is
@@ -642,8 +656,8 @@ __global__ void __launch_bounds__(kF32Keys) causal_bwd_dkv_f32_kernel(const Caus
 }
 
 
-// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's or
-// K4a's) of tile DkvTile<DQK, DV>.
+// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's, K4a's
+// or K4b's) of tile DkvTile<DQK, DV>.
 template <int DQK, int DV, typename Kernel>
 cudaError_t launch_bf16(Kernel kern, int B, const CausalBwdArgs& a, cudaStream_t stream) {
   using T = DkvTile<DQK, DV>;
@@ -727,6 +741,25 @@ cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, con
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dkv_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dkv_wgmma_kernel<88>, B, a, s);
   return cudaErrorInvalidValue;
+}
+
+// K4b's bf16 dk/dv launch, called by small_s_bwd.cu's ivt_small_s_bwd_dkv
+// with K4a's arguments: this file's body at (D, D). Returns
+// cudaErrorInvalidValue for a head dim other than 64, 72, 88 or 128.
+cudaError_t small_s_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* delta, void* dk, void* dv, int B,
+                                  int Sq, int Sk, int H, int D, const long long* strides,
+                                  float scale, void* stream) {
+  const CausalBwdArgs a =
+      make_k4a_bwd_args(q, k, v, dout, lse, delta, nullptr, dk, dv, Sq, Sk, H, strides, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_bf16<64, 64>(small_s_bwd_dkv_wgmma_kernel<64>, B, a, s);
+    case 72: return launch_bf16<72, 72>(small_s_bwd_dkv_wgmma_kernel<72>, B, a, s);
+    case 88: return launch_bf16<88, 88>(small_s_bwd_dkv_wgmma_kernel<88>, B, a, s);
+    case 128: return launch_bf16<128, 128>(small_s_bwd_dkv_wgmma_kernel<128>, B, a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ivt

@@ -66,7 +66,9 @@
 //   dQ's 96 accumulator columns are stored as 88 (48 + 32 + 32 registers
 //   of dq, S and dP a thread).
 // - K4a's kernel (flash_bwd_dq_wgmma_kernel, the encoder's non-causal
-//   backward; flash_bwd.cu) walks pipelined (kPipelined): tile t + 1's S and
+//   backward; flash_bwd.cu) and K4b's (small_s_bwd_dq_wgmma_kernel, the
+//   small-S backward; small_s_bwd.cu) at d 64 / 72 / 88 walk pipelined
+//   (kPipelined): tile t + 1's S and
 //   dP are issued before tile t's dQ and waited for alone, so its exp2 and
 //   ds run while dQ of tile t is on the tensor cores. K5's kernel keeps the
 //   walk that waits for each product: its causal and windowed tiles are
@@ -126,8 +128,8 @@ struct DqTile {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a CTA may use");
 };
 
-// The bf16 kernel's body, behind K5's kernel and K4a's (below); the maps are
-// the kernel's __grid_constant__ parameters.
+// The bf16 kernel's body, behind K5's kernel, K4a's and K4b's (below); the
+// maps are the kernel's __grid_constant__ parameters.
 template <int DQK, int DV, bool kSeg, bool kPipelined>
 __device__ __forceinline__ void dq_bf16_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                              const CUtensorMap& v_map, const CUtensorMap& do_map,
@@ -526,6 +528,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   dq_bf16_body<D, D, false, true>(q_map, k_map, v_map, do_map, a);
 }
 
+// K4b's bf16 dq kernel (small_s_bwd.cu's ivt_small_s_bwd_dq): K4a's body
+// and walk, under K4b's own name, at D = 64, 72, 88; at 128 the walk that
+// waits for each product (K5's at (128, 128)): the pipelined one holds dq's
+// 64 accumulators beside two tiles' S / dP and spilled 40 bytes there.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    small_s_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const CausalBwdArgs a) {
+  dq_bf16_body<D, D, false, (D < 128)>(q_map, k_map, v_map, do_map, a);
+}
+
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q and dO are read from global memory (L1) per key so that
 // d_qk = 256 needs no register copy of them. Every key of the tile's band
@@ -593,8 +609,8 @@ __global__ void __launch_bounds__(kF32Rows) causal_bwd_dq_f32_kernel(const Causa
   for (int c = 0; c < DQK; ++c) out[c] = acc[c] * a.scale;
 }
 
-// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's or
-// K4a's) of tile DqTile<DQK, DV>.
+// Encode the four TMA maps and launch the bf16 kernel `kern` (K5's, K4a's
+// or K4b's) of tile DqTile<DQK, DV>.
 template <int DQK, int DV, typename Kernel>
 cudaError_t launch_bf16(Kernel kern, int B, const CausalBwdArgs& a, cudaStream_t stream) {
   using T = DqTile<DQK, DV>;
@@ -684,6 +700,25 @@ cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, cons
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dq_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dq_wgmma_kernel<88>, B, a, s);
   return cudaErrorInvalidValue;
+}
+
+// K4b's bf16 dq launch, called by small_s_bwd.cu's ivt_small_s_bwd_dq with
+// K4a's arguments (0 < Sq, Sk <= 1024): the same body at (D, D). Returns
+// cudaErrorInvalidValue for a head dim other than 64, 72, 88 or 128.
+cudaError_t small_s_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dq, int B, int Sq,
+                                 int Sk, int H, int D, const long long* strides, float scale,
+                                 void* stream) {
+  const CausalBwdArgs a =
+      make_k4a_bwd_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, Sq, Sk, H, strides, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_bf16<64, 64>(small_s_bwd_dq_wgmma_kernel<64>, B, a, s);
+    case 72: return launch_bf16<72, 72>(small_s_bwd_dq_wgmma_kernel<72>, B, a, s);
+    case 88: return launch_bf16<88, 88>(small_s_bwd_dq_wgmma_kernel<88>, B, a, s);
+    case 128: return launch_bf16<128, 128>(small_s_bwd_dq_wgmma_kernel<128>, B, a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ivt

@@ -52,28 +52,6 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// The A operand of m16n8k16 from a row-major bf16 tile in shared memory:
-// rows [row0, row0 + 16), columns [16 * ks, 16 * ks + 16). g = lane / 4,
-// t = lane % 4.
-__device__ __forceinline__ void load_a_frag(uint32_t* a, const __nv_bfloat16* tile, int stride,
-                                            int row0, int ks, int g, int t) {
-  const __nv_bfloat16* p0 = tile + (row0 + g) * stride + ks * 16 + 2 * t;
-  const __nv_bfloat16* p1 = p0 + 8 * stride;
-  a[0] = ld_u32(p0);
-  a[1] = ld_u32(p1);
-  a[2] = ld_u32(p0 + 8);
-  a[3] = ld_u32(p1 + 8);
-}
-
-// The B operand of m16n8k16 when B^T is a row-major tile (rows = the n
-// index): rows [n0, n0 + 8), columns [16 * ks, 16 * ks + 16).
-__device__ __forceinline__ void load_bt_frag(uint32_t* b, const __nv_bfloat16* tile, int stride,
-                                             int n0, int ks, int g, int t) {
-  const __nv_bfloat16* p = tile + (n0 + g) * stride + ks * 16 + 2 * t;
-  b[0] = ld_u32(p);
-  b[1] = ld_u32(p + 8);
-}
-
 // The A operand of a k-step of 16 built from two fp32 accumulator n-tiles
 // (columns 16 * kk .. 16 * kk + 15 of a 16-row product), rounded to bf16.
 __device__ __forceinline__ void acc_to_a_frag(uint32_t* a, const float* lo, const float* hi) {

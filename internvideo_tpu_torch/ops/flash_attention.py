@@ -64,8 +64,8 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 # Head dims the kernels are instantiated for: K1 / K4a (csrc/flash_fwd.cu,
 # flash_bwd.cu; their bf16 kernels in flash_fwd_causal.cu's flash_fwd_wgmma
 # and flash_bwd_causal_{dq,dkv}.cu) and K2 / K4b / K3 (csrc/small_s_fwd.cu,
-# small_s_bwd.cu, fused_qkv.cu; K2's bf16 kernel also in flash_fwd_wgmma;
-# 128 for the CLIP-6B teacher).
+# small_s_bwd.cu, fused_qkv.cu; K2's and K4b's bf16 kernels also in those
+# wgmma bodies; 128 for the CLIP-6B teacher).
 KERNEL_HEAD_DIMS = (64, 88)
 SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
 # (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):

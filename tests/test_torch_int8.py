@@ -24,10 +24,14 @@ from internvideo_tpu_torch.models.convert import params_from_jax
 from internvideo_tpu_torch.ops import int8_gemm, quant
 
 # tests/test_int8_gemm.py:24-32's shapes (m_shape, K, N, bm, bn), K = 200
-# (not a multiple of 32) and f32 input with a bf16 output (:43-53)
+# (not a multiple of 32) and f32 input with a bf16 output (:43-53); then the
+# Hopper GEMM's edges: K = 4 (a weight pitch padded to 16 bytes) with M and N
+# one past a 128 x 256 tile, and one k-tile and 4 bytes (K = 132) against N
+# one past a tile.
 SHAPES = [((256,), 256, 384, 128, 128), ((3, 170), 256, 384, 128, 128),
           ((130,), 384, 200, 128, 128), ((64,), 128, 128, 128, 128),
-          ((2, 40), 200, 96, 128, 128)]
+          ((2, 40), 200, 96, 128, 128), ((257,), 4, 257, 128, 128),
+          ((2, 40), 132, 257, 128, 128)]
 
 
 def _t(a):

@@ -88,3 +88,31 @@ def test_kernel_is_inference_only_and_checks_its_limits():
         got = int8_gemm.int8_matmul_fused(wide[:, 2:258], w_q, w_s)
     torch.testing.assert_close(got, int8_gemm.int8_matmul_reference(x, w_q, w_s),
                                rtol=1e-6, atol=1e-6)
+
+
+# The edges of the Hopper GEMM's tiles: 128 rows and 256 columns a CTA (a
+# row, one short of and one past a 64-row warpgroup and a tile, and one past
+# 128 tiles of rows), 128-byte k-tiles (K 4: a row pitch padded to 16; 132:
+# one k-tile and 4 bytes; the 1B encoder's 1408: 11 k-tiles).
+EDGE_M = (1, 63, 65, 129, 16385)
+EDGE_N = (1, 255, 257)
+EDGE_K = (4, 132, 1408)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_tile_edges_bit_identical_to_plain(x_dtype, out_dtype):
+    """The integer sums are exact and the rescale is one fixed chain, so at
+    every tile edge the kernel's output equals its plain version's bit for
+    bit (codes, scales and the f32 / bf16 roundings are the same)."""
+    _card()
+    for i, (m, k, n) in enumerate((m, k, n) for m in EDGE_M for k in EDGE_K for n in EDGE_N):
+        x, w_q, w_s = _inputs((max(m, 2),), k, n, x_dtype, seed=100 + i)
+        x = x[-m:]  # M = 1: the row of ties alone
+        with torch.no_grad():
+            got = int8_gemm.int8_matmul_fused(x, w_q, w_s, out_dtype)
+        ref = int8_gemm.int8_matmul_reference(x, w_q, w_s, out_dtype)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n) and got.dtype == out_dtype
+        assert torch.equal(got, ref), ((m, k, n), int((got != ref).sum()))

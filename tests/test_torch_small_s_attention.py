@@ -24,8 +24,11 @@ from internvideo_tpu_torch.ops import flash_attention as fa
 
 # (B, Sq, Sk, H, D): the masked-pretrain shape family scaled down as the JAX
 # test has it, a second head count, and a ragged Sq != Sk; then the vision
-# towers' S = 196 at the head dims whose Hopper kernel stores 96 columns (72,
-# 88), and Sq != Sk on either side of the kernel's 128-row query tile.
+# towers' S = 196 at the head dims whose Hopper kernels store 96 columns (72,
+# 88), and Sq != Sk on either side of the forward's 128-row query tile; then
+# the backward's edges: one query row at d 128, a 128-key dk/dv tile and one
+# key past it at d 72 (129 keys against 257 rows), and at d 128 (64 keys a
+# dk/dv tile there) one key short of it against 65 rows.
 SHAPES = [
     (2, 205, 205, 4, 24),
     (1, 413, 413, 8, 24),
@@ -34,6 +37,9 @@ SHAPES = [
     (1, 196, 196, 2, 88),
     (1, 129, 127, 2, 72),
     (1, 127, 193, 2, 88),
+    (1, 1, 65, 2, 128),
+    (1, 257, 129, 2, 72),
+    (1, 65, 63, 2, 128),
 ]
 
 

@@ -139,3 +139,50 @@ def test_small_s_on_projection_views_off_a_128_byte_boundary_is_deterministic(d)
     ref, _ = fa.small_s_attention_ref(*(x.unflatten(-1, (h, d)) for x in (q, k, v)), d ** -0.5)
     assert _rel(out, ref.flatten(-2)) <= 1e-2
     assert torch.equal(out, again)
+
+
+# The edges of the Hopper backward's tiles: 128 query rows a dq CTA and 128
+# keys a dk/dv CTA (64 at d 128), 64-key and 64-row stages (one short, one
+# past each), one row or key, and the student's S = 833 (ragged against
+# every tile).
+BWD_EDGES = (1, 63, 65, 127, 129, 833)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.SMALL_S_HEAD_DIMS)
+def test_small_s_backward_tile_edges_on_projection_views(d):
+    """K4b's dq / dk / dv in bf16 at every (Sq, Sk) pair of the tile edges,
+    q from one projection and k / v from another, as (B, S, H, D) views
+    (the layout the tower and the student give it), held to the plain
+    version (rel-L2 <= 1e-2 each); a second call gives bit-identical
+    gradients. With one key the softmax is constant, so dq and dk are zero
+    in exact arithmetic and both routes give fp32 rounding noise (~1e-8):
+    there they are held to max-abs <= 1e-4 instead."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(100 + d)
+    b, h = 2, 3
+    for sq in BWD_EDGES:
+        for sk in BWD_EDGES:
+            qp = torch.randn(b, sq, 3 * h * d, device="cuda", generator=g).bfloat16()
+            kvp = torch.randn(b, sk, 3 * h * d, device="cuda", generator=g).bfloat16()
+            q = qp[..., :h * d].unflatten(-1, (h, d))
+            k, v = (x.unflatten(-1, (h, d)) for x in kvp[..., h * d:].split(h * d, dim=-1))
+            do = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
+            scale = d ** -0.5
+            with torch.no_grad():
+                out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd")
+            before = {n: fa.launch_count(n) for n in ("small_s_bwd_dq", "small_s_bwd_dkv")}
+            grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, scale, prefix="small_s")
+            again = fa._flash_bwd_cuda(q, k, v, out, lse, do, scale, prefix="small_s")
+            torch.cuda.synchronize()
+            assert {n: fa.launch_count(n) - c for n, c in before.items()} == {
+                "small_s_bwd_dq": 2, "small_s_bwd_dkv": 2}
+            refs = fa.small_s_attention_bwd_ref(q, k, v, out, lse, do, scale)
+            for name, x, r, y in zip(("dq", "dk", "dv"), grads, refs, again):
+                assert torch.isfinite(x.float()).all(), (name, sq, sk, d)
+                if sk == 1 and name != "dv":
+                    assert x.abs().max().item() <= 1e-4, (name, sq, sk, d)
+                    assert r.abs().max().item() <= 1e-4, (name, sq, sk, d)
+                else:
+                    assert _rel(x, r) <= 1e-2, (name, sq, sk, d, _rel(x, r))
+                assert torch.equal(x, y), (name, sq, sk, d)
