@@ -13,8 +13,11 @@ non-zero and prints no result):
      and spill bytes of each instantiation of K5's wgmma forward, dq and
      dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88), of
      K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128), of
-     K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128) and of K7's wgmma
-     s8 GEMM (f32 and bf16 output); fails on a spill in K4b's or K7's;
+     K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128), of K7's wgmma
+     s8 GEMM (f32 and bf16 output), of K3's (the forward body with the
+     QK-RMSNorm in shared memory at d 64, 72, 88, 128) and of K6's bf16
+     tensor-core decode (at (R, P) = (896, 128), (512, 64)); fails on a
+     spill in K4b's, K7's, K3's or K6's;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5), at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -63,13 +66,17 @@ non-zero and prints no result):
      instantiated head dim (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2); K4b
      in bf16 at its tiles' edges (Sq and Sk each 1, 63, 65, 127, 129, 833;
      every instantiated head dim; q, k, v views of projections; dq / dk /
-     dv rel-L2 <= 1e-2 each);
+     dv rel-L2 <= 1e-2 each); K3 in bf16 at its tiles' edges (S 1, 63, 64,
+     65, 127, 128, 129, 257, 833, 1024 at every instantiated head dim, the
+     projection a padded view 16 bytes past a 128-byte boundary; rel-L2 <=
+     1e-2, two calls bit-identical);
  12. the pretrain main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/pretrain_1b_umt.py (1B student at 16 x 224, S = 833,
      CLIP-6B and MAE-g14 teachers, B = 32) for 3 steps; the launch counts are
      reset just before and read just after and must be, per step, 128
      fused_qkv_fwd and 128 fused_qkv_rstd (40 student forward + 40 remat
-     recompute + 48 CLIP teacher), 40 small_s_fwd / small_s_bwd_dq /
+     recompute at S = 833 + 48 CLIP teacher at S = 257, counted by S
+     too), 40 small_s_fwd / small_s_bwd_dq /
      small_s_bwd_dkv (K3's backward), 40 flash_fwd (MAE teacher) and no K4a;
      every logged loss, loss term and grad_norm must be finite;
  13. kernel route vs plain route in pretraining at full widths, B = 2, with
@@ -81,7 +88,9 @@ non-zero and prints no result):
  14. times with CUDA events: the pretrain step at B = 32 on a device-resident
      batch (ms, clips/s) split into CLIP teacher, MAE teacher and the
      student's forward + backward + update; each new kernel at its path
-     shape beside its plain version, its bound and the SDPA yardstick, and
+     shape beside its plain version, its bound and the SDPA yardstick (K3
+     at the student's and the teacher's shapes, split into pre-pass and
+     attention), and
      K1 at the MAE teacher's (32, 4096, 16, 88); one more step under
      torch.profiler;
  15. the causal / narrow-v flash kernel (K5) vs its plain version on the
@@ -98,7 +107,10 @@ non-zero and prints no result):
  16. the paged decode kernel (K6) vs its plain version: fp32 with ragged
      lengths and unused block-table columns on a page of NaN (max-abs
      1e-4), bf16 at the 8B decode shape (B 8, H 32, R 896, P 128, page 64,
-     seq 2048-2112; rel-L2 <= 1e-2);
+     seq 2048-2112; rel-L2 <= 1e-2); the bf16 kernel at its edges: B 1 and
+     8, (H, R, P) of both serving paths, lengths 0, 1, 63, 64, 65, either
+     side of one and two split lengths and 32,768, NaN trash pages (rel-L2
+     <= 1e-2, 0 without tokens, two calls bit-identical);
  17. the serving main path: `internvideo_tpu_torch.cli.generate --preset
      qwen3_8b_mla --paged` on a 512-token prompt for 32 tokens, then a
      ServingEngine on the same seeded 8B model (8 slots, page 64, 272
@@ -119,8 +131,9 @@ non-zero and prints no result):
  19. times with CUDA events: prefill at B = 8, prompt 2048 and steady paged
      decode at B = 8, seq 2048 (tokens/s) on qwen3_8b_mla and qwen3_2b_mla;
      K5 and K6 at their path shapes beside the plain version, the bound
-     and (K5) the SDPA yardstick; one prefill and one decode step under
-     torch.profiler;
+     and (K5) the SDPA yardstick (K6 at the 8B and the 2B video decode's
+     shapes, by CUDA graph replay: the wrapper's host work hides it under
+     CUDA events); one prefill and one decode step under torch.profiler;
  20. the SFT kernels vs their plain versions on the card: K5's backward
      (dq, dk/dv), K8 (segment ids in K5's forward and backward) and K2 /
      K4b at head dim 72, in fp32 at the JAX kernel tests' shapes (segments
@@ -351,6 +364,7 @@ CAUSAL_SHAPE = (8, 2048, 32, 256, 128)  # B, S, H, d_qk, d_v of the 8B prefill
 CAUSAL_SHAPE_2B = (8, 2048, 20, 192, 128)
 DECODE_SHAPE = (8, 32, 896, 128, 64)  # B, H, R, P, page size of the 8B decode
 DECODE_LENS = [2048, 2060, 2075, 2080, 2090, 2100, 2111, 2112]
+DECODE_SHAPE_2B = (8, 20, 512, 64, 64)  # the 2B video decode (internvideo25_hico_2b's text)
 SERVE_ENGINE = dict(max_batch=8, page_size=64, num_pages=272, prompt_buckets=(512, 2048),
                     max_len=2112)
 CONFIG_SFT = "configs/torch/sft_internvideo3_8b.py"
@@ -419,7 +433,7 @@ NORM_SHAPE = (16 * 4097, 1408)
 K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_fwd.py"}
 K1K2_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows (attn_fwd.cuh's "
-                          "bf16 body, which K3 and K11 keep)",
+                          "bf16 body, which K11 keeps)",
                 "times_beside_ms": "PERF.md section 6, tools_torch/compare_fwd_k1k2.py"}
 K4B_EARLIER = {"design": "mma.sync m16n8k16 + double-buffered cp.async, 4 warps and 64-row "
                           "tiles (attn_bwd.cuh's bf16 body, deleted with this redesign)",
@@ -427,6 +441,12 @@ K4B_EARLIER = {"design": "mma.sync m16n8k16 + double-buffered cp.async, 4 warps 
 K7_EARLIER = {"design": "mma.sync m16n8k32 s8, 128 x 128 CTA tiles of 8 warps, 3-stage cp.async, "
                         "ldmatrix",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k4b_k7.py"}
+K3_EARLIER = {"design": "attn_fwd.cuh's mma.sync m16n8k16 body, 64-row CTAs of 4 warps, cp.async "
+                        "double buffer, q / k normed on load (which K11 keeps)",
+              "times_beside_ms": "PERF.md section 6, tools_torch/compare_k3_k6.py"}
+K6_EARLIER = {"design": "8 heads a CTA (the pool read H / 8 times), 16-token cp.async tiles, "
+                        "fp32 CUDA-core FMAs with warp-shuffle sums (which the fp32 route keeps)",
+              "times_beside_ms": "PERF.md section 6, tools_torch/compare_k3_k6.py"}
 K5_BWD_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows; dk/dv at d_qk "
                             "256 split over two CTAs that each recompute P^T and dS^T",
                   "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_bwd.py"}
@@ -455,6 +475,21 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, n: int = 20) -> float:
+    """Device ms of one `fn()` from replaying a CUDA graph of `n` calls (for
+    kernels that the wrapper's host work would hide under _time_ms)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return _time_ms(graph.replay, iters=5, warmup=1) / n
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -533,6 +568,21 @@ def _ptxas_k4b_k7(log: str) -> dict:
     return rep
 
 
+def _ptxas_k3_k6(log: str) -> dict:
+    """The ptxas report of K3's bf16 kernels (fused_qkv_fwd_wgmma_kernel<D>,
+    K2's body with the QK-RMSNorm in shared memory at D = 64, 72, 88, 128)
+    and of K6's (paged_decode_mma_kernel<R, P>); raises on a spill (the
+    kernels they replace had none)."""
+    rep = {**_ptxas(log, r"fused_qkv_fwd_wgmma_kernelILi(\d+)E",
+                    lambda m: f"fused_qkv_fwd ({m[1]}, {m[1]})", 4),
+           **_ptxas(log, r"paged_decode_mma_kernelILi(\d+)ELi(\d+)E",
+                    lambda m: f"paged_decode (R {m[1]}, P {m[2]})", 2)}
+    spilled = {k: v for k, v in rep.items() if v["spill_stores"] or v["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"K3 / K6 kernels spill: {spilled}")
+    return rep
+
+
 # The edges of the wgmma forward's 128-row query tile (one row, one short,
 # one past) against those of its 64-key stages (one key past one, two and
 # three stages): (Sq, Sk).
@@ -602,6 +652,40 @@ def _bwd_edges_bf16(fa, g) -> None:
     print(f"small_s_bwd bf16 tile edges Sq x Sk {BWD_TILE_EDGES}^2 x d "
           f"{list(fa.SMALL_S_HEAD_DIMS)}, projection views: worst dq / dk / dv rel-L2 "
           f"{worst:.3e} (bar 1e-2)", flush=True)
+
+
+# The edges of K3's 128-row query tiles (two 64-row warpgroups) and 64-key
+# stages, the teacher's S = 257 (a 1-row last tile), the student's 833, the
+# small-S limit.
+K3_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129, 257, 833, 1024)
+
+
+def _fused_edges_bf16(fa, g) -> None:
+    """K3 in bf16 at each S of K3_TILE_EDGES and each instantiated head dim,
+    B 2, 4 heads, the (B, S, 3W) projection a padded view whose base sits
+    16 bytes past a 128-byte boundary: out rel-L2 <= 1e-2 against the plain
+    version, two calls bit-identical."""
+    worst, b, h = 0.0, 2, 4
+    for d in fa.SMALL_S_HEAD_DIMS:
+        w = h * d
+        for s in K3_TILE_EDGES:
+            pitch = 3 * w + 8
+            flat = (torch.randn(b * s * pitch + 64, device="cuda", generator=g) * 2).bfloat16()
+            off = (128 - flat.data_ptr() % 128) % 128 // 2 + 8
+            qkv = flat[off:off + b * s * pitch].view(b, s, pitch)[..., :3 * w]
+            qw, kw = (torch.randn(w, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
+            out = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+            again = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+            ref = fa.fused_qkv_ref(qkv, qw, kw, h, d ** -0.5)
+            torch.cuda.synchronize()
+            rel = _rel(out, ref)
+            if not (qkv.data_ptr() % 128 == 16 and rel <= 1e-2 and torch.equal(out, again)):
+                raise AssertionError(f"K3 bf16 at (S, d) {(s, d)}: rel-L2 {rel}, bit-identical "
+                                     f"across calls {torch.equal(out, again)}")
+            worst = max(worst, rel)
+    print(f"fused_qkv_fwd bf16 tile edges S {K3_TILE_EDGES} x d {list(fa.SMALL_S_HEAD_DIMS)}, "
+          f"padded projection views 16 bytes past a 128-byte boundary: worst out rel-L2 "
+          f"{worst:.3e} (bar 1e-2), two calls bit-identical", flush=True)
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -1150,6 +1234,7 @@ def check_pretrain_kernels(fa) -> dict:
         raise AssertionError("bf16 fused qkv gradients disagree with the plain composition")
     _fwd_edges_bf16(fa, "small_s_fwd", fa.SMALL_S_HEAD_DIMS, FWD_TILE_EDGES + [(196, 196)], g)
     _bwd_edges_bf16(fa, g)
+    _fused_edges_bf16(fa, g)
     return out_err
 
 
@@ -1161,8 +1246,9 @@ def _pretrain_want(fa, steps: int) -> dict:
     return {n: per_step.get(n, 0) * steps for n in fa.KERNELS}
 
 
-def run_pretrain_path(fa, card) -> dict:
-    """Phase 12; returns the launches of each kernel in the main-path run."""
+def run_pretrain_path(fa, card) -> tuple:
+    """Phase 12; returns the launches of each kernel in the main-path run
+    and K3's launches by sequence length there."""
     from internvideo_tpu_torch.cli import train as cli
 
     buf = io.StringIO()
@@ -1175,6 +1261,7 @@ def run_pretrain_path(fa, card) -> dict:
                        "trainer.checkpoint_dir=None"])
     torch.cuda.synchronize()
     launches = {name: fa.launch_count(name) for name in fa.KERNELS}
+    k3_by_len = fa.fused_launch_counts("fused_qkv_fwd")
     wall = time.perf_counter() - t0
     records = [dict(kv.split(": ") for kv in line.split("  "))
                for line in buf.getvalue().splitlines() if line.startswith("step: ")]
@@ -1193,7 +1280,14 @@ def run_pretrain_path(fa, card) -> dict:
         raise AssertionError(f"launches {launches} on the pretrain main path; expected {want} "
                              "(per step: 128 K3 = 40 student + 40 remat + 48 CLIP teacher, "
                              "40 K2 / K4b dq / K4b dk/dv, 40 K1 for the MAE teacher)")
-    return launches
+    want_by_len = {PRETRAIN_SHAPE[1]: 2 * DEPTH_1B * PRETRAIN_STEPS,
+                   TEACHER_SHAPE[1]: 48 * PRETRAIN_STEPS}
+    print(f"[{card}] main path (pretrain): K3 launches by sequence length {k3_by_len}", flush=True)
+    if k3_by_len != want_by_len:
+        raise AssertionError(f"K3 launches by sequence length {k3_by_len} on the pretrain main "
+                             f"path; expected {want_by_len} (per step 40 student + 40 remat at "
+                             f"S {PRETRAIN_SHAPE[1]}, 48 CLIP teacher at S {TEACHER_SHAPE[1]})")
+    return launches, k3_by_len
 
 
 def _pretrain_models(run, td_frames: int):
@@ -1583,7 +1677,50 @@ def check_paged_kernel(pd) -> float:
           f"(bar 1e-2), max-abs {err:.3e}", flush=True)
     if not (torch.isfinite(out).all() and rel <= 1e-2):
         raise AssertionError("bf16 paged decode kernel disagrees with its plain version")
+    _paged_edges_bf16(pd)
     return err
+
+
+def _paged_edges_bf16(pd) -> None:
+    """K6's bf16 kernel at B 1 and 8 and both serving paths' (H, R, P), page
+    64, pools of 40 pages a sequence with NaN trash: lengths 0, 1, 63, 64,
+    65 and either side of one and two split lengths (and 32,768 at B 1);
+    rel-L2 <= 1e-2 against the plain version on the cleaned pool, 0 without
+    tokens, two calls bit-identical."""
+    worst, page = 0.0, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (1, 8):
+        split = pd.split_len_bf16(b, 40 * page, sms)
+        around = [split - 1, split, split + 1, 2 * split - 1, 2 * split + 1]
+        if b == 1:
+            cases = [[n] for n in [0, 1, page - 1, page, page + 1, *around, 32768]]
+        else:
+            cases = [[0, 1, page - 1, page, page + 1, 300, 1000, 2112],
+                     around + [split - 1, split, split + 1]]
+        for h, r, p_dim in ((32, 896, 128), (20, 512, 64)):
+            for i, lens in enumerate(cases):
+                mp = max(40, -(-max(lens) // page))
+                q_lat, q_pe, pages, tables, sl = _paged_inputs(
+                    b, h, r, p_dim, page, mp, [max(n, 1) for n in lens], torch.bfloat16, 160 + i)
+                sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                out = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=0.1)
+                again = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=0.1)
+                ref = pd.paged_mla_decode_ref(q_lat, q_pe, torch.nan_to_num(pages), tables, sl,
+                                              softmax_scale=0.1)
+                torch.cuda.synchronize()
+                live = sl > 0
+                rel = _rel(out[live], ref[live]) if live.any() else 0.0
+                ok = (torch.isfinite(out).all() and (out[~live] == 0).all() and rel <= 1e-2
+                      and torch.equal(out, again))
+                if not ok:
+                    raise AssertionError(f"K6 bf16 at B {b}, (H, R, P) {(h, r, p_dim)}, lengths "
+                                         f"{lens}: rel-L2 {rel}, bit-identical across calls "
+                                         f"{torch.equal(out, again)}")
+                worst = max(worst, rel)
+                del q_lat, q_pe, pages, tables
+    print(f"K6 bf16 edges (B 1 and 8; (H, R, P) (32, 896, 128), (20, 512, 64); lengths 0, 1, "
+          f"63, 64, 65, split lengths +-1, 32768; NaN trash): worst rel-L2 {worst:.3e} (bar "
+          f"1e-2), 0 without tokens, two calls bit-identical", flush=True)
 
 
 def _wrap_calls(model) -> dict:
@@ -1903,25 +2040,31 @@ def time_serve_kernels(fa, pd, card) -> dict:
               + (f"{lib_ms:.3f} ms ({lib_note})" if lib_ms is not None else lib_note), flush=True)
         del q, k, v
 
-    b, h, r, p_dim, ps = DECODE_SHAPE
-    q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, 34, DECODE_LENS,
-                                                   torch.bfloat16, 21)
-    pages = torch.nan_to_num(pages)
-    scale = 256 ** -0.5
-    with torch.no_grad():
-        ms = _time_ms(lambda: pd._paged_decode_cuda(q_lat, q_pe, pages, tables, sl, scale),
-                      iters=50, warmup=5)
-        plain_ms = _time_ms(lambda: pd.paged_mla_decode_ref(q_lat, q_pe, pages, tables, sl,
-                                                            softmax_scale=scale), iters=5)
-    toks = sum(DECODE_LENS)
-    bound = _bound(toks * h * 2 * (r + p_dim + r),
-                   toks * (r + p_dim) * 2 + b * h * (2 * r + p_dim) * 2 + tables.numel() * 4)
-    res["paged_decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound,
-                               shape=[b, h, r, p_dim, ps, DECODE_LENS[0], DECODE_LENS[-1]])
-    print(f"[{card}] K6 paged_decode {DECODE_SHAPE} seq {DECODE_LENS[0]}-{DECODE_LENS[-1]} "
-          f"bf16: kernel {ms:.4f} ms ({(toks * (r + p_dim) * 2) / ms / 1e6:.0f} GB/s of pool), "
-          f"bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms, no library "
-          "yardstick", flush=True)
+    for tag, (b, h, r, p_dim, ps), lens in (("8b", DECODE_SHAPE, DECODE_LENS),
+                                           ("2b", DECODE_SHAPE_2B, [HICO_PROMPT] * 8)):
+        q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, -(-max(lens) // ps) + 1,
+                                                       lens, torch.bfloat16, 21)
+        pages = torch.nan_to_num(pages)
+        scale = (128 + p_dim) ** -0.5
+        call = lambda: pd._paged_decode_cuda(q_lat, q_pe, pages, tables, sl, scale)  # noqa: E731
+        with torch.no_grad():
+            event_ms = _time_ms(call, iters=50, warmup=5)
+            ms = _graph_ms(call)
+            plain_ms = _time_ms(lambda: pd.paged_mla_decode_ref(q_lat, q_pe, pages, tables, sl,
+                                                                softmax_scale=scale), iters=5)
+        toks = sum(lens)
+        pool = toks * (r + p_dim) * 2
+        bound = _bound(toks * h * 2 * (r + p_dim + r),
+                       pool + b * h * (2 * r + p_dim) * 2 + tables.numel() * 4)
+        res[f"paged_decode_{tag}"] = dict(
+            ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=None, bound=bound,
+            pool_gb_per_s=pool / ms / 1e6, shape=[b, h, r, p_dim, ps, min(lens), max(lens)])
+        print(f"[{card}] K6 paged_decode (B {b}, H {h}, R {r}, P {p_dim}, page {ps}) seq "
+              f"{min(lens)}-{max(lens)} bf16: kernel {ms:.4f} ms by graph replay "
+              f"({pool / ms / 1e6:.0f} GB/s of pool; the wrapper's rate under CUDA events "
+              f"{event_ms:.4f} ms), bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms,"
+              " no library yardstick", flush=True)
+        del q_lat, q_pe, pages, tables, sl
     return res
 
 
@@ -4593,9 +4736,12 @@ def main() -> int:
     k4a_ptxas = _ptxas_k4a(build_log)
     k1k2_ptxas = _ptxas_k1k2(build_log)
     k4b_k7_ptxas = _ptxas_k4b_k7(build_log)
+    k3_k6_ptxas = _ptxas_k3_k6(build_log)
     for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas),
-                      ("K1 and K2", k1k2_ptxas), ("K4b and K7", k4b_k7_ptxas)):
-        print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what} (wgmma + TMA): " + "; ".join(
+                      ("K1 and K2", k1k2_ptxas), ("K4b and K7", k4b_k7_ptxas),
+                      ("K3 (wgmma + TMA) and K6 (mma.sync + bulk copies)", k3_k6_ptxas)):
+        design = "" if what.startswith("K3") else " (wgmma + TMA)"
+        print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what}{design}: " + "; ".join(
             f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
             f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
 
@@ -4644,7 +4790,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. the pretrain main path, counting launches
-    pre_launches = run_pretrain_path(fa, card)
+    pre_launches, k3_by_len = run_pretrain_path(fa, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4913,8 +5059,20 @@ def main() -> int:
            "ptxas": {k: v for k, v in k4b_k7_ptxas.items() if k.startswith(name + " ")}}
           for name, line, body in (("small_s_bwd_dq", 1524, "flash_bwd_causal_dq.cu"),
                                    ("small_s_bwd_dkv", 1553, "flash_bwd_causal_dkv.cu"))),
-        {**entry("fused_qkv_fwd", "fused_qkv.cu", 1703, pk["fused_qkv_student"],
+        {**entry("fused_qkv_fwd", "flash_fwd_causal.cu", 1703, pk["fused_qkv_student"],
                  pre_err["fused_qkv_fwd"], PRETRAIN_SHAPE),
+         "c_entry": src + "fused_qkv.cu",
+         "design": "K2's warp-specialised wgmma + TMA forward walk, built from its steps; the "
+                   "two consumer warpgroups apply the QK-RMSNorm in shared memory between TMA "
+                   "and wgmma, each to its 64 Q rows and to half of each K tile (the next "
+                   "tile's under this tile's products); producer warp 1 stages the head's k "
+                   "weights and the sequence's k 1/rms; a tile whose second warpgroup has no "
+                   "row (S 257's 1-row last tile) runs one warpgroup",
+         "earlier_design": K3_EARLIER,
+         "ptxas": {k: v for k, v in k3_k6_ptxas.items() if k.startswith("fused_qkv_fwd ")},
+         # of "launches", counted by sequence length in the same run
+         "launches_student": k3_by_len.get(PRETRAIN_SHAPE[1], 0),
+         "launches_clip_teacher": k3_by_len.get(TEACHER_SHAPE[1], 0),
          "attn_kernel_ms": pk["fused_qkv_student"]["attn_ms"],
          "teacher": {"shape": list(TEACHER_SHAPE), "ms": pk["fused_qkv_teacher"]["ms"],
                      "attn_kernel_ms": pk["fused_qkv_teacher"]["attn_ms"],
@@ -4931,7 +5089,8 @@ def main() -> int:
                      "bound_ms": pk["fused_qkv_rstd_teacher"]["bound"][0],
                      "bound_by": pk["fused_qkv_rstd_teacher"]["bound"][1]}},
     ]
-    k5, k5_2b, k6 = sk["flash_fwd_causal_8b"], sk["flash_fwd_causal_2b"], sk["paged_decode"]
+    k5, k5_2b = sk["flash_fwd_causal_8b"], sk["flash_fwd_causal_2b"]
+    k6, k6_2b = sk["paged_decode_8b"], sk["paged_decode_2b"]
     kernels += [{
         "name": "flash_fwd_causal", "route": "cuda", "source": src + "flash_fwd_causal.cu",
         "replaces": jax_fa + "153", "launches": serve_launches["flash_fwd_causal"],
@@ -4951,7 +5110,17 @@ def main() -> int:
         "launches_by_path": by_path("paged_decode"),
         "max_abs_err": k6_err, "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1], "library_ms": None,
-        "shape": k6["shape"],
+        "shape": k6["shape"], "ms_by": "CUDA graph replay (the device alone)",
+        "event_ms": k6["event_ms"], "pool_gb_per_s": k6["pool_gb_per_s"],
+        "design": "bf16: all heads of a sequence in one CTA over one split, one wave; tokens by "
+                  "cp.async.bulk rows into a 4-stage mbarrier ring; scores and P . C on "
+                  "mma.sync m16n8k16; the merge kernel as before",
+        "earlier_design": K6_EARLIER,
+        "ptxas": {k: v for k, v in k3_k6_ptxas.items() if k.startswith("paged_decode ")},
+        "video_decode_2b": {"shape": k6_2b["shape"], "ms": k6_2b["ms"],
+                            "event_ms": k6_2b["event_ms"], "plain_ms": k6_2b["plain_ms"],
+                            "bound_ms": k6_2b["bound"][0], "bound_by": k6_2b["bound"][1],
+                            "pool_gb_per_s": k6_2b["pool_gb_per_s"]},
     }]
     def sft_entry(name, source, line, r, err):
         return {"name": name, "route": "cuda", "source": src + source,

@@ -1,7 +1,7 @@
 // Device bodies of the attention forward kernels (sm_90a). The bf16
-// mma.sync body is K3's and K11's (fused_qkv.cu, fused_qkv_large.cu, with
-// their norm on load); the fp32 body is also K1's and K2's (flash_fwd.cu,
-// small_s_fwd.cu), whose bf16 kernels run K5's wgmma + TMA body
+// mma.sync body is K11's (fused_qkv_large.cu, with its norm on load); the
+// fp32 body is also K1's, K2's and K3's (flash_fwd.cu, small_s_fwd.cu,
+// fused_qkv.cu), whose bf16 kernels run K5's wgmma + TMA body
 // (flash_fwd_causal.cu) instead. Each of those files defines its own
 // __global__ kernels, which call these bodies, so every TPU kernel keeps
 // its own symbol, entry point and launch count.
@@ -17,8 +17,9 @@
 // body (the parity checks, not the bf16 main path).
 //
 // The bf16 body, and the fp32 body with kNorm = true, apply K3's whole-dim
-// QK-RMSNorm to each q and k tile as it lands in shared memory (registers,
-// fp32), from per-row 1/rms factors a pre-pass wrote (fused_qkv.cu):
+// QK-RMSNorm (mma.cuh QkNorm) to each q and k tile as it lands in shared
+// memory (registers, fp32), from per-row 1/rms factors a pre-pass wrote
+// (fused_qkv.cu):
 // x -> w * (x * rstd) with the cast chain of
 // internvideo_tpu/ops/flash_attention.py:1706-1710 (bf16: the normed value
 // is rounded to bf16, multiplied by the fp32 weight, rounded again). The
@@ -35,15 +36,6 @@ constexpr int kFwdThreads = 128;
 
 struct FwdStrides {  // element strides of (batch, sequence, head); last dim is unit
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
-};
-
-// Whole-dim QK-RMSNorm applied on load (K3). rstd rows are (B, S) with
-// S = Sq = Sk; w is the (W,) fp32 weight, of which head h uses [h*D, h*D+D).
-struct QkNorm {
-  const float* q_rstd;
-  const float* k_rstd;
-  const float* q_w;
-  const float* k_w;
 };
 
 template <int D>
@@ -88,7 +80,7 @@ __device__ __forceinline__ void rms_norm_tile(__nv_bfloat16* tile, const float* 
   }
 }
 
-// The bf16 body applies the norm on load (K3 and K11 are its only users)
+// The bf16 body applies the norm on load (K11 is its only user)
 // and writes no LSE.
 template <int D>
 __device__ __forceinline__ void attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,

@@ -89,7 +89,11 @@
 // student, the InternVideo3 / HiCo vision towers) run this body in bf16
 // under their own kernel names (flash_fwd_wgmma_kernel,
 // small_s_fwd_wgmma_kernel) at (D, D), non-causal, without segments, window
-// or groups, launched by flash_fwd_wgmma (the end of this file). A head dim
+// or groups, launched by flash_fwd_wgmma (the end of this file). K3
+// (fused_qkv.cu: the UMT student and the CLIP-6B teacher) runs the same
+// walk with the QK-RMSNorm applied to the Q and K tiles in shared memory
+// between TMA and wgmma (fused_qkv_fwd_wgmma_kernel, launched by
+// fused_qkv_fwd_wgmma). A head dim
 // that is no multiple of 32 (88, 72) is stored as three 32-column panels of
 // 64-byte swizzle (96 columns); each TMA map keeps the true width, so the
 // columns past it load as zeros and add nothing to S, P V accumulates all
@@ -157,6 +161,117 @@ __device__ __forceinline__ int2 key_span(int r0, int rows, int Sq, int Sk, int c
   int end = causal ? min(Sk, row_end + q_off) : Sk;
   if (window > 0 && !causal) end = min(end, row_end - 1 + q_off + window);
   return make_int2(lo, end);
+}
+
+// A consumer warpgroup's steps, shared by the body below and K3's kernel
+// (which adds the norm between them). S = Q K^T: the warpgroup's 64 Q rows
+// (sQw) x the kBlockN keys of K tile kt, both K-major.
+template <class T>
+__device__ __forceinline__ void qk_product(float (&s)[T::kBlockN / 2], const unsigned char* sQw,
+                                           const unsigned char* kt) {
+#pragma unroll
+  for (int i = 0; i < T::kBlockN / 2; ++i) s[i] = 0.f;
+  hp::fence_regs(s);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < T::kQW / 16; ++ks) {
+    const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
+    const uint64_t da =
+        hp::make_desc(sQw + p * kBlockM * T::kQRow + c, T::kQRow, 16, 8 * T::kQRow);
+    const uint64_t db =
+        hp::make_desc(kt + p * T::kBlockN * T::kQRow + c, T::kQRow, 16, 8 * T::kQRow);
+    hp::wgmma_ss<0, 0>(s, da, db, ks > 0);
+  }
+  hp::wgmma_commit();
+}
+
+// O += P V once V tile vt has landed (v_full at phase), V MN-major
+// (transposed B).
+template <class T>
+__device__ __forceinline__ void pv_product(float (&acc)[T::kVW / 2],
+                                           const uint32_t (&pa)[T::kBlockN / 16][4],
+                                           const unsigned char* vt, uint64_t* v_full,
+                                           unsigned phase) {
+  hp::mbar_wait(v_full, phase);
+  hp::fence_regs(acc);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::kBlockN / 16; ++kk) {
+    const uint64_t dv = hp::make_desc(vt + kk * 16 * T::kVRow, T::kVRow,
+                                      T::kBlockN * T::kVRow, 8 * T::kVRow);
+    hp::wgmma_rs<1>(acc, pa[kk], dv, 1);
+  }
+  hp::wgmma_commit();
+}
+
+// The online softmax of one key tile on S; S becomes P. Where `masked`,
+// element e of n-tile nt (key column c = 8 nt + (e & 1) past the thread's
+// first, 2 t, a compile-time constant; row r = e >> 1) is kept iff
+// lo[r] <= c <= hi[r] and, with segments, ids[c] == qs[r]. A tile none of
+// the rows sees leaves the running max / sum as they were. Returns the
+// rescale of the older terms, per row, in alpha.
+template <int kBlockN, bool kSeg>
+__device__ __forceinline__ void online_softmax(float (&s)[kBlockN / 2], float (&m_run)[2],
+                                               float (&l_run)[2], float (&alpha)[2],
+                                               float scale_log2, bool masked, const int (&lo)[2],
+                                               const int (&hi)[2], const int* ids,
+                                               const int (&qs)[2]) {
+  float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * nt + (e & 1), r = e >> 1;
+      float x = s[4 * nt + e] * scale_log2;
+      if (masked && (c > hi[r] || c < lo[r] || (kSeg && ids[c] != qs[r]))) x = -INFINITY;
+      s[4 * nt + e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_use = mx[r] == -INFINITY ? 0.f : mx[r];  // row fully masked so far
+    alpha[r] = hp::exp2_ftz(m_run[r] - m_use);
+    m_run[r] = mx[r];
+    mx[r] = m_use;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    const float p = hp::exp2_ftz(s[i] - mx[(i >> 1) & 1]);
+    s[i] = p;
+    rs[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+}
+
+// The epilogue: this thread's rows row0 and row0 + 8 (those below Sq) of O
+// divided by their sums, the true DV columns, at o + row * o_s, and their
+// natural-log LSE at lse[row] where kLse.
+template <int DV, bool kLse, int kAcc>
+__device__ __forceinline__ void store_rows(const float (&acc)[kAcc], const float (&l_run)[2],
+                                           const float (&m_run)[2], int row0, int Sq, int t,
+                                           __nv_bfloat16* __restrict__ o, long long o_s,
+                                           float* __restrict__ lse) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that sees no key gets 0
+    __nv_bfloat16* op = o + (long long)row * o_s;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+    }
+    if (kLse && t == 0) lse[row] = l > 0.f ? (m_run[r] + log2f(l)) * kLn2 : -INFINITY;
+  }
 }
 
 // The bf16 kernel's body, behind K5's kernel and K1's and K2's (below); the
@@ -305,47 +420,13 @@ __device__ __forceinline__ void fwd_bf16_body(const CUtensorMap& q_map, const CU
     // fragments, waiting for its P V, issued with the next tile's S).
     float s[kBlockN / 2];
     uint32_t pa[kBlockN / 16][4];
-    auto issue_qk = [&](int stage) {  // S = Q K^T: 64 rows x kBlockN keys, both K-major
-#pragma unroll
-      for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.f;
-      hp::fence_regs(s);
-      hp::wgmma_fence();
-      const unsigned char* kt = sK + stage * T::kKBytes;
-#pragma unroll
-      for (int ks = 0; ks < T::kQW / 16; ++ks) {
-        const int p = ks * 16 / T::kQCols, c = ks * 16 % T::kQCols * 2;  // panel, byte column
-        const uint64_t da =
-            hp::make_desc(sQw + p * kBlockM * T::kQRow + c, T::kQRow, 16, 8 * T::kQRow);
-        const uint64_t db =
-            hp::make_desc(kt + p * kBlockN * T::kQRow + c, T::kQRow, 16, 8 * T::kQRow);
-        hp::wgmma_ss<0, 0>(s, da, db, ks > 0);
-      }
-      hp::wgmma_commit();
-    };
-    auto issue_pv = [&](int stage, unsigned phase) {  // O += P V, V MN-major (transposed B)
-      hp::mbar_wait(&v_full[stage], phase);
-      const unsigned char* vt = sV + stage * T::kVBytes;
-      hp::fence_regs(acc);
-      hp::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const uint64_t dv = hp::make_desc(vt + kk * 16 * T::kVRow, T::kVRow,
-                                          kBlockN * T::kVRow, 8 * T::kVRow);
-        hp::wgmma_rs<1>(acc, pa[kk], dv, 1);
-      }
-      hp::wgmma_commit();
-    };
-    // The online softmax of the tile at key0 on S (masked where the tile
-    // straddles the diagonal, a band edge or the Sk tail, or carries
-    // segments; a tile none of this warpgroup's rows sees is all masked and
-    // leaves the running max / sum as they were); S becomes P. Returns the
-    // rescale of the older terms, per row.
+    // The tile at key0 is masked where it straddles the diagonal, a band
+    // edge or the Sk tail, or carries segments; each row keeps the columns
+    // lo[r] <= c <= hi[r] (of the same segment).
     auto softmax = [&](int stage, int key0, float (&alpha)[2]) {
       const bool masked =
           kSeg || key0 + kBlockN > Sk || (causal && key0 + kBlockN - 1 > r0 + q_off) ||
           (window > 0 && (key0 < band_lo_all || (!causal && key0 + kBlockN > band_hi_all)));
-      // Element e of n-tile nt sits at key key0 + 2 t + c, c = 8 nt + (e & 1)
-      // a compile-time constant: row r keeps it iff lo[r] <= c <= hi[r].
       const int* ids = sKS + stage * kBlockN + 2 * t;
       int lo[2], hi[2];
 #pragma unroll
@@ -356,36 +437,11 @@ __device__ __forceinline__ void fwd_bf16_body(const CUtensorMap& q_map, const CU
         if (window > 0 && !causal) hi[r] = min(hi[r], rel + window - 1);
         lo[r] = window > 0 ? rel - window + 1 : INT_MIN;
       }
-      float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * nt + (e & 1), r = e >> 1;
-          float x = s[4 * nt + e] * scale_log2;
-          if (masked && (c > hi[r] || c < lo[r] || (kSeg && ids[c] != qs[r]))) x = -INFINITY;
-          s[4 * nt + e] = x;
-          mx[r] = fmaxf(mx[r], x);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_use = mx[r] == -INFINITY ? 0.f : mx[r];  // row fully masked so far
-        alpha[r] = hp::exp2_ftz(m_run[r] - m_use);
-        m_run[r] = mx[r];
-        mx[r] = m_use;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < kBlockN / 2; ++i) {
-        const float p = hp::exp2_ftz(s[i] - mx[(i >> 1) & 1]);
-        s[i] = p;
-        rs[(i >> 1) & 1] += p;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+      online_softmax<kBlockN, kSeg>(s, m_run, l_run, alpha, scale_log2, masked, lo, hi, ids, qs);
+    };
+    auto issue_qk = [&](int stage) { qk_product<T>(s, sQw, sK + stage * T::kKBytes); };
+    auto issue_pv = [&](int stage, unsigned phase) {
+      pv_product<T>(acc, pa, sV + stage * T::kVBytes, &v_full[stage], phase);
     };
     auto release = [&](uint64_t* bar) {
       __syncwarp();
@@ -446,25 +502,8 @@ __device__ __forceinline__ void fwd_bf16_body(const CUtensorMap& q_map, const CU
       hp::fence_regs(acc);
     }
 
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int row = m0 + qr + g + 8 * r;
-      if (row >= Sq) continue;
-      const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that sees no key gets 0
-      __nv_bfloat16* op = o + b * o_b + (long long)row * o_s + h * o_h;
-#pragma unroll
-      for (int n = 0; n < DV / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) =
-            pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
-      }
-      if (t == 0) {
-        lse[((long long)b * H + h) * Sq + row] =
-            l > 0.f ? (m_run[r] + log2f(l)) * kLn2 : -INFINITY;
-      }
-    }
+    store_rows<DV, true>(acc, l_run, m_run, m0 + qr + g, Sq, t, o + b * o_b + h * o_h, o_s,
+                         lse + ((long long)b * H + h) * Sq);
   }
 }
 
@@ -499,6 +538,247 @@ __global__ void __launch_bounds__(kThreads, 1)
 IVT_FWD_WGMMA_KERNEL(flash_fwd_wgmma_kernel)
 IVT_FWD_WGMMA_KERNEL(small_s_fwd_wgmma_kernel)
 #undef IVT_FWD_WGMMA_KERNEL
+
+// ---- K3: the forward with the QK-RMSNorm in shared memory ------------------------------------
+
+constexpr int kFusedMaxS = 1024;  // K3's S range, the small-S route's
+
+// K3's shared memory: Tile<D, D>'s, then one more barrier and the head's k
+// weights (kQW fp32, zero past D) and the sequence's k 1/rms (S fp32),
+// which producer warp 1 stages at the start.
+template <int D>
+struct FusedTile {
+  using T = Tile<D, D>;
+  static constexpr int kRkBar = T::kBarOff + (4 * T::kStages + 1) * 8;
+  static constexpr int kWOff = (kRkBar + 8 + 15) / 16 * 16;
+  static constexpr int kROff = kWOff + T::kQW * 4;
+  static constexpr int kSmemBytes = kROff + kFusedMaxS * 4 + 1024;
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a CTA may use");
+};
+
+// K3's bf16 kernel (fused_qkv.cu's ivt_fused_qkv_fwd): the body's walk at
+// (D, D), non-causal, Sq = Sk = S, no LSE, one CTA per (128-query tile,
+// head, batch), built from the same steps (qk_product, pv_product,
+// online_softmax, store_rows), with the norm applied in shared memory by
+// the consumers: each warpgroup norms its 64 rows of the Q tile once TMA
+// lands it, and half the rows of each K stage, 32 at a time (hopper.cuh qk_norm_chunks:
+// 16-byte chunks mapped back through the swizzle to their true columns,
+// the padding columns of 88 / 72 left zero), the next tile's while this
+// tile's products run, from the head's k weights and the sequence's k
+// 1/rms that producer warp 1 stages in shared memory at the start; each
+// fences its writes for wgmma (the async proxy), and the two tell each
+// other through named barriers (a warpgroup arrives on the other's after
+// its writes and syncs on its own before it issues S). Every tile walks
+// all ceil(S / 64) key tiles in order, so no tile index is handed on. A
+// tile whose second warpgroup has no row (S = 257's 1-row last tile) runs
+// the first alone: it norms whole K tiles, takes no turns, and the rings'
+// release counts are set for it. Tried and dropped (PERF.md, section 6): the
+// norm in the producer warpgroup's idle warps (they did not keep up), and
+// the walk made persistent over work items (registers spilled; no
+// faster).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_qkv_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               __nv_bfloat16* __restrict__ o, int S, int H, long long o_b,
+                               long long o_s, long long o_h, float scale_log2, QkNorm nrm) {
+  using T = Tile<D, D>;
+  using F = FusedTile<D>;
+  constexpr int kBlockN = T::kBlockN, kStages = T::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = smem + T::kKOff;
+  unsigned char* sV = smem + T::kVOff;
+  float* sWk = reinterpret_cast<float*>(smem + F::kWOff);
+  float* sRk = reinterpret_cast<float*>(smem + F::kROff);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
+  uint64_t* k_empty = k_full + kStages;
+  uint64_t* v_full = k_empty + kStages;
+  uint64_t* v_empty = v_full + kStages;
+  uint64_t* q_full = v_empty + kStages;
+  uint64_t* rk_full = reinterpret_cast<uint64_t*>(smem + F::kRkBar);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nk = (S + kBlockN - 1) / kBlockN;
+  const bool solo = m0 + kWgRows >= S;  // only the first consumer warpgroup has rows
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&k_full[s], 1);
+      hp::mbar_init(&k_empty[s], solo ? 4 : 8);  // lane 0 of every consumer warp
+      hp::mbar_init(&v_full[s], 1);
+      hp::mbar_init(&v_empty[s], solo ? 4 : 8);
+    }
+    hp::mbar_init(q_full, 1);
+    hp::mbar_init(rk_full, 32);  // every lane of producer warp 1
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    hp::setmaxnreg_dec<kProducerRegs>();
+    if (warp == 1) {
+      // The k weights and 1/rms the consumers' K norm reads, staged once.
+      for (int c = lane; c < T::kQW; c += 32) sWk[c] = c < D ? nrm.k_w[h * D + c] : 0.f;
+#pragma unroll 4
+      for (int r = lane; r < S; r += 32) sRk[r] = nrm.k_rstd[(long long)b * S + r];
+      hp::mbar_arrive(rk_full);
+    }
+    if (warp == 0 && lane == 0) {
+      // Producer: lane 0 issues every load.
+      hp::prefetch_map(&q_map);
+      hp::prefetch_map(&k_map);
+      hp::prefetch_map(&v_map);
+      hp::mbar_arrive_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int p = 0; p < T::kQW / T::kQCols; ++p)
+        hp::tma_load_4d(smem + p * kBlockM * T::kQRow, &q_map, q_full, p * T::kQCols, m0, h, b);
+      int stage = 0;
+      unsigned phase = 0;
+      for (int j = 0; j < nk; ++j) {
+        hp::mbar_wait(&k_empty[stage], phase ^ 1);
+        hp::mbar_arrive_expect_tx(&k_full[stage], T::kKBytes);
+#pragma unroll
+        for (int p = 0; p < T::kQW / T::kQCols; ++p)
+          hp::tma_load_4d(sK + stage * T::kKBytes + p * kBlockN * T::kQRow, &k_map,
+                          &k_full[stage], p * T::kQCols, j * kBlockN, h, b);
+        hp::mbar_wait(&v_empty[stage], phase ^ 1);
+        hp::mbar_arrive_expect_tx(&v_full[stage], T::kVBytes);
+#pragma unroll
+        for (int p = 0; p < T::kVW / T::kVCols; ++p)
+          hp::tma_load_4d(sV + stage * T::kVBytes + p * kBlockN * T::kVRow, &v_map,
+                          &v_full[stage], p * T::kVCols, j * kBlockN, h, b);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: rows [64 wg, 64 wg + 64) of the query tile.
+  hp::setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4 - 1;
+  if (solo && wg == 1) return;
+  const int wt = tid - 128 * (wg + 1);    // this thread in its warpgroup
+  const int g = lane >> 2, t = lane & 3;  // accumulator fragment row group / column pair
+  const int qr = wg * kWgRows + (warp & 3) * 16;  // this warp's first row in the tile
+  const unsigned char* sQw = smem + wg * kWgRows * T::kQRow;
+  const float* k_w = sWk;
+  const float* k_rs = sRk;
+  // Ping-pong as in the body (named barriers 1 + wg); none alone.
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1) hp::bar_arrive(1, 2 * 128);  // warpgroup 0 goes first
+  // "The other warpgroup's half of K tile j is normed": named barrier
+  // 3 + 2 (j & 1) + wg, on which the other arrives; alternating with the
+  // tile's parity, a warpgroup's arrival for tile j + 1 cannot meet the
+  // other's wait for tile j. Alone, the first warpgroup syncs on 7.
+  auto k_bar = [&](int j, int who) { return 3 + 2 * (j & 1) + who; };
+  // K tile j in stage st once TMA lands it: this warpgroup's half of the
+  // rows (all of them alone), fenced for wgmma, then the other told.
+  auto norm_k = [&](int st, unsigned ph, int j) {
+    hp::mbar_wait(&k_full[st], ph);
+    unsigned char* kt = sK + st * T::kKBytes;
+    const int key0 = j * kBlockN;
+    // 32 rows a call: fewer live registers beside the products in flight
+    for (int r_lo = solo ? 0 : wg * 32; r_lo < (solo ? kBlockN : wg * 32 + 32); r_lo += 32)
+      hp::qk_norm_chunks<32, kBlockN, T::kQCols, T::kQW, D, 128>(kt, r_lo, S - key0 - r_lo, wt,
+                                                                  k_w, k_rs + key0 + r_lo);
+    hp::fence_proxy_async();
+    if (!solo) hp::bar_arrive(k_bar(j, 1 - wg), 2 * 128);
+  };
+  // Before S of tile j: every row of its K normed and fenced.
+  auto k_ready = [&](int j) {
+    if (solo)
+      hp::bar_sync(7, 128);
+    else
+      hp::bar_sync(k_bar(j, wg), 2 * 128);
+  };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(bar);
+  };
+
+  float acc[T::kVW / 2];
+#pragma unroll
+  for (int i = 0; i < T::kVW / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  float s[kBlockN / 2];
+  uint32_t pa[kBlockN / 16][4];
+  auto issue_qk = [&](int st) { qk_product<T>(s, sQw, sK + st * T::kKBytes); };
+  auto issue_pv = [&](int st, unsigned ph) {
+    pv_product<T>(acc, pa, sV + st * T::kVBytes, &v_full[st], ph);
+  };
+  // Keys past S masked.
+  auto softmax = [&](int key0, float (&alpha)[2]) {
+    const int last = S - 1 - key0 - 2 * t;  // element column c is a key iff c <= last
+    const int lo[2] = {INT_MIN, INT_MIN}, hi[2] = {last, last}, qs[2] = {0, 0};
+    online_softmax<kBlockN, false>(s, m_run, l_run, alpha, scale_log2, key0 + kBlockN > S, lo,
+                                   hi, nullptr, qs);
+  };
+
+  // This warpgroup's Q rows normed; the first tile: its K normed, S,
+  // softmax, P; the next K normed under S; its P V goes out with the next S.
+  hp::mbar_wait(q_full, 0);
+  for (int r_lo = wg * kWgRows; r_lo < wg * kWgRows + kWgRows; r_lo += 32)
+    hp::qk_norm_chunks<32, kBlockM, T::kQCols, T::kQW, D, 128>(
+        smem, r_lo, S - m0 - r_lo, wt, nrm.q_w + h * D, nrm.q_rstd + (long long)b * S + m0 + r_lo);
+  int stage = 0;
+  unsigned phase = 0;
+  hp::mbar_wait(rk_full, 0);
+  norm_k(stage, phase, 0);
+  k_ready(0);
+  if (!solo) hp::bar_sync(my_turn, 2 * 128);
+  issue_qk(stage);
+  if (!solo) hp::bar_arrive(their_turn, 2 * 128);
+  if (nk > 1) norm_k(stage + 1 == kStages ? 0 : stage + 1, 0, 1);
+  hp::wgmma_wait<0>();
+  hp::fence_regs(s);
+  float alpha[2];
+  softmax(0, alpha);
+  release(&k_empty[stage]);
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+  int p_stage = stage;
+  unsigned p_phase = phase;
+  for (int j = 1; j < nk; ++j) {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    k_ready(j);
+    if (!solo) hp::bar_sync(my_turn, 2 * 128);
+    issue_qk(stage);
+    issue_pv(p_stage, p_phase);  // the previous tile's P V runs under this S
+    if (!solo) hp::bar_arrive(their_turn, 2 * 128);
+    if (j + 1 < nk) {
+      const int ns = stage + 1 == kStages ? 0 : stage + 1;
+      norm_k(ns, ns == 0 ? phase ^ 1 : phase, j + 1);
+    }
+    hp::wgmma_wait<1>();
+    hp::fence_regs(s);
+    softmax(j * kBlockN, alpha);
+    release(&k_empty[stage]);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    release(&v_empty[p_stage]);
+#pragma unroll
+    for (int i = 0; i < T::kVW / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) acc_to_a_frag(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+    p_stage = stage;
+    p_phase = phase;
+  }
+  issue_pv(p_stage, p_phase);
+  hp::wgmma_wait<0>();
+  hp::fence_regs(acc);
+  store_rows<D, false>(acc, l_run, m_run, m0 + qr + g, S, t, o + b * o_b + h * o_h, o_s,
+                       nullptr);
+}
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q is read from global memory (L1) per key tile so that
@@ -730,6 +1010,43 @@ cudaError_t flash_fwd_wgmma(bool small_s, const void* q, const void* k, const vo
     IVT_CASE(flash_fwd_wgmma_kernel, 64)
     IVT_CASE(flash_fwd_wgmma_kernel, 88)
   }
+#undef IVT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// K3's bf16 launch, called by fused_qkv.cu's ivt_fused_qkv_fwd with its
+// arguments: q, k and v are the column views [0, W), [W, 2W), [2W, 3W) of
+// the (B, S, 3W) projection `qkv` (element strides s_b, s_s; W = H * D);
+// head dims 64, 72, 88 and 128. Returns cudaErrorInvalidValue for another
+// head dim, or a tensor cuTensorMapEncodeTiled refuses a TMA map for.
+cudaError_t fused_qkv_fwd_wgmma(const void* qkv, const QkNorm& nrm, void* o, int B, int S, int H,
+                                int D, long long s_b, long long s_s, long long o_b, long long o_s,
+                                long long o_h, float scale, void* stream) {
+  const Strides st{s_b, s_s, D, s_b, s_s, D, s_b, s_s, D, o_b, o_s, o_h};
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const long long W = (long long)H * D;
+  const float sl2 = scale * kLog2e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S > kFusedMaxS) return cudaErrorInvalidValue;
+#define IVT_CASE(DIM)                                                                           \
+  if (D == DIM) {                                                                               \
+    auto kern = fused_qkv_fwd_wgmma_kernel<DIM>;                                                \
+    CUtensorMap maps[3];                                                                        \
+    cudaError_t err =                                                                           \
+        prepare_bf16<DIM, DIM>(kern, maps, q, q + W, q + 2 * W, B, S, S, H, H, st);             \
+    if (err != cudaSuccess) return err;                                                         \
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,             \
+                               FusedTile<DIM>::kSmemBytes);                                     \
+    if (err != cudaSuccess) return err;                                                         \
+    kern<<<dim3((S + kBlockM - 1) / kBlockM, H, B), kThreads, FusedTile<DIM>::kSmemBytes, s>>>( \
+        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, o_b, o_s, o_h, sl2,    \
+        nrm);                                                                                   \
+    return cudaGetLastError();                                                                  \
+  }
+  IVT_CASE(64)
+  IVT_CASE(72)
+  IVT_CASE(88)
+  IVT_CASE(128)
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }

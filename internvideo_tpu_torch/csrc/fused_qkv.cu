@@ -5,9 +5,8 @@
 //                   the (B, S, 3W) projection, (B, S) fp32 each;
 //   fused_qkv_fwd   attention over three column views of the same qkv
 //                   tensor (q = [0, W), k = [W, 2W), v = [2W, 3W)); each q and
-//                   k tile is normalized as it lands in shared memory,
-//                   x -> bf16(w * f32(bf16(x * rstd))), then the small-S
-//                   attention body of attn_fwd.cuh runs on it.
+//                   k tile is normalized in shared memory before any product
+//                   reads it, x -> bf16(w * f32(bf16(x * rstd))).
 //
 // Replaces internvideo_tpu/ops/flash_attention.py:1703
 // `_small_s_fused_fwd_kernel` (launched by `_fused_qkv_small_s` :1730,
@@ -33,9 +32,28 @@
 // pre-pass reads q and k a second time (2/3 more traffic than the bound). At
 // the student's (32, 833, 16, 88) the tensor cores bound it (~0.13 ms).
 //
+// The bf16 attention kernel is K2's warp-specialised wgmma + TMA forward
+// walk (flash_fwd_causal.cu fused_qkv_fwd_wgmma_kernel, head dims 64, 72,
+// 88, 128): TMA loads the three views' tiles (rows 3W x 2 bytes apart), and
+// between TMA and wgmma the two consumer warpgroups apply the norm in
+// place, each to its 64 rows of the Q tile and to half of each K tile, the
+// next tile's while this one's products run; a tile whose second 64-row
+// warpgroup has no row (the teacher's S = 257 leaves one row) runs the
+// first alone. fp32 takes attn_fwd.cuh's CUDA-core body with the norm on
+// load (the parity checks).
+//
 // Build: compiled alone by ops/_build.py (one nvcc per source, in parallel).
 
 #include "attn_fwd.cuh"
+
+namespace ivt {
+
+// K3's bf16 launch (flash_fwd_causal.cu).
+cudaError_t fused_qkv_fwd_wgmma(const void* qkv, const QkNorm& nrm, void* o, int B, int S, int H,
+                                int D, long long s_b, long long s_s, long long o_b, long long o_s,
+                                long long o_h, float scale, void* stream);
+
+}  // namespace ivt
 
 namespace {
 
@@ -86,15 +104,6 @@ __global__ void __launch_bounds__(kRstdThreads)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads)
-    fused_qkv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                              int S, int H, FwdStrides st, float scale_log2, QkNorm nrm) {
-  attn_fwd_bf16<D>(q, k, v, o, S, S, st, scale_log2, nrm);
-}
-
-template <int D>
 __global__ void __launch_bounds__(kFwdF32Rows)
     fused_qkv_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ o, int S, int H,
@@ -103,16 +112,9 @@ __global__ void __launch_bounds__(kFwdF32Rows)
 }
 
 template <int D>
-cudaError_t launch(int dtype, const void* qkv, void* o, int B, int S, int H,
-                   const FwdStrides& st, float scale_log2, const QkNorm& nrm,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* qkv, void* o, int B, int S, int H, const FwdStrides& st,
+                       float scale_log2, const QkNorm& nrm, cudaStream_t stream) {
   const long long W = (long long)H * D;
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    const bf* q = static_cast<const bf*>(qkv);
-    return launch_fwd(fused_qkv_fwd_bf16_kernel<D>, true, FwdTile<D>::kSmemBytes, B, S, H, stream,
-                      q, q + W, q + 2 * W, static_cast<bf*>(o), S, H, st, scale_log2, nrm);
-  }
   const float* q = static_cast<const float*>(qkv);
   return launch_fwd(fused_qkv_fwd_f32_kernel<D>, false, 0, B, S, H, stream, q, q + W, q + 2 * W,
                     static_cast<float*>(o), S, H, st, scale_log2, nrm);
@@ -124,8 +126,9 @@ cudaError_t launch(int dtype, const void* qkv, void* o, int B, int S, int H,
 // (B, S, 3W) with element strides s_b, s_s and a unit last stride (bf16:
 // W a multiple of 8, 16-byte aligned rows). q_rstd / k_rstd are (B, S) fp32
 // contiguous. Each returns the cudaError_t of its launch
-// (cudaErrorInvalidValue for an unsupported head dim or dtype); launches on
-// `stream`; does not synchronise.
+// (cudaErrorInvalidValue for an unsupported head dim or dtype, or a bf16
+// tensor cuTensorMapEncodeTiled refuses a TMA map for: 16-byte aligned
+// base and strides); launches on `stream`; does not synchronise.
 extern "C" int ivt_fused_qkv_rstd(int dtype, const void* qkv, float* q_rstd, float* k_rstd, int B,
                                   int S, int W, long long s_b, long long s_s, float eps,
                                   void* stream) {
@@ -150,20 +153,22 @@ extern "C" int ivt_fused_qkv_fwd(int dtype, const void* qkv, const float* q_rstd
                                  int B, int S, int H, int D, long long s_b, long long s_s,
                                  long long o_b, long long o_s, long long o_h, float scale,
                                  void* stream) {
-  const FwdStrides st{s_b, s_s, D, s_b, s_s, D, s_b, s_s, D, o_b, o_s, o_h};
   const QkNorm nrm{q_rstd, k_rstd, q_w, k_w};
+  if (dtype == 1)
+    return fused_qkv_fwd_wgmma(qkv, nrm, o, B, S, H, D, s_b, s_s, o_b, o_s, o_h, scale, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const FwdStrides st{s_b, s_s, D, s_b, s_s, D, s_b, s_s, D, o_b, o_s, o_h};
   const float scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<64>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
+      return launch_f32<64>(qkv, o, B, S, H, st, scale_log2, nrm, s);
     case 72:
-      return launch<72>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
+      return launch_f32<72>(qkv, o, B, S, H, st, scale_log2, nrm, s);
     case 88:
-      return launch<88>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
+      return launch_f32<88>(qkv, o, B, S, H, st, scale_log2, nrm, s);
     case 128:
-      return launch<128>(dtype, qkv, o, B, S, H, st, scale_log2, nrm, s);
+      return launch_f32<128>(qkv, o, B, S, H, st, scale_log2, nrm, s);
     default:
       return cudaErrorInvalidValue;
   }

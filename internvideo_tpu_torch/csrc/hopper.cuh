@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the wgmma / TMA kernels: the tensor-map
 // encoders (host: 4-D bf16 attention operands, 2-D int8 matrices), mbarrier
-// init / arrive / expect-tx / wait, TMA tile loads, named barriers, register
+// init / arrive / expect-tx / wait, TMA tile loads and plain bulk copies,
+// K3's QK-RMSNorm in place on a swizzled tile, named barriers, register
 // reallocation between warpgroups, wgmma shared-memory descriptors, the bf16
 // wgmma instructions (fp32 accumulators) in both operand forms, the s8 ones
 // (int32 accumulators), the proxy fence between threads' shared-memory
@@ -200,6 +201,70 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, as one bulk copy (no tensor map); its bytes complete a
+// transaction on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- device: K3's QK-RMSNorm on a swizzled tile ------------------------------------------------
+
+// K3's whole-dim QK-RMSNorm in place on kRows rows from r_lo of a bf16
+// tile that TMA wrote in the panel layout of the top note (panels of kCols
+// columns and kPanelRows rows, kW stored columns, the true width D), by
+// kThreads threads that take its 16-byte chunks in turn (row-major over the
+// true columns): element (r, c) becomes bf16(w[c] * f32(bf16(x * rstd[r -
+// r_lo]))), the cast chain of internvideo_tpu/ops/flash_attention.py:
+// 1706-1710, w the head's fp32 weights. Each thread's rows' 1/rms load in
+// one batch first. The swizzle only permutes the chunks of a 128-byte line
+// (chunk bits 4-6, or 4-5 at the 64-byte span, XOR-ed with the line's bits
+// 7-9 / 7-8), so a chunk's address is its true offset with that XOR. Rows
+// at or past n_valid and the zero-filled chunks at or past D (whose weights
+// are never read) are left as they are.
+template <int kRows, int kPanelRows, int kCols, int kW, int D, int kThreads>
+__device__ __forceinline__ void qk_norm_chunks(unsigned char* tile, int r_lo, int n_valid, int tid,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ rstd) {
+  constexpr int kRowChunks = kW / 8;
+  constexpr int kChunks = kRows * kRowChunks;
+  constexpr int kIters = (kChunks + kThreads - 1) / kThreads;
+  constexpr int kRowBytes = 2 * kCols;
+  constexpr unsigned kMask = kRowBytes == 128 ? 7 : 3;
+  float rs[kIters];
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const int i = tid + k * kThreads, r = i / kRowChunks;
+    rs[k] = i < kChunks && r < n_valid ? rstd[r] : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const int i = tid + k * kThreads, r = i / kRowChunks, c = i % kRowChunks * 8;
+    if (i >= kChunks || r >= n_valid || c >= D) continue;
+    const unsigned off = (r_lo + r) * kRowBytes + c % kCols * 2;
+    uint4* p = reinterpret_cast<uint4*>(tile + c / kCols * kPanelRows * kRowBytes +
+                                        (off ^ (((off >> 7) & kMask) << 4)));
+    uint4 raw = *p;
+    __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+    const float4 w0 = *reinterpret_cast<const float4*>(w + c);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + c + 4);
+    const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(x2[j]);
+      const float n0 = __bfloat162float(__float2bfloat16(f.x * rs[k]));
+      const float n1 = __bfloat162float(__float2bfloat16(f.y * rs[k]));
+      x2[j] = __floats2bfloat162_rn(ws[2 * j] * n0, ws[2 * j + 1] * n1);
+    }
+    *p = raw;
+  }
 }
 
 // ---- device: warpgroup registers -------------------------------------------------------------

@@ -1,5 +1,6 @@
-// Shared device helpers of the flash-attention kernels (sm_90a): cp.async
-// copies, the bf16 mma.sync.m16n8k16 product, ldmatrix and bf16 packing.
+// Shared device helpers of the attention and decode kernels (sm_90a):
+// cp.async copies, the bf16 mma.sync.m16n8k16 product, ldmatrix, bf16
+// packing, and the QK-RMSNorm arguments of K3 / K11.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +12,17 @@ namespace ivt {
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// K3's and K11's whole-dim QK-RMSNorm, applied to q and k tiles in shared
+// memory: per-row 1/rms factors (B, S) fp32 from their pre-pass
+// (fused_qkv.cu) and the (W,) fp32 weights, of which head h uses
+// [h * D, h * D + D).
+struct QkNorm {
+  const float* q_rstd;
+  const float* k_rstd;
+  const float* q_w;
+  const float* k_w;
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -40,6 +52,19 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// Four 8x8 b16 matrices, plain or transposed; lanes 8 i .. 8 i + 7 address
+// the rows of matrix i, which lands in r[i].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 

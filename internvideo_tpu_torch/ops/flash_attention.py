@@ -97,6 +97,10 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_causal_window", "flash_bwd_causal_dq_gqa", "flash_bwd_causal_dkv_gqa",
            "flash_bwd_causal_dq_window", "flash_bwd_causal_dkv_window")
 _launches = dict.fromkeys(KERNELS, 0)
+# K3's and K11's launches by sequence length, counted with "fused_qkv_fwd" /
+# "fused_qkv_large_fwd": one model step may run them at several S (the UMT
+# student's and its CLIP teacher's).
+_fused_launches_by_len: dict = {}
 
 
 def launch_count(kernel: str = "flash_fwd") -> int:
@@ -105,10 +109,17 @@ def launch_count(kernel: str = "flash_fwd") -> int:
     return _launches[kernel]
 
 
+def fused_launch_counts(kernel: str = "fused_qkv_fwd") -> dict:
+    """{S: launches of `kernel` ("fused_qkv_fwd" or "fused_qkv_large_fwd")
+    at sequence length S} since the counts were last reset."""
+    return {s: n for (name, s), n in _fused_launches_by_len.items() if name == kernel}
+
+
 def reset_launch_count() -> None:
     """Set every kernel's launch count to 0."""
     for name in KERNELS:
         _launches[name] = 0
+    _fused_launches_by_len.clear()
 
 
 def _check_supported(q, k, v, *, q_segment_ids, kv_segment_ids, window, layout):
@@ -681,7 +692,8 @@ def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: 
     if qkv.dtype not in _DTYPE_CODES:
         raise NotImplementedError(f"fused qkv kernel takes float32 or bfloat16, got {qkv.dtype}")
     if d not in head_dims:
-        raise NotImplementedError(f"head dim {d} is not instantiated in {source} {head_dims}")
+        raise NotImplementedError(
+            f"head dim {d} is not instantiated in {source} {head_dims} (ROADMAP queue 2)")
     if not lo < s <= hi:
         raise ValueError(f"{kernel} kernel takes {lo} < S <= {hi}, got {s}")
     if not _small_s_kernel_takes(qkv, num_heads, d, head_dims):
@@ -716,6 +728,7 @@ def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: 
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {rc}")
     _launches[kernel] += 1
+    _fused_launches_by_len[kernel, s] = _fused_launches_by_len.get((kernel, s), 0) + 1
     return out
 
 

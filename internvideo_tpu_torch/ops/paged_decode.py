@@ -5,8 +5,10 @@ Counterpart of internvideo_tpu/ops/paged_decode.py:131 `paged_mla_decode`
 (the Pallas `_decode_kernel` :47): one generated token per sequence attends
 over its latent cache in a shared page pool, with the absorbed query
 q_lat = q_nope @ W_uk and the rotated rope query q_pe. A CUDA tensor runs
-the kernel (`csrc/paged_decode.cu`) or raises; a CPU tensor runs the plain
-version, the gather formulation of `MLAttention.decode_paged`'s XLA branch
+the kernel (`csrc/paged_decode.cu`: in bf16 a tensor-core kernel with all
+heads of a sequence in one CTA, at the serving paths' (R, P); in fp32 a
+CUDA-core kernel) or raises; a CPU tensor runs the plain version, the
+gather formulation of `MLAttention.decode_paged`'s XLA branch
 (internvideo_tpu/nn/mla.py:441-458).
 """
 
@@ -22,9 +24,14 @@ from internvideo_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_R = 1024  # csrc/paged_decode.cu kMaxR: 4 latent columns a thread, 256 threads
 _MAX_C = _MAX_R + 128  # kMaxC: a warp holds its head's R + P query row in registers
-_TILE = 16  # tokens per shared-memory tile (kTokens)
+_TILE = 16  # tokens per shared-memory tile (kTokens; the bf16 kernel's kStageTokens)
 _HEADS_PER_CTA = 8
 _TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
+# The bf16 kernel (paged_decode_mma_kernel): its (R, P) instantiations, those
+# of qwen3_8b_mla and of qwen3_2b_mla / internvideo25_hico_2b, and its heads
+# (two m16 tiles)
+BF16_LATENT_ROPE = ((896, 128), (512, 64))
+BF16_MAX_HEADS = 32
 _launches = {"paged_decode": 0}
 
 
@@ -59,11 +66,27 @@ def paged_mla_decode_ref(q_lat, q_pe, pages, block_tables, seq_lens, *, softmax_
 
 
 def split_len_for(batch: int, heads: int, max_tokens: int) -> int:
-    """Tokens per CTA of the split pass: a multiple of the 16-token tile,
-    small enough that batch x head groups x splits reaches ~2 CTAs per SM."""
+    """Tokens per CTA of the fp32 kernel's split pass: a multiple of the
+    16-token tile, small enough that batch x head groups x splits reaches
+    ~2 CTAs per SM."""
     groups = batch * -(-heads // _HEADS_PER_CTA)
     want = max(1, -(-_TARGET_CTAS // groups))
     return max(_TILE, -(-max(1, -(-max_tokens // want)) // _TILE) * _TILE)
+
+
+def split_len_bf16(batch: int, max_tokens: int, sms: int) -> int:
+    """Tokens per CTA of the bf16 kernel, whose CTA takes all heads of a
+    sequence and holds its SM alone: a multiple of the 16-token stage, as
+    small as lets batch x splits stay within one CTA per SM (one wave)."""
+    splits = max(1, sms // batch)
+    return max(_TILE, -(-max(1, -(-max_tokens // splits)) // _TILE) * _TILE)
+
+
+def _split_len(dtype, batch: int, heads: int, max_tokens: int, device) -> int:
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return split_len_bf16(batch, max_tokens, sms)
+    return split_len_for(batch, heads, max_tokens)
 
 
 def _paged_decode_cuda(q_lat, q_pe, pages, block_tables, seq_lens, scale: float):
@@ -85,6 +108,11 @@ def _paged_decode_cuda(q_lat, q_pe, pages, block_tables, seq_lens, scale: float)
         raise NotImplementedError(
             f"latent rank {r} / rope dim {p_dim}: the kernel takes R <= {_MAX_R}, a multiple "
             f"of 4, and R + P <= {_MAX_C}")
+    if dt == torch.bfloat16 and ((r, p_dim) not in BF16_LATENT_ROPE or h > BF16_MAX_HEADS):
+        raise NotImplementedError(
+            f"(R {r}, P {p_dim}) with {h} heads is not instantiated in the bf16 kernel of "
+            f"csrc/paged_decode.cu: (R, P) in {BF16_LATENT_ROPE}, at most {BF16_MAX_HEADS} heads "
+            "(ROADMAP queue 2, K6)")
     item = pages.element_size()
     if (r * item) % 16 or (p_dim * item) % 16 or not pages.is_contiguous() \
             or pages.data_ptr() % 16:
@@ -102,7 +130,7 @@ def _paged_decode_cuda(q_lat, q_pe, pages, block_tables, seq_lens, scale: float)
     tables = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     max_pages = tables.shape[1]
-    split_len = split_len_for(b, h, max_pages * page_size)
+    split_len = _split_len(dt, b, h, max_pages * page_size, dev)
     n_splits = max(1, -(-(max_pages * page_size) // split_len))
     out = torch.empty((b, h, r), dtype=dt, device=dev)
     if out.numel() == 0:

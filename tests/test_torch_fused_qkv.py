@@ -133,3 +133,42 @@ def test_cpu_fused_qkv_never_builds_or_launches(monkeypatch):
     fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=2).backward(g)
     assert qkv.grad is not None
     assert all(fa.launch_count(n) == 0 for n in fa.KERNELS)
+
+
+def test_fused_qkv_plain_matches_jax_at_the_teacher_shape():
+    """The CLIP-6B teacher's S = 257 (a 1-row last query tile on the card)
+    at its head dim 128, two heads: forward and grads against the JAX op in
+    interpret mode at the JAX bars."""
+    b, s, h, d = 1, 257, 2, 128
+    qkv, qw, kw, g = _inputs(b, s, h, d, seed=11)
+
+    def jax_fused(qkv, qw, kw):
+        return jfa._fused_qkv_small_s(qkv, qw, kw, h, d, d ** -0.5, 1e-6, True)
+
+    ref = jax_fused(qkv, qw, kw)
+    ref_grads = jax.grad(lambda *a: jnp.sum(jax_fused(*a) * g), argnums=(0, 1, 2))(qkv, qw, kw)
+    tqkv, tqw, tkw = (torch.from_numpy(x).requires_grad_() for x in (qkv, qw, kw))
+    out = fa.fused_qkv_rmsnorm_attention(tqkv, tqw, tkw, num_heads=h)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tqkv, tqw, tkw))
+    for name, a, r in zip(("qkv", "qw", "kw"), grads, ref_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=5e-4, rtol=5e-4, err_msg=name)
+
+
+def test_fused_qkv_cuda_wrapper_refuses_head_dims_it_does_not_instantiate():
+    """The bf16 wgmma kernel exists at head dims 64 / 72 / 88 / 128 only;
+    another raises before anything reaches the card, naming the queue
+    that would add it."""
+    qkv = torch.zeros(1, 8, 3 * 2 * 80, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        fa._fused_qkv_cuda(qkv, torch.ones(160), torch.ones(160), 2, 80 ** -0.5, 1e-6)
+
+
+def test_cpu_fused_qkv_counts_no_launch_by_sequence_length():
+    """The by-length tally of K3 / K11 launches is empty after a reset
+    and stays empty on the CPU route."""
+    fa.reset_launch_count()
+    qkv, qw, kw, _ = (torch.from_numpy(x) for x in _inputs(1, 17, 2, 64, seed=5))
+    fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=2)
+    assert fa.fused_launch_counts("fused_qkv_fwd") == {}
+    assert fa.fused_launch_counts("fused_qkv_large_fwd") == {}

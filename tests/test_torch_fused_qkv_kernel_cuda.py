@@ -83,3 +83,65 @@ def test_fused_qkv_rejects_what_it_cannot_take():
     misaligned = torch.randn(1, 8, 3 * 128 + 1, device="cuda").bfloat16()[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         fa.fused_qkv_rmsnorm_attention(misaligned, ones, ones, num_heads=2)
+
+
+# The edges of the wgmma kernel's 128-row query tiles (its two 64-row
+# warpgroups) and 64-key stages, the teacher's S = 257 (a 1-row last tile)
+# and the student's 833, up to the small-S limit.
+EDGE_S = (1, 63, 64, 65, 127, 128, 129, 257, 833, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72, 88, 128])
+def test_fused_qkv_bf16_tile_edges_on_unaligned_views(d):
+    """bf16 at every EDGE_S, the (B, S, 3W) projection a view whose base
+    sits 16 bytes past a 128-byte boundary and whose rows are padded (as
+    a strided slice of a wider projection): out rel-L2 <= 1e-2 against the
+    plain version, one pre-pass and one attention launch a call, and two
+    calls bit-identical."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(d)
+    b, h = 2, 4
+    w = h * d
+    for s in EDGE_S:
+        pitch = 3 * w + 8
+        flat = torch.randn(b * s * pitch + 64, device="cuda", generator=gen).mul_(2).bfloat16()
+        off = (128 - flat.data_ptr() % 128) % 128 // 2 + 8  # 16 bytes past a 128-byte boundary
+        qkv = flat[off:off + b * s * pitch].view(b, s, pitch)[..., :3 * w]
+        assert qkv.data_ptr() % 128 == 16
+        qw = torch.randn(w, device="cuda", generator=gen) * 0.1 + 1.0
+        kw = torch.randn(w, device="cuda", generator=gen) * 0.1 + 1.0
+        before = {n: fa.launch_count(n) for n in fa.KERNELS}
+        out = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+        again = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+        torch.cuda.synchronize()
+        got = {n: fa.launch_count(n) - before[n] for n in fa.KERNELS}
+        assert got == {**dict.fromkeys(fa.KERNELS, 0), "fused_qkv_rstd": 2,
+                       "fused_qkv_fwd": 2}, (s, got)
+        ref = fa.fused_qkv_ref(qkv, qw, kw, h, d ** -0.5)
+        assert torch.isfinite(out).all(), s
+        assert _rel(out, ref) <= 1e-2, (s, d, _rel(out, ref))
+        assert torch.equal(out, again), (s, d)
+
+
+@pytest.mark.cuda
+def test_fused_qkv_counts_launches_by_sequence_length():
+    """Each K3 launch is tallied under its S as well as in its count (the
+    pretrain step's student and CLIP teacher share the kernel), and a
+    reset clears both."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(7)
+    h, d = 2, 64
+    w = h * d
+    qw = torch.ones(w, device="cuda")
+    kw = torch.ones(w, device="cuda")
+    fa.reset_launch_count()
+    for s, calls in ((65, 2), (257, 1)):
+        qkv = torch.randn(1, s, 3 * w, device="cuda", generator=gen).bfloat16()
+        for _ in range(calls):
+            fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+    torch.cuda.synchronize()
+    assert fa.launch_count("fused_qkv_fwd") == 3
+    assert fa.fused_launch_counts("fused_qkv_fwd") == {65: 2, 257: 1}
+    fa.reset_launch_count()
+    assert fa.fused_launch_counts("fused_qkv_fwd") == {}

@@ -147,3 +147,48 @@ def test_split_len_fills_the_card_at_the_path_shape():
     288 CTAs for 132 SMs; a tiny shape still takes one 16-token tile."""
     assert pd.split_len_for(8, 32, 34 * 64) == 256
     assert pd.split_len_for(1, 2, 8) == 16
+
+
+@pytest.mark.parametrize("h, r, p_dim", [(32, 112, 16), (20, 64, 8)],
+                         ids=["qwen3_8b_mla_heads", "hico_2b_heads"])
+def test_plain_matches_jax_kernel_at_the_paths_head_counts(h, r, p_dim):
+    """The serving paths' head counts with their R : P ratios (896 : 128,
+    512 : 64) at narrow R: ragged lengths over shuffled pages against the
+    JAX kernel in interpret mode at 1e-4."""
+    rng, q_lat, q_pe, pages = _inputs(3, h, r, p_dim, 8, 6, seed=h)
+    seq_lens = np.array([1, 23, 48], np.int32)
+    tables = _tables(rng, seq_lens, 6, 8, shuffle=True)
+    args = (q_lat, q_pe, pages, tables, seq_lens)
+    ref = jax_paged_decode(*(jnp.asarray(x) for x in args), softmax_scale=0.2, interpret=True)
+    out = pd.paged_mla_decode(*(torch.from_numpy(x) for x in args), softmax_scale=0.2)
+    assert out.shape == (3, h, r)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_bf16_split_len_keeps_one_wave_at_the_path_shapes():
+    """The bf16 kernel's CTA takes all heads of one sequence and holds its SM
+    alone, so batch x splits stays within the SMs: the 8B decode's 8
+    sequences of up to 34 pages take 16 splits of 144 tokens (128 CTAs on
+    132 SMs), one 32,768-token sequence 128 of 256; a tiny one a 16-token
+    stage."""
+    assert pd.split_len_bf16(8, 34 * 64, 132) == 144
+    assert pd.split_len_bf16(1, 32768, 132) == 256
+    assert pd.split_len_bf16(1, 8, 132) == 16
+    for b, tokens in ((8, 34 * 64), (8, 17 * 64), (1, 32768), (3, 5000), (200, 2048)):
+        split = pd.split_len_bf16(b, tokens, 132)
+        assert split % 16 == 0
+        assert b * -(-tokens // split) <= max(132, b)
+
+
+def test_bf16_wrapper_refuses_shapes_it_does_not_instantiate():
+    """The bf16 kernel exists at (R, P) = (896, 128) and (512, 64) with at
+    most 32 heads; another shape raises before anything reaches the card,
+    naming the queue that would add it."""
+    args = lambda h, r, p: (torch.zeros(1, h, r, dtype=torch.bfloat16),  # noqa: E731
+                            torch.zeros(1, h, p, dtype=torch.bfloat16),
+                            torch.zeros(2, 4, r + p, dtype=torch.bfloat16),
+                            torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        pd._paged_decode_cuda(*args(2, 64, 16), 1.0)
+    with pytest.raises(NotImplementedError, match="at most 32 heads"):
+        pd._paged_decode_cuda(*args(40, 512, 64), 1.0)

@@ -99,3 +99,65 @@ def test_kernel_refuses_what_it_cannot_take():
     misaligned = torch.zeros(pages.numel() + 1, device="cuda")[1:].view(pages.shape)
     with pytest.raises(ValueError, match="16-byte"):
         pd.paged_mla_decode(q_lat, q_pe, misaligned, tables, sl, softmax_scale=1.0)
+
+
+def _bf16_split(b, max_tokens):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pd.split_len_bf16(b, max_tokens, sms)
+
+
+# (H, R, P) of the bf16 kernel's paths: qwen3_8b_mla, and qwen3_2b_mla /
+# internvideo25_hico_2b
+BF16_PATHS = [(32, 896, 128), (20, 512, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("h, r, p_dim", BF16_PATHS)
+def test_bf16_kernel_edges_with_nan_trash(b, h, r, p_dim):
+    """The bf16 tensor-core kernel at its paths' (H, R, P), page 64: lengths
+    0, 1, page - 1, page, page + 1, either side of a split boundary and
+    32,768 (B 1), on a pool whose unused block-table columns point at a page
+    of NaN and whose slots past each length are NaN; rel-L2 <= 1e-2 against
+    the plain version on the cleaned pool, a sequence without tokens 0, one
+    launch a call, and two calls bit-identical."""
+    _card()
+    page = 64
+    if b == 1:
+        cases = [[0], [1], [page - 1], [page], [page + 1], [32768]]
+    else:
+        cases = [[0, 1, page - 1, page, page + 1, 300, 1000, 2112]]
+    split = _bf16_split(b, 40 * page)  # the pools below hold 40 pages a sequence
+    around = [split - 1, split, split + 1, 2 * split - 1, 2 * split + 1]
+    cases += [[n] for n in around] if b == 1 else [around + [split - 1, split, split + 1]]
+    for i, lens in enumerate(cases):
+        mp = max(40, -(-max(lens) // page))
+        q_lat, q_pe, pages, tables, sl = _inputs(b, h, r, p_dim, page, mp, lens, torch.bfloat16,
+                                                 100 + i)
+        scale = (r // 7 + p_dim) ** -0.5
+        before = pd.launch_count()
+        out = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=scale)
+        again = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=scale)
+        torch.cuda.synchronize()
+        assert pd.launch_count() == before + 2
+        ref = pd.paged_mla_decode_ref(q_lat, q_pe, _clean(pages), tables, sl,
+                                      softmax_scale=scale)
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all(), lens
+        live = sl > 0
+        assert (out[~live] == 0).all(), lens
+        if live.any():
+            rel = ((out[live].float() - ref[live].float()).norm()
+                   / ref[live].float().norm()).item()
+            assert rel <= 1e-2, (lens, rel)
+        assert torch.equal(out, again), lens
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_refuses_uninstantiated_shapes():
+    _card()
+    q_lat, q_pe, pages, tables, sl = _inputs(1, 2, 64, 16, 4, 2, [5], torch.bfloat16, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=1.0)
+    q_lat, q_pe, pages, tables, sl = _inputs(1, 40, 512, 64, 64, 2, [5], torch.bfloat16, 0)
+    with pytest.raises(NotImplementedError, match="at most 32 heads"):
+        pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=1.0)
