@@ -15,9 +15,10 @@ non-zero and prints no result):
      K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128), of
      K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128), of K7's wgmma
      s8 GEMM (f32 and bf16 output), of K3's (the forward body with the
-     QK-RMSNorm in shared memory at d 64, 72, 88, 128) and of K6's bf16
-     tensor-core decode (at (R, P) = (896, 128), (512, 64)); fails on a
-     spill in K4b's, K7's, K3's or K6's;
+     QK-RMSNorm in shared memory at d 64, 72, 88, 128), of K6's bf16
+     tensor-core decode (at (R, P) = (896, 128), (512, 64)) and of K11's
+     (the walk with only Q normed at d 64, 88, and its normed-k pre-pass);
+     fails on a spill in K4b's, K7's, K3's, K6's or K11's;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5), at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
@@ -303,8 +304,12 @@ non-zero and prints no result):
      1e-2); K9 on a requires-grad input raises;
  39. K11 (fused qkv + QK-RMSNorm + blocked-K attention) vs its plain
      version: fp32 at (1, 1100 / 1040, 2 x 64) (max-abs 2e-5, grads 5e-4),
-     bf16 on one projection at the stage-2 tower's (32, 1025, 16, 88) and
-     the 1B eval's (16, 4097, 16, 88) (rel-L2 <= 1e-2); 39b: the three
+     bf16 on one projection at the stage-2 tower's (32, 1025, 16, 88), the
+     1B eval's (16, 4097, 16, 88), S = 8192 (2, 8192, 16, 88) and head dim
+     64 (4, 4097, 16, 64) (rel-L2 <= 1e-2; one pre-pass and one attention
+     launch an op; the pre-pass's normed k bit-identical to the cast chain
+     on its own 1/rms, within two bf16 ulps of `rms_norm` of the k slice,
+     its 1/rms within 1e-6 of the plain pre-pass's); 39b: the three
      kernels' only paths, their entry points (`ops.fused_add_rms_norm`,
      `fused_ls_add_rms_norm`, `fused_qkv_attention_or_none(allow_large=
      True)` at S = 1025), each once, launches reset before and read after;
@@ -322,7 +327,9 @@ non-zero and prints no result):
  42. times: tower clips/s (B 32), text texts/s (B 32 x 32), rerank pairs/s
      (32 pairs) and the whole eval's wall time; videoclip_retrieval_p50_ms
      as bench.py:241-317 times it; one query under torch.profiler; K9, K10
-     and K11 beside their plain versions, bounds and yardsticks; K1 at the
+     and K11 beside their plain versions, bounds and yardsticks (K11 and
+     its pre-pass alone beside SDPA on pre-normed q / k and the production
+     route, 2 rms_norm + K1, in the same call); K1 at the
      shapes the retrieval eval gives it (the tower's (32, 1025, 16, 88) on
      qkv views, the rerank cross-attention's 32 queries on 1025 keys at
      head dim 64) beside its plain version, bound and flash SDPA.
@@ -425,6 +432,9 @@ RETRIEVAL_TOWER_SHAPE = (32, 1025, 16, 88)
 # the rerank fusion's cross-attention to the tower's tokens: (B, Sq, Sk, H, D)
 RETRIEVAL_CROSS_SHAPE = (32, 32, 1025, 16, 64)
 NORM_SHAPE = (16 * 4097, 1408)
+# K11's bf16 edges beside its two path shapes: the top of its S range, and
+# head dim 64 at the eval's S
+K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
 
 
 # K5's earlier forward design, which the wgmma one replaced; its times, taken
@@ -433,7 +443,7 @@ NORM_SHAPE = (16 * 4097, 1408)
 K5_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k5_fwd.py"}
 K1K2_EARLIER = {"design": "mma.sync m16n8k16 + cp.async, 4 warps of 16 rows (attn_fwd.cuh's "
-                          "bf16 body, which K11 keeps)",
+                          "bf16 body, deleted with K11's redesign)",
                 "times_beside_ms": "PERF.md section 6, tools_torch/compare_fwd_k1k2.py"}
 K4B_EARLIER = {"design": "mma.sync m16n8k16 + double-buffered cp.async, 4 warps and 64-row "
                           "tiles (attn_bwd.cuh's bf16 body, deleted with this redesign)",
@@ -442,8 +452,11 @@ K7_EARLIER = {"design": "mma.sync m16n8k32 s8, 128 x 128 CTA tiles of 8 warps, 3
                         "ldmatrix",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k4b_k7.py"}
 K3_EARLIER = {"design": "attn_fwd.cuh's mma.sync m16n8k16 body, 64-row CTAs of 4 warps, cp.async "
-                        "double buffer, q / k normed on load (which K11 keeps)",
+                        "double buffer, q / k normed on load",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k3_k6.py"}
+K11_EARLIER = {"design": "attn_fwd.cuh's mma.sync m16n8k16 body, 64-row CTAs of 4 warps, cp.async "
+                         "double buffer, q and every k tile normed on load in each CTA",
+               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k11.py"}
 K6_EARLIER = {"design": "8 heads a CTA (the pool read H / 8 times), 16-token cp.async tiles, "
                         "fp32 CUDA-core FMAs with warp-shuffle sums (which the fp32 route keeps)",
               "times_beside_ms": "PERF.md section 6, tools_torch/compare_k3_k6.py"}
@@ -580,6 +593,20 @@ def _ptxas_k3_k6(log: str) -> dict:
     spilled = {k: v for k, v in rep.items() if v["spill_stores"] or v["spill_loads"]}
     if spilled:
         raise AssertionError(f"K3 / K6 kernels spill: {spilled}")
+    return rep
+
+
+def _ptxas_k11(log: str) -> dict:
+    """The ptxas report of K11's bf16 kernels (fused_qkv_large_fwd_wgmma_kernel
+    <D>, K3's walk without the K norm at D = 64 and 88) and of its pre-pass
+    (fused_qkv_rstd_kernel<bf16, normed k>); raises on a spill (the kernel
+    they replace had none)."""
+    rep = {**_ptxas(log, r"fused_qkv_large_fwd_wgmma_kernelILi(\d+)E",
+                    lambda m: f"fused_qkv_large_fwd ({m[1]}, {m[1]})", 2),
+           **_ptxas(log, r"fused_qkv_rstd_kernelILb1ELb1E", lambda m: "pre-pass (normed k)", 1)}
+    spilled = {k: v for k, v in rep.items() if v["spill_stores"] or v["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"K11 kernels spill: {spilled}")
     return rep
 
 
@@ -4344,20 +4371,41 @@ def check_large_kernel(fa) -> dict:
               f"at {' / '.join(f'{x:.2f}' for x in ge)} of the 5e-4 bar", flush=True)
         if not (e <= 2e-5 and all(x <= 1 for x in ge)):
             raise AssertionError(f"K11 disagrees with its plain version at {(b, s, h, d)}")
-    for shape in (RETRIEVAL_TOWER_SHAPE, MAIN_SHAPE):
+    for shape in (RETRIEVAL_TOWER_SHAPE, MAIN_SHAPE, *K11_EDGE_SHAPES):
         b, s, h, d = shape
         w = h * d
         qkv = (torch.randn(b, s, 3 * w, device="cuda", generator=g) * 2).bfloat16()
         qw, kw = (torch.randn(w, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
         with torch.no_grad():
+            # the pre-pass: the normed k rows are the cast chain on its own
+            # 1/rms bit for bit, and within two bf16 ulps of `rms_norm` of the
+            # k slice (whose mean sums in another order: an fp32 ulp of 1/rms
+            # moves bf16(x * rstd) by one ulp at most, bf16(w * that) by two
+            # through a weight below 2)
+            _, k_rstd, k_normed = fa._fused_prepass_cuda(qkv, kw, 1e-6, normed_k=True)
+            _, ref_rstd, ref_normed = fa.fused_qkv_large_prepass_ref(qkv, kw)
+            own = (kw * (qkv[..., w:2 * w].float() * k_rstd[..., None]).bfloat16()).bfloat16()
+            bits = [x.float().view(torch.int32) >> 16 for x in (k_normed, ref_normed)]
+            ulps = (bits[0] - bits[1]).abs().max().item()
+            differ = (k_normed != ref_normed).sum().item()
+            rstd_rel = ((k_rstd - ref_rstd).abs() / ref_rstd).max().item()
+            same = torch.equal(k_normed, own)
+            del own, ref_normed, k_normed, bits
+            fa.reset_launch_count()
             out = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+            torch.cuda.synchronize()
+            counts = {n: c for n in fa.KERNELS if (c := fa.launch_count(n))}
             ref = fa.fused_qkv_large_ref(qkv, qw, kw, h, d ** -0.5)
             torch.cuda.synchronize()
         rel, e = _rel(out, ref), (out.float() - ref.float()).abs().max().item()
-        err[f"fused_qkv_large_fwd_{s}"] = e
+        err[f"fused_qkv_large_fwd_{s}" + ("" if d == 88 else f"_d{d}")] = e
         print(f"K11 bf16 {shape} on one (B, S, 3W) projection: out rel-L2 {rel:.3e} "
-              f"(bar 1e-2), max-abs {e:.3e}", flush=True)
-        if rel > 1e-2:
+              f"(bar 1e-2), max-abs {e:.3e}; launches {counts}; normed k bit-identical to "
+              f"the chain on the pre-pass's 1/rms {same}, {differ} elements (at most {ulps} "
+              f"bf16 ulp) off rms_norm of the k slice, 1/rms within {rstd_rel:.2e} "
+              f"(relative) of the plain pre-pass's", flush=True)
+        if not (rel <= 1e-2 and same and ulps <= 2 and rstd_rel <= 1e-6
+                and counts == {"fused_qkv_rstd": 1, "fused_qkv_large_fwd": 1}):
             raise AssertionError(f"K11 disagrees with its plain version at {shape}")
         del qkv, out, ref
     return err
@@ -4652,6 +4700,8 @@ def time_retrieval(model, fa, rms, card) -> dict:
             op_ms = _time_ms(lambda: fa._fused_qkv_cuda(qkv, qw, kw, h, scale, 1e-6,
                                                         kernel="fused_qkv_large_fwd"),
                              iters=10, warmup=2)
+            prepass_ms = _time_ms(lambda: fa._fused_prepass_cuda(qkv, kw, 1e-6, normed_k=True),
+                                  iters=10, warmup=2)
             prod_ms = _time_ms(lambda: fa._fused_large_unfused(qkv, qw, kw, h, scale, 1e-6),
                                iters=10, warmup=2)
             plain_ms = _time_ms(lambda: fa.fused_qkv_large_ref(qkv, qw, kw, h, scale), iters=1)
@@ -4659,7 +4709,8 @@ def time_retrieval(model, fa, rms, card) -> dict:
             kn = rms_norm(qkv[..., wd:2 * wd], kw).unflatten(-1, (h, hd))
             lib_ms = _sdpa_fwd_ms(qn, kn, qkv[..., 2 * wd:].unflatten(-1, (h, hd)))
         k[f"fused_qkv_large_fwd_{s}"] = dict(
-            ms=op_ms, plain_ms=plain_ms, library_ms=lib_ms, production_route_ms=prod_ms,
+            ms=op_ms, prepass_ms=prepass_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            production_route_ms=prod_ms,
             bound=_bound(4 * b * h * s * s * hd, 4 * b * s * wd * 2 + 2 * wd * 4),
             shape=list(shape))
         del qkv, qn, kn
@@ -4692,8 +4743,9 @@ def time_retrieval(model, fa, rms, card) -> dict:
             continue
         print(f"[{card}] {name} {v['shape']}: kernel {v['ms']:.3f} ms, bound "
               f"{v['bound'][0]:.3f} ms ({v['bound'][1]}), plain {v['plain_ms']:.3f} ms, "
-              + (f"SDPA on pre-normed q / k {v['library_ms']:.3f} ms, the production route "
-                 f"(2 rms_norm + K1) {v['production_route_ms']:.3f} ms"
+              + (f"of it the normed-k pre-pass {v['prepass_ms']:.3f} ms; SDPA on pre-normed q "
+                 f"/ k {v['library_ms']:.3f} ms, the production route (2 rms_norm + K1) "
+                 f"{v['production_route_ms']:.3f} ms"
                  if v["library_ms"] is not None
                  else "no single PyTorch call computes it (plain = the composition)"),
               flush=True)
@@ -4737,10 +4789,12 @@ def main() -> int:
     k1k2_ptxas = _ptxas_k1k2(build_log)
     k4b_k7_ptxas = _ptxas_k4b_k7(build_log)
     k3_k6_ptxas = _ptxas_k3_k6(build_log)
+    k11_ptxas = _ptxas_k11(build_log)
     for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas),
                       ("K1 and K2", k1k2_ptxas), ("K4b and K7", k4b_k7_ptxas),
-                      ("K3 (wgmma + TMA) and K6 (mma.sync + bulk copies)", k3_k6_ptxas)):
-        design = "" if what.startswith("K3") else " (wgmma + TMA)"
+                      ("K3 (wgmma + TMA) and K6 (mma.sync + bulk copies)", k3_k6_ptxas),
+                      ("K11 (wgmma + TMA) and its pre-pass", k11_ptxas)):
+        design = "" if what.startswith(("K3", "K11")) else " (wgmma + TMA)"
         print(f"ptxas, {'K5 ' * (what in k5_ptxas)}{what}{design}: " + "; ".join(
             f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
             f"spilled (stores / loads)" for k, v in rep.items()), flush=True)
@@ -5251,12 +5305,18 @@ def main() -> int:
             s2 = k[f"fused_qkv_large_fwd_{RETRIEVAL_TOWER_SHAPE[1]}"]
             entry_k.update(
                 library_note="flash SDPA on q / k normed beforehand",
-                production_route_ms=r["production_route_ms"],
+                production_route_ms=r["production_route_ms"], prepass_ms=r["prepass_ms"],
+                design="a pre-pass writes q's 1/rms and the normed k rows once; then K3's "
+                       "wgmma + TMA walk with only Q normed in shared memory",
+                earlier_design=K11_EARLIER, ptxas=k11_ptxas,
+                max_abs_err_bf16_by_s={n.rsplit("fwd_", 1)[1]: e for n, e in large_err.items()
+                                       if n.startswith("fused_qkv_large_fwd_")},
                 max_abs_err_bf16=large_err[f"fused_qkv_large_fwd_{MAIN_SHAPE[1]}"],
                 stage2_tower={"shape": s2["shape"], "ms": s2["ms"], "plain_ms": s2["plain_ms"],
                               "bound_ms": s2["bound"][0], "bound_by": s2["bound"][1],
                               "library_ms": s2["library_ms"],
                               "production_route_ms": s2["production_route_ms"],
+                              "prepass_ms": s2["prepass_ms"],
                               "max_abs_err": large_err[
                                   f"fused_qkv_large_fwd_{RETRIEVAL_TOWER_SHAPE[1]}"]})
         kernels.append(entry_k)

@@ -29,8 +29,7 @@
 // nothing to S, P V accumulates 96 columns (one m64n96 wgmma a k-step) and
 // the stores write 88. fp32 inputs take the CUDA-core FMA body of
 // attn_fwd.cuh (one thread per query row; the parity route, not the bf16
-// main path). The earlier bf16 design, attn_fwd.cuh's mma.sync body (64
-// query rows a CTA, cp.async double buffering), stays behind K3 and K11.
+// main path).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC, linked with the other sources into one shared
@@ -65,7 +64,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int H, const FwdStrides& st, float scale_log2,
                        cudaStream_t stream) {
-  return launch_fwd(flash_fwd_f32_kernel<D>, false, 0, B, Sq, H, stream,
+  return launch_fwd(flash_fwd_f32_kernel<D>, B, Sq, H, stream,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H, st,
                     scale_log2);

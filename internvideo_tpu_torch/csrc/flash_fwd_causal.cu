@@ -93,7 +93,10 @@
 // (fused_qkv.cu: the UMT student and the CLIP-6B teacher) runs the same
 // walk with the QK-RMSNorm applied to the Q and K tiles in shared memory
 // between TMA and wgmma (fused_qkv_fwd_wgmma_kernel, launched by
-// fused_qkv_fwd_wgmma). A head dim
+// fused_qkv_fwd_wgmma); K11 (fused_qkv_large.cu) runs it with only the Q
+// tiles normed there and K read from rows its pre-pass normed once
+// (fused_qkv_large_fwd_wgmma_kernel, launched by fused_qkv_large_fwd_wgmma).
+// A head dim
 // that is no multiple of 32 (88, 72) is stored as three 32-column panels of
 // 64-byte swizzle (96 columns); each TMA map keeps the true width, so the
 // columns past it load as zeros and add nothing to S, P V accumulates all
@@ -163,9 +166,9 @@ __device__ __forceinline__ int2 key_span(int r0, int rows, int Sq, int Sk, int c
   return make_int2(lo, end);
 }
 
-// A consumer warpgroup's steps, shared by the body below and K3's kernel
-// (which adds the norm between them). S = Q K^T: the warpgroup's 64 Q rows
-// (sQw) x the kBlockN keys of K tile kt, both K-major.
+// A consumer warpgroup's steps, shared by the body below and K3's and
+// K11's kernels (which add the norm between them). S = Q K^T: the
+// warpgroup's 64 Q rows (sQw) x the kBlockN keys of K tile kt, both K-major.
 template <class T>
 __device__ __forceinline__ void qk_product(float (&s)[T::kBlockN / 2], const unsigned char* sQw,
                                            const unsigned char* kt) {
@@ -539,13 +542,14 @@ IVT_FWD_WGMMA_KERNEL(flash_fwd_wgmma_kernel)
 IVT_FWD_WGMMA_KERNEL(small_s_fwd_wgmma_kernel)
 #undef IVT_FWD_WGMMA_KERNEL
 
-// ---- K3: the forward with the QK-RMSNorm in shared memory ------------------------------------
+// ---- K3 and K11: the forward with the QK-RMSNorm in shared memory ----------------------------
 
 constexpr int kFusedMaxS = 1024;  // K3's S range, the small-S route's
 
 // K3's shared memory: Tile<D, D>'s, then one more barrier and the head's k
 // weights (kQW fp32, zero past D) and the sequence's k 1/rms (S fp32),
-// which producer warp 1 stages at the start.
+// which producer warp 1 stages at the start. K11 stages nothing and takes
+// Tile<D, D>'s alone, so its S is not bounded by kFusedMaxS.
 template <int D>
 struct FusedTile {
   using T = Tile<D, D>;
@@ -556,33 +560,36 @@ struct FusedTile {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a CTA may use");
 };
 
-// K3's bf16 kernel (fused_qkv.cu's ivt_fused_qkv_fwd): the body's walk at
-// (D, D), non-causal, Sq = Sk = S, no LSE, one CTA per (128-query tile,
-// head, batch), built from the same steps (qk_product, pv_product,
-// online_softmax, store_rows), with the norm applied in shared memory by
-// the consumers: each warpgroup norms its 64 rows of the Q tile once TMA
-// lands it, and half the rows of each K stage, 32 at a time (hopper.cuh qk_norm_chunks:
-// 16-byte chunks mapped back through the swizzle to their true columns,
-// the padding columns of 88 / 72 left zero), the next tile's while this
-// tile's products run, from the head's k weights and the sequence's k
-// 1/rms that producer warp 1 stages in shared memory at the start; each
-// fences its writes for wgmma (the async proxy), and the two tell each
-// other through named barriers (a warpgroup arrives on the other's after
-// its writes and syncs on its own before it issues S). Every tile walks
-// all ceil(S / 64) key tiles in order, so no tile index is handed on. A
-// tile whose second warpgroup has no row (S = 257's 1-row last tile) runs
-// the first alone: it norms whole K tiles, takes no turns, and the rings'
-// release counts are set for it. Tried and dropped (PERF.md, section 6): the
-// norm in the producer warpgroup's idle warps (they did not keep up), and
-// the walk made persistent over work items (registers spilled; no
-// faster).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    fused_qkv_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                               const __grid_constant__ CUtensorMap k_map,
-                               const __grid_constant__ CUtensorMap v_map,
-                               __nv_bfloat16* __restrict__ o, int S, int H, long long o_b,
-                               long long o_s, long long o_h, float scale_log2, QkNorm nrm) {
+// K3's and K11's walk (fused_qkv.cu's ivt_fused_qkv_fwd, fused_qkv_large.cu's
+// ivt_fused_qkv_large_fwd): the body's walk at (D, D), non-causal, Sq = Sk
+// = S, no LSE, one CTA per (128-query tile, head, batch), built from the
+// same steps (qk_product, pv_product, online_softmax, store_rows), with the
+// norm applied in shared memory by the consumers: each warpgroup norms its
+// 64 rows of the Q tile once TMA lands it (hopper.cuh qk_norm_chunks:
+// 16-byte chunks mapped back through the swizzle to their true columns, the
+// padding columns of 88 / 72 left zero). With kNormK (K3) each also norms
+// half the rows of each K stage, 32 at a time, the next tile's while this
+// tile's products run, from the head's k weights and the sequence's k 1/rms
+// that producer warp 1 stages in shared memory at the start; each fences
+// its writes for wgmma (the async proxy), and the two tell each other
+// through named barriers (a warpgroup arrives on the other's after its
+// writes and syncs on its own before it issues S). Without kNormK (K11) the
+// K map reads rows the pre-pass normed once, so the loop over K tiles is
+// K1's: wait for the stage, S, softmax, P V; nothing staged grows with S.
+// Every tile walks all ceil(S / 64) key tiles in order, so no tile index is
+// handed on. A tile whose second warpgroup has no row (S = 257's, 1025's
+// and 4097's 1-row last tile) runs the first alone: it norms whole K tiles,
+// takes no turns, and the rings' release counts are set for it. Tried and
+// dropped (PERF.md, section 6): the norm in the producer warpgroup's idle
+// warps (they did not keep up), and the walk made persistent over work
+// items (registers spilled; no faster).
+template <int D, bool kNormK>
+__device__ __forceinline__ void fused_qkv_fwd_body(const CUtensorMap& q_map,
+                                                   const CUtensorMap& k_map,
+                                                   const CUtensorMap& v_map,
+                                                   __nv_bfloat16* __restrict__ o, int S, int H,
+                                                   long long o_b, long long o_s, long long o_h,
+                                                   float scale_log2, const QkNorm& nrm) {
   using T = Tile<D, D>;
   using F = FusedTile<D>;
   constexpr int kBlockN = T::kBlockN, kStages = T::kStages;
@@ -612,14 +619,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::mbar_init(&v_empty[s], solo ? 4 : 8);
     }
     hp::mbar_init(q_full, 1);
-    hp::mbar_init(rk_full, 32);  // every lane of producer warp 1
+    if (kNormK) hp::mbar_init(rk_full, 32);  // every lane of producer warp 1
     hp::fence_barrier_init();
   }
   __syncthreads();
 
   if (warp < 4) {
     hp::setmaxnreg_dec<kProducerRegs>();
-    if (warp == 1) {
+    if (kNormK && warp == 1) {
       // The k weights and 1/rms the consumers' K norm reads, staged once.
       for (int c = lane; c < T::kQW; c += 32) sWk[c] = c < D ? nrm.k_w[h * D + c] : 0.f;
 #pragma unroll 4
@@ -690,9 +697,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     hp::fence_proxy_async();
     if (!solo) hp::bar_arrive(k_bar(j, 1 - wg), 2 * 128);
   };
-  // Before S of tile j: every row of its K normed and fenced.
-  auto k_ready = [&](int j) {
-    if (solo)
+  // Before S of tile j (in stage st): every row of its K normed and fenced
+  // (kNormK), or landed.
+  auto k_ready = [&](int st, unsigned ph, int j) {
+    if constexpr (!kNormK)
+      hp::mbar_wait(&k_full[st], ph);
+    else if (solo)
       hp::bar_sync(7, 128);
     else
       hp::bar_sync(k_bar(j, wg), 2 * 128);
@@ -727,15 +737,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r_lo = wg * kWgRows; r_lo < wg * kWgRows + kWgRows; r_lo += 32)
     hp::qk_norm_chunks<32, kBlockM, T::kQCols, T::kQW, D, 128>(
         smem, r_lo, S - m0 - r_lo, wt, nrm.q_w + h * D, nrm.q_rstd + (long long)b * S + m0 + r_lo);
+  if constexpr (!kNormK) {
+    // Without a K norm to fence them, the Q writes are fenced here and the
+    // warpgroup meets (named barrier 3 + wg) before its first S reads them.
+    hp::fence_proxy_async();
+    hp::bar_sync(3 + wg, 128);
+  }
   int stage = 0;
   unsigned phase = 0;
-  hp::mbar_wait(rk_full, 0);
-  norm_k(stage, phase, 0);
-  k_ready(0);
+  if constexpr (kNormK) {
+    hp::mbar_wait(rk_full, 0);
+    norm_k(stage, phase, 0);
+  }
+  k_ready(stage, phase, 0);
   if (!solo) hp::bar_sync(my_turn, 2 * 128);
   issue_qk(stage);
   if (!solo) hp::bar_arrive(their_turn, 2 * 128);
-  if (nk > 1) norm_k(stage + 1 == kStages ? 0 : stage + 1, 0, 1);
+  if (kNormK && nk > 1) norm_k(stage + 1 == kStages ? 0 : stage + 1, 0, 1);
   hp::wgmma_wait<0>();
   hp::fence_regs(s);
   float alpha[2];
@@ -750,12 +768,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       stage = 0;
       phase ^= 1;
     }
-    k_ready(j);
+    k_ready(stage, phase, j);
     if (!solo) hp::bar_sync(my_turn, 2 * 128);
     issue_qk(stage);
     issue_pv(p_stage, p_phase);  // the previous tile's P V runs under this S
     if (!solo) hp::bar_arrive(their_turn, 2 * 128);
-    if (j + 1 < nk) {
+    if (kNormK && j + 1 < nk) {
       const int ns = stage + 1 == kStages ? 0 : stage + 1;
       norm_k(ns, ns == 0 ? phase ^ 1 : phase, j + 1);
     }
@@ -779,6 +797,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows<D, false>(acc, l_run, m_run, m0 + qr + g, S, t, o + b * o_b + h * o_h, o_s,
                        nullptr);
 }
+
+// K3's bf16 kernel: q and k normed in shared memory. K11's: k read normed
+// from the pre-pass's buffer, only q normed in shared memory.
+#define IVT_FUSED_WGMMA_KERNEL(NAME, NORM_K)                                                 \
+  template <int D>                                                                           \
+  __global__ void __launch_bounds__(kThreads, 1)                                             \
+      NAME(const __grid_constant__ CUtensorMap q_map,                                        \
+           const __grid_constant__ CUtensorMap k_map,                                        \
+           const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int S,  \
+           int H, long long o_b, long long o_s, long long o_h, float scale_log2, QkNorm nrm) { \
+    fused_qkv_fwd_body<D, NORM_K>(q_map, k_map, v_map, o, S, H, o_b, o_s, o_h, scale_log2,  \
+                                  nrm);                                                      \
+  }
+IVT_FUSED_WGMMA_KERNEL(fused_qkv_fwd_wgmma_kernel, true)
+IVT_FUSED_WGMMA_KERNEL(fused_qkv_large_fwd_wgmma_kernel, false)
+#undef IVT_FUSED_WGMMA_KERNEL
 
 // fp32: one thread per query row, K/V tiles of 16 keys in shared memory,
 // CUDA-core FMAs; q is read from global memory (L1) per key tile so that
@@ -935,6 +969,28 @@ cudaError_t launch_wgmma(Kernel kern, const void* q, const void* k, const void* 
   return cudaGetLastError();
 }
 
+// A bf16 launch of K3's (kNormK) or K11's kernel `kern` at head dim D: q and
+// v the column views [0, W) and [2W, 3W) of `qkv`, k at `k`, each with its
+// strides in st.
+template <int D, bool kNormK, typename Kernel>
+cudaError_t launch_fused(Kernel kern, const __nv_bfloat16* qkv, const void* k, const QkNorm& nrm,
+                         void* o, int B, int S, int H, const Strides& st, float scale_log2,
+                         cudaStream_t stream) {
+  constexpr int kSmem = kNormK ? FusedTile<D>::kSmemBytes : Tile<D, D>::kSmemBytes;
+  const long long W = (long long)H * D;
+  CUtensorMap maps[3];
+  cudaError_t err = prepare_bf16<D, D>(kern, maps, qkv, k, qkv + 2 * W, B, S, S, H, H, st);
+  if (err != cudaSuccess) return err;
+  if (kNormK) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3((S + kBlockM - 1) / kBlockM, H, B), kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, st.o_b, st.o_s, st.o_h,
+      scale_log2, nrm);
+  return cudaGetLastError();
+}
+
 Strides make_strides(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
 }
@@ -1028,25 +1084,40 @@ cudaError_t fused_qkv_fwd_wgmma(const void* qkv, const QkNorm& nrm, void* o, int
   const float sl2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S > kFusedMaxS) return cudaErrorInvalidValue;
-#define IVT_CASE(DIM)                                                                           \
-  if (D == DIM) {                                                                               \
-    auto kern = fused_qkv_fwd_wgmma_kernel<DIM>;                                                \
-    CUtensorMap maps[3];                                                                        \
-    cudaError_t err =                                                                           \
-        prepare_bf16<DIM, DIM>(kern, maps, q, q + W, q + 2 * W, B, S, S, H, H, st);             \
-    if (err != cudaSuccess) return err;                                                         \
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,             \
-                               FusedTile<DIM>::kSmemBytes);                                     \
-    if (err != cudaSuccess) return err;                                                         \
-    kern<<<dim3((S + kBlockM - 1) / kBlockM, H, B), kThreads, FusedTile<DIM>::kSmemBytes, s>>>( \
-        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, o_b, o_s, o_h, sl2,    \
-        nrm);                                                                                   \
-    return cudaGetLastError();                                                                  \
-  }
+#define IVT_CASE(DIM)                                                                     \
+  if (D == DIM)                                                                           \
+    return launch_fused<DIM, true>(fused_qkv_fwd_wgmma_kernel<DIM>, q, q + W, nrm, o, B, S, H, \
+                                   st, sl2, s);
   IVT_CASE(64)
   IVT_CASE(72)
   IVT_CASE(88)
   IVT_CASE(128)
+#undef IVT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// K11's bf16 launch, called by fused_qkv_large.cu's ivt_fused_qkv_large_fwd
+// with its arguments: q and v are the column views [0, W) and [2W, 3W) of
+// the (B, S, 3W) projection `qkv` (element strides s_b, s_s; W = H * D), k
+// the pre-pass's normed rows `k_normed`, (B, S, W) contiguous; nrm's q_rstd
+// and q_w norm the Q tiles (its k fields are not read); head dims 64 and 88.
+// Returns cudaErrorInvalidValue for another head dim, or a tensor
+// cuTensorMapEncodeTiled refuses a TMA map for.
+cudaError_t fused_qkv_large_fwd_wgmma(const void* qkv, const void* k_normed, const QkNorm& nrm,
+                                      void* o, int B, int S, int H, int D, long long s_b,
+                                      long long s_s, long long o_b, long long o_s, long long o_h,
+                                      float scale, void* stream) {
+  const long long W = (long long)H * D;
+  const Strides st{s_b, s_s, D, S * W, W, D, s_b, s_s, D, o_b, o_s, o_h};
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const float sl2 = scale * kLog2e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define IVT_CASE(DIM)                                                                         \
+  if (D == DIM)                                                                               \
+    return launch_fused<DIM, false>(fused_qkv_large_fwd_wgmma_kernel<DIM>, q, k_normed, nrm, o, \
+                                    B, S, H, st, sl2, s);
+  IVT_CASE(64)
+  IVT_CASE(88)
 #undef IVT_CASE
   return cudaErrorInvalidValue;
 }

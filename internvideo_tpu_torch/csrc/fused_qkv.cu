@@ -42,6 +42,10 @@
 // first alone. fp32 takes attn_fwd.cuh's CUDA-core body with the norm on
 // load (the parity checks).
 //
+// K11 (fused_qkv_large.cu) launches the same row-statistics kernel with its
+// kNormK flag (ivt_fused_qkv_rstd_normed_k): it also writes the normed k
+// rows once, which K11's walk reads in place of norming K tiles.
+//
 // Build: compiled alone by ops/_build.py (one nvcc per source, in parallel).
 
 #include "attn_fwd.cuh"
@@ -70,10 +74,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 // rstd = 1 / sqrt(mean(x^2) + eps) over the W columns of q (which = 0) or k
 // (which = 1) of one token, with fp32 sums: the variance of
 // ops/rmsnorm.py:rms_norm. bf16 rows are read 8 columns (16 bytes) a lane.
-template <bool kBf16>
+// With kNormK (K11's pre-pass, bf16) the warp of a k row then reads the row
+// again (from L1 / L2) and writes it normed, bf16(w * f32(bf16(x * rstd)))
+// as `_norm` (internvideo_tpu/ops/flash_attention.py:1905-1910) forms it,
+// into row `row` of k_out, (B, S, W) contiguous.
+template <bool kBf16, bool kNormK>
 __global__ void __launch_bounds__(kRstdThreads)
     fused_qkv_rstd_kernel(const void* __restrict__ qkv, float* __restrict__ q_rstd,
-                          float* __restrict__ k_rstd, int B, int S, int W, long long s_b,
+                          float* __restrict__ k_rstd, const float* __restrict__ k_w,
+                          __nv_bfloat16* __restrict__ k_out, int B, int S, int W, long long s_b,
                           long long s_s, float eps) {
   const long long pair = ((long long)blockIdx.x * kRstdThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -100,7 +109,28 @@ __global__ void __launch_bounds__(kRstdThreads)
     for (int c = lane; c < W; c += 32) acc = fmaf(x[c], x[c], acc);
   }
   acc = warp_sum(acc);
-  if (lane == 0) (which ? k_rstd : q_rstd)[row] = rsqrtf(acc / W + eps);
+  const float rs = rsqrtf(acc / W + eps);
+  if (lane == 0) (which ? k_rstd : q_rstd)[row] = rs;
+  if constexpr (kNormK && kBf16) {
+    if (!which) return;
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv) + off;
+    __nv_bfloat16* y = k_out + row * W;
+    for (int c = lane * 8; c < W; c += 32 * 8) {
+      uint4 raw = *reinterpret_cast<const uint4*>(x + c);
+      __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+      const float4 w0 = *reinterpret_cast<const float4*>(k_w + c);
+      const float4 w1 = *reinterpret_cast<const float4*>(k_w + c + 4);
+      const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(x2[i]);
+        const float n0 = __bfloat162float(__float2bfloat16(f.x * rs));
+        const float n1 = __bfloat162float(__float2bfloat16(f.y * rs));
+        x2[i] = __floats2bfloat162_rn(ws[2 * i] * n0, ws[2 * i + 1] * n1);
+      }
+      *reinterpret_cast<uint4*>(y + c) = raw;
+    }
+  }
 }
 
 template <int D>
@@ -116,7 +146,7 @@ cudaError_t launch_f32(const void* qkv, void* o, int B, int S, int H, const FwdS
                        float scale_log2, const QkNorm& nrm, cudaStream_t stream) {
   const long long W = (long long)H * D;
   const float* q = static_cast<const float*>(qkv);
-  return launch_fwd(fused_qkv_fwd_f32_kernel<D>, false, 0, B, S, H, stream, q, q + W, q + 2 * W,
+  return launch_fwd(fused_qkv_fwd_f32_kernel<D>, B, S, H, stream, q, q + W, q + 2 * W,
                     static_cast<float*>(o), S, H, st, scale_log2, nrm);
 }
 
@@ -137,12 +167,27 @@ extern "C" int ivt_fused_qkv_rstd(int dtype, const void* qkv, float* q_rstd, flo
   const long long blocks = (warps * 32 + kRstdThreads - 1) / kRstdThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    fused_qkv_rstd_kernel<true><<<(unsigned)blocks, kRstdThreads, 0, st>>>(
-        qkv, q_rstd, k_rstd, B, S, W, s_b, s_s, eps);
+    fused_qkv_rstd_kernel<true, false><<<(unsigned)blocks, kRstdThreads, 0, st>>>(
+        qkv, q_rstd, k_rstd, nullptr, nullptr, B, S, W, s_b, s_s, eps);
   } else {
-    fused_qkv_rstd_kernel<false><<<(unsigned)blocks, kRstdThreads, 0, st>>>(
-        qkv, q_rstd, k_rstd, B, S, W, s_b, s_s, eps);
+    fused_qkv_rstd_kernel<false, false><<<(unsigned)blocks, kRstdThreads, 0, st>>>(
+        qkv, q_rstd, k_rstd, nullptr, nullptr, B, S, W, s_b, s_s, eps);
   }
+  return cudaGetLastError();
+}
+
+// K11's bf16 pre-pass: ivt_fused_qkv_rstd's statistics, and the k rows
+// normed with the (W,) fp32 weight k_w (16-byte aligned) into k_normed,
+// (B, S, W) bf16 contiguous (16-byte aligned).
+extern "C" int ivt_fused_qkv_rstd_normed_k(const void* qkv, float* q_rstd, float* k_rstd,
+                                           const float* k_w, void* k_normed, int B, int S, int W,
+                                           long long s_b, long long s_s, float eps,
+                                           void* stream) {
+  const long long warps = 2LL * B * S;
+  const long long blocks = (warps * 32 + kRstdThreads - 1) / kRstdThreads;
+  fused_qkv_rstd_kernel<true, true><<<(unsigned)blocks, kRstdThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      qkv, q_rstd, k_rstd, k_w, static_cast<__nv_bfloat16*>(k_normed), B, S, W, s_b, s_s, eps);
   return cudaGetLastError();
 }
 

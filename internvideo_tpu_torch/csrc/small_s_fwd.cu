@@ -35,8 +35,7 @@
 // are stored as three 32-column panels (96 columns, 64-byte swizzle), the
 // TMA maps at the true width zero-filling the rest, the stores writing the
 // true width. fp32 inputs take the CUDA-core FMA body of attn_fwd.cuh (the
-// parity route). The earlier bf16 design, attn_fwd.cuh's mma.sync body,
-// stays behind K3 and K11.
+// parity route).
 //
 // Build: compiled alone by ops/_build.py (one nvcc per source, in parallel).
 
@@ -69,7 +68,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int H, const FwdStrides& st, float scale_log2,
                        cudaStream_t stream) {
-  return launch_fwd(small_s_fwd_f32_kernel<D>, false, 0, B, Sq, H, stream,
+  return launch_fwd(small_s_fwd_f32_kernel<D>, B, Sq, H, stream,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H, st,
                     scale_log2);

@@ -153,7 +153,18 @@ def load_library() -> ctypes.CDLL:
         f, p,                        # softmax scale, stream
     ]
     lib.ivt_fused_qkv_fwd.restype = i
-    lib.ivt_fused_qkv_large_fwd.argtypes = lib.ivt_fused_qkv_fwd.argtypes
+    lib.ivt_fused_qkv_rstd_normed_k.argtypes = [
+        p, p, p, p, p,               # qkv (bf16), q_rstd, k_rstd, k_w, normed k out
+        i, i, i, ll, ll,             # B, S, W, qkv batch / seq strides
+        f, p,                        # eps, stream
+    ]
+    lib.ivt_fused_qkv_rstd_normed_k.restype = i
+    lib.ivt_fused_qkv_large_fwd.argtypes = [
+        i, p, p, p, p, p, p, p,      # dtype, qkv, normed k, q_rstd, k_rstd, q_w, k_w, o
+        i, i, i, i,                  # B, S, H, D
+        ll, ll, ll, ll, ll,          # qkv batch / seq strides, o batch / seq / head strides
+        f, p,                        # softmax scale, stream
+    ]
     lib.ivt_fused_qkv_large_fwd.restype = i
     lib.ivt_fused_add_rms_norm.argtypes = [
         i, i, i, p, p, p,            # x / residual / weight dtypes, x, residual, weight

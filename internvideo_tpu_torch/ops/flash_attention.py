@@ -83,7 +83,8 @@ _LOG2E = 1.0 / math.log(2.0)
 
 # One launch count per kernel; "fused_qkv_rstd" is K3's row-statistics
 # pre-pass, launched once per "fused_qkv_fwd" (K3) and once per
-# "fused_qkv_large_fwd" (K11); "flash_fwd_causal" and
+# "fused_qkv_large_fwd" (K11; in bf16 it also writes the normed k rows);
+# "flash_fwd_causal" and
 # "flash_bwd_causal_{dq,dkv}" are K5; their "_seg" names count the launches
 # with segment ids (K8), which the plain names do not. A K5 launch, forward
 # or backward, counts under one name: "..._window" with a window, "..._gqa"
@@ -677,12 +678,54 @@ _FUSED = {"fused_qkv_fwd": (SMALL_S_HEAD_DIMS, "csrc/fused_qkv.cu", (0, SMALL_S_
                                   (SMALL_S_MAX, FUSED_LARGE_MAX))}
 
 
+def fused_qkv_large_prepass_ref(qkv, k_weight, eps: float = 1e-6):
+    """Plain PyTorch version of K11's pre-pass on (B, S, 3W) `qkv`: (q_rstd,
+    k_rstd, k_normed), the 1/rms of every q and k row over the whole W,
+    (B, S) fp32, and the k slice normed with the (W,) weight, (B, S, W) in
+    qkv's dtype: `rms_norm` of the k slice, the cast chain of `_norm`
+    (:1905-1910)."""
+    w = qkv.shape[-1] // 3
+    q_rstd, k_rstd = (torch.rsqrt(x.float().square().mean(dim=-1) + eps)
+                      for x in (qkv[..., :w], qkv[..., w:2 * w]))
+    return q_rstd, k_rstd, rms_norm(qkv[..., w:2 * w], k_weight, eps=eps)
+
+
+def _fused_prepass_cuda(qkv, k_weight, eps: float, normed_k: bool = False):
+    """The row-statistics pre-pass of K3 / K11 on a CUDA (B, S, 3W) tensor
+    (csrc/fused_qkv.cu), counted as "fused_qkv_rstd": (q_rstd, k_rstd,
+    k_normed). With `normed_k` (K11, bf16 only) it also writes the k slice
+    normed with the (W,) fp32 `k_weight` (16-byte aligned) into a (B, S, W)
+    buffer it allocates; else k_normed is None. The caller has checked the
+    shapes and strides."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    dev = qkv.device
+    q_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
+    k_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
+    k_normed = torch.empty((b, s, w), dtype=qkv.dtype, device=dev) if normed_k else None
+    lib = _build.load_library()
+    s_b, s_s = qkv.stride()[:2]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if normed_k:
+            rc = lib.ivt_fused_qkv_rstd_normed_k(
+                qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(), k_weight.data_ptr(),
+                k_normed.data_ptr(), b, s, w, s_b, s_s, float(eps), stream)
+        else:
+            rc = lib.ivt_fused_qkv_rstd(_DTYPE_CODES[qkv.dtype], qkv.data_ptr(), q_rstd.data_ptr(),
+                                        k_rstd.data_ptr(), b, s, w, s_b, s_s, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_qkv_rstd kernel launch failed: cudaError_t {rc}")
+    _launches["fused_qkv_rstd"] += 1
+    return q_rstd, k_rstd, k_normed
+
+
 def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: float,
                     kernel: str = "fused_qkv_fwd"):
     """Launch K3 (`kernel` "fused_qkv_fwd", csrc/fused_qkv.cu) or K11
     ("fused_qkv_large_fwd", csrc/fused_qkv_large.cu) on a CUDA (B, S, 3W)
-    tensor: the row-statistics pre-pass, then the attention kernel;
-    (B, S, W)."""
+    tensor: the row-statistics pre-pass (for K11 in bf16 it also writes the
+    normed k rows), then the attention kernel; (B, S, W)."""
     head_dims, source, (lo, hi) = _FUSED[kernel]
     b, s, w3 = qkv.shape
     w = w3 // 3
@@ -707,24 +750,21 @@ def _fused_qkv_cuda(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: 
     qw, kw = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (qw, kw))
     if qw.shape != (w,) or kw.shape != (w,):
         raise ValueError(f"q/k weights {tuple(qw.shape)} / {tuple(kw.shape)}, expected ({w},)")
-    q_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
-    k_rstd = torch.empty((b, s), dtype=torch.float32, device=dev)
     out = torch.empty((b, s, w), dtype=qkv.dtype, device=dev)
     if out.numel() == 0:
         return out
+    large = kernel == "fused_qkv_large_fwd"
+    q_rstd, k_rstd, k_normed = _fused_prepass_cuda(
+        qkv, kw, eps, normed_k=large and qkv.dtype == torch.bfloat16)
+    # K11's entry also takes the normed k rows (null for fp32)
+    normed = (None if k_normed is None else k_normed.data_ptr(),) if large else ()
     lib = _build.load_library()
     code, (s_b, s_s) = _DTYPE_CODES[qkv.dtype], qkv.stride()[:2]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ivt_fused_qkv_rstd(code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(),
-                                    b, s, w, s_b, s_s, float(eps), stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_qkv_rstd kernel launch failed: cudaError_t {rc}")
-        _launches["fused_qkv_rstd"] += 1
         rc = getattr(lib, f"ivt_{kernel}")(
-            code, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(), qw.data_ptr(),
+            code, qkv.data_ptr(), *normed, q_rstd.data_ptr(), k_rstd.data_ptr(), qw.data_ptr(),
             kw.data_ptr(), out.data_ptr(), b, s, num_heads, d, s_b, s_s, s * w, w, d,
-            float(scale), stream)
+            float(scale), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {rc}")
     _launches[kernel] += 1

@@ -1,6 +1,6 @@
 """The CUDA kernels K9 (fused add + RMSNorm), K10 (fused LayerScale + add +
-RMSNorm) and K11 (fused qkv + QK-RMSNorm + blocked-K attention) vs their
-plain PyTorch versions, on the card.
+RMSNorm) and K11 (fused qkv + QK-RMSNorm + blocked-K attention: its normed-k
+pre-pass and wgmma + TMA walk) vs their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (the kernels have no CPU mode), so every test
 here is marked `cuda` and skips without a card. The file imports neither
@@ -137,6 +137,55 @@ def test_fused_qkv_large_kernel_matches_plain(dtype):
         else:
             assert _rel(out, ref) <= 1e-2, (b, s, h, d)
             assert _rel(grads[0], ref_grads[0]) <= 2e-2, (b, s, h, d)
+
+
+# K11's bf16 edges against its 128-row query tiles and 64-key stages: S =
+# 1025 and 4097 leave a 1-row last tile (one warpgroup walks alone), 1088 a
+# last tile of 64 rows (alone, its last stage full), 1089 one row past it
+# (two warpgroups, the second with one row; one key past a stage), 8192 the
+# top of the range (128 key tiles, nothing staged grows with S).
+K11_EDGES = (1025, 1088, 1089, 4097, 8192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, h", [(64, 4), (88, 16)])
+@pytest.mark.parametrize("s", K11_EDGES)
+def test_fused_qkv_large_bf16_edges(s, d, h):
+    """K11 in bf16: the pre-pass's 1/rms within 1e-6 (relative) of the plain
+    pre-pass's, its normed k rows bit-identical to the cast chain on its own
+    1/rms and within two bf16 ulps of the plain pre-pass's (`rms_norm` of the
+    k slice: the mean's summation order may move a row's 1/rms by an fp32
+    ulp, which moves bf16(x * rstd) by at most one ulp and, through a weight
+    below 2, bf16(w * that) by at most two); one pre-pass and one attention
+    launch an op; out rel-L2 <= 1e-2 against the plain version,
+    bit-identical across two calls."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(s + d)
+    b, w = (1 if s > 4096 else 2), h * d
+    qkv = (torch.randn(b, s, 3 * w, device="cuda", generator=gen) * 2).bfloat16()
+    qw, kw = (torch.randn(w, device="cuda", generator=gen) * 0.1 + 1.0 for _ in range(2))
+    with torch.no_grad():
+        q_rstd, k_rstd, k_normed = fa._fused_prepass_cuda(qkv, kw, 1e-6, normed_k=True)
+        ref_q, ref_k, ref_normed = fa.fused_qkv_large_prepass_ref(qkv, kw)
+        own = (kw * (qkv[..., w:2 * w].float() * k_rstd[..., None]).bfloat16()).bfloat16()
+        torch.cuda.synchronize()
+        for got, ref in ((q_rstd, ref_q), (k_rstd, ref_k)):
+            assert ((got - ref).abs() / ref).max().item() <= 1e-6, (s, d)
+        assert torch.equal(k_normed, own), (s, d)
+        assert _ulps(k_normed, ref_normed) <= 2, (s, d)
+
+        fa.reset_launch_count()
+        out = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+        torch.cuda.synchronize()
+        counts = {n: fa.launch_count(n) for n in fa.KERNELS}
+        assert counts == {**dict.fromkeys(fa.KERNELS, 0), "fused_qkv_rstd": 1,
+                          "fused_qkv_large_fwd": 1}, counts
+        assert fa.fused_launch_counts("fused_qkv_large_fwd") == {s: 1}
+        again = fa.fused_qkv_rmsnorm_attention(qkv, qw, kw, num_heads=h)
+        ref = fa.fused_qkv_large_ref(qkv, qw, kw, h, d ** -0.5)
+        torch.cuda.synchronize()
+    assert torch.equal(out, again), (s, d)
+    assert _rel(out, ref) <= 1e-2, (s, d, _rel(out, ref))
 
 
 @pytest.mark.cuda

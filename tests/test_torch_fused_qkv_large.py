@@ -75,6 +75,33 @@ def test_fused_qkv_large_grads_match_jax_unfused(jax_fns):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=5e-4, rtol=5e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_qkv_large_prepass_plain_matches_jax(dtype):
+    """The plain version of K11's pre-pass (q / k 1/rms and the normed k
+    rows the CUDA pre-pass writes) against JAX's `rms_norm`: the normed k
+    slice within 2e-5 in fp32 and at most one bf16 ulp in bf16 (the mean's
+    summation order may move a row's 1/rms by an fp32 ulp); x * 1/rms
+    against JAX's `rms_norm` with unit weights within 2e-5 for q and k."""
+    qkv, _, kw, _ = _inputs(1100, seed=7)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jqkv, tqkv = jnp.asarray(qkv).astype(jdt), torch.from_numpy(qkv).to(tdt)
+    q_rstd, k_rstd, k_normed = fa.fused_qkv_large_prepass_ref(tqkv, torch.from_numpy(kw))
+    assert q_rstd.shape == k_rstd.shape == (B, 1100) and q_rstd.dtype == torch.float32
+    assert k_normed.shape == (B, 1100, W) and k_normed.dtype == tdt
+    ref = np.asarray(jax_rms_norm(jqkv[..., W:2 * W], jnp.asarray(kw)).astype(jnp.float32))
+    got = k_normed.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
+    else:
+        ulps = np.abs(got.view(np.int32) - ref.view(np.int32)) >> 16
+        assert ulps.max() <= 1, ulps.max()
+    ones = jnp.ones(W, jnp.float32)
+    for rstd, lo in ((q_rstd, 0), (k_rstd, W)):
+        unit = np.asarray(jax_rms_norm(jqkv[..., lo:lo + W].astype(jnp.float32), ones))
+        np.testing.assert_allclose((tqkv[..., lo:lo + W].float() * rstd[..., None]).numpy(), unit,
+                                   atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("s", [1025, 4097, 8192, 8193, 1024])
 @pytest.mark.parametrize("d", [64, 88, 24])
 def test_fused_qkv_large_eligible_matches_jax(s, d):
