@@ -332,7 +332,39 @@ non-zero and prints no result):
      route, 2 rms_norm + K1, in the same call); K1 at the
      shapes the retrieval eval gives it (the tower's (32, 1025, 16, 88) on
      qkv views, the rerank cross-attention's 32 queries on 1025 keys at
-     head dim 64) beside its plain version, bound and flash SDPA.
+     head dim 64) beside its plain version, bound and flash SDPA;
+ 43. the VideoCLIP stage-2 training kernels vs their plain versions: K1 /
+     K4a fp32 at B 2 with the step's Sq / Sk ((1025, 1025, 16, 88) and
+     (32, 1025, 16, 64); out max-abs 2e-5, grads 5e-4) and bf16 at its
+     shapes (the unmasked tower's (64, 1025, 16, 88) on qkv views, the
+     fusion cross-attention's (64, 32 / 1025, 16, 64) in the MLM pass and
+     (192, ...) in the VTM pass; rel-L2 1e-2); K2 / K4b at the UTA
+     variant's cross-attention (8, 32 / 209, 16, 64) and K3 (+ K2 / K4b
+     backward) at its masked student (8, 209, 16, 88), fp32 and bf16; then
+     each kernel at each shape timed (CUDA events, median of 5; the UTA
+     shapes by CUDA graph replay) beside its plain version, bound and flash
+     SDPA;
+ 44. the stage-2 main path: `internvideo_tpu_torch.cli.train` on
+     configs/torch/clip_stage2_1b.py (internvideo2_stage2_1b uncut, B 64,
+     32 tokens, `uta=0`: the tower unmasked at S = 1025, remat) for 3
+     steps; launches reset just before and read just after must equal
+     `clip_want`'s prediction (per step 90 K1 = 80 tower incl. remat + 5
+     MLM + 5 VTM cross-attention, 50 dq, 50 dk/dv, nothing else); every
+     logged loss term and grad_norm finite;
+ 45. kernel route vs plain route on the first step's losses (loss,
+     loss_vtc, loss_vtm, loss_mlm) and six gradients, B 4, the same draws,
+     an fp32 copy of the weights on the plain route as the anchor (rel 1e-2
+     / grads rel-L2 2e-2, or the kernel route no farther from the anchor
+     than 1.25 x the plain route);
+ 46. the stage-2 step at B 64 on a device-resident batch: launches of one
+     step against the prediction, ms (CUDA events), clips/s, peak device
+     memory, one step under torch.profiler (device busy share);
+ 47. the UTA variant: the same config with engine.uta = 1.0,
+     attention-guided masking at 0.8 and configs/torch/pretrain_1b_umt.py's
+     CLIP-6B teacher, batch cut to 8, 2 steps through `cli.build_clip` +
+     `Trainer.fit`; launches against the prediction (per step 128 K3 and
+     128 pre-passes = 80 student at S = 209 + 48 teacher, 50 each of K2 /
+     K4b dq / dk/dv), every loss term finite.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -345,6 +377,7 @@ import gc
 import io
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -432,6 +465,19 @@ RETRIEVAL_TOWER_SHAPE = (32, 1025, 16, 88)
 # the rerank fusion's cross-attention to the tower's tokens: (B, Sq, Sk, H, D)
 RETRIEVAL_CROSS_SHAPE = (32, 32, 1025, 16, 64)
 NORM_SHAPE = (16 * 4097, 1408)
+# VideoCLIP stage-2 training (phases 43-47): the 1B recipe (uta = 0: the
+# tower unmasked at S = 1 + 4 * 256), the tower's attention at B 64, the
+# fusion cross-attention to its tokens (B, Sq, Sk, H, D) in the MLM pass
+# and the VTM pass (3B rows); the UTA variant at B 8 (the batch cut):
+# the masked student at S = 1 + 4 * 52 and its cross-attention
+CONFIG_CLIP = "configs/torch/clip_stage2_1b.py"
+CLIP_STEPS = 3
+CLIP_TOWER_SHAPE = (64, 1025, 16, 88)
+CLIP_CROSS_SHAPES = {"mlm": (64, 32, 1025, 16, 64), "vtm": (192, 32, 1025, 16, 64)}
+CLIP_UTA_B = 8
+CLIP_UTA_STEPS = 2
+CLIP_UTA_STUDENT_SHAPE = (8, 209, 16, 88)
+CLIP_UTA_CROSS_SHAPE = (8, 32, 209, 16, 64)
 # K11's bf16 edges beside its two path shapes: the top of its S range, and
 # head dim 64 at the eval's S
 K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
@@ -1071,9 +1117,11 @@ def _kernel_group(name: str) -> str:
     return "elementwise / reductions / copies"
 
 
-def profile_step(step, card, what: str = "train step") -> None:
+def profile_step(step, card, what: str = "train step") -> dict:
     """One step under torch.profiler: device time by kernel group and the
-    device's idle share of the step's wall time."""
+    device's idle share of the step's wall time. Returns {"wall_ms",
+    "busy_ms", "groups"} (busy_ms None when the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1093,12 +1141,13 @@ def profile_step(step, card, what: str = "train step") -> None:
     if not busy:
         print(f"[{card}] {what} profile: the profiler saw no device time; breakdown "
               f"not measured (step wall {wall:.1f} ms)", flush=True)
-        return
+        return {"wall_ms": wall, "busy_ms": None, "groups": {}}
     print(f"[{card}] {what} under torch.profiler: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle {max(0.0, 1 - busy / wall):.1%}", flush=True)
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {t:.1f} ms ({t / busy:.1%} of device time, {launches[g]} launches)",
               flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "groups": groups}
 
 
 def time_train(fa, run, card) -> dict:
@@ -4753,6 +4802,468 @@ def time_retrieval(model, fa, rms, card) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# Phases 43-47: VideoCLIP stage-2 training
+# ---------------------------------------------------------------------------
+
+def _median_ms(fn, runs: int = 5, iters: int = 10) -> float:
+    """Median over `runs` CUDA-event timings of `iters` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(_time_ms(fn, iters=iters, warmup=0) for _ in range(runs))
+
+
+def _median_graph_ms(fn, runs: int = 5) -> float:
+    """Median over `runs` CUDA graph replays (_graph_ms): the device time of
+    kernels that the wrapper's host work would hide under CUDA events."""
+    return statistics.median(_graph_ms(fn) for _ in range(runs))
+
+
+def _attn_bounds(b, sq, sk, h, d) -> dict:
+    """_bound of the non-causal forward, dq and dk/dv at (B, Sq, Sk, H, D)
+    bf16: 4 / 6 / 8 B H Sq Sk d operations; each input read once, each
+    output written once (LSE and delta fp32)."""
+    q_bytes, kv_bytes, rows = b * sq * h * d * 2, b * sk * h * d * 2, b * h * sq * 4
+    pairs = b * h * sq * sk * d
+    bwd_in = 2 * q_bytes + 2 * kv_bytes + 2 * rows  # q, dO, k, v; lse, delta
+    return {"fwd": _bound(4 * pairs, 2 * q_bytes + 2 * kv_bytes + rows),
+            "dq": _bound(6 * pairs, bwd_in + q_bytes),
+            "dkv": _bound(8 * pairs, bwd_in + 2 * kv_bytes)}
+
+
+def _flash_vs_plain(fa, q, k, v, do, small_s: bool = False):
+    """(kernel (out, lse, dq, dk, dv), plain (out, lse, dq, dk, dv)) through
+    K1 / K4a (or K2 / K4b with `small_s`), the plain backward on the
+    kernel's own out and LSE, as phase 7 holds it."""
+    scale = q.shape[-1] ** -0.5
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    if small_s:
+        out = fa.SmallSAttention.apply(q, k, v, scale)
+        ref_out, ref_lse = fa.small_s_attention_ref(q.detach(), k.detach(), v.detach(), scale)
+        lse = ref_lse  # K2's LSE stays inside the Function; its out is held
+    else:
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ref_out, ref_lse = fa.flash_attention_ref_with_lse(q.detach(), k.detach(), v.detach(),
+                                                           scale)
+    grads = torch.autograd.grad((out.float() * do.float()).sum(), (q, k, v))
+    ref_bwd = (fa.small_s_attention_bwd_ref if small_s else fa.flash_attention_bwd_ref)
+    ref = ref_bwd(q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), do, scale)
+    torch.cuda.synchronize()
+    return (out.detach(), lse.detach(), *grads), (ref_out, ref_lse, *ref)
+
+
+def check_clip_kernels(fa) -> dict:
+    """Phase 43: K1 / K4a at the stage-2 step's shapes (the unmasked tower's
+    (64, 1025, 16, 88) on qkv views; the fusion cross-attention's 32 queries
+    on 1025 keys at head dim 64, B 64 in the MLM pass and 192 in the VTM
+    pass), fp32 at B 2 with the same Sq / Sk (out max-abs 2e-5, grads 5e-4),
+    bf16 at the path's shapes (rel-L2 1e-2, LSE max-abs 1e-2); K2 / K4b at
+    the UTA variant's cross-attention (8, 32, 209, 16, 64) and K3 / K4b at
+    its masked student (8, 209, 16, 88), fp32 and bf16. Returns max-abs
+    errors by tag and kernel."""
+    g = torch.Generator("cuda").manual_seed(43)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    b_t, s_t, h_t, d_t = CLIP_TOWER_SHAPE
+    cases = {"tower": (s_t, s_t, h_t, d_t), **{
+        f"cross_{tag}": shape[1:] for tag, shape in CLIP_CROSS_SHAPES.items()}}
+    for tag, (sq, sk, h, d) in cases.items():
+        if tag == "cross_vtm":
+            continue  # the same Sq / Sk / H / D as the MLM pass's in fp32
+        q, do, k, v = rnd(2, sq, h, d), rnd(2, sq, h, d), rnd(2, sk, h, d), rnd(2, sk, h, d)
+        got, ref = _flash_vs_plain(fa, q, k, v, do)
+        errs = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+        print(f"clip K1 / K4a fp32 (2, {sq}, {sk}, {h}, {d}): out / lse max-abs {errs[0]:.3e} / "
+              f"{errs[1]:.3e} (bar 2e-5), dq / dk / dv {errs[2]:.3e} / {errs[3]:.3e} / "
+              f"{errs[4]:.3e} (bar 5e-4)", flush=True)
+        if not (max(errs[:2]) <= 2e-5 and max(errs[2:]) <= 5e-4):
+            raise AssertionError(f"fp32 K1 / K4a disagree with their plain versions at {tag}")
+    errs_by = {}
+    for tag in cases:
+        if tag == "tower":
+            _, (q, k, v) = _qkv_views(b_t, s_t, h_t, d_t, g)
+            shape = (b_t, s_t, s_t, h_t, d_t)
+        else:
+            shape = CLIP_CROSS_SHAPES[tag.split("_")[1]]
+            b, sq, sk, h, d = shape
+            q, k, v = rnd(b, sq, h, d).bfloat16(), rnd(b, sk, h, d).bfloat16(), rnd(
+                b, sk, h, d).bfloat16()
+        do = rnd(*q.shape).bfloat16()
+        got, ref = _flash_vs_plain(fa, q, k, v, do)
+        rels = [_rel(x, r) for x, r in zip(got, ref)]
+        errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+        print(f"clip K1 / K4a bf16 {shape} ({tag}): out / dq / dk / dv rel-L2 {rels[0]:.3e} / "
+              f"{rels[2]:.3e} / {rels[3]:.3e} / {rels[4]:.3e} (bar 1e-2), lse max-abs "
+              f"{errs[1]:.3e} (bar 1e-2)", flush=True)
+        if not (max(rels[:1] + rels[2:]) <= 1e-2 and errs[1] <= 1e-2):
+            raise AssertionError(f"bf16 K1 / K4a disagree with their plain versions at {tag}")
+        errs_by[tag] = {"flash_fwd": errs[0], "flash_bwd_dq": errs[2],
+                        "flash_bwd_dkv": max(errs[3:])}
+        del q, k, v, do, got, ref
+
+    b, sq, sk, h, d = CLIP_UTA_CROSS_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = rnd(b, sq, h, d).to(dtype), rnd(b, sq, h, d).to(dtype)
+        k, v = rnd(b, sk, h, d).to(dtype), rnd(b, sk, h, d).to(dtype)
+        got, ref = _flash_vs_plain(fa, q, k, v, do, small_s=True)
+        errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+        rels = [_rel(x, r) for x, r in zip(got, ref)]
+        print(f"clip UTA K2 / K4b {dtype} {CLIP_UTA_CROSS_SHAPE}: out / dq / dk / dv max-abs "
+              + " / ".join(f"{e:.3e}" for e in errs[:1] + errs[2:]) + ", rel-L2 "
+              + " / ".join(f"{r:.3e}" for r in rels[:1] + rels[2:]), flush=True)
+        ok = (errs[0] <= 2e-5 and max(errs[2:]) <= 5e-4 if dtype == torch.float32
+              else max(rels[:1] + rels[2:]) <= 1e-2)
+        if not ok:
+            raise AssertionError(f"{dtype} K2 / K4b disagree with their plain versions at the "
+                                 "UTA cross-attention")
+    errs_by["uta_cross"] = {"small_s_fwd": errs[0], "small_s_bwd_dq": errs[2],
+                            "small_s_bwd_dkv": max(errs[3:])}
+
+    b, s, h, d = CLIP_UTA_STUDENT_SHAPE
+    w = h * d
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = (rnd(b, s, 3 * w) * 2).to(dtype)
+        qw, kw = rnd(w) * 0.1 + 1, rnd(w) * 0.1 + 1
+        do = rnd(b, s, w).to(dtype)
+        fout, fgot = _fused_grads(fa, qkv, qw, kw, h, do)
+        fref, frefs = _fused_ref_grads(fa, qkv, qw, kw, h, do)
+        torch.cuda.synchronize()
+        e_out = (fout.float() - fref.float()).abs().max().item()
+        ferrs = [((x.float() - r.float()).abs() / (1 + r.float().abs())).max().item()
+                 for x, r in zip(fgot, frefs)]
+        rels = [_rel(fout, fref)] + [_rel(x, r) for x, r in zip(fgot, frefs)]
+        print(f"clip UTA K3 (+ K2 / K4b backward) {dtype} {CLIP_UTA_STUDENT_SHAPE}: out max-abs "
+              f"{e_out:.3e}, grads qkv / qw / kw max |err|/(1+|ref|) "
+              + " / ".join(f"{e:.3e}" for e in ferrs) + "; rel-L2 out / grads "
+              + " / ".join(f"{r:.3e}" for r in rels), flush=True)
+        ok = (e_out <= 2e-5 and max(ferrs) <= 5e-4 if dtype == torch.float32
+              else rels[0] <= 1e-2 and max(rels[1:]) <= 2e-2)
+        if not ok:
+            raise AssertionError(f"{dtype} K3 disagrees with its plain version at the UTA "
+                                 "student")
+    errs_by["uta_student"] = {"fused_qkv_fwd": e_out}
+    _, (q, k, v) = _qkv_views(b, s, h, d, g)
+    do = rnd(b, s, h, d).bfloat16()
+    got, ref = _flash_vs_plain(fa, q, k, v, do, small_s=True)
+    rels = [_rel(x, r) for x, r in zip(got, ref)]
+    errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+    print(f"clip UTA K2 / K4b bf16 {CLIP_UTA_STUDENT_SHAPE} qkv views (K3's backward): out / dq / "
+          f"dk / dv rel-L2 " + " / ".join(f"{r:.3e}" for r in rels[:1] + rels[2:])
+          + " (bar 1e-2)", flush=True)
+    if not max(rels[:1] + rels[2:]) <= 1e-2:
+        raise AssertionError("bf16 K2 / K4b disagree with their plain versions at the UTA "
+                             "student")
+    errs_by["uta_student"].update(small_s_fwd=errs[0], small_s_bwd_dq=errs[2],
+                                  small_s_bwd_dkv=max(errs[3:]))
+    return errs_by
+
+
+def time_clip_kernels(fa, card) -> dict:
+    """Phase 43, times (CUDA events, median of 5 runs; the UTA shapes by CUDA
+    graph replay, median of 5): K1, K4a dq and dk/dv at the tower's and both
+    cross-attention shapes, K2 / K4b at the UTA cross-attention and the
+    masked student, K3 at the student; each beside its plain version, its
+    bound and flash SDPA. Returns tag -> kernel -> times."""
+    from internvideo_tpu_torch.ops.rmsnorm import rms_norm
+
+    g = torch.Generator("cuda").manual_seed(44)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    self_attn = lambda b, s, h, d: (b, s, s, h, d)  # noqa: E731
+    shapes = {"tower": self_attn(*CLIP_TOWER_SHAPE),
+              **{f"cross_{t}": sh for t, sh in CLIP_CROSS_SHAPES.items()},
+              "uta_cross": CLIP_UTA_CROSS_SHAPE,
+              "uta_student": self_attn(*CLIP_UTA_STUDENT_SHAPE)}
+    res = {}
+    for tag, (b, sq, sk, h, d) in shapes.items():
+        small = tag.startswith("uta")
+        if sq == sk:
+            _, (q, k, v) = _qkv_views(b, sq, h, d, g)
+        else:
+            q, k, v = (rnd(b, s, h, d).bfloat16() for s in (sq, sk, sk))
+        do = rnd(b, sq, h, d).bfloat16()
+        scale = d ** -0.5
+        fwd = "small_s_fwd" if small else "flash_fwd"
+        names = (("small_s_bwd_dq", "small_s_bwd_dkv") if small
+                 else ("flash_bwd_dq", "flash_bwd_dkv"))
+        timer = _median_graph_ms if small else _median_ms
+        plain_fwd = fa.small_s_attention_ref if small else fa.flash_attention_ref_with_lse
+        plain_bwd = fa.small_s_attention_bwd_ref if small else fa.flash_attention_bwd_ref
+        bounds = _attn_bounds(b, sq, sk, h, d)
+        with torch.no_grad():
+            out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)
+            delta = fa._bwd_delta(out, do)
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            plain_b = _median_ms(lambda: plain_bwd(q, k, v, out, lse, do, scale), iters=1)
+            sdpa_b = statistics.median(_sdpa_bwd_ms(q, k, v, do) for _ in range(5))
+            r = {fwd: dict(ms=timer(lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)),
+                           plain_ms=_median_ms(lambda: plain_fwd(q, k, v, scale), iters=1),
+                           library_ms=statistics.median(_sdpa_fwd_ms(q, k, v) for _ in range(5)),
+                           bound=bounds["fwd"])}
+            for name, outs, kind in ((names[0], (dq,), "dq"), (names[1], (dk, dv), "dkv")):
+                r[name] = dict(ms=timer(lambda: fa._launch_bwd(name, q, k, v, do, lse, delta,
+                                                               outs, scale)),
+                               plain_ms=plain_b, library_ms=sdpa_b, bound=bounds[kind])
+            if tag == "uta_student":
+                w = h * d
+                qkv = (rnd(b, sq, 3 * w) * 2).bfloat16()
+                qw, kw = (rnd(w) * 0.1 + 1 for _ in range(2))
+                qn = rms_norm(qkv[..., :w], qw).unflatten(-1, (h, d))
+                kn = rms_norm(qkv[..., w:2 * w], kw).unflatten(-1, (h, d))
+                r["fused_qkv_fwd"] = dict(
+                    ms=timer(lambda: fa._fused_qkv_cuda(qkv, qw, kw, h, scale, 1e-6)),
+                    plain_ms=_median_ms(lambda: fa.fused_qkv_ref(qkv, qw, kw, h, scale),
+                                        iters=1),
+                    library_ms=statistics.median(
+                        _sdpa_fwd_ms(qn, kn, qkv[..., 2 * w:].unflatten(-1, (h, d)))
+                        for _ in range(5)),
+                    bound=_bound(4 * b * h * sq * sq * d, 4 * b * sq * w * 2 + 2 * w * 4))
+        for name, t in r.items():
+            t["shape"] = [b, sq, sk, h, d]
+            print(f"[{card}] clip {tag} {name} (B, Sq, Sk, H, D) = {tuple(t['shape'])} bf16: "
+                  f"kernel {t['ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+                  f"plain {t['plain_ms']:.3f} ms, flash SDPA {t['library_ms']:.4f} ms",
+                  flush=True)
+        res[tag] = r
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+    return res
+
+
+def clip_want(run, steps: int) -> dict:
+    """Kernel launches of `steps` stage-2 steps of `run` with `uta` = 0: per
+    tower block one K1 (two with remat) and one K4a dq and dk/dv; per fusion
+    layer one cross-attention (K1 / K4a at Sk = 1025) in the MLM pass and
+    one in the VTM pass. BERT self-attention is masked (the plain einsum)
+    and the pooling head plain: nothing else launches."""
+    v, t = run.model.vision, run.model.text
+    fusion = t.num_layers - t.fusion_layer
+    per_step = {"flash_fwd": (2 if v.remat else 1) * v.depth + 2 * fusion,
+                "flash_bwd_dq": v.depth + 2 * fusion, "flash_bwd_dkv": v.depth + 2 * fusion}
+    return {n: c * steps for n, c in per_step.items()}
+
+
+def clip_uta_want(run, teacher_depth: int, steps: int) -> dict:
+    """Kernel launches of `steps` UTA steps: K3 (and its pre-pass) per
+    student block twice (remat) and per teacher block once; K3's backward
+    (K2 recompute + K4b) per student block; K2 / K4b per fusion layer's
+    cross-attention (Sk = 1 + T * n_vis <= 1024) in the MLM and VTM
+    passes."""
+    v, t = run.model.vision, run.model.text
+    fusion = t.num_layers - t.fusion_layer
+    k3 = 2 * v.depth + teacher_depth
+    small = v.depth + 2 * fusion
+    return {n: c * steps for n, c in (("fused_qkv_fwd", k3), ("fused_qkv_rstd", k3),
+                                      ("small_s_fwd", small), ("small_s_bwd_dq", small),
+                                      ("small_s_bwd_dkv", small))}
+
+
+def _step_records(text: str) -> list:
+    return [dict(kv.split(": ") for kv in line.split("  "))
+            for line in text.splitlines() if line.startswith("step: ")]
+
+
+def run_clip_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 44: the stage-2 main path, `cli.train` on CONFIG_CLIP for
+    CLIP_STEPS steps; launches reset just before and read just after.
+    Returns the launches."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    want = clip_want(load_config(CONFIG_CLIP), CLIP_STEPS)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_CLIP, "--device", "cuda",
+                       f"trainer.total_steps={CLIP_STEPS}", "trainer.log_every=1",
+                       "trainer.checkpoint_dir=None"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    records = _step_records(buf.getvalue())
+    for r in records:
+        print(f"cli.train {CONFIG_CLIP}: {r}", flush=True)
+    print(f"[{card}] main path (stage-2 clip): {CLIP_STEPS} steps in {wall:.1f} s wall incl. "
+          f"model init and host data; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}, predicted "
+          f"{want}", flush=True)
+    if rc != 0 or len(records) != CLIP_STEPS:
+        raise AssertionError(f"cli.train logged {len(records)} of {CLIP_STEPS} stage-2 steps")
+    keys = ("loss", "loss_vtc", "loss_vtm", "loss_mlm", "grad_norm")
+    if not all(math.isfinite(float(r[k])) for r in records for k in keys):
+        raise AssertionError("non-finite loss, loss term or grad_norm on the stage-2 path")
+    if counts != want:
+        raise AssertionError(f"launches {counts} on the stage-2 path; predicted {want}")
+    return counts
+
+
+def _clip_model(run, dtype: str = "bfloat16"):
+    """The stage-2 model of `run` in `dtype` (fp32 params either way), its
+    tower's LayerScale gammas at 0.1."""
+    from internvideo_tpu_torch.models.videoclip import VideoCLIP
+
+    cfg = run.model
+    vis = dataclasses.replace(cfg.vision, dtype=dtype)
+    cfg = dataclasses.replace(cfg, vision=vis, text=dataclasses.replace(cfg.text, dtype=dtype),
+                              pretrain=dataclasses.replace(cfg.pretrain, encoder=vis))
+    model = VideoCLIP(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    _raise_gammas(model.vision_encoder)
+    return model
+
+
+def _clip_batch(run, b: int, seed: int) -> dict:
+    v = run.model.vision
+    g = torch.Generator("cuda").manual_seed(seed)
+    ids = torch.randint(1, 1000, (b, run.data["text_len"]), device="cuda", generator=g)
+    return {"video": torch.randn(b, v.num_frames, v.img_size, v.img_size, 3, device="cuda",
+                                 generator=g),
+            "input_ids": ids, "attention_mask": torch.ones_like(ids),
+            "idx": torch.arange(b, device="cuda")}
+
+
+CLIP_ROUTE_GRADS = ("vision_encoder.encoder.blocks.0.attn.qkv.weight",
+                    "vision_encoder.encoder.blocks.39.attn.qkv.weight",
+                    "text_encoder.layer.19.crossattention.key.weight",
+                    "text_encoder.layer.23.crossattention.query.weight",
+                    "itm_head.weight", "temp")
+
+
+def _clip_route(model, run, batch, draws, impl):
+    from internvideo_tpu_torch.train.engines.clip import clip_loss
+
+    _set_attn_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    loss, aux = clip_loss(model, run.engine, batch, deterministic=True, **draws)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if n in CLIP_ROUTE_GRADS}
+    return {k: v.item() for k, v in {"loss": loss, **aux}.items()}, grads
+
+
+def check_clip_routes(run) -> None:
+    """Phase 45: the first step's losses and some gradients, kernel route vs
+    plain route, on the seeded full-width model (tower gammas 0.1), B 4, the
+    same draws (negatives by rotation, one MLM corruption), dropout off;
+    an fp32 copy of the weights on the plain route is the anchor: each
+    number within 1e-2 (grads: rel-L2 2e-2) of the plain route's, or the
+    kernel route no farther from the anchor than 1.25 x the plain route."""
+    from internvideo_tpu_torch.train.engines.clip import mlm_corrupt
+
+    b = 4
+    batch = _clip_batch(run, b, 45)
+    rows = torch.arange(b, device="cuda")
+    corrupted, labels = mlm_corrupt(torch.Generator("cuda").manual_seed(46),
+                                    batch["input_ids"], run.engine)
+    draws = dict(vis_neg=(rows + 1) % b, txt_neg=(rows + 2) % b, corrupted=corrupted,
+                 mlm_labels=labels)
+    model = _clip_model(run)
+    res = {impl: _clip_route(model, run, batch, draws, impl) for impl in ("kernel", "plain")}
+    f32 = _clip_model(run, "float32")
+    f32.load_state_dict(model.state_dict())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    anchor = _clip_route(f32, run, batch, draws, "plain")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    (lk, gk), (lp, gp), (la, ga) = res["kernel"], res["plain"], anchor
+    for key in lk:
+        rel = abs(lk[key] - lp[key]) / max(abs(lp[key]), 1e-12)
+        dk, dp = abs(lk[key] - la[key]), abs(lp[key] - la[key])
+        print(f"stage-2 step bf16 B={b}, {key}: kernel {lk[key]:.6f}, plain {lp[key]:.6f} (rel "
+              f"{rel:.3e}, bar 1e-2), fp32 anchor {la[key]:.6f} (kernel off by {dk:.3e}, plain "
+              f"{dp:.3e})", flush=True)
+        if not math.isfinite(lk[key]) or (rel > 1e-2 and dk > 1.25 * dp):
+            raise AssertionError(f"stage-2 routes disagree on {key}")
+    for name in CLIP_ROUTE_GRADS:
+        rel, dk, dp = _rel(gk[name], gp[name]), _rel(gk[name], ga[name]), _rel(gp[name], ga[name])
+        print(f"stage-2 step bf16 grad {name}: kernel vs plain rel-L2 {rel:.3e} (bar 2e-2); "
+              f"from the fp32 anchor: kernel {dk:.3e}, plain {dp:.3e}", flush=True)
+        if not torch.isfinite(gk[name]).all() or (rel > 2e-2 and dk > 1.25 * dp):
+            raise AssertionError(f"stage-2 routes disagree on the gradient of {name}")
+
+
+def time_clip_step(fa, pd, ig, rms, run, card) -> dict:
+    """Phase 46: the stage-2 trainer (CONFIG_CLIP, B 64) on a device-resident
+    batch: launches of one step against the prediction, then the step's ms
+    (CUDA events, 3 steps after 1), the peak device memory and one step
+    under torch.profiler (device busy share)."""
+    from internvideo_tpu_torch.cli import train as cli
+
+    trainer, shape, _ = cli.build_clip(dataclasses.replace(
+        run, trainer=dataclasses.replace(run.trainer, checkpoint_dir=None)), torch.device("cuda"))
+    b = shape["video"][0]
+    batch = _clip_batch(run, b, 47)
+    step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _all_reset(fa, pd, ig, rms)
+    m = step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    want = clip_want(run, 1)
+    step_ms = _time_ms(step, iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = {k: float(v) for k, v in m.items()}
+    print(f"[{card}] VideoCLIP stage-2 1B step (tower 4x224 S = 1025 unmasked, remat; bert-large "
+          f"fusion; VTC + VTM (3B = {3 * b} fusion rows) + MLM; AdamW) bf16 B={b}, "
+          f"device-resident batch: {step_ms:.1f} ms = {b * 1e3 / step_ms:.2f} clips/s; peak "
+          f"device memory {peak:.2f} GB; first step's metrics {losses}", flush=True)
+    print(f"[{card}] stage-2 launches per step {per_step}, predicted {want}", flush=True)
+    if per_step != want:
+        raise AssertionError(f"stage-2 step launched {per_step}; predicted {want}")
+    prof = profile_step(step, card, "stage-2 clip step")
+    busy = None if prof["busy_ms"] is None else prof["busy_ms"] / prof["wall_ms"]
+    return {"step_ms": step_ms, "clips_per_s": b * 1e3 / step_ms, "peak_gb": peak,
+            "device_busy_share": busy, "launches_per_step": per_step, "predicted": want,
+            "first_step": losses}
+
+
+def run_clip_uta_path(fa, pd, ig, rms, run, card) -> dict:
+    """Phase 47: the UTA variant through `cli.build_clip` + `Trainer.fit`:
+    CONFIG_CLIP with engine.uta = 1.0, attention-guided masking at 0.8 and
+    the CLIP-6B TeacherConfig of CONFIG_PRETRAIN, batch cut to CLIP_UTA_B,
+    CLIP_UTA_STEPS steps; launches reset just before fit and read just
+    after, against the prediction; every logged loss finite."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    teacher = load_config(CONFIG_PRETRAIN).teacher
+    uta = dataclasses.replace(
+        run, teacher=teacher,
+        engine=dataclasses.replace(run.engine, uta=1.0, mask_type="attention", mask_ratio=0.8),
+        data={**run.data, "batch_size": CLIP_UTA_B},
+        trainer=dataclasses.replace(run.trainer, checkpoint_dir=None, log_every=1))
+    trainer, shape, clip_teacher = cli.build_clip(uta, torch.device("cuda"))
+    lines = []
+    trainer.metrics.print_fn = lines.append
+    data = cli._synthetic_clip_stream(shape, uta.model.text.vocab_size)
+    want = clip_uta_want(uta, teacher.depth, CLIP_UTA_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    trainer.fit(data, steps=CLIP_UTA_STEPS)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    records = _step_records("\n".join(lines))
+    for r in records:
+        print(f"stage-2 UTA (B={CLIP_UTA_B}): {r}", flush=True)
+    print(f"[{card}] stage-2 UTA variant: {CLIP_UTA_STEPS} steps in {wall:.1f} s wall incl. host "
+          f"data; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{counts}, predicted {want}", flush=True)
+    keys = ("loss", "loss_uta", "loss_vtc", "loss_vtm", "loss_mlm", "grad_norm")
+    if len(records) != CLIP_UTA_STEPS or not all(
+            math.isfinite(float(r[k])) for r in records for k in keys):
+        raise AssertionError("the stage-2 UTA variant logged a missing or non-finite loss")
+    if counts != want:
+        raise AssertionError(f"launches {counts} on the stage-2 UTA variant; predicted {want}")
+    del trainer, clip_teacher
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -5045,6 +5556,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 43. K1 / K4a at the stage-2 step's shapes, K2 / K3 / K4b at the UTA
+    # variant's, vs their plain versions; their times
+    clip_err = check_clip_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_k = time_clip_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 44. the stage-2 training main path (the 1B recipe), counting launches
+    clip_launches = run_clip_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 45. kernel route vs plain route on the first step's losses
+    crun = load_config(CONFIG_CLIP)
+    check_clip_routes(crun)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 46. times: the step, its peak memory and device busy share
+    clip_step = time_clip_step(fa, pd, ig, rms, crun, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 47. the UTA variant (CLIP-6B teacher, masked student), counting launches
+    clip_uta_launches = run_clip_uta_path(fa, pd, ig, rms, crun, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
@@ -5058,8 +5599,19 @@ def main() -> int:
                  "sft": sft_launches, "serve_mllm": mllm_launches, "serve_gqa": gqa_launches,
                  "rl": rl_launches, "rl_engine": rl_engine_launches, "serve_int8": i8_launches,
                  "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"],
-                 "retrieval": ret_launches, "entry_points": entry_launches}
+                 "retrieval": ret_launches, "entry_points": entry_launches,
+                 "clip": clip_launches, "clip_uta": clip_uta_launches}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
+
+    def clip_times(name, tags):
+        """The stage-2 shapes' errors and times of kernel `name` (phase 43)."""
+        return {tag: {"shape_b_sq_sk_h_d": clip_k[tag][name]["shape"],
+                      "max_abs_err": clip_err[tag][name], "ms": clip_k[tag][name]["ms"],
+                      "plain_ms": clip_k[tag][name]["plain_ms"],
+                      "bound_ms": clip_k[tag][name]["bound"][0],
+                      "bound_by": clip_k[tag][name]["bound"][1],
+                      "library_ms": clip_k[tag][name]["library_ms"]}
+                for tag in tags if name in clip_k[tag]}
 
     def entry(name, source, line, r, err, shape):
         return {"name": name, "route": "cuda", "source": src + source,
@@ -5072,7 +5624,7 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd_causal.cu",
         "c_entry": src + "flash_fwd.cu", "replaces": jax_fa + "153",
         "launches": (launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"]
-                     + ret_launches["flash_fwd"]),
+                     + ret_launches["flash_fwd"] + clip_launches["flash_fwd"]),
         "launches_by_path": by_path("flash_fwd", launches),
         "max_abs_err": max_abs, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -5093,7 +5645,8 @@ def main() -> int:
     }] + [{
         "name": name, "route": "cuda", "source": src + body,
         "c_entry": src + "flash_bwd.cu", "replaces": jax_fa + str(line),
-        "launches": train_launches[name], "launches_by_path": by_path(name),
+        "launches": train_launches[name] + clip_launches[name],
+        "launches_by_path": by_path(name),
         "max_abs_err": bwd_err[name], "ms": t[name], "plain_ms": t["plain_bwd"],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": t["sdpa"]["train"]["bwd"], "shape": list(TRAIN_SHAPE),
@@ -5321,7 +5874,18 @@ def main() -> int:
                                   f"fused_qkv_large_fwd_{RETRIEVAL_TOWER_SHAPE[1]}"]})
         kernels.append(entry_k)
     print(f"[{card}] retrieval: " + json.dumps({**ret, "cli_wall_s": ret_wall}), flush=True)
-    print(f"chip_smoke: phases 1-42 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the stage-2 training shapes (phase 43)
+        tags = {"flash_fwd": ("tower", "cross_mlm", "cross_vtm"),
+                "flash_bwd_dq": ("tower", "cross_mlm", "cross_vtm"),
+                "flash_bwd_dkv": ("tower", "cross_mlm", "cross_vtm"),
+                "small_s_fwd": ("uta_cross", "uta_student"),
+                "small_s_bwd_dq": ("uta_cross", "uta_student"),
+                "small_s_bwd_dkv": ("uta_cross", "uta_student"),
+                "fused_qkv_fwd": ("uta_student",)}.get(entry["name"])
+        if tags:
+            entry["clip_stage2"] = clip_times(entry["name"], tags)
+    print(f"[{card}] stage-2 clip: " + json.dumps(clip_step), flush=True)
+    print(f"chip_smoke: phases 1-47 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_"):

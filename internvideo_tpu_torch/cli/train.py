@@ -10,18 +10,22 @@
     python -m internvideo_tpu_torch.cli.train \
         --config configs/torch/sft_internvideo3_8b.py --device cuda
 
+    python -m internvideo_tpu_torch.cli.train \
+        --config configs/torch/clip_stage2_1b.py --device cuda
+
 Port of internvideo_tpu/cli/train.py. The config file defines
-`config = RunConfig(...)`; dotlist overrides follow. Three tasks are
+`config = RunConfig(...)`; dotlist overrides follow. Four tasks are
 ported: `finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW
 with layer decay), `pretrain` (UMT masked pretraining of
-PretrainInternVideo2 with frozen CLIP and MAE teachers) and `sft` (packed
-multimodal SFT of the InternVideo3 VideoMLLM); the JAX CLI's other tasks
-exit with "not yet ported".
+PretrainInternVideo2 with frozen CLIP and MAE teachers), `sft` (packed
+multimodal SFT of the InternVideo3 VideoMLLM) and `clip` (VideoCLIP
+stage 2: VTC + VTM + MLM, and UTA against a frozen CLIP teacher with
+`engine.uta` > 0); the JAX CLI's other tasks exit with "not yet ported".
 `--device` is explicit: `cuda` (the default) with no GPU is an error, not a
 CPU run. The model starts from the seeded init (`trainer.seed`), the
-pretrain teachers from their own (`trainer.seed` + 1 and + 2), as the JAX
-CLI does when no teacher checkpoint is given; the data come from
-`data["stream"]`, or synthetic clips made from a fixed seed.
+teachers from their own (`trainer.seed` + 1 and + 2), as the JAX CLI does
+when no teacher checkpoint is given; the data come from `data["stream"]`,
+or synthetic clips (and token ids) made from a fixed seed.
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ class RunConfig:
     model: object = None  # task-specific model config
     data: object = None  # task-specific data config: batch_size, stream
     engine: object = None  # task-specific engine config
-    teacher: object = None  # pretrain: the CLIP teacher's TeacherConfig
+    teacher: object = None  # pretrain, clip with uta > 0: the CLIP teacher's TeacherConfig
     mae_teacher: object = None  # pretrain: the MAE teacher's TeacherConfig
 
-_PORTED_TASKS = ("finetune", "pretrain", "sft")
+_PORTED_TASKS = ("finetune", "pretrain", "sft", "clip")
 
 
 def build_finetune(run: RunConfig, device: torch.device):
@@ -130,6 +134,52 @@ def build_pretrain(run: RunConfig, device: torch.device):
     return trainer, shape, (clip_teacher, mae_teacher)
 
 
+def build_clip(run: RunConfig, device: torch.device):
+    """(trainer, example batch shapes, CLIP teacher or None) for VideoCLIP
+    stage 2 on `device` (the JAX `build_clip`, :127-181). With `engine.uta`
+    > 0 the frozen CLIP teacher starts from `trainer.seed` + 1 and rides the
+    step."""
+    from internvideo_tpu_torch.models.teachers import CLIPTeacher
+    from internvideo_tpu_torch.models.videoclip import VideoCLIP
+    from internvideo_tpu_torch.train.engines.clip import make_clip_train_step
+    from internvideo_tpu_torch.train.state import frozen_teacher
+
+    for key in ("init_state_dict", "teacher_checkpoint"):
+        if run.data.get(key):
+            raise NotImplementedError(
+                f"data.{key}: the stage-2 checkpoint converters are not ported yet "
+                "(ROADMAP queue 1, item 9)")
+    seed = run.trainer.seed
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    model = VideoCLIP(run.model, device=device, generator=gen(seed))
+    teacher = None
+    if run.engine.uta > 0:
+        teacher = frozen_teacher(CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)))
+    v, b = run.model.vision, run.data["batch_size"]
+    text = (b, run.data.get("text_len", 32))
+    batch = {"video": (b, v.num_frames, v.img_size, v.img_size, 3), "input_ids": text,
+             "attention_mask": text, "idx": (b,)}
+    trainer = Trainer(
+        run.trainer, model,
+        lambda grad_accum=1: make_clip_train_step(run.engine, teacher, grad_accum=grad_accum))
+    return trainer, batch, teacher
+
+
+def _synthetic_clip_stream(batch: dict, vocab_size: int, seed: int = 0):
+    """The JAX CLI's `_synthetic_clip_stream` (:391-406), draw for draw:
+    standard-normal clips, token ids in [1, min(1000, vocab)), all-ones
+    masks, idx 0..B-1."""
+    rng = np.random.default_rng(seed)
+    hi = min(1000, vocab_size)
+    while True:
+        yield {
+            "video": rng.normal(size=batch["video"]).astype(np.float32),
+            "input_ids": rng.integers(1, hi, size=batch["input_ids"]).astype(np.int32),
+            "attention_mask": np.ones(batch["attention_mask"], np.int32),
+            "idx": np.arange(batch["idx"][0], dtype=np.int32),
+        }
+
+
 def build_sft(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes) for packed multimodal SFT of the
     VideoMLLM on `device` (the JAX `build_sft`, :409-465). The shapes are
@@ -198,6 +248,9 @@ def main(argv: Optional[list[str]] = None):
     elif run.task == "sft":
         trainer, batch = build_sft(run, device)
         data = run.data.get("stream") or _synthetic_sft_stream(batch)
+    elif run.task == "clip":
+        trainer, batch, _ = build_clip(run, device)
+        data = run.data.get("stream") or _synthetic_clip_stream(batch, run.model.text.vocab_size)
     else:
         trainer, batch = build_finetune(run, device)
         data = run.data.get("stream") or synthetic_stream(batch, run.model.num_classes)

@@ -12,8 +12,8 @@ Submodules carry the flax names (`vision_encoder`, `text_encoder`,
 maps a JAX tree onto them. The three projections run in the tower's dtype
 with fp32 weights, as the JAX `nn.Dense(dtype=...)` does. The JAX forward's
 `init_all_branches` exists for flax init, which this port does not need:
-every branch is built at construction. The losses (train/engines/clip.py)
-are not ported yet (ROADMAP queue 1, item 4).
+every branch is built at construction. The stage-2 losses and train step
+(VTC, VTM, MLM and UTA) are in train/engines/clip.py.
 """
 
 from __future__ import annotations

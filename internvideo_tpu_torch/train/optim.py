@@ -24,7 +24,9 @@ Parameter names are the port's dotted state_dict names
 `blocks[._](\\d+)` and user patterns match them as the JAX package's match
 its `blocks_3/attn/qkv/kernel` paths. Parameters that `trainable_patterns`
 leaves out are not in any group: they never move and carry no Adam state
-(optax.set_to_zero).
+(optax.set_to_zero). A parameter in a group that the loss does not reach
+(the stage-2 CLIP-align decoders with `uta=0`) steps on a zero gradient,
+as optax's does: its weight decay still applies.
 """
 
 from __future__ import annotations
@@ -161,6 +163,11 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        # a trainable parameter the loss did not reach has a zero gradient
+        # in optax, which still decays it; torch's AdamW would skip it
+        for p in self.params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.config.clip_grad_norm and grads:
             norm = global_norm(grads)

@@ -387,7 +387,7 @@ def test_cli_train_on_cpu(tmp_path):
                                  .replace("None", "null").replace("True", "true")
                                  .replace("False", "false")))
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--config", TINY, "--device", "cpu", "task=clip"])
+        cli.main(["--config", TINY, "--device", "cpu", "task=distill"])
 
 
 @pytest.mark.parametrize("name", ["finetune_k400_1b", "finetune_tiny"])
