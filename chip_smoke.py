@@ -366,6 +366,35 @@ non-zero and prints no result):
      128 pre-passes = 80 student at S = 209 + 48 teacher, 50 each of K2 /
      K4b dq / dk/dv), every loss term finite.
 
+ 48. K1, K2 and K5 at InternVideo2-Chat's shapes, B 8 and B 1, through
+     `flash_attention` (one launch of the named kernel each), vs their plain
+     versions (fp32 max-abs 2e-5, bf16 rel-L2 1e-2): K1 at the ViT's
+     (B, 2049, 16, 88) on qkv views and at the QFormer cross-attention's
+     32 queries on 2049 keys, 12 heads of 64; K2 at the QFormer
+     self-attention's (B, 32, 12, 64); K5 at the LLM prefill's (B, 32 + 64,
+     32, 256 / 128) and a ragged prompt of 61;
+ 49. the chat main path: `internvideo_tpu_torch.cli.eval` task videoqa on
+     configs/torch/chat_videoqa_8b.py (`VideoChatConfig()` in bf16, nothing
+     cut: 1B ViT at 8 x 224, QFormer of 32 queries, Qwen3-8B M2LA; 8 clips
+     in batches of 4, 64-token prompt, 32 greedy tokens); launches reset
+     just before and read just after: per prefill 52 K1 (40 ViT + 12
+     cross-attention), 12 K2, 36 K5, nothing per decode step;
+ 50. kernel route vs plain route on the chat model, B 2: each attention on
+     its real inputs (ViT blocks 0 / 39, QFormer layers 0 / 11 self and
+     cross, LLM layers 0 / 35 prefill; rel-L2 1e-2); prefill + 2 decode
+     steps' logits held to an fp32 copy at full depth (x 1.25); greedy
+     tokens of both routes reported;
+ 51. times at B 1 and B 8: TTFT split into ViT, QFormer and LLM prefill
+     (CUDA events) with each part's launches (40 / 12 + 12 / 36), decode
+     tokens/s, generate's wall, peak memory, idle share (torch.profiler);
+     the phase-48 shapes by CUDA graph replay beside the plain version, the
+     bound and the library call (the first SDPA backend that takes the
+     shape, also by graph replay);
+ 52. task zeroshot through `cli.eval` on
+     configs/torch/eval_zeroshot_stage2_1b.py (internvideo2_stage2_1b
+     uncut, 8 classes x 28 templates, 2 batches of 8 clips): 40 K1 a clip
+     batch and nothing else.
+
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
 wall time.
@@ -373,6 +402,7 @@ wall time.
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -478,6 +508,19 @@ CLIP_UTA_B = 8
 CLIP_UTA_STEPS = 2
 CLIP_UTA_STUDENT_SHAPE = (8, 209, 16, 88)
 CLIP_UTA_CROSS_SHAPE = (8, 32, 209, 16, 64)
+# InternVideo2-Chat serving (phases 48-51): the videoqa config (VideoChatConfig()
+# in bf16), its attention shapes (the ViT's S, H, D at 8 x 224; the QFormer's
+# cross-attention Sq, Sk, H, D; the LLM's H, d_qk, d_v), the prompt, its ragged
+# variant and the new tokens; the CLI run's clips and prefills (8 in batches of 4);
+# then the zero-shot eval of the stage-2 model (phase 52)
+CONFIG_CHAT = "configs/torch/chat_videoqa_8b.py"
+CHAT_VIT_SHAPE = (2049, 16, 88)
+CHAT_CROSS_SHAPE = (32, 2049, 12, 64)
+CHAT_LLM_SHAPE = (32, 256, 128)
+CHAT_PROMPT, CHAT_RAGGED_PROMPT, CHAT_NEW = 64, 61, 32
+CHAT_BATCHES = (8, 1)
+CHAT_CLI_CLIPS, CHAT_CLI_PREFILLS = 8, 2
+CONFIG_ZEROSHOT = "configs/torch/eval_zeroshot_stage2_1b.py"
 # K11's bf16 edges beside its two path shapes: the top of its S range, and
 # head dim 64 at the eval's S
 K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
@@ -5264,6 +5307,413 @@ def run_clip_uta_path(fa, pd, ig, rms, run, card) -> dict:
     return counts
 
 
+# -- InternVideo2-Chat serving and the eval CLI's new tasks: phases 48-52 ----------------
+
+def _chat_cases(b: int) -> dict:
+    """tag -> (kernel, (B, Sq, Sk, H, d_qk, d_v), causal) of the chat path at
+    batch `b`: the ViT's K1, the QFormer's cross-attention (K1) and
+    self-attention (K2), the LLM prefill over [queries | prompt] (K5) and a
+    ragged prompt."""
+    s, h, d = CHAT_VIT_SHAPE
+    sq, sk, hq, dq = CHAT_CROSS_SHAPE
+    hl, dk, dv = CHAT_LLM_SHAPE
+    nq = CHAT_CROSS_SHAPE[0]
+    return {"vit": ("flash_fwd", (b, s, s, h, d, d), False),
+            "qformer_cross": ("flash_fwd", (b, sq, sk, hq, dq, dq), False),
+            "qformer_self": ("small_s_fwd", (b, nq, nq, hq, dq, dq), False),
+            "llm_prefill": ("flash_fwd_causal",
+                            (b, nq + CHAT_PROMPT, nq + CHAT_PROMPT, hl, dk, dv), True),
+            "llm_prefill_ragged": ("flash_fwd_causal", (b, nq + CHAT_RAGGED_PROMPT,
+                                                        nq + CHAT_RAGGED_PROMPT, hl, dk, dv), True)}
+
+
+def _chat_inputs(shape, dtype, g):
+    b, sq, sk, h, d, dv = shape
+    if sq == sk and d == dv and sq > 1024:  # the ViT's q / k / v: views of one projection
+        _, (q, k, v) = _qkv_views(b, sq, h, d, g, dtype)
+        return q, k, v
+    return (torch.randn(b, sq, h, d, device="cuda", generator=g).to(dtype),
+            torch.randn(b, sk, h, d, device="cuda", generator=g).to(dtype),
+            torch.randn(b, sk, h, dv, device="cuda", generator=g).to(dtype))
+
+
+def check_chat_kernels(fa) -> dict:
+    """Phase 48: K1, K2 and K5 at the chat path's shapes (_chat_cases) at
+    B 8 and B 1, through `flash_attention` as the models call it (one launch
+    of the named kernel, nothing else), vs their plain versions: fp32
+    max-abs 2e-5, bf16 rel-L2 1e-2. Returns (tag, B) -> bf16 max-abs."""
+    g = torch.Generator("cuda").manual_seed(48)
+    errs = {}
+    for b in CHAT_BATCHES:
+        for tag, (kernel, shape, causal) in _chat_cases(b).items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _chat_inputs(shape, dtype, g)
+                before = {n: fa.launch_count(n) for n in fa.KERNELS}
+                with torch.no_grad():
+                    out = fa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                after = {n: fa.launch_count(n) - before[n] for n in fa.KERNELS}
+                if after != {**dict.fromkeys(fa.KERNELS, 0), kernel: 1}:
+                    raise AssertionError(f"chat {tag} {shape} launched {after}; expected one "
+                                         f"{kernel}")
+                ref, _ = fa.flash_attention_ref_with_lse(q, k, v, shape[4] ** -0.5, causal)
+                max_abs = (out.float() - ref.float()).abs().max().item()
+                rel = _rel(out, ref)
+                print(f"chat {kernel} {tag} (B, Sq, Sk, H, d_qk, d_v) = {shape} {dtype}: "
+                      f"max-abs {max_abs:.3e}, rel-L2 {rel:.3e} (bars: fp32 max-abs 2e-5, bf16 "
+                      "rel-L2 1e-2)", flush=True)
+                ok = max_abs <= 2e-5 if dtype == torch.float32 else rel <= 1e-2
+                if not ok:
+                    raise AssertionError(f"{kernel} disagrees with its plain version at the "
+                                         f"chat's {tag} {shape} {dtype}")
+                if dtype == torch.bfloat16:
+                    errs[(tag, b)] = max_abs
+                del q, k, v, out, ref
+    return errs
+
+
+def _chat_want(prefills: int) -> dict:
+    """Launches of `prefills` VideoChat prefills: per prefill the ViT's
+    depth in K1, one K1 (cross-attention) and one K2 (self-attention) a
+    QFormer layer, the LLM's depth in K5; decode steps launch nothing
+    (the plain absorbed decode over the dense cache, as in JAX)."""
+    from internvideo_tpu_torch.core.config import load_config
+
+    cfg = load_config(CONFIG_CHAT).model
+    n = cfg.qformer.bert.num_layers
+    return {"flash_fwd": prefills * (cfg.vision.depth + n), "small_s_fwd": prefills * n,
+            "flash_fwd_causal": prefills * cfg.llm.num_layers}
+
+
+@contextlib.contextmanager
+def _counting_chat_calls():
+    """Count VideoChat.prefill / decode_step calls on every instance."""
+    from internvideo_tpu_torch.models.chat import VideoChat
+
+    calls = {"prefill": 0, "decode_step": 0}
+    saved = {name: getattr(VideoChat, name) for name in calls}
+
+    def counted(name):
+        @functools.wraps(saved[name])  # generate reads prefill's signature
+        def call(self, *a, **kw):
+            calls[name] += 1
+            return saved[name](self, *a, **kw)
+        return call
+
+    for name in calls:
+        setattr(VideoChat, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(VideoChat, name, fn)
+
+
+def run_chat_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 49: task videoqa through cli.eval on CONFIG_CHAT (the VideoChat
+    built and answering on the card); launches reset just before and read
+    just after, against _chat_want of the prefills it ran; the metrics'
+    keys and count."""
+    from internvideo_tpu_torch.cli import eval as cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with _counting_chat_calls() as calls, contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_CHAT, "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    want = _chat_want(calls["prefill"])
+    print(f"[{card}] cli.eval {CONFIG_CHAT}: {json.dumps(result)} ({wall:.1f} s wall incl. the "
+          f"~19 GB init and data; {calls['prefill']} prefills, {calls['decode_step']} decode "
+          f"steps)", flush=True)
+    print(f"main path (chat videoqa): launches {counts}, expected {want}", flush=True)
+    if rc != 0 or set(result) != {"task", "accuracy", "num"} or result["num"] != CHAT_CLI_CLIPS:
+        raise AssertionError(f"cli.eval videoqa printed {result}")
+    if not (0 <= result["accuracy"] <= 100) or calls["prefill"] != CHAT_CLI_PREFILLS:
+        raise AssertionError(f"videoqa: accuracy {result['accuracy']}, {calls} calls")
+    if calls["decode_step"] != CHAT_CLI_PREFILLS * (CHAT_NEW - 1) or counts != want:
+        raise AssertionError(f"the chat path launched {counts} in {calls}; expected {want}")
+    return counts
+
+
+def _chat_model(dtype: str = "bfloat16"):
+    """CONFIG_CHAT's VideoChat with the CLI's seeded weights, on the card."""
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.models.chat import VideoChat
+
+    cfg = load_config(CONFIG_CHAT).model
+    if dtype != cfg.llm.dtype:
+        f32 = lambda c: dataclasses.replace(c, dtype=dtype, param_dtype=dtype)  # noqa: E731
+        cfg = dataclasses.replace(
+            cfg, vision=f32(cfg.vision), llm=f32(cfg.llm),
+            qformer=dataclasses.replace(cfg.qformer, bert=f32(cfg.qformer.bert)))
+    return VideoChat(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0)).eval()
+
+
+def _set_chat_route(model, impl: str) -> None:
+    _set_attn_impl(model, impl)
+    _set_llm_impl(model, impl)
+
+
+def _chat_inputs_e2e(model, b: int, prompt: int, seed: int):
+    v = model.config.vision
+    g = torch.Generator("cuda").manual_seed(seed)
+    video = torch.randn(b, v.num_frames, v.img_size, v.img_size, 3, device="cuda", generator=g)
+    ids = torch.randint(1, model.config.llm.vocab_size, (b, prompt), device="cuda", generator=g)
+    return video, ids
+
+
+def _chat_route_logits(model, impl, video, ids, fed) -> list:
+    """Prefill + len(fed) dense decode steps fed `fed` on route `impl`: the
+    last-position logits (fp32)."""
+    _set_chat_route(model, impl)
+    b, s = ids.shape
+    nq = model.cache_prefix_len
+    with torch.no_grad():
+        caches = model.init_cache(b, nq + s + fed.shape[1], torch.float32)
+        out = model.prefill(ids, video, caches)
+        logits = [out.logits[:, -1].float()]
+        for step in range(fed.shape[1]):
+            out = model.decode_step(fed[:, step:step + 1], caches, nq + s + step)
+            logits.append(out.logits[:, -1].float())
+    _set_chat_route(model, "kernel")
+    return logits
+
+
+def check_chat_routes(model, card) -> None:
+    """Phase 50 on the bf16 VideoChat at full width and depth, B 2, a
+    64-token prompt: each kernel-route attention against the plain route on
+    its real inputs (a ViT block, a QFormer layer's self- and
+    cross-attention, an LLM layer's prefill attention; rel-L2 1e-2); the
+    prefill + 2 decode steps' logits held to an fp32 copy of the weights at
+    full depth (the kernel route within 1.25 x the plain route's distance,
+    the fp32 routes within 1e-4); greedy tokens from `generate` on both
+    routes, reported (a bf16 argmax over random weights can flip on a near
+    tie)."""
+    from internvideo_tpu_torch.models.generation import generate
+
+    video, ids = _chat_inputs_e2e(model, 2, CHAT_PROMPT, 50)
+    fed = torch.randint(1, model.config.llm.vocab_size, (2, 2), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(51))
+    n_vit, n_bert = model.config.vision.depth, model.config.qformer.bert.num_layers
+    modules = {f"vit block {i}": model.vision_encoder.blocks[i].attn for i in (0, n_vit - 1)}
+    for i in (0, n_bert - 1):
+        modules[f"qformer layer {i} self"] = model.qformer.bert.layer[i].attention
+        modules[f"qformer layer {i} cross"] = model.qformer.bert.layer[i].crossattention
+    llm_layers = (0, model.config.llm.num_layers - 1)
+    prefill_in = {}
+    for i in llm_layers:
+        attn = model.language_model.layers[i].self_attn
+
+        def recorded(x, cos, sin, cache, cache_len, *, _fn=attn.prefill, _i=i, **kw):
+            prefill_in.setdefault(_i, (x, cos, sin))
+            return _fn(x, cos, sin, cache, cache_len, **kw)
+
+        attn.prefill = recorded
+    capture = _capture(modules, lambda: _chat_route_logits(model, "kernel", video, ids, fed[:, :0]))
+    for i in llm_layers:
+        del model.language_model.layers[i].self_attn.prefill
+    _layers_kernel_vs_plain(modules, capture, "chat")
+    for i, (x, cos, sin) in sorted(prefill_in.items()):
+        attn = model.language_model.layers[i].self_attn
+        outs = {}
+        with torch.no_grad():
+            for impl in ("kernel", "plain"):
+                attn.attn_impl = impl
+                outs[impl] = attn(x, cos, sin, causal=True)
+        attn.attn_impl = "kernel"
+        rel = _rel(outs["kernel"], outs["plain"])
+        print(f"chat bf16 LLM layer {i} prefill attention on its real inputs, kernel vs plain "
+              f"route: rel-L2 {rel:.3e} (bar 1e-2)", flush=True)
+        if not rel <= 1e-2:
+            raise AssertionError(f"routes disagree at the chat LLM layer {i}")
+    del capture, prefill_in
+
+    res = {impl: _chat_route_logits(model, impl, video, ids, fed) for impl in ("kernel", "plain")}
+    ref = _fp32_copy(model, lambda: _chat_model("float32"))
+    f32 = {impl: _chat_route_logits(ref, impl, video, ids, fed) for impl in ("kernel", "plain")}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_to_fp32(res, f32, "chat (VideoChatConfig() at full width and depth, B 2, 64-token "
+                            "prompt) prefill + 2 dense decode steps")
+    tokens = {}
+    for impl in ("kernel", "plain"):
+        _set_chat_route(model, impl)
+        tokens[impl] = generate(model, ids, video=video, max_new_tokens=16)
+    _set_chat_route(model, "kernel")
+    agree = (tokens["kernel"] == tokens["plain"]).sum().item()
+    print(f"[{card}] chat greedy tokens (B 2, 16 new) on the kernel route vs the plain route: "
+          f"{agree} of {tokens['kernel'].numel()} agree (a report, not a bar); kernel "
+          f"{tokens['kernel'].tolist()}, plain {tokens['plain'].tolist()}", flush=True)
+
+
+def time_chat(model, fa, card) -> dict:
+    """Phase 51 at B 1 and B 8, a 64-token prompt and 32 new tokens: TTFT
+    (the prefill + the first token's argmax) and its split into the ViT, the
+    QFormer (+ llm_proj) and the LLM prefill by CUDA events, with each
+    part's launches; the dense decode step's ms and tokens/s; the whole
+    generate's wall; the peak device memory; the prefill and a decode step
+    under torch.profiler (device idle share)."""
+    from internvideo_tpu_torch.models.generation import generate
+
+    res = {}
+    nq = model.cache_prefix_len
+    lm = model.language_model
+    for b in CHAT_BATCHES:
+        video, ids = _chat_inputs_e2e(model, b, CHAT_PROMPT, 51)
+        caches = model.init_cache(b, nq + CHAT_PROMPT + CHAT_NEW, torch.float32)
+        with torch.no_grad():
+            tokens = model.vision_encoder(video).tokens
+            queries = model.llm_proj(model.qformer(tokens))
+            txt = lm.embed_tokens(ids)
+            embeds = torch.cat([queries.to(txt.dtype), txt], dim=1)
+            parts = {"vit": lambda: model.vision_encoder(video),
+                     "qformer": lambda: model.llm_proj(model.qformer(tokens)),
+                     "llm_prefill": lambda: lm.prefill(embeds, caches)}
+            launches, ms = {}, {}
+            for name, fn in parts.items():
+                fa.reset_launch_count()
+                fn()
+                torch.cuda.synchronize()
+                launches[name] = {n: fa.launch_count(n) for n in fa.KERNELS
+                                  if fa.launch_count(n)}
+                ms[name] = _time_ms(fn, iters=3)
+            ttft = _time_ms(lambda: model.prefill(ids, video, caches).logits.argmax(-1), iters=3)
+            tok = torch.randint(1, model.config.llm.vocab_size, (b, 1), device="cuda")
+            step_len = nq + CHAT_PROMPT
+            decode_ms = _time_ms(lambda: model.decode_step(tok, caches, step_len), iters=10,
+                                 warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen_ms = _time_ms(lambda: generate(model, ids, video=video, max_new_tokens=CHAT_NEW),
+                          iters=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            prof_p = profile_step(lambda: model.prefill(ids, video, caches), card,
+                                  f"chat prefill B={b}")
+            prof_d = profile_step(lambda: model.decode_step(tok, caches, step_len), card,
+                                  f"chat dense decode step B={b}")
+        idle = {k: (None if p["busy_ms"] is None else max(0.0, 1 - p["busy_ms"] / p["wall_ms"]))
+                for k, p in (("prefill", prof_p), ("decode_step", prof_d))}
+        res[b] = {"ttft_ms": ttft, "vit_ms": ms["vit"], "qformer_ms": ms["qformer"],
+                  "llm_prefill_ms": ms["llm_prefill"], "launches": launches,
+                  "decode_step_ms": decode_ms, "decode_tokens_per_sec": b * 1e3 / decode_ms,
+                  "generate_ms": gen_ms, "peak_gb": peak, "idle_share": idle}
+        print(f"[{card}] chat B={b}, {CHAT_PROMPT}-token prompt: TTFT {ttft:.2f} ms = ViT "
+              f"{ms['vit']:.2f} + QFormer {ms['qformer']:.2f} + LLM prefill "
+              f"{ms['llm_prefill']:.2f} ms (parts timed alone); launches {launches}; dense "
+              f"decode step {decode_ms:.2f} ms = {b * 1e3 / decode_ms:.1f} tokens/s; generate "
+              f"({CHAT_NEW} new) {gen_ms:.1f} ms; peak {peak:.2f} GB; idle share {idle}",
+              flush=True)
+        want = {"vit": {"flash_fwd": model.config.vision.depth},
+                "qformer": {"flash_fwd": model.config.qformer.bert.num_layers,
+                            "small_s_fwd": model.config.qformer.bert.num_layers},
+                "llm_prefill": {"flash_fwd_causal": model.config.llm.num_layers}}
+        if launches != want:
+            raise AssertionError(f"chat launches per part {launches}; expected {want}")
+        del caches, video, ids, tokens, queries, txt, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sdpa_graph_ms(q, k, v, causal: bool) -> tuple:
+    """The first PyTorch SDPA backend (flash, cuDNN, memory-efficient) that
+    takes (B, S, H, D) q / k / v as they are, timed by CUDA graph replay as
+    the kernels are (yardstick only, never on the port's path): (ms, note)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        try:
+            call()
+        except RuntimeError:  # the backend refuses the shape: try the next
+            continue
+        return _median_graph_ms(call), f"{backend.name} SDPA, CUDA graph replay"
+    return None, "no SDPA backend takes the shape"
+
+
+def time_chat_kernels(fa, card) -> dict:
+    """Phase 51, kernels: each _chat_cases shape at B 8 and B 1, bf16, by
+    CUDA graph replay (median of 5; the B 1 shapes are wrapper-bound under
+    CUDA events), beside its plain version, its bound and the library call
+    (`_sdpa_graph_ms`: the first SDPA backend that takes the shape, timed
+    the same way)."""
+    g = torch.Generator("cuda").manual_seed(52)
+    res = {}
+    for b in CHAT_BATCHES:
+        for tag, (kernel, shape, causal) in _chat_cases(b).items():
+            _, sq, sk, h, d, dv = shape
+            q, k, v = _chat_inputs(shape, torch.bfloat16, g)
+            scale = d ** -0.5
+            with torch.no_grad():
+                if causal:
+                    call = lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0)  # noqa: E731
+                    pairs = b * h * sq * (sq + 1) // 2
+                    bound = _bound(2 * pairs * (d + dv), (2 * b * sq * h * d + 2 * b * sk * h * dv)
+                                   * 2 + b * h * sq * 4)
+                else:
+                    call = lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel=kernel)  # noqa: E731
+                    bound = _attn_bounds(b, sq, sk, h, d)["fwd"]
+                lib_ms, lib_note = _sdpa_graph_ms(q, k, v, causal)
+                ms = _median_graph_ms(call)
+                plain_ms = _median_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, scale,
+                                                                              causal),
+                                      runs=3, iters=1)
+            res[(tag, b)] = dict(kernel=kernel, shape=list(shape), ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, library_note=lib_note, bound=bound)
+            print(f"[{card}] chat {kernel} {tag} (B, Sq, Sk, H, d_qk, d_v) = {shape} bf16: kernel "
+                  f"{ms:.4f} ms (graph replay), bound {bound[0]:.4f} ms ({bound[1]}), plain "
+                  f"{plain_ms:.3f} ms, library "
+                  + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None else lib_note),
+                  flush=True)
+            del q, k, v
+    return res
+
+
+def run_zeroshot_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 52: task zeroshot through cli.eval on CONFIG_ZEROSHOT
+    (internvideo2_stage2_1b uncut, synthetic data); launches reset just
+    before and read just after: the tower's depth in K1 a clip batch and
+    nothing else (the masked text runs the plain einsum, as in JAX)."""
+    from internvideo_tpu_torch.cli import eval as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    run = load_config(CONFIG_ZEROSHOT)
+    _, _, batches = run.data()
+    batches = list(batches)
+    want = {"flash_fwd": len(batches) * run.model.vision.depth}
+    n = sum(len(x["label"]) for x in batches)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_ZEROSHOT, "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[{card}] cli.eval {CONFIG_ZEROSHOT}: {json.dumps(result)} ({wall:.1f} s wall incl. "
+          f"init and data)", flush=True)
+    print(f"main path (zeroshot): launches {counts}, expected {want}", flush=True)
+    if rc != 0 or set(result) != {"task", "top1", "top5", "n"} or result["n"] != n:
+        raise AssertionError(f"cli.eval zeroshot printed {result}")
+    if not all(0 <= result[k] <= 100 for k in ("top1", "top5")) or counts != want:
+        raise AssertionError(f"zeroshot launched {counts}; expected {want}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -5586,6 +6036,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 48. K1 / K2 / K5 at the chat path's shapes vs their plain versions
+    chat_err = check_chat_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 49. the chat main path: task videoqa on the full-width VideoChat, counting launches
+    chat_launches = run_chat_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 50. kernel route vs plain route on the chat model
+    chat = _chat_model()
+    check_chat_routes(chat, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 51. times: TTFT split, decode, idle share, peak memory; the kernels at its shapes
+    chat_t = time_chat(chat, fa, card)
+    del chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    chat_k = time_chat_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 52. task zeroshot on the stage-2 model, counting launches
+    zs_launches = run_zeroshot_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
@@ -5600,7 +6080,8 @@ def main() -> int:
                  "rl": rl_launches, "rl_engine": rl_engine_launches, "serve_int8": i8_launches,
                  "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"],
                  "retrieval": ret_launches, "entry_points": entry_launches,
-                 "clip": clip_launches, "clip_uta": clip_uta_launches}
+                 "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
+                 "zeroshot": zs_launches}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -5624,7 +6105,8 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd_causal.cu",
         "c_entry": src + "flash_fwd.cu", "replaces": jax_fa + "153",
         "launches": (launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"]
-                     + ret_launches["flash_fwd"] + clip_launches["flash_fwd"]),
+                     + ret_launches["flash_fwd"] + clip_launches["flash_fwd"]
+                     + chat_launches["flash_fwd"] + zs_launches["flash_fwd"]),
         "launches_by_path": by_path("flash_fwd", launches),
         "max_abs_err": max_abs, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -5885,7 +6367,23 @@ def main() -> int:
         if tags:
             entry["clip_stage2"] = clip_times(entry["name"], tags)
     print(f"[{card}] stage-2 clip: " + json.dumps(clip_step), flush=True)
-    print(f"chip_smoke: phases 1-47 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the chat path's shapes (phases 48, 51)
+        tags = [key for key, r in chat_k.items() if r["kernel"] == entry["name"]]
+        if tags:
+            per = chat_launches[entry["name"]] // CHAT_CLI_PREFILLS
+            entry["chat"] = {
+                "launches_per_prefill": per, "launches_chat_cli": chat_launches[entry["name"]],
+                "shapes": {f"{tag} B{b}": {
+                    "shape_b_sq_sk_h_dqk_dv": chat_k[(tag, b)]["shape"],
+                    "max_abs_err": chat_err[(tag, b)], "ms": chat_k[(tag, b)]["ms"],
+                    "ms_by": "CUDA graph replay (the device alone)",
+                    "plain_ms": chat_k[(tag, b)]["plain_ms"],
+                    "bound_ms": chat_k[(tag, b)]["bound"][0],
+                    "bound_by": chat_k[(tag, b)]["bound"][1],
+                    "library_ms": chat_k[(tag, b)]["library_ms"],
+                    "library_note": chat_k[(tag, b)]["library_note"]} for tag, b in tags}}
+    print(f"[{card}] chat: " + json.dumps({f"B{b}": r for b, r in chat_t.items()}), flush=True)
+    print(f"chip_smoke: phases 1-52 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_"):

@@ -18,8 +18,9 @@ The cross-attention key / value projections read the vision width, which
 flax infers at init and `BertConfig` does not hold: `BertModel` takes it as
 `vision_width` (default: hidden_size). Every layer, cross-attention and MLM
 head is built whatever the mode (JAX creates the ones its init mode
-touches); submodules carry the flax names, so `models/convert.py` maps a
-JAX tree onto them.
+touches), except with `fusion_only=True`: then only the layers exist, as in
+a JAX tree that only ever ran mode "fusion" (the chat QFormer's). Submodules
+carry the flax names, so `models/convert.py` maps a JAX tree onto them.
 
 Dropout (rate `cfg.dropout`) is active only with `deterministic=False` and
 an explicit torch.Generator on the activations' device.
@@ -162,23 +163,27 @@ class BertLayer(nn.Module):
 
 class BertModel(nn.Module):
     def __init__(self, cfg: BertConfig, *, vision_width: Optional[int] = None, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, fusion_only: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fusion_only = fusion_only
         dtype, pdtype = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
         kw = dict(dtype=dtype, param_dtype=pdtype, device=device)
         d = cfg.hidden_size
         vision_width = d if vision_width is None else vision_width
-        self.word_embeddings = Embedding(cfg.vocab_size, d, **kw)
-        self.position_embeddings = Embedding(cfg.max_position_embeddings, d, **kw)
-        self.token_type_embeddings = Embedding(cfg.type_vocab_size, d, **kw)
-        self.embeddings_norm = LayerNorm(d, eps=cfg.layer_norm_eps, dtype=dtype, device=device)
+        if not fusion_only:
+            self.word_embeddings = Embedding(cfg.vocab_size, d, **kw)
+            self.position_embeddings = Embedding(cfg.max_position_embeddings, d, **kw)
+            self.token_type_embeddings = Embedding(cfg.type_vocab_size, d, **kw)
+            self.embeddings_norm = LayerNorm(d, eps=cfg.layer_norm_eps, dtype=dtype,
+                                             device=device)
         self.layer = nn.ModuleList(
             BertLayer(cfg, i >= cfg.fusion_layer, vision_width, device=device)
             for i in range(cfg.num_layers))
-        self.mlm_transform = Dense(d, d, **kw)
-        self.mlm_norm = LayerNorm(d, eps=cfg.layer_norm_eps, dtype=dtype, device=device)
-        self.mlm_decoder = Dense(d, cfg.vocab_size, **kw)
+        if not fusion_only:
+            self.mlm_transform = Dense(d, d, **kw)
+            self.mlm_norm = LayerNorm(d, eps=cfg.layer_norm_eps, dtype=dtype, device=device)
+            self.mlm_decoder = Dense(d, cfg.vocab_size, **kw)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -205,6 +210,8 @@ class BertModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> BertOutput:
         cfg = self.cfg
+        if self.fusion_only and (mode != "fusion" or with_mlm_logits):
+            raise ValueError("a fusion_only BertModel runs mode 'fusion' without the MLM head")
         if mode == "fusion":
             if encoder_embeds is None:
                 raise ValueError("mode 'fusion' needs encoder_embeds")

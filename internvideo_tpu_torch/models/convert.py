@@ -39,7 +39,11 @@ pretrain-student names above), `text_encoder.{word,position,token_type}_
 embeddings.weight`, `text_encoder.layer.{i}.{attention,crossattention}.
 {query,key,value,proj}`, `..._norm`, `intermediate`, `output`,
 `mlm_{transform,norm,decoder}`, `vision_proj`, `text_proj`, `itm_head` and
-the scalar `temp`.
+the scalar `temp`. VideoChat (models/chat.py) likewise: `vision_encoder.*`
+(the InternVideo2 names), `qformer.query_tokens` (a parameter on the module,
+as it is), `qformer.vision_in`, `qformer.bert.layer.{i}.*` (a fusion-only
+BERT: no embeddings, no MLM head, cross-attention from layer 0), `llm_proj`
+and `language_model.*` (the LLM names above).
 
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
 weights load exactly. The module's `load_state_dict(sd, strict=True)` then
@@ -77,9 +81,9 @@ def _check_depth(tree: Mapping, depth: int) -> None:
 def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
     InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig,
-    VisionTowerConfig or BertConfig with `num_layers`, an MLLMConfig or a
-    VideoCLIPConfig) the `blocks_{i}` / `layers_{i}` / `layer_{i}` of each
-    tower must be exactly range(depth)."""
+    VisionTowerConfig or BertConfig with `num_layers`, an MLLMConfig, a
+    VideoCLIPConfig or a VideoChatConfig) the `blocks_{i}` / `layers_{i}` /
+    `layer_{i}` of each tower must be exactly range(depth)."""
     if "params" in params:
         params = params["params"]
     if cfg is not None:
@@ -87,6 +91,10 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
             vision = params["vision_encoder"]
             _check_depth(vision["encoder"] if "encoder" in vision else vision, cfg.vision.depth)
             _check_depth(params["text_encoder"], cfg.text.num_layers)
+        elif hasattr(cfg, "qformer"):  # VideoChatConfig
+            _check_depth(params["vision_encoder"], cfg.vision.depth)
+            _check_depth(params["qformer"]["bert"], cfg.qformer.bert.num_layers)
+            _check_depth(params["language_model"], cfg.llm.num_layers)
         elif hasattr(cfg, "vision") and hasattr(cfg, "text"):
             _check_depth(params["vision_tower"], cfg.vision.num_layers)
             _check_depth(params["language_model"], cfg.text.num_layers)

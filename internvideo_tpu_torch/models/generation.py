@@ -10,12 +10,25 @@ is always (B, max_new_tokens), eos-padded. Two cache regimes:
   * `paged=True`: per-layer latent page pools, decoded by K6 on the kernel
     route (ops/paged_decode.py); token-identical to dense. M2LA only.
 
-The model is a bare LLM (prefill(input_embeds, caches)) or a VideoMLLM
-(prefill(input_ids, video, caches)), told apart by the prefill's signature
-as in JAX. Explicit `position_ids` ((B, L), or (3, B, L) mRoPE grids) run on
-the dense path; decode positions continue from the prompt's max + 1 per
-batch row. Sampling draws from an explicit `torch.Generator`; its draws
-differ from `jax.random`'s, greedy tokens do not.
+The model is a bare LLM (prefill(input_embeds, caches)), a VideoMLLM or a
+VideoChat (prefill(input_ids, video, caches)), told apart by the prefill's
+signature as in JAX; the text config is `model.cfg`, `model.config.text`
+(VideoMLLM) or `model.config.llm` (VideoChat).
+
+Here alone the port departs from JAX on purpose. A model's prefill may
+write cache entries ahead of the prompt: VideoChat's writes its
+num_queries video queries first, and says so by `cache_prefix_len` (0 when
+a model has none). The dense cache is sized prefix + prompt_len +
+max_new_tokens and decode step s runs at cache_len prefix + prompt_len + s.
+JAX's generate sizes it prompt_len + max_new_tokens and decodes at
+prompt_len + s (internvideo_tpu/models/generation.py:47, 176), so on a
+VideoChat it decodes over the wrong slots and overwrites the queries'
+latents (tests/test_torch_chat.py states that offset).
+
+Explicit `position_ids` ((B, L), or (3, B, L) mRoPE grids) run on the dense
+path; decode positions continue from the prompt's max + 1 per batch row.
+Sampling draws from an explicit `torch.Generator`; its draws differ from
+`jax.random`'s, greedy tokens do not.
 """
 
 from __future__ import annotations
@@ -70,12 +83,18 @@ def generate(
     decode_impl: Optional[str] = None,  # paged: auto | kernel | plain (pallas | xla)
 ) -> torch.Tensor:
     """Returns (B, max_new_tokens) generated ids (int64, eos-padded)."""
-    # the text model's config: bare LMs carry `cfg`, a VideoMLLM `config.text`
-    cfg = model.cfg if hasattr(model, "cfg") else model.config.text
+    # the text model's config: bare LMs carry `cfg`, a VideoMLLM
+    # `config.text`, a VideoChat `config.llm`
+    if hasattr(model, "cfg"):
+        cfg = model.cfg
+    else:
+        cfg = model.config.text if hasattr(model.config, "text") else model.config.llm
     dev = model.device
     input_ids = input_ids.to(dev)
     b, prompt_len = input_ids.shape
-    max_len = prompt_len + max_new_tokens
+    # cache entries the prefill writes ahead of the prompt (VideoChat's queries)
+    prefix = getattr(model, "cache_prefix_len", 0)
+    max_len = prefix + prompt_len + max_new_tokens
     if generator is None and temperature > 0.0:
         generator = torch.Generator(dev).manual_seed(0)
     sample = lambda logits: _sample(logits[:, -1], temperature=temperature,  # noqa: E731
@@ -84,6 +103,10 @@ def generate(
     if video is not None:
         video = video.to(dev)
     if paged:
+        if prefix:
+            raise ValueError("paged generate serves prompts whose prefill writes no cache "
+                             "entries ahead of them; this model's writes "
+                             f"{prefix}: run paged=False")
         if position_ids is not None:
             raise NotImplementedError(
                 "explicit position_ids (mRoPE serving) run on the dense-cache path; the paged "
@@ -134,7 +157,7 @@ def generate(
             if next_pos is not None:
                 pos = (next_pos + step)[:, None]  # (B, 1)
                 kw["position_ids"] = pos.expand(3, b, 1) if position_ids.dim() == 3 else pos
-            out = model.decode_step(token[:, None], caches, prompt_len + step, **kw)
+            out = model.decode_step(token[:, None], caches, prefix + prompt_len + step, **kw)
         nxt = sample(out.logits)
         if eos_token_id is not None:
             nxt = torch.where(finished, eos_token_id, nxt)

@@ -72,7 +72,7 @@ def test_cli_classification_on_cpu():
 
 def test_cli_rejects_unported_tasks_and_checkpoints(monkeypatch):
     with pytest.raises(SystemExit, match="not yet ported"):
-        _main("--config", TINY, "--device", "cpu", "task=zeroshot")
+        _main("--config", TINY, "--device", "cpu", "task=openset")
     with pytest.raises(SystemExit, match="unknown task"):
         _main("--config", TINY, "--device", "cpu", "task=nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
