@@ -393,7 +393,40 @@ non-zero and prints no result):
  52. task zeroshot through `cli.eval` on
      configs/torch/eval_zeroshot_stage2_1b.py (internvideo2_stage2_1b
      uncut, 8 classes x 28 templates, 2 batches of 8 clips): 40 K1 a clip
-     batch and nothing else.
+     batch and nothing else;
+ 53. K3 (+ its K2 / K4b backward) and K2 / K4b alone at the distill
+     student's head dim 64 vs their plain versions: fp32 at (2, 417, 16, 64)
+     (max-abs 2e-5 forward, 5e-4 grads), bf16 at (32, 417, 16, 64) (rel-L2
+     1e-2; K3's grads 2e-2);
+ 54. their times there (CUDA events, median of 5), K3 split into pre-pass
+     and attention, beside the plain versions, the bounds and flash SDPA
+     (forward; the aten backward for K4b at d 64);
+ 55. the distill main path: `internvideo_tpu_torch.cli.train` on
+     configs/torch/distill_l14_1b.py (InternVideo2-L/14 student at 8 x 224,
+     tube masking 0.8 so S = 417, remat; the frozen InternVideo2-1B teacher
+     at S = 2049, bf16; B 32) for 3 steps; launches reset just before and
+     read just after: per step 40 K1 (teacher), 48 K3 + 48 pre-pass, all at
+     S 417 (student forward + remat), 24 each of K2 / K4b dq / K4b dk/dv,
+     nothing else; every loss term and grad_norm finite;
+ 56. kernel route vs plain route of the distill loss, B 2, the same keep
+     indices: fp32 at L / 1B widths and depth 2 (loss terms and every grad
+     max-abs 5e-4); bf16 at full depth, held to an fp32 copy of the weights
+     (within 1e-2 / 2e-2 of the plain route, or the kernel route no
+     farther from fp32 than 1.25 x the plain route);
+ 57. the distill step at B 32 on a device-resident batch: one step's
+     launches, ms (CUDA events), clips/s, peak memory, the teacher's share,
+     device time by kernel group and the idle share (torch.profiler);
+ 58. the real SFT data path: `cli.train` on configs/torch/sft_internvideo3_8b.py
+     with `data.jsonl=` (16 rows: 8 conversations on seeded 64 x 240 x 320
+     uint8 `.npy` clips, 8 text only) and text depth 4 for 3 steps; per step
+     8 segmented K5 forwards, 4 + 4 segmented K5 dq / dk/dv, 27 each of
+     K2 / K4b at head dim 72, nothing else; the host's ms a batch for
+     packing + load_media beside the step's, the step fed by
+     prefetch_to_device and its idle share; K5 + K8 on a jsonl pack's
+     segment ids vs their plain version (rel-L2 1e-2) and timed;
+ 59. prefetch_to_device on the card: each batch equal to the host bytes
+     under a kernel queued on the consumer stream at once; host -> card
+     GB/s.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -407,6 +440,7 @@ import gc
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -521,6 +555,21 @@ CHAT_PROMPT, CHAT_RAGGED_PROMPT, CHAT_NEW = 64, 61, 32
 CHAT_BATCHES = (8, 1)
 CHAT_CLI_CLIPS, CHAT_CLI_PREFILLS = 8, 2
 CONFIG_ZEROSHOT = "configs/torch/eval_zeroshot_stage2_1b.py"
+# Task distill (phases 53-57): the InternVideo2-L/14 student at 8 x 224 with
+# tube masking at 0.8 (S = 1 + 8 * 52) and the frozen 1B teacher unmasked
+# (S = 1 + 8 * 256, the finetune's K1 shape), B 32; the route check's depth
+CONFIG_DISTILL = "configs/torch/distill_l14_1b.py"
+DISTILL_STEPS = 3
+DISTILL_STUDENT_SHAPE = (32, 417, 16, 64)
+DISTILL_TEACHER_SHAPE = (32, 2049, 16, 88)
+# The real SFT data path (phase 58): a jsonl of 8 conversations on seeded
+# uint8 clips of 64 x 240 x 320 (`.npy`, resized by load_media to the
+# config's 16 x 224 grid) and 8 text-only ones, the SFT config's widths with
+# the text depth cut to 4; then (phase 59) prefetch_to_device's batches
+SFT_JSONL_DEPTH = 4
+SFT_JSONL_STEPS = 3
+SFT_JSONL_CLIP = (64, 240, 320, 3)
+PREFETCH_BATCH = {"video": (8, 16, 224, 224, 3), "input_ids": (8, 8192)}
 # K11's bf16 edges beside its two path shapes: the top of its S range, and
 # head dim 64 at the eval's S
 K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
@@ -1148,8 +1197,8 @@ def _kernel_group(name: str) -> str:
     n = name.lower()
     if "int8_" in n:  # K7's row quantizer and GEMM
         return "int8_gemm"
-    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_s_fwd", "small_s_dq",
-                "small_s_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd", "causal_bwd_dq",
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_s_fwd", "small_s_bwd_dq",
+                "small_s_bwd_dkv", "fused_qkv_fwd", "fused_qkv_rstd", "causal_fwd", "causal_bwd_dq",
                 "causal_bwd_dkv", "paged_decode"):
         if key in n:
             return key
@@ -5714,6 +5763,550 @@ def run_zeroshot_path(fa, pd, ig, rms, card) -> dict:
     return counts
 
 
+# -- task distill, the real SFT data path, device prefetch: phases 53-59 --------------------
+
+def check_distill_kernels(fa) -> dict:
+    """Phase 53: K3 (fused qkv + QK-RMSNorm; backward K2 recompute + K4b) and
+    K2 / K4b alone at the L/14 student's head dim 64, fp32 at B 2 with the
+    path's S (out max-abs 2e-5, grads 5e-4) and bf16 at the path's
+    (32, 417, 16, 64) (out rel-L2 1e-2, grads 2e-2; K2 / K4b on q, k, v
+    views of one projection, rel-L2 1e-2). The teacher's K1 at
+    (32, 2049, 16, 88) is phase 7's finetune shape. Returns max-abs errors."""
+    g = torch.Generator("cuda").manual_seed(53)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    b, s, h, d = DISTILL_STUDENT_SHAPE
+    w = h * d
+    errs_by = {}
+    for dtype, bb in ((torch.float32, 2), (torch.bfloat16, b)):
+        qkv = (rnd(bb, s, 3 * w) * 2).to(dtype)
+        qw, kw = rnd(w) * 0.1 + 1, rnd(w) * 0.1 + 1
+        do = rnd(bb, s, w).to(dtype)
+        fout, fgot = _fused_grads(fa, qkv, qw, kw, h, do)
+        fref, frefs = _fused_ref_grads(fa, qkv, qw, kw, h, do)
+        torch.cuda.synchronize()
+        e_out = (fout.float() - fref.float()).abs().max().item()
+        ferrs = [((x.float() - r.float()).abs() / (1 + r.float().abs())).max().item()
+                 for x, r in zip(fgot, frefs)]
+        rels = [_rel(fout, fref)] + [_rel(x, r) for x, r in zip(fgot, frefs)]
+        print(f"distill K3 (+ K2 / K4b backward) {dtype} ({bb}, {s}, {h}, {d}): out max-abs "
+              f"{e_out:.3e}, grads qkv / qw / kw max |err|/(1+|ref|) "
+              + " / ".join(f"{e:.3e}" for e in ferrs) + "; rel-L2 out / grads "
+              + " / ".join(f"{r:.3e}" for r in rels), flush=True)
+        ok = (e_out <= 2e-5 and max(ferrs) <= 5e-4 if dtype == torch.float32
+              else rels[0] <= 1e-2 and max(rels[1:]) <= 2e-2)
+        if not ok:
+            raise AssertionError(f"{dtype} K3 disagrees with its plain version at the student")
+        errs_by["fused_qkv_fwd"] = e_out
+        del qkv, do, fout, fgot, fref, frefs
+    for dtype, bb in ((torch.float32, 2), (torch.bfloat16, b)):
+        _, (q, k, v) = _qkv_views(bb, s, h, d, g, dtype)
+        do = rnd(bb, s, h, d).to(dtype)
+        got, ref = _flash_vs_plain(fa, q, k, v, do, small_s=True)
+        errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+        rels = [_rel(x, r) for x, r in zip(got, ref)]
+        print(f"distill K2 / K4b {dtype} ({bb}, {s}, {h}, {d}) qkv views: out / dq / dk / dv "
+              "max-abs " + " / ".join(f"{e:.3e}" for e in errs[:1] + errs[2:]) + ", rel-L2 "
+              + " / ".join(f"{r:.3e}" for r in rels[:1] + rels[2:]), flush=True)
+        ok = (errs[0] <= 2e-5 and max(errs[2:]) <= 5e-4 if dtype == torch.float32
+              else max(rels[:1] + rels[2:]) <= 1e-2)
+        if not ok:
+            raise AssertionError(f"{dtype} K2 / K4b disagree with their plain versions at the "
+                                 "student's head dim 64")
+        errs_by.update(small_s_fwd=errs[0], small_s_bwd_dq=errs[2],
+                       small_s_bwd_dkv=max(errs[3:]))
+        del q, k, v, do, got, ref
+    return errs_by
+
+
+def time_distill_kernels(fa, card) -> dict:
+    """Phase 54: at the student's (32, 417, 16, 64), bf16, CUDA events (median
+    of 5 runs of 10 calls): K3's op (its pre-pass timed alone too), K2 and
+    K4b's dq and dk/dv on q, k, v views of one projection, each beside its
+    plain version, its bound and flash SDPA (forward; the aten backward)."""
+    from internvideo_tpu_torch.ops import _build
+    from internvideo_tpu_torch.ops.rmsnorm import rms_norm
+
+    lib = _build.load_library()
+    g = torch.Generator("cuda").manual_seed(54)
+    b, s, h, d = DISTILL_STUDENT_SHAPE
+    w, scale = h * d, d ** -0.5
+    bounds = _attn_bounds(b, s, s, h, d)
+    res = {}
+    _, (q, k, v) = _qkv_views(b, s, h, d, g)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+    with torch.no_grad():
+        out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd")
+        delta = fa._bwd_delta(out, do)
+        dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device="cuda") for x in (q, k, v))
+        plain_b = _median_ms(lambda: fa.small_s_attention_bwd_ref(q, k, v, out, lse, do, scale),
+                             iters=1)
+        sdpa_b = statistics.median(_sdpa_bwd_ms(q, k, v, do) for _ in range(5))
+        res["small_s_fwd"] = dict(
+            ms=_median_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel="small_s_fwd")),
+            plain_ms=_median_ms(lambda: fa.small_s_attention_ref(q, k, v, scale), iters=1),
+            library_ms=statistics.median(_sdpa_fwd_ms(q, k, v) for _ in range(5)),
+            bound=bounds["fwd"])
+        for name, outs, kind in (("small_s_bwd_dq", (dq,), "dq"),
+                                 ("small_s_bwd_dkv", (dk, dv), "dkv")):
+            res[name] = dict(
+                ms=_median_ms(lambda: fa._launch_bwd(name, q, k, v, do, lse, delta, outs, scale)),
+                plain_ms=plain_b, library_ms=sdpa_b, bound=bounds[kind])
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    qkv = (torch.randn(b, s, 3 * w, device="cuda", generator=g) * 2).bfloat16()
+    qw, kw = (torch.randn(w, device="cuda", generator=g) * 0.1 + 1 for _ in range(2))
+    q_rstd, k_rstd = (torch.empty(b, s, device="cuda") for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.no_grad():
+        qn = rms_norm(qkv[..., :w], qw).unflatten(-1, (h, d))
+        kn = rms_norm(qkv[..., w:2 * w], kw).unflatten(-1, (h, d))
+        op_ms = _median_ms(lambda: fa._fused_qkv_cuda(qkv, qw, kw, h, scale, 1e-6))
+        rstd_ms = _median_ms(lambda: lib.ivt_fused_qkv_rstd(
+            1, qkv.data_ptr(), q_rstd.data_ptr(), k_rstd.data_ptr(), b, s, w, qkv.stride(0),
+            qkv.stride(1), 1e-6, stream))
+        res["fused_qkv_fwd"] = dict(
+            ms=op_ms, prepass_ms=rstd_ms,
+            plain_ms=_median_ms(lambda: fa.fused_qkv_ref(qkv, qw, kw, h, scale), iters=1),
+            library_ms=statistics.median(
+                _sdpa_fwd_ms(qn, kn, qkv[..., 2 * w:].unflatten(-1, (h, d))) for _ in range(5)),
+            bound=_bound(4 * b * h * s * s * d, 4 * b * s * w * 2 + 2 * w * 4))
+    del qkv, qn, kn, q_rstd, k_rstd
+    for name, r in res.items():
+        r["shape"] = list(DISTILL_STUDENT_SHAPE)
+        print(f"[{card}] distill student {name} {DISTILL_STUDENT_SHAPE} bf16: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain "
+              f"{r['plain_ms']:.3f} ms, flash SDPA {r['library_ms']:.4f} ms"
+              + (f" (pre-pass {r['prepass_ms']:.4f} ms, on pre-normed q / k)"
+                 if "prepass_ms" in r else ""), flush=True)
+    k4b = res["small_s_bwd_dq"]["ms"] + res["small_s_bwd_dkv"]["ms"]
+    print(f"[{card}] distill student K4b d 64: dq + dk/dv {k4b:.4f} ms = "
+          f"{k4b / res['small_s_bwd_dq']['library_ms']:.2f} x flash SDPA's backward", flush=True)
+    return res
+
+
+def distill_want(run, steps: int) -> dict:
+    """Kernel launches of `steps` distill steps of `run`: per teacher block one
+    K1 (S = 1 + T * 256 > 1024, no remat: it runs under no_grad); per
+    student block K3 and its pre-pass twice (forward + remat recompute) and
+    K3's backward once (K2 recompute, K4b dq, dk/dv); nothing else."""
+    student, teacher = run.model.encoder, run.teacher
+    k3 = (2 if student.remat else 1) * student.depth
+    per_step = {"flash_fwd": teacher.depth, "fused_qkv_fwd": k3, "fused_qkv_rstd": k3,
+                "small_s_fwd": student.depth, "small_s_bwd_dq": student.depth,
+                "small_s_bwd_dkv": student.depth}
+    return {n: c * steps for n, c in per_step.items()}
+
+
+def run_distill_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 55: the distill main path, `cli.train` on CONFIG_DISTILL for
+    DISTILL_STEPS steps; launches reset just before and read just after,
+    against `distill_want`; K3's launches by S; every logged loss finite."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    want = distill_want(load_config(CONFIG_DISTILL), DISTILL_STEPS)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_DISTILL, "--device", "cuda",
+                       f"trainer.total_steps={DISTILL_STEPS}", "trainer.log_every=1",
+                       "trainer.checkpoint_dir=None"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    k3_by_len = fa.fused_launch_counts("fused_qkv_fwd")
+    wall = time.perf_counter() - t0
+    records = _step_records(buf.getvalue())
+    for r in records:
+        print(f"cli.train {CONFIG_DISTILL}: {r}", flush=True)
+    print(f"[{card}] main path (distill): {DISTILL_STEPS} steps in {wall:.1f} s wall incl. "
+          f"student and teacher init and host data; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}, predicted "
+          f"{want}; K3 by S {k3_by_len}", flush=True)
+    if rc != 0 or len(records) != DISTILL_STEPS:
+        raise AssertionError(f"cli.train logged {len(records)} of {DISTILL_STEPS} distill steps")
+    keys = ("loss", "loss_middle", "loss_final", "grad_norm")
+    if not all(math.isfinite(float(r[k])) for r in records for k in keys):
+        raise AssertionError("non-finite loss, loss term or grad_norm on the distill path")
+    if counts != want or k3_by_len != {DISTILL_STUDENT_SHAPE[1]: want["fused_qkv_fwd"]}:
+        raise AssertionError(f"launches {counts} (K3 by S {k3_by_len}) on the distill path; "
+                             f"predicted {want}, all K3 at S {DISTILL_STUDENT_SHAPE[1]}")
+    return counts
+
+
+def _distill_models(run, dtype=None):
+    """The recipe's student (gammas 0.1) and frozen teacher (gammas 0.1), in
+    `dtype` if given (fp32 weights and compute for an anchor)."""
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+    from internvideo_tpu_torch.models.pretrain import PretrainInternVideo2
+    from internvideo_tpu_torch.train.state import frozen_teacher
+
+    enc, tcfg = run.model.encoder, run.teacher
+    if dtype is not None:
+        enc = dataclasses.replace(enc, dtype=dtype, param_dtype=dtype)
+        tcfg = dataclasses.replace(tcfg, dtype=dtype, param_dtype=dtype)
+    student = PretrainInternVideo2(dataclasses.replace(run.model, encoder=enc), device="cuda",
+                                   generator=torch.Generator("cuda").manual_seed(0))
+    teacher = InternVideo2(tcfg, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    _raise_gammas(student)
+    _raise_gammas(teacher)
+    return student, frozen_teacher(teacher)
+
+
+DISTILL_ROUTE_GRADS = ("encoder.blocks.0.attn.qkv.weight", "encoder.blocks.0.attn.q_norm.weight",
+                       "encoder.blocks.23.attn.qkv.weight", "clip_decoder.0.head.weight",
+                       "clip_decoder.5.head.weight", "final_clip_decoder.head.weight")
+
+
+def _distill_route(student, teacher, cfg, video, keep, impl, names=None):
+    from internvideo_tpu_torch.train.engines.distill import distill_loss
+
+    for m in (student, teacher):
+        _set_attn_impl(m, impl)
+    student.zero_grad(set_to_none=True)
+    loss, aux, _ = distill_loss(student, teacher, cfg, video, keep=keep, deterministic=True)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in student.named_parameters()
+             if p.grad is not None and (names is None or n in names)}
+    student.zero_grad(set_to_none=True)
+    return {k: v.item() for k, v in {"loss": loss, **aux}.items()}, grads
+
+
+def check_distill_routes(run) -> None:
+    """Phase 56: kernel route vs plain route of the distill loss, B 2, the
+    same tube keep indices: fp32 at the L / 1B widths and depth 2 (teacher
+    layers (1, 0); loss and every student grad max-abs 5e-4); bf16 at full
+    depth, an fp32 copy of the weights on the plain route as the anchor:
+    each loss within 1e-2 of the plain route's (the grads of
+    DISTILL_ROUTE_GRADS rel-L2 2e-2), or the kernel route no farther from
+    the anchor than 1.25 x the plain route."""
+    from internvideo_tpu_torch.ops import flash_attention as fa
+    from internvideo_tpu_torch.train.engines.distill import draw_keep_indices
+
+    enc = run.model.encoder
+    g = torch.Generator("cuda").manual_seed(56)
+    video = torch.randn(2, enc.num_frames, enc.img_size, enc.img_size, 3, device="cuda",
+                        generator=g)
+    keep = draw_keep_indices(run.engine, enc, g, 2, enc.num_frames)
+    small = dataclasses.replace(
+        run, model=dataclasses.replace(run.model, encoder=dataclasses.replace(enc, depth=2),
+                                       clip_return_layers=2),
+        teacher=dataclasses.replace(run.teacher, depth=2),
+        engine=dataclasses.replace(run.engine, teacher_layer_indices=(1, 0)))
+    student, teacher = _distill_models(small, "float32")
+    fa.reset_launch_count()
+    lk, gk = _distill_route(student, teacher, small.engine, video, keep, "kernel")
+    ran = {n: fa.launch_count(n) for n in ("flash_fwd", "fused_qkv_fwd", "small_s_bwd_dkv")}
+    if not all(ran.values()):
+        raise AssertionError(f"the fp32 kernel route of the distill check ran {ran}")
+    lp, gp = _distill_route(student, teacher, small.engine, video, keep, "plain")
+    errs = {k: abs(lk[k] - lp[k]) for k in lk}
+    gerr = max((gk[n] - gp[n]).abs().max().item() for n in gp)
+    print(f"distill routes fp32 L / 1B widths, depth 2, B 2: loss kernel {lk['loss']:.6f} plain "
+          f"{lp['loss']:.6f}; max-abs loss terms " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f"; every grad max-abs {gerr:.2e} (bar 5e-4, {len(gp)} tensors)", flush=True)
+    if gk.keys() != gp.keys() or max(errs.values()) > 5e-4 or gerr > 5e-4:
+        raise AssertionError("fp32 distill kernel route disagrees with the plain route")
+    del student, teacher, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    student, teacher = _distill_models(run)
+    res = {impl: _distill_route(student, teacher, run.engine, video, keep, impl,
+                                DISTILL_ROUTE_GRADS) for impl in ("kernel", "plain")}
+    s32, t32 = _distill_models(run, "float32")
+    s32.load_state_dict(student.state_dict())
+    t32.load_state_dict(teacher.state_dict())
+    del student, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    anchor = _distill_route(s32, t32, run.engine, video, keep, "plain", DISTILL_ROUTE_GRADS)
+    del s32, t32
+    gc.collect()
+    torch.cuda.empty_cache()
+    (lk, gk), (lp, gp), (la, ga) = res["kernel"], res["plain"], anchor
+    for key in lk:
+        rel = abs(lk[key] - lp[key]) / max(abs(lp[key]), 1e-12)
+        dk, dp = abs(lk[key] - la[key]), abs(lp[key] - la[key])
+        print(f"distill bf16 full depth B 2, {key}: kernel {lk[key]:.6f}, plain {lp[key]:.6f} "
+              f"(rel {rel:.3e}, bar 1e-2), fp32 anchor {la[key]:.6f} (kernel off by {dk:.3e}, "
+              f"plain {dp:.3e})", flush=True)
+        if not math.isfinite(lk[key]) or (rel > 1e-2 and dk > 1.25 * dp):
+            raise AssertionError(f"distill routes disagree on {key}")
+    for name in DISTILL_ROUTE_GRADS:
+        rel, dk, dp = _rel(gk[name], gp[name]), _rel(gk[name], ga[name]), _rel(gp[name], ga[name])
+        print(f"distill bf16 grad {name}: kernel vs plain rel-L2 {rel:.3e} (bar 2e-2); from the "
+              f"fp32 anchor: kernel {dk:.3e}, plain {dp:.3e}", flush=True)
+        if not torch.isfinite(gk[name]).all() or (rel > 2e-2 and dk > 1.25 * dp):
+            raise AssertionError(f"distill routes disagree on the gradient of {name}")
+
+
+def time_distill_step(fa, pd, ig, rms, run, card) -> dict:
+    """Phase 57: the distill trainer (CONFIG_DISTILL, B 32) on a
+    device-resident batch: one step's launches against `distill_want`, the
+    step's ms (CUDA events, 3 steps after 1), clips/s, peak memory, the
+    frozen teacher's share (its targets alone, CUDA events), then one step
+    under torch.profiler: device time by kernel group, the idle share of
+    the step's wall there and of its CUDA-event span."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.train.engines.distill import draw_keep_indices, teacher_targets
+
+    trainer, shape, teacher = cli.build_distill(dataclasses.replace(
+        run, trainer=dataclasses.replace(run.trainer, checkpoint_dir=None)), torch.device("cuda"))
+    g = torch.Generator("cuda").manual_seed(57)
+    batch = {"video": torch.randn(*shape, device="cuda", generator=g)}
+    step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _all_reset(fa, pd, ig, rms)
+    m = step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    want = distill_want(run, 1)
+    if per_step != want:
+        raise AssertionError(f"the distill step launched {per_step}; predicted {want}")
+    step_ms = _time_ms(step, iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    enc = run.model.encoder
+    keep = draw_keep_indices(run.engine, enc, g, shape[0], enc.num_frames)
+    teacher_ms = _time_ms(lambda: teacher_targets(teacher, run.engine, batch["video"], keep),
+                          iters=3, warmup=1)
+    b = shape[0]
+    first = {k: float(v) for k, v in m.items()}
+    print(f"[{card}] distill step (L/14 student 8x224 S = {DISTILL_STUDENT_SHAPE[1]}, remat; "
+          f"frozen 1B teacher S = {DISTILL_TEACHER_SHAPE[1]}, bf16; AdamW) B={b}, "
+          f"device-resident batch: {step_ms:.1f} ms = {b * 1e3 / step_ms:.2f} clips/s; teacher "
+          f"targets {teacher_ms:.1f} ms ({teacher_ms / step_ms:.1%}), student forward + "
+          f"backward + update {step_ms - teacher_ms:.1f} ms; peak device memory {peak:.2f} GB; "
+          f"launches per step {per_step}; first step's metrics {first}", flush=True)
+    prof = profile_step(step, card, "distill step")
+    busy = prof["busy_ms"]
+    idle_events = None if busy is None else max(0.0, 1 - busy / step_ms)
+    if busy is not None:
+        print(f"[{card}] distill step: device busy {busy:.1f} ms of the {step_ms:.1f} ms "
+              f"CUDA-event span (idle {idle_events:.1%}; the profiler's own wall "
+              f"{prof['wall_ms']:.1f} ms)", flush=True)
+    del trainer, teacher, batch
+    return {"step_ms": step_ms, "clips_per_s": b * 1e3 / step_ms, "teacher_ms": teacher_ms,
+            "peak_gb": peak, "launches_per_step": per_step, "first_step": first,
+            "profile_wall_ms": prof["wall_ms"], "busy_ms": busy,
+            "idle_share_of_event_span": idle_events,
+            "idle_share_of_profiler_wall": None if busy is None else
+            max(0.0, 1 - busy / prof["wall_ms"]),
+            "groups_ms": prof["groups"]}
+
+
+def _write_sft_jsonl(root: str) -> str:
+    """The jsonl of phase 58 under `root`: 8 conversations in the format of
+    tests/test_mllm_tokenize.py `_sample`, each on its own seeded uint8 clip
+    of SFT_JSONL_CLIP (`.npy`), and 8 text-only conversations of 300-2500
+    characters; returns its path."""
+    rng = np.random.default_rng(58)
+    words = ["the", "cat", "jumps", "over", "a", "wall", "while", "two", "dogs", "watch",
+             "from", "garden", "and", "then", "runs", "away", "quickly"]
+    rows = []
+    for i in range(8):
+        clip = os.path.join(root, f"clip{i}.npy")
+        np.save(clip, rng.integers(0, 256, SFT_JSONL_CLIP, dtype=np.uint8))
+        t, h, w, _ = SFT_JSONL_CLIP
+        rows.append({"messages": [{"role": "user", "content": "what happens <VIDEO_CONTEXT> here?"},
+                                  {"role": "assistant", "content": "a cat jumps"}],
+                     "videos": [{"path": clip, "width": w, "height": h, "origin_fps": 30.0,
+                                 "origin_video_length": t}]})
+    for _ in range(8):
+        n = int(rng.integers(300, 2500))
+        text = " ".join(rng.choice(words, size=n // 5))
+        rows.append({"messages": [{"role": "user", "content": text[: n // 2]},
+                                  {"role": "assistant", "content": text[n // 2:]}]})
+    path = os.path.join(root, "data.jsonl")
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return path
+
+
+def run_sft_jsonl_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 58: the real SFT data path. `cli.train` on CONFIG_SFT with
+    `data.jsonl=` (the data of `_write_sft_jsonl`) and the text depth cut to
+    SFT_JSONL_DEPTH, SFT_JSONL_STEPS steps; launches reset before and read
+    after against `sft_want`; every loss finite. Then on the same data: the
+    host's ms a batch for packing + `load_media` (the stream alone, one
+    packing round), the step on a device-resident batch, the step fed by
+    `prefetch_to_device` (its ms and, under torch.profiler, the device's idle
+    share); K5 + K8 on a batch's real segment ids vs their plain version
+    (bf16 rel-L2 1e-2) and timed beside their bound."""
+    import tempfile
+
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.config import apply_overrides, load_config
+    from internvideo_tpu_torch.data.loader import prefetch_to_device
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sft_jsonl_") as root:
+        path = _write_sft_jsonl(root)
+        overrides = [f"data.jsonl={path}", f"model.text.num_layers={SFT_JSONL_DEPTH}"]
+        want = {k: v for k, v in sft_want(fa, SFT_JSONL_STEPS, SFT_JSONL_DEPTH).items() if v}
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _all_reset(fa, pd, ig, rms)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--config", CONFIG_SFT, "--device", "cuda",
+                           f"trainer.total_steps={SFT_JSONL_STEPS}", "trainer.log_every=1",
+                           *overrides])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+        wall = time.perf_counter() - t0
+        records = _step_records(buf.getvalue())
+        for r in records:
+            print(f"cli.train {CONFIG_SFT} data.jsonl: {r}", flush=True)
+        print(f"[{card}] main path (SFT on a jsonl, text depth {SFT_JSONL_DEPTH}): "
+              f"{SFT_JSONL_STEPS} steps in {wall:.1f} s wall incl. init and host data; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+              f"{counts}, predicted {want}", flush=True)
+        if rc != 0 or len(records) != SFT_JSONL_STEPS:
+            raise AssertionError(f"cli.train logged {len(records)} of {SFT_JSONL_STEPS} jsonl "
+                                 "SFT steps")
+        if not all(math.isfinite(float(r[k])) for r in records for k in ("loss", "grad_norm")):
+            raise AssertionError("non-finite loss or grad_norm on the jsonl SFT path")
+        if counts != want:
+            raise AssertionError(f"launches {counts} on the jsonl SFT path; predicted {want}")
+        out["launches"] = counts
+
+        run = apply_overrides(load_config(CONFIG_SFT), overrides)
+        stream = cli._mllm_jsonl_stream(run)
+        t0 = time.perf_counter()
+        first = next(stream)  # tokenizes every row, packs, loads the first round's clips
+        t1 = time.perf_counter()
+        batches = [next(stream) for _ in range(8)]  # one packing round: 8 clips
+        host_ms = (time.perf_counter() - t1) * 1e3 / 8
+        segs = [int(b["segment_ids"].max()) + 1 for b in [first] + batches]
+        real = [int((b["segment_ids"] >= 0).sum()) for b in [first] + batches]
+        print(f"[{card}] jsonl stream (host): tokenize 16 rows + the first batch "
+              f"{(t1 - t0) * 1e3:.1f} ms; then {host_ms:.1f} ms a batch (pack + load_media of a "
+              f"{SFT_JSONL_CLIP} clip to 16 x 224 x 224); segments a row {segs}, real tokens "
+              f"{real} of {first['input_ids'].shape[1]}", flush=True)
+        trainer, _ = cli.build_sft(run, torch.device("cuda"))
+        dev = trainer.put_batch(first)
+        step_ms = _time_ms(lambda: trainer._step(trainer.state, dev), iters=3, warmup=1)
+        data = prefetch_to_device(stream, torch.device("cuda"))
+        fed = lambda: trainer._step(trainer.state, trainer.put_batch(next(data)))  # noqa: E731
+        fed_ms = _time_ms(fed, iters=4, warmup=1)
+        prof = profile_step(fed, card, "jsonl SFT step fed by prefetch_to_device")
+        busy = prof["busy_ms"]
+        idle = None if busy is None else max(0.0, 1 - busy / prof["wall_ms"])
+        idle_events = None if busy is None else max(0.0, 1 - busy / fed_ms)
+        print(f"[{card}] jsonl SFT step (text depth {SFT_JSONL_DEPTH}, pack {SFT_PACK}, B 1): "
+              f"{step_ms:.1f} ms on a device-resident batch, {fed_ms:.1f} ms fed by "
+              f"prefetch_to_device (host {host_ms:.1f} ms a batch, {host_ms / step_ms:.1%} of "
+              f"the step); device idle "
+              + ("not measured" if busy is None else
+                 f"{idle_events:.1%} of the fed step's CUDA-event span, {idle:.1%} of the "
+                 "profiler's wall"), flush=True)
+        seg = torch.from_numpy(first["segment_ids"]).cuda()
+        data.close()
+        del trainer, dev, data, stream, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(host_ms_per_batch=host_ms, first_batch_ms=(t1 - t0) * 1e3, step_ms=step_ms,
+               fed_step_ms=fed_ms, idle_share_of_profiler_wall=idle,
+               idle_share_of_event_span=idle_events, segments=segs, real_tokens=real,
+               device_busy_ms=prof["busy_ms"], profile_wall_ms=prof["wall_ms"])
+
+    g = torch.Generator("cuda").manual_seed(58)
+    b, s, h, d, dv = SFT_ATTN_SHAPE
+    q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+    kv = torch.randn(b, s, h, d + dv, device="cuda", generator=g).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]
+    do = torch.randn(b, s, h, dv, device="cuda", generator=g).bfloat16()
+    got = _attn_grads(lambda q, k, v: fa.flash_attention(
+        q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg), q, k, v, do)
+    ref_out, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True, 0, seg, seg)
+    ref = [ref_out, *fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do, d ** -0.5,
+                                                causal=True, q_segment_ids=seg,
+                                                kv_segment_ids=seg)]
+    rels = [_rel(a, w) for a, w in zip(got, ref)]
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, ref)]
+    print(f"K5 + K8 bf16 {SFT_ATTN_SHAPE} causal on a jsonl batch's {int(seg.max()) + 1} "
+          f"segments + pads: out / dq / dk / dv rel-L2 " + " / ".join(f"{r:.2e}" for r in rels)
+          + " (bar 1e-2)", flush=True)
+    if not max(rels) <= 1e-2:
+        raise AssertionError("bf16 K5 / K8 disagree with their plain version on a jsonl pack")
+    del got, ref, ref_out, ref_lse
+    scale = d ** -0.5
+    pairs = h * _visible_pairs(seg)
+    io_fwd = (2 * b * s * h * d + 2 * b * s * h * dv) * 2 + b * h * s * 4
+    io_bwd = (2 * b * s * h * d + 2 * b * s * h * dv) * 2 + 2 * b * h * s * 4
+    with torch.no_grad():
+        o, lse = fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, seg, seg)
+        delta = fa._bwd_delta(o, do)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        ptrs = fa._seg_ptrs(seg, seg)[1]
+        ms = {"flash_fwd_causal_seg": _median_ms(lambda: fa._flash_fwd_causal_cuda(
+            q, k, v, scale, True, 0, seg, seg), iters=5)}
+        for kind in ("dq", "dkv"):
+            ms[f"flash_bwd_causal_{kind}_seg"] = _median_ms(lambda: fa._launch_bwd_causal(
+                kind, q, k, v, do, lse, delta, ptrs, grads, scale, True, 0), iters=5)
+    bounds = {"flash_fwd_causal_seg": _bound(2 * pairs * (d + dv), io_fwd),
+              "flash_bwd_causal_dq_seg": _bound(2 * pairs * (2 * d + dv),
+                                                io_bwd + b * s * h * d * 2),
+              "flash_bwd_causal_dkv_seg": _bound(2 * pairs * (2 * d + 2 * dv),
+                                                 io_bwd + b * s * h * (d + dv) * 2)}
+    out["k8"] = {}
+    for i, name in enumerate(bounds):
+        out["k8"][name] = {"shape": list(SFT_ATTN_SHAPE), "segments": int(seg.max()) + 1,
+                           "ms": ms[name], "bound_ms": bounds[name][0],
+                           "bound_by": bounds[name][1],
+                           "max_abs_err": (errs[0], errs[1], max(errs[2:]))[i],
+                           "launches_per_step": out["launches"].get(name, 0) // SFT_JSONL_STEPS}
+        print(f"[{card}] {name} {SFT_ATTN_SHAPE} bf16 on the jsonl pack "
+              f"({pairs / h:.3e} visible pairs a head): kernel {ms[name]:.3f} ms, bound "
+              f"{bounds[name][0]:.3f} ms ({bounds[name][1]})", flush=True)
+    del q, kv, k, v, do, o, lse, delta, grads
+    return out
+
+
+def check_prefetch(card) -> dict:
+    """Phase 59: `prefetch_to_device` on the card. Six host batches of
+    PREFETCH_BATCH's shapes (fp32 clips, int32 ids) go through it; a kernel
+    is queued on the consumer's stream on each batch the moment it arrives,
+    and its result must equal the host bytes (the side-stream copy waited
+    for); then a second pass without checks gives the host -> card GB/s,
+    pinning included (host wall from the first batch asked to the last one
+    on the card)."""
+    from internvideo_tpu_torch.data.loader import prefetch_to_device
+
+    rng = np.random.default_rng(59)
+    host = [{"video": rng.standard_normal(PREFETCH_BATCH["video"], dtype=np.float32),
+             "input_ids": rng.integers(0, VOCAB, PREFETCH_BATCH["input_ids"]).astype(np.int32)}
+            for _ in range(6)]
+    nbytes = sum(x.nbytes for b in host for x in b.values())
+    torch.cuda.synchronize()
+    for want, got in zip(host, prefetch_to_device(iter(host), torch.device("cuda"), size=2)):
+        video = got["video"] * 1.0  # queued at once on the consumer stream
+        ids = got["input_ids"] + 0
+        if not (torch.equal(video.cpu(), torch.from_numpy(want["video"]))
+                and torch.equal(ids.cpu(), torch.from_numpy(want["input_ids"]))):
+            raise AssertionError("prefetch_to_device handed the consumer bytes that differ "
+                                 "from the host batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = [b["video"].sum() for b in prefetch_to_device(iter(host), torch.device("cuda"),
+                                                         size=2)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rate = nbytes / wall / 1e9
+    if not all(math.isfinite(x.item()) for x in sums):
+        raise AssertionError("prefetch_to_device's batches are not finite")
+    print(f"[{card}] prefetch_to_device: {len(host)} batches of {nbytes / len(host) / 1e6:.1f} MB "
+          f"(fp32 {PREFETCH_BATCH['video']} + int32 {PREFETCH_BATCH['input_ids']}) equal to the "
+          f"host bytes after the side-stream copy; {rate:.1f} GB/s host -> card, pinning "
+          f"included ({wall * 1e3:.1f} ms)", flush=True)
+    return {"batches": len(host), "bytes": nbytes, "gb_per_s": rate, "wall_ms": wall * 1e3}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -6066,6 +6659,42 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 53. K3 and K2 / K4b at the distill student's head dim 64 vs their plain versions
+    distill_err = check_distill_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 54. their times at the student's shape
+    distill_k = time_distill_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 55. the distill main path (L/14 from a frozen 1B), counting launches
+    distill_launches = run_distill_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 56. kernel route vs plain route of the distill loss
+    drun = load_config(CONFIG_DISTILL)
+    check_distill_routes(drun)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 57. times: the step, the teacher's share, peak memory, device time by group
+    distill_step = time_distill_step(fa, pd, ig, rms, drun, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 58. the real SFT data path: jsonl + clips -> packs -> SFT steps, counting launches
+    sft_jsonl = run_sft_jsonl_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 59. prefetch_to_device on the card
+    prefetch = check_prefetch(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
@@ -6081,7 +6710,8 @@ def main() -> int:
                  "encoder_int8": i8_enc["encoder_int8"], "tower_int8": i8_enc["tower_int8"],
                  "retrieval": ret_launches, "entry_points": entry_launches,
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
-                 "zeroshot": zs_launches}
+                 "zeroshot": zs_launches, "distill": distill_launches,
+                 "sft_jsonl": sft_jsonl["launches"]}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -6383,7 +7013,39 @@ def main() -> int:
                     "library_ms": chat_k[(tag, b)]["library_ms"],
                     "library_note": chat_k[(tag, b)]["library_note"]} for tag, b in tags}}
     print(f"[{card}] chat: " + json.dumps({f"B{b}": r for b, r in chat_t.items()}), flush=True)
-    print(f"chip_smoke: phases 1-52 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the distill path's shapes (phases 53-57)
+        name = entry["name"]
+        if name == "flash_fwd":  # the teacher at the finetune's shape: phase 10's times
+            entry["distill_teacher"] = {
+                "shape": list(DISTILL_TEACHER_SHAPE), "ms": t["flash_fwd"],
+                "library_ms": t["sdpa"]["train"]["fwd"],
+                "bound_ms": _fwd_bound(*DISTILL_TEACHER_SHAPE)[0],
+                "launches_per_step": distill_step["launches_per_step"]["flash_fwd"],
+                "launches_distill_cli": distill_launches["flash_fwd"]}
+        elif name in distill_k:
+            r = distill_k[name]
+            entry["distill_student"] = {
+                "shape": r["shape"], "max_abs_err": distill_err[name], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"],
+                "launches_per_step": distill_step["launches_per_step"][name],
+                "launches_distill_cli": distill_launches[name],
+                **({"prepass_ms": r["prepass_ms"]} if "prepass_ms" in r else {})}
+        elif name == "fused_qkv_rstd":
+            entry["distill_student"] = {
+                "launches_per_step": distill_step["launches_per_step"][name],
+                "ms": distill_k["fused_qkv_fwd"]["prepass_ms"],
+                "launches_distill_cli": distill_launches[name]}
+        if name in sft_jsonl["k8"]:
+            entry["sft_jsonl"] = sft_jsonl["k8"][name]
+        elif name in sft_jsonl["launches"]:
+            entry["sft_jsonl"] = {"launches_per_step": sft_jsonl["launches"][name]
+                                  // SFT_JSONL_STEPS}
+    print(f"[{card}] distill: " + json.dumps(distill_step), flush=True)
+    print(f"[{card}] sft jsonl: " + json.dumps({k: v for k, v in sft_jsonl.items() if k != "k8"}),
+          flush=True)
+    print(f"[{card}] prefetch_to_device: " + json.dumps(prefetch), flush=True)
+    print(f"chip_smoke: phases 1-59 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_"):

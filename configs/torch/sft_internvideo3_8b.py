@@ -32,11 +32,18 @@ vision_start / vision_end, about 512 text tokens, 3D mRoPE positions) and
 text-only samples of 256-2048 tokens that fill the row, labels -100 on
 prompts and pads, pad segment -1. The weights are seeded random: no
 InternVideo3 checkpoint, tokenizer or video corpus is in the repository.
+With `data.jsonl=<path>` the rows come from a jsonl of conversations and
+their video files instead (`cli.train._mllm_jsonl_stream`: characters as
+token ids, one 16 x 224 clip a row, the fixed grid 8 x 14 x 14).
 """
 
 from internvideo_tpu_torch.cli.train import RunConfig
 from internvideo_tpu_torch.core.mesh import MeshConfig
-from internvideo_tpu_torch.data.mllm_tokenize import SyntheticSFTConfig, synthetic_sft_stream
+from internvideo_tpu_torch.data.mllm_tokenize import (
+    MLLMTokenizeConfig,
+    SyntheticSFTConfig,
+    synthetic_sft_stream,
+)
 from internvideo_tpu_torch.models.presets import internvideo3_8b, qwen3_8b_mla
 from internvideo_tpu_torch.train.engines.sft import SFTConfig
 from internvideo_tpu_torch.train.optim import OptimizerConfig
@@ -67,6 +74,8 @@ config = RunConfig(
         "pack_max_length": PACK_LEN,
         "stream": synthetic_sft_stream(SyntheticSFTConfig(), batch_size=1,
                                        pack_max_length=PACK_LEN, seed=0),
+        # the real data path (`data.jsonl=<path>`): one 16 x 224 clip a row
+        "tokenize": MLLMTokenizeConfig(fixed_grid=(8, 14, 14)),
     },
     engine=SFTConfig(ce_chunk_size=2048),
 )

@@ -13,19 +13,27 @@
     python -m internvideo_tpu_torch.cli.train \
         --config configs/torch/clip_stage2_1b.py --device cuda
 
+    python -m internvideo_tpu_torch.cli.train \
+        --config configs/torch/distill_l14_1b.py --device cuda
+
 Port of internvideo_tpu/cli/train.py. The config file defines
-`config = RunConfig(...)`; dotlist overrides follow. Four tasks are
+`config = RunConfig(...)`; dotlist overrides follow. Five tasks are
 ported: `finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW
 with layer decay), `pretrain` (UMT masked pretraining of
 PretrainInternVideo2 with frozen CLIP and MAE teachers), `sft` (packed
-multimodal SFT of the InternVideo3 VideoMLLM) and `clip` (VideoCLIP
-stage 2: VTC + VTM + MLM, and UTA against a frozen CLIP teacher with
-`engine.uta` > 0); the JAX CLI's other tasks exit with "not yet ported".
-`--device` is explicit: `cuda` (the default) with no GPU is an error, not a
-CPU run. The model starts from the seeded init (`trainer.seed`), the
-teachers from their own (`trainer.seed` + 1 and + 2), as the JAX CLI does
-when no teacher checkpoint is given; the data come from `data["stream"]`,
-or synthetic clips (and token ids) made from a fixed seed.
+multimodal SFT of the InternVideo3 VideoMLLM, on synthetic packs or, with
+`data.jsonl`, on a jsonl of conversations and their video files), `clip`
+(VideoCLIP stage 2: VTC + VTM + MLM, and UTA against a frozen CLIP teacher
+with `engine.uta` > 0) and `distill` (a PretrainInternVideo2 student
+aligned to a frozen InternVideo2 teacher); the JAX CLI's other task,
+`clip_av`, exits with "not yet ported". `--device` is explicit: `cuda`
+(the default) with no GPU is an error, not a CPU run. The model starts
+from the seeded init (`trainer.seed`), the teachers from their own
+(`trainer.seed` + 1 and + 2), as the JAX CLI does when no teacher
+checkpoint is given; the data come from `data["stream"]`, the jsonl, or
+synthetic clips (and token ids) made from a fixed seed. The jsonl stream
+is moved to the device by `data/loader.py:prefetch_to_device`, two batches
+ahead of the step.
 """
 
 from __future__ import annotations
@@ -53,10 +61,12 @@ class RunConfig:
     model: object = None  # task-specific model config
     data: object = None  # task-specific data config: batch_size, stream
     engine: object = None  # task-specific engine config
-    teacher: object = None  # pretrain, clip with uta > 0: the CLIP teacher's TeacherConfig
+    # pretrain, clip with uta > 0: the CLIP teacher's TeacherConfig; distill:
+    # the teacher encoder's InternVideo2Config
+    teacher: object = None
     mae_teacher: object = None  # pretrain: the MAE teacher's TeacherConfig
 
-_PORTED_TASKS = ("finetune", "pretrain", "sft", "clip")
+_PORTED_TASKS = ("finetune", "pretrain", "sft", "clip", "distill")
 
 
 def build_finetune(run: RunConfig, device: torch.device):
@@ -134,6 +144,32 @@ def build_pretrain(run: RunConfig, device: torch.device):
     return trainer, shape, (clip_teacher, mae_teacher)
 
 
+def build_distill(run: RunConfig, device: torch.device):
+    """(trainer, video shape, teacher) for distillation of a small student
+    from a frozen encoder on `device` (the JAX `build_distill`, :345-388).
+    The teacher starts from `trainer.seed` + 1, as the JAX CLI's does
+    without a checkpoint, and rides the step frozen."""
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+    from internvideo_tpu_torch.models.pretrain import PretrainInternVideo2
+    from internvideo_tpu_torch.train.engines.distill import make_distill_step
+    from internvideo_tpu_torch.train.state import frozen_teacher
+
+    if run.data.get("teacher_checkpoint"):
+        raise NotImplementedError(
+            "data.teacher_checkpoint: loading the convert-CLI's encoder npz is not ported "
+            "yet (ROADMAP queue 1, item 9)")
+    seed = run.trainer.seed
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    model = PretrainInternVideo2(run.model, device=device, generator=gen(seed))
+    teacher = frozen_teacher(InternVideo2(run.teacher, device=device, generator=gen(seed + 1)))
+    trainer = Trainer(
+        run.trainer, model,
+        lambda grad_accum=1: make_distill_step(teacher, run.engine, grad_accum=grad_accum))
+    enc = run.model.encoder
+    shape = (run.data["batch_size"], enc.num_frames, enc.img_size, enc.img_size, 3)
+    return trainer, shape, teacher
+
+
 def build_clip(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes, CLIP teacher or None) for VideoCLIP
     stage 2 on `device` (the JAX `build_clip`, :127-181). With `engine.uta`
@@ -182,28 +218,61 @@ def _synthetic_clip_stream(batch: dict, vocab_size: int, seed: int = 0):
 
 def build_sft(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes) for packed multimodal SFT of the
-    VideoMLLM on `device` (the JAX `build_sft`, :409-465). The shapes are
-    those of the JAX synthetic stream (data.seq_len, data.num_frames,
-    data.img_size); a config's own data.stream sets its own."""
+    VideoMLLM on `device` (the JAX `build_sft`, :409-465). With `data.jsonl`
+    the shapes follow the tokenize config's fixed grid and
+    `data.pack_max_length`; otherwise those of the JAX synthetic stream
+    (data.seq_len, data.num_frames, data.img_size); a config's own
+    data.stream sets its own."""
     from internvideo_tpu_torch.models.mllm import VideoMLLM
     from internvideo_tpu_torch.train.engines.sft import make_sft_step
 
-    if run.data.get("jsonl"):
-        raise NotImplementedError(
-            "data.jsonl: the real SFT data path (tokenizer, video decode, mllm_sft_batches) "
-            "is not ported yet (ROADMAP queue 1, item 7)")
     model = VideoMLLM(run.model, device=device,
                       generator=torch.Generator(device=device).manual_seed(run.trainer.seed))
     v, b = run.model.vision, run.data["batch_size"]
-    seq = run.data.get("seq_len", 0)
-    img = run.data.get("img_size", 2 * v.patch_size * v.spatial_merge_size)
-    batch = {"input_ids": (b, seq), "segment_ids": (b, seq), "position_ids": (b, seq),
-             "labels": (b, seq), "video": (b, run.data.get("num_frames", 2), img, img, 3)}
+    if run.data.get("jsonl"):
+        tok = run.data["tokenize"]
+        gt, gh, gw = tok.fixed_grid
+        seq = run.data["pack_max_length"]
+        video = (b, gt * tok.temporal_patch_size, gh * tok.patch_size, gw * tok.patch_size, 3)
+        pos = (3, b, seq)
+    else:
+        seq = run.data.get("seq_len", 0)
+        img = run.data.get("img_size", 2 * v.patch_size * v.spatial_merge_size)
+        video = (b, run.data.get("num_frames", 2), img, img, 3)
+        pos = (b, seq)
+    batch = {"input_ids": (b, seq), "segment_ids": (b, seq), "position_ids": pos,
+             "labels": (b, seq), "video": video}
     trainer = Trainer(
         run.trainer, model,
         lambda grad_accum=1: make_sft_step(run.engine, mesh=run.trainer.mesh,
                                            grad_accum=grad_accum))
     return trainer, batch
+
+
+def _mllm_jsonl_stream(run: RunConfig):
+    """The real SFT data path (the JAX `_mllm_jsonl_stream`, :463-489):
+    jsonl + video files -> packed multimodal numpy batches
+    (data/mllm_tokenize.py). run.data needs "jsonl", "batch_size",
+    "pack_max_length" and "tokenize" (an MLLMTokenizeConfig with a
+    fixed_grid); optional "media_root" and "tokenizer" (a local HF
+    tokenizer directory; without it, JAX's character-level encoding
+    1 + ord(c) % 200)."""
+    from internvideo_tpu_torch.data.mllm_tokenize import MLLMTokenizeFunction, mllm_sft_batches
+
+    if run.data.get("tokenizer"):
+        from internvideo_tpu_torch.data.tokenizer import load_hf_tokenizer
+
+        hf = load_hf_tokenizer(run.data["tokenizer"]).tokenizer
+
+        def encode(t):
+            return hf(t, add_special_tokens=False)["input_ids"]
+    else:
+        def encode(t):
+            return [1 + (ord(c) % 200) for c in t]  # byte fallback
+    fn = MLLMTokenizeFunction(encode, run.data["tokenize"])
+    return mllm_sft_batches(run.data["jsonl"], fn, pack_max_length=run.data["pack_max_length"],
+                            media_root=run.data.get("media_root", ""),
+                            batch_size=run.data["batch_size"])
 
 
 def _synthetic_sft_stream(batch: dict, seed: int = 0):
@@ -245,9 +314,17 @@ def main(argv: Optional[list[str]] = None):
     if run.task == "pretrain":
         trainer, shape, _ = build_pretrain(run, device)
         data = run.data.get("stream") or _synthetic_video_stream(shape)
+    elif run.task == "distill":
+        trainer, shape, _ = build_distill(run, device)
+        data = run.data.get("stream") or _synthetic_video_stream(shape)
     elif run.task == "sft":
         trainer, batch = build_sft(run, device)
-        data = run.data.get("stream") or _synthetic_sft_stream(batch)
+        if run.data.get("jsonl"):
+            from internvideo_tpu_torch.data.loader import prefetch_to_device
+
+            data = prefetch_to_device(_mllm_jsonl_stream(run), device)
+        else:
+            data = run.data.get("stream") or _synthetic_sft_stream(batch)
     elif run.task == "clip":
         trainer, batch, _ = build_clip(run, device)
         data = run.data.get("stream") or _synthetic_clip_stream(batch, run.model.text.vocab_size)

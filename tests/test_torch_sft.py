@@ -219,8 +219,10 @@ def test_sft_config_stream_and_refusals_mirror_jax():
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.build_sft(dataclasses.replace(trun, data={**trun.data, "jsonl": "x.jsonl"}),
-                      torch.device("cpu"))
+    # data.jsonl is ported: the batch shapes follow the tokenize config's grid
+    jrun = load_config(os.path.join(ROOT, "configs", "torch", "sft_jsonl_tiny.py"))
+    _, shapes = cli.build_sft(jrun, torch.device("cpu"))
+    first = next(cli._mllm_jsonl_stream(jrun))
+    assert shapes == {k: v.shape for k, v in first.items()}
     with pytest.raises(NotImplementedError, match="item 8"):
         make_sft_step(SFTConfig(), mesh=MeshConfig(fsdp=1, seq=4))
