@@ -428,6 +428,42 @@ non-zero and prints no result):
      under a kernel queued on the consumer stream at once; host -> card
      GB/s.
 
+ 60. the fusion cross-attention at the audio-visual step's new shapes vs
+     the plain versions: K1 / K4a over audio + video tokens (32 queries on
+     252 + 1025 keys, 16 heads of 64; B 64 in the MLM pass, 192 in the VTM
+     pass) and K2 / K4b over audio alone (32 on 252), fp32 at B 2 (max-abs
+     2e-5 forward, 5e-4 grads) and bf16 at the path's shapes (rel-L2 1e-2);
+     K2 / K4b at the simple audio tower's (64, 512, 12, 64) on qkv views;
+     each timed (K1 / K4a by CUDA events, K2 / K4b by CUDA graph replay,
+     median of 5) beside its plain version, bound and flash SDPA;
+ 61. the audio-visual main path: `internvideo_tpu_torch.cli.train` on
+     configs/torch/clip_av_stage2_1b.py (the 1B tower at 4 x 224 with
+     remat, BEATs on the 998 x 64 fbank -> 252 tokens, bert-large; B 64, 32
+     tokens, media type audio_video) for 3 steps; launches reset just before
+     and read just after must equal `clip_av_want` (per step 90 K1 = 80
+     tower + 5 MLM + 5 VTM at Sk 1277, 50 dq, 50 dk/dv, nothing else;
+     BEATs' attention is plain torch); every loss term and grad_norm finite;
+ 62. the step of each media type on one model and optimizer, B 64,
+     device-resident batches: launches against `clip_av_want` (video: as
+     audio_video at Sk 1025; audio: 10 each of K2 / K4b dq / dk/dv at Sk
+     252), ms (CUDA events), clips/s, peak memory, the audio tower's
+     forward + backward alone; audio_video and audio under torch.profiler
+     (device time by kernel group, idle share);
+ 63. the real-audio path on that trainer: 8 wavs of 10-12 s (half at
+     22.05 kHz stereo) and seeded uint8 clips written to a temp dir, an
+     audio and an audio_video corpus registered and built, 3 steps of each
+     through JsonlVideoTextDataset -> load_fbank -> prefetch_to_device ->
+     the step; the host's ms a batch (and load_fbank's alone) beside the fed
+     step's, and its idle share;
+ 64. kernel route vs plain route of the audio-visual loss per media type,
+     B 2, the same draws: fp32 at full widths and depth 2 (loss terms and
+     every grad max-abs 5e-4); bf16 at full depth (within 1e-2 / 2e-2 of the
+     plain route, or the kernel route no farther from an fp32 copy than
+     1.25 x the plain route);
+ 65. the simple audio tower at its default width (768 x 12 blocks of 12
+     heads on a 1024 x 128 fbank) in place of BEATs: one audio step at B 64,
+     12 + 10 each of K2 / K4b dq / dk/dv, its ms and peak memory.
+
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
 wall time.
@@ -570,6 +606,19 @@ SFT_JSONL_DEPTH = 4
 SFT_JSONL_STEPS = 3
 SFT_JSONL_CLIP = (64, 240, 320, 3)
 PREFETCH_BATCH = {"video": (8, 16, 224, 224, 3), "input_ids": (8, 8192)}
+# Audio-visual stage 2 (phases 60-65): the full-width config (the 1B tower at
+# 4 x 224, BEATs on the 998 x 64 fbank -> 63 x 4 = 252 tokens, bert-large,
+# B 64); the fusion cross-attention's (B, Sq, Sk, H, D) in the MLM pass (B)
+# and the VTM pass (3B rows) over audio + video tokens (252 + 1025) and over
+# audio alone; the simple tower at its default width (1024 x 128 -> 512
+# tokens, 12 heads of 64); the real-audio path's wavs and uint8 clips
+CONFIG_AV = "configs/torch/clip_av_stage2_1b.py"
+AV_STEPS = 3
+AV_CROSS_SHAPES = {"av_mlm": (64, 32, 1277, 16, 64), "av_vtm": (192, 32, 1277, 16, 64),
+                   "audio_mlm": (64, 32, 252, 16, 64), "audio_vtm": (192, 32, 252, 16, 64)}
+AV_SIMPLE_SHAPE = (64, 512, 12, 64)
+AV_REAL_WAVS = 8
+AV_REAL_CLIP = (16, 240, 320, 3)
 # K11's bf16 edges beside its two path shapes: the top of its S range, and
 # head dim 64 at the eval's S
 K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
@@ -1213,11 +1262,14 @@ def profile_step(step, card, what: str = "train step") -> dict:
     """One step under torch.profiler: device time by kernel group and the
     device's idle share of the step's wall time. Returns {"wall_ms",
     "busy_ms", "groups"} (busy_ms None when the profiler saw no device
-    time)."""
+    time). Only device activity is traced: host-op tracing added its own
+    host time to the wall and took ~29 s to trace and summarise one ~3.4 s
+    audio-visual step (tools_torch/probe_clip_av.py), and the groups read
+    device events alone."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -5049,6 +5101,53 @@ def check_clip_kernels(fa) -> dict:
     return errs_by
 
 
+def _attn_times(fa, shape, small: bool, g, timer) -> dict:
+    """Times of the forward, dq and dk/dv kernels of K1 / K4a (K2 / K4b with
+    `small`) at shape (B, Sq, Sk, H, D) bf16 (q / k / v views of one
+    projection when Sq == Sk) by `timer`, beside the plain versions (CUDA
+    events, median of 5), the bounds and flash SDPA. Returns kernel name ->
+    {"ms", "plain_ms", "library_ms", "bound", "shape"}."""
+    b, sq, sk, h, d = shape
+    rnd = lambda *sh: torch.randn(*sh, device="cuda", generator=g)  # noqa: E731
+    if sq == sk:
+        _, (q, k, v) = _qkv_views(b, sq, h, d, g)
+    else:
+        q, k, v = (rnd(b, s, h, d).bfloat16() for s in (sq, sk, sk))
+    do = rnd(b, sq, h, d).bfloat16()
+    scale = d ** -0.5
+    fwd = "small_s_fwd" if small else "flash_fwd"
+    names = (("small_s_bwd_dq", "small_s_bwd_dkv") if small
+             else ("flash_bwd_dq", "flash_bwd_dkv"))
+    plain_fwd = fa.small_s_attention_ref if small else fa.flash_attention_ref_with_lse
+    plain_bwd = fa.small_s_attention_bwd_ref if small else fa.flash_attention_bwd_ref
+    bounds = _attn_bounds(b, sq, sk, h, d)
+    with torch.no_grad():
+        out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)
+        delta = fa._bwd_delta(out, do)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        plain_b = _median_ms(lambda: plain_bwd(q, k, v, out, lse, do, scale), iters=1)
+        sdpa_b = statistics.median(_sdpa_bwd_ms(q, k, v, do) for _ in range(5))
+        r = {fwd: dict(ms=timer(lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)),
+                       plain_ms=_median_ms(lambda: plain_fwd(q, k, v, scale), iters=1),
+                       library_ms=statistics.median(_sdpa_fwd_ms(q, k, v) for _ in range(5)),
+                       bound=bounds["fwd"])}
+        for name, outs, kind in ((names[0], (dq,), "dq"), (names[1], (dk, dv), "dkv")):
+            r[name] = dict(ms=timer(lambda: fa._launch_bwd(name, q, k, v, do, lse, delta,
+                                                           outs, scale)),
+                           plain_ms=plain_b, library_ms=sdpa_b, bound=bounds[kind])
+    for t in r.values():
+        t["shape"] = [b, sq, sk, h, d]
+    return r
+
+
+def _print_attn_times(card, what: str, tag: str, r: dict) -> None:
+    for name, t in r.items():
+        print(f"[{card}] {what} {tag} {name} (B, Sq, Sk, H, D) = {tuple(t['shape'])} bf16: "
+              f"kernel {t['ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+              f"plain {t['plain_ms']:.3f} ms, flash SDPA {t['library_ms']:.4f} ms",
+              flush=True)
+
+
 def time_clip_kernels(fa, card) -> dict:
     """Phase 43, times (CUDA events, median of 5 runs; the UTA shapes by CUDA
     graph replay, median of 5): K1, K4a dq and dk/dv at the tower's and both
@@ -5067,37 +5166,13 @@ def time_clip_kernels(fa, card) -> dict:
     res = {}
     for tag, (b, sq, sk, h, d) in shapes.items():
         small = tag.startswith("uta")
-        if sq == sk:
-            _, (q, k, v) = _qkv_views(b, sq, h, d, g)
-        else:
-            q, k, v = (rnd(b, s, h, d).bfloat16() for s in (sq, sk, sk))
-        do = rnd(b, sq, h, d).bfloat16()
-        scale = d ** -0.5
-        fwd = "small_s_fwd" if small else "flash_fwd"
-        names = (("small_s_bwd_dq", "small_s_bwd_dkv") if small
-                 else ("flash_bwd_dq", "flash_bwd_dkv"))
         timer = _median_graph_ms if small else _median_ms
-        plain_fwd = fa.small_s_attention_ref if small else fa.flash_attention_ref_with_lse
-        plain_bwd = fa.small_s_attention_bwd_ref if small else fa.flash_attention_bwd_ref
-        bounds = _attn_bounds(b, sq, sk, h, d)
-        with torch.no_grad():
-            out, lse = fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)
-            delta = fa._bwd_delta(out, do)
-            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-            plain_b = _median_ms(lambda: plain_bwd(q, k, v, out, lse, do, scale), iters=1)
-            sdpa_b = statistics.median(_sdpa_bwd_ms(q, k, v, do) for _ in range(5))
-            r = {fwd: dict(ms=timer(lambda: fa._flash_fwd_cuda(q, k, v, scale, kernel=fwd)),
-                           plain_ms=_median_ms(lambda: plain_fwd(q, k, v, scale), iters=1),
-                           library_ms=statistics.median(_sdpa_fwd_ms(q, k, v) for _ in range(5)),
-                           bound=bounds["fwd"])}
-            for name, outs, kind in ((names[0], (dq,), "dq"), (names[1], (dk, dv), "dkv")):
-                r[name] = dict(ms=timer(lambda: fa._launch_bwd(name, q, k, v, do, lse, delta,
-                                                               outs, scale)),
-                               plain_ms=plain_b, library_ms=sdpa_b, bound=bounds[kind])
-            if tag == "uta_student":
-                w = h * d
-                qkv = (rnd(b, sq, 3 * w) * 2).bfloat16()
-                qw, kw = (rnd(w) * 0.1 + 1 for _ in range(2))
+        r = _attn_times(fa, (b, sq, sk, h, d), small, g, timer)
+        if tag == "uta_student":
+            w, scale = h * d, d ** -0.5
+            qkv = (rnd(b, sq, 3 * w) * 2).bfloat16()
+            qw, kw = (rnd(w) * 0.1 + 1 for _ in range(2))
+            with torch.no_grad():
                 qn = rms_norm(qkv[..., :w], qw).unflatten(-1, (h, d))
                 kn = rms_norm(qkv[..., w:2 * w], kw).unflatten(-1, (h, d))
                 r["fused_qkv_fwd"] = dict(
@@ -5107,15 +5182,11 @@ def time_clip_kernels(fa, card) -> dict:
                     library_ms=statistics.median(
                         _sdpa_fwd_ms(qn, kn, qkv[..., 2 * w:].unflatten(-1, (h, d)))
                         for _ in range(5)),
-                    bound=_bound(4 * b * h * sq * sq * d, 4 * b * sq * w * 2 + 2 * w * 4))
-        for name, t in r.items():
-            t["shape"] = [b, sq, sk, h, d]
-            print(f"[{card}] clip {tag} {name} (B, Sq, Sk, H, D) = {tuple(t['shape'])} bf16: "
-                  f"kernel {t['ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
-                  f"plain {t['plain_ms']:.3f} ms, flash SDPA {t['library_ms']:.4f} ms",
-                  flush=True)
+                    bound=_bound(4 * b * h * sq * sq * d, 4 * b * sq * w * 2 + 2 * w * 4),
+                    shape=[b, sq, sk, h, d])
+            del qkv, qn, kn
+        _print_attn_times(card, "clip", tag, r)
         res[tag] = r
-        del q, k, v, do, out, lse, delta, dq, dk, dv
     return res
 
 
@@ -6307,6 +6378,493 @@ def check_prefetch(card) -> dict:
     return {"batches": len(host), "bytes": nbytes, "gb_per_s": rate, "wall_ms": wall * 1e3}
 
 
+# -- Audio-visual stage 2 (task clip_av): phases 60-65 -----------------------------------
+
+
+def _av_tokens(model_cfg) -> int:
+    """Audio tokens of the AV model's audio tower on its batch's fbank
+    (BEATs pads each axis to a multiple of its patch, XLA's SAME rule; the
+    simple tower tiles exactly)."""
+    from internvideo_tpu_torch.models.beats import BEATsConfig
+
+    a = model_cfg.audio
+    if model_cfg.audio_tower == "beats":
+        p = (model_cfg.beats or BEATsConfig()).input_patch_size
+        return -(-a.max_frames // p) * -(-a.n_mels // p)
+    return (a.max_frames // a.patch_size) * (a.n_mels // a.patch_size)
+
+
+def clip_av_want(run, media: str, steps: int) -> dict:
+    """Kernel launches of `steps` audio-visual steps of `media`: per tower
+    block one K1 (two with remat) and one K4a dq and dk/dv when the media
+    has video; per simple-tower block one K2 / K4b when it has audio
+    (BEATs' attention is plain torch); per fusion layer one
+    cross-attention over the media's tokens in the MLM pass and one in the
+    VTM pass, K2 / K4b at Sk <= 1024 and K1 / K4a above. BERT
+    self-attention is masked (the plain einsum): nothing else launches."""
+    from internvideo_tpu_torch.ops.flash_attention import SMALL_S_MAX
+
+    m = run.model
+    v, t = m.vision, m.text
+    per = {}
+
+    def add(route, n):
+        names = (("small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv") if route == "small"
+                 else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        for name, k in zip(names, n):
+            per[name] = per.get(name, 0) + k
+
+    n_video = 1 + v.num_patches if media != "audio" else 0
+    n_audio = _av_tokens(m) if media != "video" else 0
+    if n_video:
+        add("flash", ((2 if v.remat else 1) * v.depth, v.depth, v.depth))
+    if n_audio and m.audio_tower == "simple":
+        add("small" if n_audio <= SMALL_S_MAX else "flash", (m.audio.depth,) * 3)
+    fusion = 2 * (t.num_layers - t.fusion_layer)
+    add("small" if n_video + n_audio <= SMALL_S_MAX else "flash", (fusion,) * 3)
+    return {n: c * steps for n, c in per.items()}
+
+
+def check_av_kernels(fa) -> dict:
+    """Phase 60: the fusion cross-attention at the audio-visual step's new
+    shapes, K1 / K4a at Sk 1277 (audio + video tokens) and K2 / K4b at Sk
+    252 (audio alone), 32 queries, 16 heads of 64, B 64 (MLM pass) and 192
+    (VTM pass); and K2 / K4b at the simple tower's (64, 512, 12, 64) on qkv
+    views. fp32 at B 2 with each Sq / Sk (out max-abs 2e-5, grads 5e-4),
+    bf16 at the path's shapes (rel-L2 1e-2; K1's LSE max-abs 1e-2).
+    Returns max-abs errors by tag and kernel."""
+    g = torch.Generator("cuda").manual_seed(60)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    b_s, s_s, h_s, d_s = AV_SIMPLE_SHAPE
+    cases = {**AV_CROSS_SHAPES, "simple_tower": (b_s, s_s, s_s, h_s, d_s)}
+    errs_by = {}
+    for tag, (b, sq, sk, h, d) in cases.items():
+        small = sq <= fa.SMALL_S_MAX and sk <= fa.SMALL_S_MAX
+        names = (("small_s_fwd", "small_s_bwd_dq", "small_s_bwd_dkv") if small
+                 else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        if not tag.endswith("_vtm"):  # the VTM pass has the MLM pass's Sq / Sk
+            q, do, k, v = rnd(2, sq, h, d), rnd(2, sq, h, d), rnd(2, sk, h, d), rnd(2, sk, h, d)
+            got, ref = _flash_vs_plain(fa, q, k, v, do, small_s=small)
+            errs = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+            print(f"AV {names[0]} / bwd fp32 (2, {sq}, {sk}, {h}, {d}) ({tag}): out max-abs "
+                  f"{errs[0]:.3e} (bar 2e-5), dq / dk / dv {errs[2]:.3e} / {errs[3]:.3e} / "
+                  f"{errs[4]:.3e} (bar 5e-4)", flush=True)
+            if not (errs[0] <= 2e-5 and (small or errs[1] <= 2e-5) and max(errs[2:]) <= 5e-4):
+                raise AssertionError(f"fp32 {names} disagree with their plain versions at {tag}")
+        if sq == sk:
+            _, (q, k, v) = _qkv_views(b, sq, h, d, g)
+        else:
+            q, k, v = (rnd(b, s, h, d).bfloat16() for s in (sq, sk, sk))
+        do = rnd(*q.shape).bfloat16()
+        got, ref = _flash_vs_plain(fa, q, k, v, do, small_s=small)
+        rels = [_rel(x, r) for x, r in zip(got, ref)]
+        errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+        print(f"AV {names[0]} / bwd bf16 {(b, sq, sk, h, d)} ({tag}): out / dq / dk / dv rel-L2 "
+              + " / ".join(f"{r:.3e}" for r in rels[:1] + rels[2:]) + " (bar 1e-2)"
+              + ("" if small else f", lse max-abs {errs[1]:.3e} (bar 1e-2)"), flush=True)
+        if not (max(rels[:1] + rels[2:]) <= 1e-2 and (small or errs[1] <= 1e-2)):
+            raise AssertionError(f"bf16 {names} disagree with their plain versions at {tag}")
+        errs_by[tag] = {names[0]: errs[0], names[1]: errs[2], names[2]: max(errs[3:])}
+        del q, k, v, do, got, ref
+    return errs_by
+
+
+def time_av_kernels(fa, card) -> dict:
+    """Phase 60, times: each phase-60 shape's forward, dq and dk/dv kernels
+    (K1 / K4a by CUDA events, K2 / K4b by CUDA graph replay; median of 5)
+    beside the plain versions, bounds and flash SDPA. Returns tag -> kernel
+    -> times."""
+    g = torch.Generator("cuda").manual_seed(61)
+    b_s, s_s, h_s, d_s = AV_SIMPLE_SHAPE
+    res = {}
+    for tag, shape in {**AV_CROSS_SHAPES, "simple_tower": (b_s, s_s, s_s, h_s, d_s)}.items():
+        small = max(shape[1:3]) <= fa.SMALL_S_MAX
+        res[tag] = _attn_times(fa, shape, small, g, _median_graph_ms if small else _median_ms)
+        _print_attn_times(card, "clip_av", tag, res[tag])
+    return res
+
+
+def run_clip_av_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 61: the audio-visual main path, `cli.train` on CONFIG_AV
+    (media type audio_video) for AV_STEPS steps; launches reset just before
+    and read just after must equal `clip_av_want`; every logged loss term
+    and grad_norm finite. Returns the launches."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    want = clip_av_want(load_config(CONFIG_AV), "audio_video", AV_STEPS)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--config", CONFIG_AV, "--device", "cuda",
+                       f"trainer.total_steps={AV_STEPS}", "trainer.log_every=1",
+                       "trainer.checkpoint_dir=None"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    wall = time.perf_counter() - t0
+    records = _step_records(buf.getvalue())
+    for r in records:
+        print(f"cli.train {CONFIG_AV}: {r}", flush=True)
+    print(f"[{card}] main path (audio-visual stage 2, audio_video): {AV_STEPS} steps in "
+          f"{wall:.1f} s wall incl. model init and host data; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}, predicted "
+          f"{want}", flush=True)
+    if rc != 0 or len(records) != AV_STEPS:
+        raise AssertionError(f"cli.train logged {len(records)} of {AV_STEPS} audio-visual steps")
+    keys = ("loss", "loss_vtc", "loss_vtm", "loss_mlm", "grad_norm")
+    if not all(math.isfinite(float(r[k])) for r in records for k in keys):
+        raise AssertionError("non-finite loss, loss term or grad_norm on the audio-visual path")
+    if counts != want:
+        raise AssertionError(f"launches {counts} on the audio-visual path; predicted {want}")
+    return counts
+
+
+def _av_batch(run, b: int, seed: int) -> dict:
+    """A device batch of the AV config's shapes: normal clips and fbanks,
+    token ids in [1, 1000), all-ones masks, idx 0..B-1."""
+    v, a = run.model.vision, run.model.audio
+    g = torch.Generator("cuda").manual_seed(seed)
+    ids = torch.randint(1, 1000, (b, run.data["text_len"]), device="cuda", generator=g)
+    return {"video": torch.randn(b, v.num_frames, v.img_size, v.img_size, 3, device="cuda",
+                                 generator=g),
+            "audio": torch.randn(b, a.max_frames, a.n_mels, device="cuda", generator=g),
+            "input_ids": ids, "attention_mask": torch.ones_like(ids),
+            "idx": torch.arange(b, device="cuda")}
+
+
+def _use_media(trainer, run, media: str) -> None:
+    """Point the trainer's step at `media` (one step per media type, as
+    `make_av_clip_train_step` builds them; the model and optimizer stay)."""
+    from internvideo_tpu_torch.train.engines.clip import make_av_clip_train_step
+
+    trainer._step = make_av_clip_train_step(run.engine, media,
+                                            grad_accum=run.trainer.grad_accum)
+
+
+def _audio_tower_ms(model, audio) -> float:
+    """The audio tower's forward + backward alone on `audio` (CUDA events)."""
+    def fwd_bwd():
+        tokens, pooled = model.audio_encoder(audio)
+        (tokens.float().mean() + pooled.float().mean()).backward()
+
+    ms = _time_ms(fwd_bwd, iters=2, warmup=1)
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def time_clip_av_steps(fa, pd, ig, rms, run, card):
+    """Phase 62: the audio-visual trainer (CONFIG_AV, B 64) on
+    device-resident batches, one step function per media type on one model
+    and optimizer: each step's launches against `clip_av_want`, its ms (CUDA
+    events: audio_video 1 step after 2, video 1 after 1, audio 2 after 2:
+    the allocator still grows over the first steps), clips/s, peak device
+    memory, first metrics; the audio tower's forward + backward alone (its
+    share of the audio_video step); audio_video and audio under
+    torch.profiler (device time by kernel group, idle share). Returns
+    (results by media, the trainer)."""
+    from internvideo_tpu_torch.cli import train as cli
+
+    trainer, shape = cli.build_clip_av(dataclasses.replace(
+        run, trainer=dataclasses.replace(run.trainer, checkpoint_dir=None)), torch.device("cuda"))
+    b = shape["video"][0]
+    batch = _av_batch(run, b, 62)
+    res = {}
+    for media, warmup, iters in (("audio_video", 1, 1), ("video", 0, 1), ("audio", 1, 2)):
+        _use_media(trainer, run, media)
+        step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _all_reset(fa, pd, ig, rms)
+        m = step()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+        want = clip_av_want(run, media, 1)
+        if per_step != want:
+            raise AssertionError(f"the {media} step launched {per_step}; predicted {want}")
+        first = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(x) for x in first.values()):
+            raise AssertionError(f"non-finite metrics in the {media} step: {first}")
+        step_ms = _time_ms(step, iters=iters, warmup=warmup)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        r = {"step_ms": step_ms, "clips_per_s": b * 1e3 / step_ms, "peak_gb": peak,
+             "launches_per_step": per_step, "first_step": first,
+             "timed_steps": iters, "after_steps": 1 + warmup}
+        if media == "audio_video":
+            r["audio_tower_ms"] = _audio_tower_ms(trainer.model, batch["audio"])
+            r["audio_tower_share"] = r["audio_tower_ms"] / step_ms
+        print(f"[{card}] audio-visual step ({media}; BEATs on 998 x 64 -> "
+              f"{_av_tokens(run.model)} tokens, 1B tower 4x224 remat, bert-large; AdamW) bf16 "
+              f"B={b}, device-resident batch: {step_ms:.1f} ms = {b * 1e3 / step_ms:.2f} "
+              f"clips/s; peak device memory {peak:.2f} GB; launches per step {per_step}; "
+              f"first step's metrics {first}"
+              + (f"; the audio tower's forward + backward alone {r['audio_tower_ms']:.1f} ms "
+                 f"({r['audio_tower_share']:.1%} of the step)" if "audio_tower_ms" in r else ""),
+              flush=True)
+        if media != "video":
+            prof = profile_step(step, card, f"audio-visual {media} step")
+            busy = prof["busy_ms"]
+            r.update(profile_wall_ms=prof["wall_ms"], busy_ms=busy, groups_ms=prof["groups"],
+                     idle_share_of_event_span=None if busy is None
+                     else max(0.0, 1 - busy / step_ms),
+                     idle_share_of_profiler_wall=None if busy is None
+                     else max(0.0, 1 - busy / prof["wall_ms"]))
+        res[media] = r
+    del batch
+    return res, trainer
+
+
+def _write_av_files(root: str):
+    """AV_REAL_WAVS wavs of 10-12 s (every other one at 22.05 kHz stereo, so
+    the downmix and the resampling run) and as many seeded uint8 `.npy`
+    clips of AV_REAL_CLIP; then an audio jsonl and an audio_video jsonl over
+    them. Returns the two jsonl paths."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(63)
+    rows = []
+    for i in range(AV_REAL_WAVS):
+        sr, stereo = (22_050, True) if i % 2 else (16_000, False)
+        seconds = 10.0 + 2.0 * i / (AV_REAL_WAVS - 1)
+        t = np.arange(int(seconds * sr)) / sr
+        wav = 0.4 * np.sin(2 * np.pi * (220 + 55 * i) * t) + 0.05 * rng.standard_normal(t.shape)
+        if stereo:
+            wav = np.stack([wav, 0.3 * np.sin(2 * np.pi * 440 * t)], 1)
+        wav_path = os.path.join(root, f"a{i}.wav")
+        wavfile.write(wav_path, sr, (wav * 32767).astype(np.int16))
+        clip_path = os.path.join(root, f"c{i}.npy")
+        np.save(clip_path, rng.integers(0, 256, AV_REAL_CLIP, dtype=np.uint8))
+        rows.append({"audio": wav_path, "video": clip_path,
+                     "caption": f"a tone of {220 + 55 * i} hertz over a clip {i}"})
+    paths = []
+    for name, keys in (("audio", ("audio", "caption")),
+                       ("audio_video", ("audio", "video", "caption"))):
+        path = os.path.join(root, f"{name}.jsonl")
+        with open(path, "w") as f:
+            for r in rows:
+                f.write(json.dumps({k: r[k] for k in keys}) + "\n")
+        paths.append(path)
+    return paths
+
+
+def run_av_real_audio_path(trainer, run, card) -> dict:
+    """Phase 63: the real-audio path on the phase-62 trainer. Wavs and clips
+    written by `_write_av_files`, an `audio` and an `audio_video` corpus
+    registered and built (`register_corpus`, `build_datasets`, the toy
+    tokenizer, 4 x 224 clips, 32 tokens); per media type AV_STEPS steps of
+    JsonlVideoTextDataset (load_fbank: 998 x 64) -> prefetch_to_device ->
+    the step at B 64, every loss finite; the host's ms a batch (the whole
+    batch; load_fbank alone as B x its mean over the corpus's rows, each
+    read once) beside the fed step's ms; one fed step under torch.profiler
+    (idle share)."""
+    import tempfile
+
+    from internvideo_tpu_torch.data.corpus import CorpusSpec, build_datasets, register_corpus
+    from internvideo_tpu_torch.data.loader import prefetch_to_device
+    from internvideo_tpu_torch.data.tokenizer import ToyTokenizer
+
+    v, b = run.model.vision, run.data["batch_size"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_av_") as root:
+        for media, anno in zip(("audio", "audio_video"), _write_av_files(root)):
+            name = f"chip_smoke_{media}"
+            register_corpus(CorpusSpec(name=name, anno_path=anno, media_type=media),
+                            overwrite=True)
+            ds = build_datasets(name, ToyTokenizer(), num_frames=v.num_frames,
+                                img_size=v.img_size, max_length=run.data["text_len"])[name]
+            rng = np.random.default_rng(0)
+            ds.load_audio(1, rng)  # warm: scipy's first resample
+            t0 = time.perf_counter()
+            for i in range(len(ds)):
+                ds.load_audio(i, rng)
+            fbank_ms = (time.perf_counter() - t0) * 1e3 / len(ds) * b  # B rows at the mean
+            host = ds.batches(b)
+            t0 = time.perf_counter()
+            first = next(host)
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            if first["audio"].shape != (b, 998, 64) or ("video" in first) != (media != "audio"):
+                raise AssertionError(f"{media} batch shapes "
+                                     f"{ {k: x.shape for k, x in first.items()} }")
+            _use_media(trainer, run, media)
+            data = prefetch_to_device(host, torch.device("cuda"))
+            fed = lambda: trainer._step(trainer.state, trainer.put_batch(next(data)))  # noqa: E731
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = [fed() for _ in range(AV_STEPS)]
+            torch.cuda.synchronize()
+            fed_ms = (time.perf_counter() - t0) * 1e3 / AV_STEPS
+            losses = [{k: float(x) for k, x in m.items()} for m in metrics]
+            if not all(math.isfinite(x) for m in losses for x in m.values()):
+                raise AssertionError(f"non-finite metrics on the real-audio {media} path: "
+                                     f"{losses}")
+            prof = profile_step(fed, card, f"real-audio {media} step fed by prefetch_to_device")
+            data.close()
+            busy = prof["busy_ms"]
+            idle = None if busy is None else max(0.0, 1 - busy / prof["wall_ms"])
+            print(f"[{card}] real-audio {media} path ({AV_REAL_WAVS} wavs of 10-12 s, half at "
+                  f"22.05 kHz stereo; {AV_REAL_CLIP} uint8 clips): host {batch_ms:.1f} ms a "
+                  f"batch of {b} (load_fbank {fbank_ms:.1f} ms: B x its mean over the rows), "
+                  f"the fed step {fed_ms:.1f} ms over {AV_STEPS} steps; idle "
+                  + ("not measured" if idle is None else f"{idle:.1%}")
+                  + f" of the profiled fed step; losses {losses}", flush=True)
+            out[media] = {"host_batch_ms": batch_ms, "load_fbank_ms_per_batch": fbank_ms,
+                          "fed_step_ms": fed_ms, "idle_share_of_profiler_wall": idle,
+                          "busy_ms": busy, "profile_wall_ms": prof["wall_ms"],
+                          "losses": losses}
+            del data, host, first
+    return out
+
+
+def _av_model(run, dtype: str = "bfloat16", **text_overrides):
+    """The AV model of `run` with every tower in `dtype` (fp32 params either
+    way), the vision tower's LayerScale gammas at 0.1."""
+    from internvideo_tpu_torch.models.videoclip_av import VideoCLIPAV
+
+    cfg = run.model
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, dtype=dtype),
+        beats=dataclasses.replace(cfg.beats, dtype=dtype),
+        text=dataclasses.replace(cfg.text, dtype=dtype, **text_overrides))
+    model = VideoCLIPAV(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    _raise_gammas(model.vision_encoder)
+    return model
+
+
+AV_ROUTE_GRADS = ("vision_encoder.blocks.0.attn.qkv.weight",
+                  "vision_encoder.blocks.39.attn.qkv.weight",
+                  "audio_encoder.layers.0.self_attn.q_proj.weight",
+                  "audio_encoder.layers.11.fc2.weight", "audio_to_fusion.weight",
+                  "text_encoder.layer.19.crossattention.key.weight",
+                  "text_encoder.layer.23.crossattention.query.weight",
+                  "itm_head.weight", "temp")
+
+
+def _av_route(model, run, media, batch, draws, impl, names=None):
+    from internvideo_tpu_torch.train.engines.clip import av_clip_loss
+
+    _set_attn_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    loss, aux = av_clip_loss(model, run.engine, media, batch, deterministic=True, **draws)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None and (names is None or n in names)}
+    return {k: v.item() for k, v in {"loss": loss, **aux}.items()}, grads
+
+
+def check_clip_av_routes(run) -> None:
+    """Phase 64: kernel route vs plain route of the audio-visual loss per
+    media type, B 2, the same draws (negatives by rotation, one MLM
+    corruption), dropout off. fp32 at full widths and depth 2 (vision
+    blocks, BEATs layers, text layers with one fusion layer): the loss
+    terms and every gradient max-abs 5e-4. bf16 at full depth: each loss
+    term within 1e-2 of the plain route's (grads: rel-L2 2e-2), or the
+    kernel route no farther from an fp32 copy of the weights (plain route)
+    than 1.25 x the plain route."""
+    from internvideo_tpu_torch.train.engines.clip import mlm_corrupt
+
+    b = 2
+    batch = _av_batch(run, b, 64)
+    rows = torch.arange(b, device="cuda")
+    corrupted, labels = mlm_corrupt(torch.Generator("cuda").manual_seed(65),
+                                    batch["input_ids"], run.engine)
+    draws = dict(vis_neg=(rows + 1) % b, txt_neg=(rows + 1) % b, corrupted=corrupted,
+                 mlm_labels=labels)
+    m = run.model
+    shallow = dataclasses.replace(run, model=dataclasses.replace(
+        m, vision=dataclasses.replace(m.vision, depth=2),
+        beats=dataclasses.replace(m.beats, encoder_layers=2)))
+    model = _av_model(shallow, "float32", num_layers=2, fusion_layer=1)
+    for media in ("audio_video", "video", "audio"):
+        (lk, gk), (lp, gp) = (_av_route(model, shallow, media, batch, draws, impl)
+                              for impl in ("kernel", "plain"))
+        loss_err = max(abs(lk[k] - lp[k]) for k in lp)
+        grad_err = max((gk[n] - gp[n]).abs().max().item() for n in gp)
+        print(f"audio-visual {media} fp32 depth 2, B={b}: loss terms max-abs {loss_err:.3e}, "
+              f"{len(gp)} grads max-abs {grad_err:.3e} (bar 5e-4)", flush=True)
+        if set(gk) != set(gp) or loss_err > 5e-4 or grad_err > 5e-4:
+            raise AssertionError(f"fp32 audio-visual routes disagree ({media})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = _av_model(run)
+    res = {media: {impl: _av_route(model, run, media, batch, draws, impl, AV_ROUTE_GRADS)
+                   for impl in ("kernel", "plain")} for media in ("audio_video", "video", "audio")}
+    f32 = _av_model(run, "float32")
+    f32.load_state_dict(model.state_dict())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for media, r in res.items():
+        (lk, gk), (lp, gp) = r["kernel"], r["plain"]
+        la, ga = _av_route(f32, run, media, batch, draws, "plain", AV_ROUTE_GRADS)
+        for key in lk:
+            rel = abs(lk[key] - lp[key]) / max(abs(lp[key]), 1e-12)
+            dk, dp = abs(lk[key] - la[key]), abs(lp[key] - la[key])
+            print(f"audio-visual {media} bf16 B={b}, {key}: kernel {lk[key]:.6f}, plain "
+                  f"{lp[key]:.6f} (rel {rel:.3e}, bar 1e-2), fp32 anchor {la[key]:.6f} (kernel "
+                  f"off by {dk:.3e}, plain {dp:.3e})", flush=True)
+            if not math.isfinite(lk[key]) or (rel > 1e-2 and dk > 1.25 * dp):
+                raise AssertionError(f"audio-visual routes disagree on {media} {key}")
+        if set(gk) != set(gp):
+            raise AssertionError(f"the routes reached different parameters ({media})")
+        for name in gp:
+            rel, dk, dp = (_rel(gk[name], gp[name]), _rel(gk[name], ga[name]),
+                           _rel(gp[name], ga[name]))
+            print(f"audio-visual {media} bf16 grad {name}: kernel vs plain rel-L2 {rel:.3e} "
+                  f"(bar 2e-2); from the fp32 anchor: kernel {dk:.3e}, plain {dp:.3e}",
+                  flush=True)
+            if not torch.isfinite(gk[name]).all() or (rel > 2e-2 and dk > 1.25 * dp):
+                raise AssertionError(f"audio-visual routes disagree on {media} grad {name}")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_simple_tower_step(fa, pd, ig, rms, run, card) -> dict:
+    """Phase 65: the simple audio tower at its default width
+    (AudioEncoderConfig(): 768 wide, 12 blocks of 12 heads, on a 1024 x 128
+    fbank -> 512 tokens) in bf16 in place of BEATs, an audio step at B 64 on
+    a device-resident batch, counted (12 + 10 each of K2 / K4b dq / K4b
+    dk/dv against `clip_av_want`), then 2 timed (CUDA events); peak memory."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.models.audio import AudioEncoderConfig
+
+    simple = dataclasses.replace(
+        run, model=dataclasses.replace(run.model, audio_tower="simple", beats=None,
+                                       audio=AudioEncoderConfig(dtype="bfloat16")),
+        data={**run.data, "media_type": "audio"},
+        trainer=dataclasses.replace(run.trainer, checkpoint_dir=None))
+    trainer, shape = cli.build_clip_av(simple, torch.device("cuda"))
+    b = shape["audio"][0]
+    batch = _av_batch(simple, b, 65)
+    step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _all_reset(fa, pd, ig, rms)
+    m = step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    want = clip_av_want(simple, "audio", 1)
+    if per_step != want:
+        raise AssertionError(f"the simple tower's audio step launched {per_step}; predicted "
+                             f"{want}")
+    first = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(x) for x in first.values()):
+        raise AssertionError(f"non-finite metrics in the simple tower's audio step: {first}")
+    step_ms = _time_ms(step, iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{card}] audio-visual audio step, simple tower (768 x 12 on 1024 x 128 -> "
+          f"{_av_tokens(simple.model)} tokens) bf16 B={b}: {step_ms:.1f} ms = "
+          f"{b * 1e3 / step_ms:.2f} clips/s; peak device memory {peak:.2f} GB; launches per "
+          f"step {per_step}; first step's metrics {first}", flush=True)
+    del trainer, batch
+    return {"step_ms": step_ms, "clips_per_s": b * 1e3 / step_ms, "peak_gb": peak,
+            "launches_per_step": per_step, "first_step": first}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -6695,6 +7253,42 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 60. the fusion cross-attention at the audio-visual shapes and the simple
+    # tower's attention vs their plain versions; their times
+    av_err = check_av_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    av_k = time_av_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 61. the audio-visual main path (audio_video on the full-width config), counting launches
+    av_launches = run_clip_av_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 62. the step of each media type: launches, ms, peak memory, device time by group
+    arun = load_config(CONFIG_AV)
+    av_steps, av_trainer = time_clip_av_steps(fa, pd, ig, rms, arun, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 63. the real-audio path: wavs + clips -> corpora -> load_fbank -> prefetch -> steps
+    av_real = run_av_real_audio_path(av_trainer, arun, card)
+    del av_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 64. kernel route vs plain route of the audio-visual loss per media type
+    check_clip_av_routes(arun)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 65. the simple audio tower at its default width, one audio step
+    av_simple = run_simple_tower_step(fa, pd, ig, rms, arun, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
@@ -6711,7 +7305,7 @@ def main() -> int:
                  "retrieval": ret_launches, "entry_points": entry_launches,
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
                  "zeroshot": zs_launches, "distill": distill_launches,
-                 "sft_jsonl": sft_jsonl["launches"]}
+                 "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -6736,7 +7330,8 @@ def main() -> int:
         "c_entry": src + "flash_fwd.cu", "replaces": jax_fa + "153",
         "launches": (launches + train_launches["flash_fwd"] + pre_launches["flash_fwd"]
                      + ret_launches["flash_fwd"] + clip_launches["flash_fwd"]
-                     + chat_launches["flash_fwd"] + zs_launches["flash_fwd"]),
+                     + chat_launches["flash_fwd"] + zs_launches["flash_fwd"]
+                     + av_launches["flash_fwd"]),
         "launches_by_path": by_path("flash_fwd", launches),
         "max_abs_err": max_abs, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -6757,7 +7352,7 @@ def main() -> int:
     }] + [{
         "name": name, "route": "cuda", "source": src + body,
         "c_entry": src + "flash_bwd.cu", "replaces": jax_fa + str(line),
-        "launches": train_launches[name] + clip_launches[name],
+        "launches": train_launches[name] + clip_launches[name] + av_launches[name],
         "launches_by_path": by_path(name),
         "max_abs_err": bwd_err[name], "ms": t[name], "plain_ms": t["plain_bwd"],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
@@ -7045,7 +7640,24 @@ def main() -> int:
     print(f"[{card}] sft jsonl: " + json.dumps({k: v for k, v in sft_jsonl.items() if k != "k8"}),
           flush=True)
     print(f"[{card}] prefetch_to_device: " + json.dumps(prefetch), flush=True)
-    print(f"chip_smoke: phases 1-59 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the audio-visual path's shapes (phases 60-65)
+        name = entry["name"]
+        shapes = {tag: {"shape_b_sq_sk_h_d": r[name]["shape"], "max_abs_err": av_err[tag][name],
+                        "ms": r[name]["ms"], "plain_ms": r[name]["plain_ms"],
+                        "bound_ms": r[name]["bound"][0], "bound_by": r[name]["bound"][1],
+                        "library_ms": r[name]["library_ms"]}
+                  for tag, r in av_k.items() if name in r}
+        if shapes:
+            entry["clip_av"] = {
+                "shapes": shapes, "launches_clip_av_cli": av_launches.get(name, 0),
+                "launches_per_step": {media: r["launches_per_step"].get(name, 0)
+                                      for media, r in av_steps.items()},
+                "launches_per_simple_tower_audio_step":
+                    av_simple["launches_per_step"].get(name, 0)}
+    print(f"[{card}] audio-visual steps: " + json.dumps(av_steps), flush=True)
+    print(f"[{card}] audio-visual real audio: " + json.dumps(av_real), flush=True)
+    print(f"[{card}] audio-visual simple tower: " + json.dumps(av_simple), flush=True)
+    print(f"chip_smoke: phases 1-65 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_"):

@@ -16,17 +16,21 @@
     python -m internvideo_tpu_torch.cli.train \
         --config configs/torch/distill_l14_1b.py --device cuda
 
+    python -m internvideo_tpu_torch.cli.train \
+        --config configs/torch/clip_av_stage2_1b.py --device cuda
+
 Port of internvideo_tpu/cli/train.py. The config file defines
-`config = RunConfig(...)`; dotlist overrides follow. Five tasks are
-ported: `finetune` (InternVideo2 + mixup/cutmix + soft-target CE + AdamW
-with layer decay), `pretrain` (UMT masked pretraining of
+`config = RunConfig(...)`; dotlist overrides follow. All six of the JAX
+CLI's tasks are ported: `finetune` (InternVideo2 + mixup/cutmix +
+soft-target CE + AdamW with layer decay), `pretrain` (UMT masked pretraining of
 PretrainInternVideo2 with frozen CLIP and MAE teachers), `sft` (packed
 multimodal SFT of the InternVideo3 VideoMLLM, on synthetic packs or, with
 `data.jsonl`, on a jsonl of conversations and their video files), `clip`
 (VideoCLIP stage 2: VTC + VTM + MLM, and UTA against a frozen CLIP teacher
-with `engine.uta` > 0) and `distill` (a PretrainInternVideo2 student
-aligned to a frozen InternVideo2 teacher); the JAX CLI's other task,
-`clip_av`, exits with "not yet ported". `--device` is explicit: `cuda`
+with `engine.uta` > 0), `clip_av` (the audio-visual VideoCLIPAV, one media
+type a run from `data.media_type`: "audio_video" by default, "audio" or
+"video") and `distill` (a PretrainInternVideo2 student aligned to a frozen
+InternVideo2 teacher). `--device` is explicit: `cuda`
 (the default) with no GPU is an error, not a CPU run. The model starts
 from the seeded init (`trainer.seed`), the teachers from their own
 (`trainer.seed` + 1 and + 2), as the JAX CLI does when no teacher
@@ -48,10 +52,6 @@ import torch
 from internvideo_tpu_torch.core.config import apply_overrides, config_to_dict, load_config
 from internvideo_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-# The JAX CLI's task names (internvideo_tpu/cli/train.py:92-124).
-_JAX_TASKS = ("finetune", "pretrain", "clip", "clip_av", "sft", "distill")
-
-
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """The JAX RunConfig's fields that the ported task reads."""
@@ -66,7 +66,8 @@ class RunConfig:
     teacher: object = None
     mae_teacher: object = None  # pretrain: the MAE teacher's TeacherConfig
 
-_PORTED_TASKS = ("finetune", "pretrain", "sft", "clip", "distill")
+# The JAX CLI's task names (internvideo_tpu/cli/train.py:26), all ported.
+_TASKS = ("finetune", "pretrain", "sft", "clip", "clip_av", "distill")
 
 
 def build_finetune(run: RunConfig, device: torch.device):
@@ -216,6 +217,45 @@ def _synthetic_clip_stream(batch: dict, vocab_size: int, seed: int = 0):
         }
 
 
+def build_clip_av(run: RunConfig, device: torch.device):
+    """(trainer, example batch shapes) for audio-visual stage 2 on `device`
+    (the JAX `build_clip_av`, :183-217): the step trains
+    run.data["media_type"] ("audio_video" by default, "audio" or "video");
+    the batch's audio is (B, audio.max_frames, audio.n_mels) whichever tower
+    reads it."""
+    from internvideo_tpu_torch.models.videoclip_av import VideoCLIPAV
+    from internvideo_tpu_torch.train.engines.clip import make_av_clip_train_step
+
+    model = VideoCLIPAV(run.model, device=device,
+                        generator=torch.Generator(device=device).manual_seed(run.trainer.seed))
+    v, a, b = run.model.vision, run.model.audio, run.data["batch_size"]
+    media_type = run.data.get("media_type", "audio_video")
+    text = (b, run.data.get("text_len", 32))
+    batch = {"video": (b, v.num_frames, v.img_size, v.img_size, 3),
+             "audio": (b, a.max_frames, a.n_mels), "input_ids": text, "attention_mask": text,
+             "idx": (b,)}
+    trainer = Trainer(
+        run.trainer, model,
+        lambda grad_accum=1: make_av_clip_train_step(run.engine, media_type,
+                                                     grad_accum=grad_accum))
+    return trainer, batch
+
+
+def _synthetic_av_stream(batch: dict, seed: int = 0):
+    """The JAX CLI's `_synthetic_av_stream` (:220-235), draw for draw:
+    standard-normal clips and fbanks, token ids in [4, 40), all-ones masks,
+    idx 0..B-1."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "video": rng.normal(size=batch["video"]).astype(np.float32),
+            "audio": rng.normal(size=batch["audio"]).astype(np.float32),
+            "input_ids": rng.integers(4, 40, batch["input_ids"]).astype(np.int32),
+            "attention_mask": np.ones(batch["attention_mask"], np.int32),
+            "idx": np.arange(batch["idx"][0], dtype=np.int32),
+        }
+
+
 def build_sft(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes) for packed multimodal SFT of the
     VideoMLLM on `device` (the JAX `build_sft`, :409-465). With `data.jsonl`
@@ -305,11 +345,8 @@ def main(argv: Optional[list[str]] = None):
 
     run: RunConfig = load_config(args.config)
     run = apply_overrides(run, args.overrides)
-    if run.task not in _PORTED_TASKS:
-        if run.task in _JAX_TASKS:
-            raise SystemExit(
-                f"task {run.task!r} is not yet ported; ported: {list(_PORTED_TASKS)}")
-        raise SystemExit(f"unknown task {run.task!r}")
+    if run.task not in _TASKS:
+        raise SystemExit(f"unknown task {run.task!r}; one of {list(_TASKS)}")
     print("config:", config_to_dict(run.trainer))
     if run.task == "pretrain":
         trainer, shape, _ = build_pretrain(run, device)
@@ -328,6 +365,9 @@ def main(argv: Optional[list[str]] = None):
     elif run.task == "clip":
         trainer, batch, _ = build_clip(run, device)
         data = run.data.get("stream") or _synthetic_clip_stream(batch, run.model.text.vocab_size)
+    elif run.task == "clip_av":
+        trainer, batch = build_clip_av(run, device)
+        data = run.data.get("stream") or _synthetic_av_stream(batch)
     else:
         trainer, batch = build_finetune(run, device)
         data = run.data.get("stream") or synthetic_stream(batch, run.model.num_classes)

@@ -9,9 +9,8 @@ Port of internvideo_tpu/data/datasets.py, with the same batches:
     tokenized with an on-disk cache;
   * answers_with_weights / VideoQADataset / WeightedConcatDataset.
 
-Everything is host-side numpy; decode goes through data/video.py. The
-audio rows (media_type "audio" / "audio_video") need BEATs' fbank
-preprocessing, which is not ported yet: they raise NotImplementedError.
+Everything is host-side numpy; decode goes through data/video.py, and the
+audio rows (media_type "audio" / "audio_video") through data/audio.py.
 """
 
 from __future__ import annotations
@@ -133,8 +132,8 @@ class JsonlVideoTextDataset:
                         "video" with read_audio_from_video=True (demux)
       "audio_video":    row needs "video"; the audio track is demuxed from
                         it (read_audio_from_video) or read from "audio"
-    Audio rows would yield "audio" (B, audio_frames, 64) BEATs fbanks plus
-    "audio_padding_mask"; their loader is not ported yet and raises.
+    Audio rows yield "audio" (B, audio_frames, 64) BEATs fbanks plus
+    "audio_padding_mask" (data/audio.py `load_fbank`).
     """
 
     def __init__(
@@ -222,12 +221,18 @@ class JsonlVideoTextDataset:
             "demuxable 'video'"
         )
 
-    def load_audio(self, i: int, rng: np.random.Generator) -> tuple:
-        """(fbank, padding mask) of row i: data/audio.py's `load_fbank`,
-        which needs BEATs' preprocessing (models/audio.py)."""
-        raise NotImplementedError(
-            f"media_type {self.media_type!r}: audio fbanks (data/audio.py:load_fbank) are "
-            "not ported yet (ROADMAP queue 1, item 10)")
+    def load_audio(self, i: int, rng: Optional[np.random.Generator]) -> tuple:
+        """(fbank (audio_frames, 64), padding mask) of row i: data/audio.py's
+        `load_fbank` on its audio path, a random window from `rng` (start 0
+        without one)."""
+        from internvideo_tpu_torch.data.audio import load_fbank
+
+        return load_fbank(
+            self._audio_path(self.items[i]),
+            max_audio_length=self.audio_seconds,
+            target_frames=self.audio_frames,
+            rng=rng,
+        )
 
     def batches(self, batch_size: int, train: bool = True) -> Iterator[dict]:
         it = iter(StatefulIterator(len(self), seed=self.seed, shuffle=train))

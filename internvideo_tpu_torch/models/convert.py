@@ -7,6 +7,8 @@ GQATransformer, VideoMLLM with either text model), unboxed
 `{"params": ...}` wrapper is accepted. Translations:
 
   * flax Dense `kernel` (in, out)     -> torch `weight` (out, in) [transpose]
+  * flax Conv `kernel`: 2-D (kh, kw, in, out) -> (out, in, kh, kw); 1-D
+    grouped (k, in / groups, out) -> (out, in / groups, k) (BEATs)
   * `blocks_{i}`, `layers_{i}`, `layer_{i}` (BERT) -> `blocks.{i}`,
     `layers.{i}`, `layer.{i}`
   * flax Embed `embedding` (vocab, D) -> `weight`
@@ -39,7 +41,14 @@ pretrain-student names above), `text_encoder.{word,position,token_type}_
 embeddings.weight`, `text_encoder.layer.{i}.{attention,crossattention}.
 {query,key,value,proj}`, `..._norm`, `intermediate`, `output`,
 `mlm_{transform,norm,decoder}`, `vision_proj`, `text_proj`, `itm_head` and
-the scalar `temp`. VideoChat (models/chat.py) likewise: `vision_encoder.*`
+the scalar `temp`; VideoCLIPAV adds `audio_encoder.*` (the simple tower's
+`patch_embed`, `pos_embed`, `blocks.{i}.*`, `norm`; or BEATs'
+`patch_embedding`, `layer_norm`, `post_extract_proj`, `pos_conv`,
+`encoder_layer_norm`, `layers.{i}.self_attn.{q,k,v,out}_proj`,
+`grep_linear`, `grep_a` (1, H, 1, 1) and layer 0's
+`relative_attention_bias` (num_buckets, H), `self_attn_layer_norm`,
+`fc1`, `fc2`, `final_layer_norm`), `audio_proj`, `av_proj` and
+`audio_to_fusion`. VideoChat (models/chat.py) likewise: `vision_encoder.*`
 (the InternVideo2 names), `qformer.query_tokens` (a parameter on the module,
 as it is), `qformer.vision_in`, `qformer.bert.layer.{i}.*` (a fusion-only
 BERT: no embeddings, no MLM head, cross-attention from layer 0), `llm_proj`
@@ -57,6 +66,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from internvideo_tpu_torch.models.beats import BEATsConfig
 
 _BLOCK = re.compile(r"^(?:blocks|layers|layer)_(\d+)$")
 # flax module names with an index -> torch ModuleList / Sequential entries
@@ -82,15 +93,20 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
     InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig,
     VisionTowerConfig or BertConfig with `num_layers`, an MLLMConfig, a
-    VideoCLIPConfig or a VideoChatConfig) the `blocks_{i}` / `layers_{i}` /
-    `layer_{i}` of each tower must be exactly range(depth)."""
+    VideoCLIPConfig, a VideoCLIPAVConfig or a VideoChatConfig) the
+    `blocks_{i}` / `layers_{i}` / `layer_{i}` of each tower must be exactly
+    range(depth)."""
     if "params" in params:
         params = params["params"]
     if cfg is not None:
-        if hasattr(cfg, "embed_dim") and hasattr(cfg, "text"):  # VideoCLIPConfig
+        if hasattr(cfg, "embed_dim") and hasattr(cfg, "text"):  # VideoCLIP(AV)Config
             vision = params["vision_encoder"]
             _check_depth(vision["encoder"] if "encoder" in vision else vision, cfg.vision.depth)
             _check_depth(params["text_encoder"], cfg.text.num_layers)
+            if hasattr(cfg, "audio_tower"):  # VideoCLIPAVConfig
+                _check_depth(params["audio_encoder"], cfg.audio.depth
+                             if cfg.audio_tower == "simple" else
+                             (cfg.beats or BEATsConfig()).encoder_layers)
         elif hasattr(cfg, "qformer"):  # VideoChatConfig
             _check_depth(params["vision_encoder"], cfg.vision.depth)
             _check_depth(params["qformer"]["bert"], cfg.qformer.bert.num_layers)
@@ -113,7 +129,10 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
                 continue
             t = _to_tensor(child)
             if name == "kernel":
-                sd[f"{prefix}weight"] = t.t().contiguous()
+                # Dense (in, out); Conv (*kernel, in / groups, out) -> (out, in / groups, *kernel)
+                perm = (1, 0) if t.dim() == 2 else (t.dim() - 1, t.dim() - 2,
+                                                    *range(t.dim() - 2))
+                sd[f"{prefix}weight"] = t.permute(perm).contiguous()
             elif int8 and name == "kernel_q":
                 sd[f"{prefix}weight_q"] = t.t().contiguous()
             elif int8 and name == "scale":

@@ -13,6 +13,10 @@ Port of internvideo_tpu/train/engines/clip.py (`make_clip_train_step`):
     keep draw (data/masking.py), the masked student and 2 - 2 cos against
     the teacher's tokens at CLS + keep + 1 and its pooled output.
 
+`make_av_clip_train_step` / `av_clip_loss` (JAX :318-401) train the
+audio-visual VideoCLIPAV as one media type a step ("video", "audio",
+"audio_video"): the same VTC + VTM + MLM on the media's tokens.
+
 `clip_loss` is one micro-batch's loss. Every random draw can be passed in
 (the parity tests pass the JAX draws); the rest come from `generator`, in
 this order: the keep indices (UTA only), the model's forward (tower
@@ -30,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from internvideo_tpu_torch.models.videoclip_av import MEDIA_TYPES
 from internvideo_tpu_torch.train.engines.pretrain import _align_loss, draw_keep_indices
 from internvideo_tpu_torch.train.step import make_accum_step
 
@@ -228,6 +233,25 @@ def clip_loss(model, cfg: CLIPLossConfig, batch: dict, *, keep=None, vis_neg=Non
         losses["loss_uta"] = (loss_mid * cfg.clip_loss_ratio[0]
                               + loss_fin * cfg.clip_loss_ratio[1])
 
+    losses.update(_text_media_losses(model, cfg, out, ids, mask, idx, vis_neg=vis_neg,
+                                     txt_neg=txt_neg, corrupted=corrupted,
+                                     mlm_labels=mlm_labels, generator=generator,
+                                     deterministic=deterministic))
+    return _total(cfg, losses), losses
+
+
+def _total(cfg: CLIPLossConfig, losses: dict):
+    """The weighted sum of the loss terms present."""
+    return (cfg.uta * losses.get("loss_uta", 0.0) + cfg.vtc * losses.get("loss_vtc", 0.0)
+            + cfg.vtm * losses.get("loss_vtm", 0.0) + cfg.mlm * losses.get("loss_mlm", 0.0))
+
+
+def _text_media_losses(model, cfg: CLIPLossConfig, out, ids, mask, idx, *, vis_neg, txt_neg,
+                       corrupted, mlm_labels, generator, deterministic: bool) -> dict:
+    """VTC, VTM and MLM (each when its weight is set) of a model's output
+    `out` (a VideoCLIPOutput: media tokens as `vision_embeds`, their
+    projection as `vision_proj`); draws not passed come from `generator`."""
+    losses = {}
     if cfg.vtc:
         losses["loss_vtc"] = vtc_loss(out.vision_proj, out.text_proj, idx, out.temp)
 
@@ -254,10 +278,7 @@ def clip_loss(model, cfg: CLIPLossConfig, batch: dict, *, keep=None, vis_neg=Non
         mlm_out = model.text_multimodal(corrupted, mask, out.vision_embeds,
                                         deterministic=deterministic, generator=generator)
         losses["loss_mlm"] = mlm_loss_from_logits(mlm_out.mlm_logits, mlm_labels)
-
-    total = (cfg.uta * losses.get("loss_uta", 0.0) + cfg.vtc * losses.get("loss_vtc", 0.0)
-             + cfg.vtm * losses.get("loss_vtm", 0.0) + cfg.mlm * losses.get("loss_mlm", 0.0))
-    return total, losses
+    return losses
 
 
 def make_clip_train_step(cfg: CLIPLossConfig, teacher=None, *, grad_accum: int = 1):
@@ -271,5 +292,44 @@ def make_clip_train_step(cfg: CLIPLossConfig, teacher=None, *, grad_accum: int =
     def loss_fn(model, batch, seed: int):
         gen = torch.Generator(device=batch["video"].device).manual_seed(seed)
         return clip_loss(model, cfg, batch, generator=gen, teacher=teacher)
+
+    return make_accum_step(loss_fn, grad_accum=grad_accum)
+
+
+def av_clip_loss(model, cfg: CLIPLossConfig, media_type: str, batch: dict, *, vis_neg=None,
+                 txt_neg=None, corrupted=None, mlm_labels=None,
+                 generator: Optional[torch.Generator] = None, deterministic: bool = False):
+    """(loss, aux) of one micro-batch for a VideoCLIPAV `model` trained as
+    `media_type` ("video", "audio" or "audio_video"): the media's tokens
+    and projection in place of the tower's, then VTC + VTM + MLM as in
+    `clip_loss` (`uta` does not apply). batch: {"input_ids",
+    "attention_mask", optional "idx", and "video" and / or "audio" as the
+    media type needs}; other keys (the audio padding mask) are ignored, as
+    in JAX. Draws not passed come from `generator` in this order: the
+    model's forward (tower DropPath, text dropout), the VTM negatives, the
+    VTM fusion dropout, the MLM corruption, the MLM pass's dropout."""
+    _check(dataclasses.replace(cfg, uta=0.0), None)
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    out = model(ids, mask, video=batch.get("video"), audio=batch.get("audio"),
+                media_type=media_type, deterministic=deterministic, generator=generator)
+    losses = _text_media_losses(model, cfg, out, ids, mask, batch.get("idx"), vis_neg=vis_neg,
+                                txt_neg=txt_neg, corrupted=corrupted, mlm_labels=mlm_labels,
+                                generator=generator, deterministic=deterministic)
+    return _total(cfg, losses), losses
+
+
+def make_av_clip_train_step(cfg: CLIPLossConfig, media_type: str = "audio_video", *,
+                            grad_accum: int = 1):
+    """step(state, batch) -> metrics for a VideoCLIPAV model and ONE media
+    type, as JAX's `make_av_clip_train_step` (one step per media type; a
+    MetaLoader schedule picks which to call). Each micro-batch draws from a
+    generator on the batch's device seeded by the train state."""
+    _check(dataclasses.replace(cfg, uta=0.0), None)
+    if media_type not in MEDIA_TYPES:
+        raise ValueError(f"unknown media_type {media_type!r}; one of {MEDIA_TYPES}")
+
+    def loss_fn(model, batch, seed: int):
+        gen = torch.Generator(device=batch["input_ids"].device).manual_seed(seed)
+        return av_clip_loss(model, cfg, media_type, batch, generator=gen)
 
     return make_accum_step(loss_fn, grad_accum=grad_accum)

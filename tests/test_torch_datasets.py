@@ -8,9 +8,10 @@ and eval transforms, with and without its token cache, the cache file
 reused), VideoQADataset's items in both modes, `answers_with_weights` and
 WeightedConcatDataset give identical arrays (max-abs 0 on floats made by
 the same numpy ops) and tokens; the corpus registry holds the same specs
-and compositions and resolves paths alike; the audio rows raise naming
-ROADMAP item 10. The real-file eval configs mirror the JAX ones and give
-the JAX eval CLI's metrics when both CLIs hold the JAX init weights.
+and compositions and resolves paths alike; an audio row gives JAX's
+batch, and one that must demux without a backend JAX's RuntimeError. The
+real-file eval configs mirror the JAX ones and give the JAX eval CLI's
+metrics when both CLIs hold the JAX init weights.
 """
 
 import contextlib
@@ -114,14 +115,31 @@ def test_jsonl_dataset_matches_jax(clips, tmp_path, cached):
                                       ToyTokenizer()(CAPTIONS, max_length=8)["input_ids"][[0, 5]])
 
 
-def test_jsonl_audio_rows_raise_item_10(clips, tmp_path):
+def test_jsonl_audio_rows_raise_item_10(clips, tmp_path, monkeypatch):
+    """Audio rows load as JAX's do (data/audio.py): a row that must demux its
+    video's audio raises JAX's RuntimeError when neither PyAV nor ffmpeg is
+    there (both hidden here), and a wav row gives JAX's batch."""
+    from scipy.io import wavfile
+
     _, paths = clips
     anno = tmp_path / "av.jsonl"
     anno.write_text(json.dumps({"video": paths[0], "caption": "a"}) + "\n")
-    ds = tds.JsonlVideoTextDataset(str(anno), ToyTokenizer(), media_type="audio_video",
-                                   read_audio_from_video=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        next(ds.batches(1))
+    monkeypatch.setitem(sys.modules, "av", None)
+    monkeypatch.setattr("shutil.which", lambda name: None)
+    for mod, tok in ((tds, ToyTokenizer), (jds, JToyTokenizer)):
+        ds = mod.JsonlVideoTextDataset(str(anno), tok(), media_type="audio_video",
+                                       read_audio_from_video=True)
+        with pytest.raises(RuntimeError, match="PyAV.*ffmpeg"):
+            next(ds.batches(1))
+    wav = str(tmp_path / "a.wav")
+    t = np.arange(24_000) / 16_000
+    wavfile.write(wav, 16_000, (0.5 * np.sin(2 * np.pi * 440 * t) * 32767).astype(np.int16))
+    anno.write_text(json.dumps({"video": paths[0], "audio": wav, "caption": "a tone"}) + "\n")
+    kw = dict(num_frames=3, img_size=24, max_length=8, media_type="audio_video")
+    got = next(tds.JsonlVideoTextDataset(str(anno), ToyTokenizer(), **kw).batches(1))
+    want = next(jds.JsonlVideoTextDataset(str(anno), JToyTokenizer(), **kw).batches(1))
+    _equal_batches(got, want)
+    assert got["audio"].shape == (1, 998, 64) and int((~got["audio_padding_mask"]).sum()) == 148
     with pytest.raises(ValueError, match="unknown media_type"):
         tds.JsonlVideoTextDataset(str(anno), ToyTokenizer(), media_type="smell")
 

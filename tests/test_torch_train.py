@@ -386,14 +386,15 @@ def test_cli_train_on_cpu(tmp_path):
     assert json.loads(json.dumps(lines[0].split("config: ", 1)[1].replace("'", '"')
                                  .replace("None", "null").replace("True", "true")
                                  .replace("False", "false")))
-    # task distill is ported: its tiny config trains on the CPU; clip_av is not
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        assert cli.main(["--config", TINY.replace("finetune_tiny", "distill_tiny"), "--device",
-                         "cpu", "trainer.total_steps=2", "trainer.log_every=1"]) == 0
-    assert len([ln for ln in buf.getvalue().splitlines() if ln.startswith("step:")]) == 2
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--config", TINY, "--device", "cpu", "task=clip_av"])
+    # tasks distill and clip_av are ported: their tiny configs train on the CPU
+    for name in ("distill_tiny", "clip_av_tiny"):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert cli.main(["--config", TINY.replace("finetune_tiny", name), "--device",
+                             "cpu", "trainer.total_steps=2", "trainer.log_every=1"]) == 0
+        assert len([ln for ln in buf.getvalue().splitlines() if ln.startswith("step:")]) == 2
+    with pytest.raises(SystemExit, match="unknown task"):
+        cli.main(["--config", TINY, "--device", "cpu", "task=smell"])
 
 
 @pytest.mark.parametrize("name", ["finetune_k400_1b", "finetune_tiny"])
