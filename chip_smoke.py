@@ -463,6 +463,39 @@ non-zero and prints no result):
  65. the simple audio tower at its default width (768 x 12 blocks of 12
      heads on a 1024 x 128 fbank) in place of BEATs: one audio step at B 64,
      12 + 10 each of K2 / K4b dq / dk/dv, its ms and peak memory.
+ 66. K5 + K8 non-causal with window 10 and segment ids (0 valid, -2 pads)
+     at ActionFormer's six level shapes (2, S, 4, 128), S = 2304 ... 72,
+     batch row 1 valid for 1,700 frames (halved, rounded up, a level): the
+     forward (out + LSE) and dq / dk / dv vs their plain versions, fp32
+     (max-abs 2e-5 forward, 5e-4 grads, the JAX bars) and bf16 (rel-L2
+     1e-2, LSE max-abs 1e-2), every launch counted under
+     flash_fwd_causal_window / flash_bwd_causal_{dq,dkv}_window; then the
+     fp32 kernels' times at each shape (CUDA graph replay) beside the plain
+     version, the bound from the in-window same-segment pairs and SDPA with
+     the band-and-segment mask;
+ 67. ActionFormer at configs/torch/actionformer_thumos.py (THUMOS14 I3D:
+     2048 -> 512, 2 stem + 5 level blocks, head dim 128, window 10) in
+     fp32, B 2 x 2304 with a padded row: kernel route vs plain route on the
+     forward's logits / offsets / masks, the loss and every parameter's
+     grad, each within 5e-4 max-abs over max(1, the plain route's max-abs)
+     or no farther from an fp64 copy (plain route) than 1.25 x the plain
+     route is; 7 window forwards a forward, 7 + 7 + 7 a train step;
+ 68. the ActionFormer main path: AdamW (the recipe's 1e-4, weight decay
+     0.05) for 3 steps at B 2 x 2304, then B 1 inference on a padded video,
+     `decode_detections`, `nms_proposals` through the C++ library built
+     into build/ and `detection_map`; launches reset just before and read
+     just after must be 7 x 4 window forwards and 7 x 3 each of dq / dk/dv;
+     every loss finite; then the step's ms (CUDA events), videos/s, peak
+     memory and idle share (torch.profiler), and inference ms;
+ 69. the STAL head at configs/torch/stal_ava.py (`STALConfig()`, 80 AVA
+     classes, 7 x 7 ROIs at stride 16) on B 8 clips of 8 x 16 x 16 x 2304
+     features with up to 16 padded person boxes: 3 Adam steps on
+     `stal_loss` with `random_box_aug`, inference and `frame_map`;
+     `roi_align_3d`'s forward and forward + backward ms at that volume, the
+     step's ms and peak memory; every loss finite;
+ 70. the eval CLI's temporal_detection, openset and spatiotemporal tasks on
+     their tiny configs with `--device cuda`; each result dict equals the
+     same task on the CPU (floats to 1e-6).
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -619,6 +652,17 @@ AV_CROSS_SHAPES = {"av_mlm": (64, 32, 1277, 16, 64), "av_vtm": (192, 32, 1277, 1
 AV_SIMPLE_SHAPE = (64, 512, 12, 64)
 AV_REAL_WAVS = 8
 AV_REAL_CLIP = (16, 240, 320, 3)
+# Action localization (phases 66-70): ActionFormer at THUMOS14 I3D width
+# (its attention at (B, S, 4, 128) on each of six pyramid levels, window 10,
+# the padded row's valid frames at level 0) and the STAL head at AVA width
+CONFIG_ACTIONFORMER = "configs/torch/actionformer_thumos.py"
+AF_STEPS = 3
+AF_VALID = 1700
+AF_LEVELS = (2304, 1152, 576, 288, 144, 72)
+AF_ROUTE_TOL = 5e-4
+CONFIG_STAL = "configs/torch/stal_ava.py"
+STAL_STEPS = 3
+PEAK_F32_FLOPS = 67e12  # fp32 outside the tensor cores (the fp32 kernels' CUDA-core math)
 # K11's bf16 edges beside its two path shapes: the top of its S range, and
 # head dim 64 at the eval's S
 K11_EDGE_SHAPES = ((2, 8192, 16, 88), (4, 4097, 16, 64))
@@ -6865,6 +6909,480 @@ def run_simple_tower_step(fa, pd, ig, rms, run, card) -> dict:
             "launches_per_step": per_step, "first_step": first}
 
 
+# -- Action localization: ActionFormer, STAL and the eval CLI's last tasks: phases 66-70 ----
+
+WINDOW_KERNELS = ("flash_fwd_causal_window", "flash_bwd_causal_dq_window",
+                  "flash_bwd_causal_dkv_window")
+LOCALIZATION_TASKS = ("temporal_detection", "openset", "spatiotemporal")
+
+
+def _af_config():
+    """(ActionFormerConfig, TRAIN) of CONFIG_ACTIONFORMER."""
+    import runpy
+
+    mod = runpy.run_path(CONFIG_ACTIONFORMER)
+    return mod["config"], mod["TRAIN"]
+
+
+def _af_valid(s: int) -> int:
+    """The padded row's valid frames at a level of S rows: AF_VALID at level
+    0, halved and rounded up a level (the model's mask[:, ::2])."""
+    n, t = AF_VALID, AF_LEVELS[0]
+    while t > s:
+        n, t = -(-n // 2), t // 2
+    return n
+
+
+def _af_segments(s: int, b: int = 2) -> torch.Tensor:
+    """(B, S) int32 segment ids of ActionFormer's attention at a level of S
+    rows: 0 on valid frames, -2 on pads; batch row 1 is the padded video."""
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg[1, _af_valid(s):] = -2
+    return seg
+
+
+def _af_pairs(seg: torch.Tensor, window: int) -> int:
+    """(query, key) pairs with |i - j| < window and equal segment ids,
+    summed over the batch rows (one head)."""
+    idx = torch.arange(seg.shape[1], device=seg.device)
+    band = (idx[:, None] - idx[None]).abs() < window
+    return sum(int(((row[:, None] == row[None]) & band).sum()) for row in seg)
+
+
+def _window_counts(fa) -> dict:
+    return {n: fa.launch_count(n) for n in WINDOW_KERNELS}
+
+
+def check_actionformer_kernels(fa) -> dict:
+    """Phase 66 (checks): K5 + K8 non-causal with ActionFormer's window and
+    segment ids at its six level shapes, forward and backward, fp32 and
+    bf16, vs the plain versions; returns {counter: {S: fp32 max-abs}}."""
+    cfg, _ = _af_config()
+    h, d, w = cfg.num_heads, cfg.embed_dim // cfg.num_heads, cfg.window
+    g = torch.Generator("cuda").manual_seed(66)
+    errs = {n: {} for n in WINDOW_KERNELS}
+    for s in AF_LEVELS:
+        seg = _af_segments(s)
+        kw = dict(window=w, q_segment_ids=seg, kv_segment_ids=seg)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(2, s, h, d, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            before = _window_counts(fa)
+            with torch.no_grad():
+                out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+            got, want, _ = _bwd_kernel_vs_plain(fa, q, k, v, do, None, kw)
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in _window_counts(fa).items()}
+            if launched != dict.fromkeys(WINDOW_KERNELS, 1):
+                raise AssertionError(f"ActionFormer window call at S {s} launched {launched}")
+            ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, False, 0, seg, seg,
+                                                           w)
+            e_lse = _lse_err(lse, ref_lse)
+            tag = f"K5 + K8 window {w} non-causal {(2, s, h, d)} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                e = [(out - ref).abs().max().item()] + [(a - b).abs().max().item()
+                                                         for a, b in zip(got, want)]
+                print(f"{tag}: out max-abs {e[0]:.3e}, lse {e_lse:.3e} (bar 2e-5); dq / dk / dv "
+                      f"max-abs {e[1]:.3e} / {e[2]:.3e} / {e[3]:.3e} (bar 5e-4)", flush=True)
+                if not (e[0] <= 2e-5 and e_lse <= 2e-5 and max(e[1:]) <= 5e-4):
+                    raise AssertionError(f"{tag} disagrees with its plain version")
+                errs[WINDOW_KERNELS[0]][s] = max(e[0], e_lse)
+                errs[WINDOW_KERNELS[1]][s] = e[1]
+                errs[WINDOW_KERNELS[2]][s] = max(e[2:])
+            else:
+                r = [_rel(out, ref)] + [_rel(a, b) for a, b in zip(got, want)]
+                print(f"{tag}: out rel-L2 {r[0]:.3e}, lse max-abs {e_lse:.3e}; dq / dk / dv "
+                      f"rel-L2 {r[1]:.3e} / {r[2]:.3e} / {r[3]:.3e} (bars 1e-2)", flush=True)
+                if not (max(r) <= 1e-2 and e_lse <= 1e-2):
+                    raise AssertionError(f"{tag} disagrees with its plain version")
+            del q, k, v, do, out, lse, got, want, ref, ref_lse
+    return errs
+
+
+def _sdpa_masked_ms(q, k, v, do, mask) -> tuple:
+    """PyTorch SDPA on the same (B, S, H, D) inputs with the boolean
+    (B, 1, S, S) mask, as a yardstick only: (forward ms, forward + backward
+    - forward ms, note)."""
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    note = "SDPA with the band-and-segment boolean mask"
+    try:
+        with torch.no_grad():
+            f_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                            iters=10, warmup=2)
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        fb_ms = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, attn_mask=mask), leaves, dot),
+            iters=10, warmup=2)
+        return f_ms, fb_ms - f_ms, note
+    except RuntimeError as e:  # no backend takes it: no yardstick
+        return None, None, f"{note}: refused ({str(e).splitlines()[0][:100]})"
+
+
+def time_actionformer_kernels(fa, card) -> dict:
+    """Phase 66 (times): the fp32 window kernels (the path's dtype) at each
+    level shape, by CUDA graph replay (the device alone) and CUDA events
+    (the wrapper's rate), beside the plain versions, the bound (the
+    in-window same-segment pairs' fp32 operations at 67 TFLOP/s, or q, k,
+    v, dO read and the outputs written once at 3.35 TB/s) and SDPA with
+    the same mask; returns {counter: {S: record}}."""
+    cfg, _ = _af_config()
+    h, d, w = cfg.num_heads, cfg.embed_dim // cfg.num_heads, cfg.window
+    g = torch.Generator("cuda").manual_seed(660)
+    scale, res = d ** -0.5, {n: {} for n in WINDOW_KERNELS}
+    for s in AF_LEVELS:
+        seg = _af_segments(s)
+        q, k, v, do = (torch.randn(2, s, h, d, device="cuda", generator=g) for _ in range(4))
+        pairs = h * _af_pairs(seg, w)
+        (seg_q, seg_k), seg_ptrs = fa._seg_ptrs(seg, seg)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        fwd = lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, False, 0, seg, seg, w)  # noqa: E731
+        with torch.no_grad():
+            out, lse = fwd()
+            delta = fa._bwd_delta(out, do)
+            plain_fwd = _time_ms(lambda: fa.flash_attention_ref_with_lse(
+                q, k, v, scale, False, 0, seg, seg, w), iters=2)
+            plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, scale, q_segment_ids=seg, kv_segment_ids=seg, window=w),
+                iters=2)
+        bwd = {kind: (lambda kind=kind: fa._launch_bwd_causal(
+            kind, q, k, v, do, lse, delta, seg_ptrs, grads, scale, False, 0, w))
+            for kind in ("dq", "dkv")}
+        idx = torch.arange(s, device="cuda")
+        band = (idx[:, None] - idx[None]).abs() < w
+        mask = ((seg[:, :, None] == seg[:, None, :]) & band)[:, None]
+        lib_fwd, lib_bwd, lib_note = _sdpa_masked_ms(q, k, v, do, mask)
+        x = 2 * s * h * d * 4  # one (B, S, H, D) fp32 tensor
+        rows = 2 * h * s * 4  # one (B, H, S) fp32 row vector
+        seg_bytes = 2 * 2 * s * 4
+        for name, fn, flops, nbytes, plain, lib in (
+                (WINDOW_KERNELS[0], fwd, 4, 4 * x + rows + seg_bytes, plain_fwd, lib_fwd),
+                (WINDOW_KERNELS[1], bwd["dq"], 6, 5 * x + 2 * rows + seg_bytes, plain_bwd,
+                 lib_bwd),
+                (WINDOW_KERNELS[2], bwd["dkv"], 8, 6 * x + 2 * rows + seg_bytes, plain_bwd,
+                 lib_bwd)):
+            t_ops, t_bytes = flops * pairs * d / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+            ms, event_ms = _graph_ms(fn), _time_ms(fn, iters=20, warmup=3)
+            res[name][s] = dict(shape=[2, s, h, d], dtype="float32", window=w, pairs=pairs,
+                                ms=ms, event_ms=event_ms, plain_ms=plain, bound=bound,
+                                library_ms=lib, library_note=lib_note)
+            print(f"[{card}] {name} ActionFormer {(2, s, h, d)} fp32 window {w}, {pairs} pairs: "
+                  f"{ms:.4f} ms graph ({event_ms:.4f} events), bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), plain {plain:.3f} ms"
+                  + (" (the plain backward: dq, dk, dv)" if name != WINDOW_KERNELS[0] else "")
+                  + ", yardstick " + (f"{lib:.4f} ms ({lib_note})" if lib is not None
+                                      else lib_note), flush=True)
+        del q, k, v, do, out, lse, delta, grads, mask, seg_q, seg_k
+    return res
+
+
+def _af_batch(cfg, b: int, seed: int, valid=None) -> dict:
+    """A THUMOS-sized batch on the card: (B, max_seq_len, in_dim) N(0, 1)
+    features in which each event paints its class (channel c gets +2 over
+    the event's frames); 8 events a video of 4-192 frames (1-48 s at the
+    I3D features' stride of 4 frames at 16 fps) inside its valid frames;
+    `valid` (a B-list, default: row 1 of 2 padded to AF_VALID) frames."""
+    t = cfg.max_seq_len
+    valid = valid or [t, AF_VALID][:b]
+    rng = np.random.default_rng(seed)
+    g = torch.Generator("cuda").manual_seed(seed)
+    feats = torch.randn(b, t, cfg.in_dim, device="cuda", generator=g)
+    n = 8
+    segs = np.zeros((b, n, 2), np.float32)
+    labels = rng.integers(0, cfg.num_classes, (b, n))
+    for i in range(b):
+        for j in range(n):
+            length = int(rng.integers(4, min(193, valid[i] // 2)))
+            start = int(rng.integers(0, valid[i] - length))
+            segs[i, j] = (start, start + length)
+            feats[i, start:start + length, labels[i, j]] += 2.0
+    mask = torch.arange(t, device="cuda")[None] < torch.tensor(valid, device="cuda")[:, None]
+    return {"feats": feats, "mask": mask, "segments": torch.from_numpy(segs).cuda(),
+            "labels": torch.from_numpy(labels).cuda(),
+            "event_mask": torch.ones(b, n, dtype=torch.bool, device="cuda")}
+
+
+def _af_model(cfg, seed: int):
+    from internvideo_tpu_torch.models.actionformer import ActionFormer, generate_points
+
+    model = ActionFormer(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
+    return model, torch.from_numpy(generate_points(cfg)).cuda()
+
+
+def af_want(cfg, steps: int, forwards: int) -> dict:
+    """Window launches of `steps` train steps and `forwards` more forwards:
+    one a block (num_blocks stem + num_levels - 1 level blocks), forward,
+    dq and dk/dv."""
+    blocks = cfg.num_blocks + cfg.num_levels - 1
+    return {WINDOW_KERNELS[0]: blocks * (steps + forwards), WINDOW_KERNELS[1]: blocks * steps,
+            WINDOW_KERNELS[2]: blocks * steps}
+
+
+def check_actionformer_routes(fa) -> dict:
+    """Phase 67: kernel route vs plain route on the THUMOS-width model, fp32,
+    B 2 with a padded row, and an fp64 copy on the plain route as the
+    anchor. Each output, the loss and every grad passes if its max-abs
+    kernel-vs-plain distance over max(1, the plain route's max-abs) is <=
+    AF_ROUTE_TOL, or if the kernel route is no farther from the anchor than
+    1.25 x the plain route is (max-abs): at the seeded init the loss is ~600
+    and the embedding conv's grad, a sum over 4,608 frames that cancels to
+    ~2, carries fp32 rounding of ~1e-3. The kernel route's launches against
+    `af_want`."""
+    from internvideo_tpu_torch.models.actionformer import ActionFormer, actionformer_loss
+
+    cfg, _ = _af_config()
+    model, points = _af_model(cfg, 67)
+    anchor = ActionFormer(dataclasses.replace(cfg, dtype="float64"), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(67))
+    anchor.load_state_dict(model.state_dict())
+    _set_route(anchor, "plain")
+    batch = _af_batch(cfg, 2, 670)
+    res = {}
+    for impl, m in (("auto", model), ("plain", model), ("fp64", anchor)):
+        if impl != "fp64":
+            _set_route(m, impl)
+        m.zero_grad(set_to_none=True)
+        before = _window_counts(fa)
+        out = m(batch["feats"], batch["mask"])
+        torch.cuda.synchronize()
+        fwd = {n: c - before[n] for n, c in _window_counts(fa).items()}
+        loss, _ = actionformer_loss(out, points, batch, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        step = {n: c - before[n] for n, c in _window_counts(fa).items()}
+        res[impl] = {"logits": out[0].detach(), "offsets": out[1].detach(), "mask": out[2],
+                     "loss": loss.detach(),
+                     **{n: p.grad.detach().clone() for n, p in m.named_parameters()}}
+        want = (af_want(cfg, 0, 1), af_want(cfg, 1, 0)) if impl == "auto" else (
+            dict.fromkeys(WINDOW_KERNELS, 0),) * 2
+        print(f"ActionFormer {impl} route: forward launches {fwd}, train step {step}", flush=True)
+        if (fwd, step) != want:
+            raise AssertionError(f"the {impl} route launched {fwd} / {step}; predicted {want}")
+    k, p, a = res["auto"], res["plain"], res["fp64"]
+    masks = [r.pop("mask") for r in (k, p, a)]
+    if not (torch.equal(masks[0], masks[1]) and torch.equal(masks[1], masks[2])):
+        raise AssertionError("the routes' point masks differ")
+    rows, failed = {}, []
+    for name in p:
+        kp = (k[name] - p[name]).abs().max().item() / max(1.0, p[name].abs().max().item())
+        ka = (k[name].double() - a[name].double()).abs().max().item()
+        pa = (p[name].double() - a[name].double()).abs().max().item()
+        rows[name] = (kp, ka, pa)
+        if not (kp <= AF_ROUTE_TOL or ka <= 1.25 * pa):
+            failed.append(name)
+    worst = max(rows, key=lambda n: rows[n][0])
+    held = [n for n in rows if rows[n][0] > AF_ROUTE_TOL]
+    summary = {"max_rel_kernel_vs_plain": rows[worst][0], "worst": worst,
+               "held_by_anchor": {n: {"kernel_to_fp64": rows[n][1], "plain_to_fp64": rows[n][2]}
+                                  for n in held},
+               **{n: rows[n][0] for n in ("logits", "offsets", "loss")}}
+    print(f"ActionFormer THUMOS fp32 B 2 x {cfg.max_seq_len}, kernel vs plain route (max-abs over "
+          f"max(1, the plain route's max-abs); bar {AF_ROUTE_TOL}, else within 1.25 x the plain "
+          f"route's distance from the fp64 anchor): {json.dumps(summary)}; loss "
+          f"{p['loss'].item():.6f}, fp64 {a['loss'].item():.6f}", flush=True)
+    if failed or not all(math.isfinite(r[0]) for r in rows.values()):
+        raise AssertionError(f"ActionFormer's kernel route disagrees with its plain route on "
+                             f"{failed}: {[rows[n] for n in failed]}")
+    return summary
+
+
+def run_actionformer_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 68: the ActionFormer main path (train steps, padded inference,
+    decode, C++ NMS, mAP), counted; then its times."""
+    from internvideo_tpu_torch.eval.temporal_detection import detection_map, nms_proposals
+    from internvideo_tpu_torch.models.actionformer import actionformer_loss, decode_detections
+    from internvideo_tpu_torch.ops import native
+
+    cfg, train = _af_config()
+    b = train["batch_size"]
+    native_before = sorted(os.listdir(native.NATIVE_DIR))
+    model, points = _af_model(cfg, 68)
+    opt = torch.optim.AdamW(model.parameters(), lr=train["lr"],
+                            weight_decay=train["weight_decay"])
+    batches = [_af_batch(cfg, b, 680 + i) for i in range(AF_STEPS)]
+    test = _af_batch(cfg, 1, 689, valid=[AF_VALID])
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = actionformer_loss(model(batch["feats"], batch["mask"]), points, batch, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach(), aux
+
+    def infer():
+        with torch.no_grad():
+            return model(test["feats"], test["mask"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    losses = [step(batch)[0] for batch in batches]
+    logits, offsets, pmask = infer()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    valid = pmask[0].cpu().numpy()
+    dets = decode_detections(logits[0][pmask[0]], offsets[0][pmask[0]],
+                             points.cpu().numpy()[valid], score_threshold=0.05)
+    segs = np.concatenate([d[:, :2] for d in dets.values()])
+    labels = np.concatenate([np.full(len(d), c, np.int32) for c, d in dets.items()])
+    kept = nms_proposals(segs, np.concatenate([d[:, 2] for d in dets.values()]), labels,
+                         iou_threshold=0.5)
+    gt = {"video": (test["segments"][0].cpu().numpy(), test["labels"][0].cpu().numpy())}
+    result = detection_map({"video": kept}, gt, num_classes=cfg.num_classes)
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    want = af_want(cfg, AF_STEPS, 1)
+    lib = native.build()
+    print(f"main path (ActionFormer THUMOS, {AF_STEPS} steps at B {b} x {cfg.max_seq_len} + B 1 "
+          f"inference on {AF_VALID} frames, decode, C++ NMS, mAP): launches {counts}, expected "
+          f"{want}; losses {losses}; {len(segs)} proposals -> {len(kept[0])} after NMS; "
+          f"{json.dumps(result)}; {wall:.1f} s wall; native library {lib}", flush=True)
+    if counts != want:
+        raise AssertionError(f"the ActionFormer path launched {counts}; predicted {want}")
+    if not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"non-finite ActionFormer losses {losses} or mAP {result}")
+    if lib.parent != native.BUILD_DIR or sorted(os.listdir(native.NATIVE_DIR)) != native_before:
+        raise AssertionError(f"the native build wrote outside build/: {lib}, "
+                             f"{sorted(os.listdir(native.NATIVE_DIR))}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _time_ms(lambda: step(batches[0]), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    infer_ms = _time_ms(infer, iters=5, warmup=1)
+    prof = profile_step(lambda: step(batches[0]), card, "ActionFormer train step")
+    idle = None if prof["busy_ms"] is None else max(0.0, 1 - prof["busy_ms"] / prof["wall_ms"])
+    print(f"[{card}] ActionFormer THUMOS fp32 train step B {b} x {cfg.max_seq_len}: "
+          f"{step_ms:.1f} ms = {b * 1e3 / step_ms:.2f} videos/s; peak device memory {peak:.2f} "
+          f"GB; B 1 inference {infer_ms:.1f} ms", flush=True)
+    return {"launches": counts, "losses": losses, "map": result, "step_ms": step_ms,
+            "videos_per_s": b * 1e3 / step_ms, "peak_gb": peak, "infer_ms": infer_ms,
+            "idle_share": idle, "groups_ms": prof["groups"], "path_wall_s": wall}
+
+
+def run_stal_path(fa, pd, ig, rms, card) -> dict:
+    """Phase 69: the STAL head at CONFIG_STAL on its feature volume: Adam
+    steps on stal_loss with random_box_aug, inference, frame_map; the
+    ROIAlign3D and step times and peak memory."""
+    import runpy
+
+    from internvideo_tpu_torch.eval.spatiotemporal import frame_map
+    from internvideo_tpu_torch.models.stal import ROIActionHead, random_box_aug, stal_loss
+    from internvideo_tpu_torch.ops.roi_align3d import roi_align_3d
+
+    mod = runpy.run_path(CONFIG_STAL)
+    cfg, vol = mod["config"], mod["VOLUME"]
+    b, t, grid, crop, nb = vol["batch"], vol["frames"], vol["grid"], vol["crop"], vol["max_boxes"]
+    g = torch.Generator("cuda").manual_seed(69)
+    rng = np.random.default_rng(69)
+    feats = torch.randn(b, t, grid, grid, cfg.in_dim, device="cuda", generator=g)
+    wh = rng.uniform(32, 160, (b, nb, 2))
+    xy = rng.uniform(0, 1, (b, nb, 2)) * (crop - wh)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).cuda()
+    n_valid = [4 + (3 * i) % (nb - 3) for i in range(b)]  # 4-16 people a clip
+    box_mask = torch.arange(nb, device="cuda")[None] < torch.tensor(n_valid, device="cuda")[:, None]
+    labels = np.zeros((b, nb, cfg.num_classes), np.float32)
+    labels[np.arange(b)[:, None], np.arange(nb)[None], rng.integers(0, cfg.num_pose, (b, nb))] = 1
+    labels[..., cfg.num_pose:] = rng.uniform(0, 1, (b, nb, cfg.num_classes - cfg.num_pose)) < 0.05
+    labels_t = torch.from_numpy(labels).cuda()
+    head = ROIActionHead(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(690))
+    opt = torch.optim.Adam(head.parameters(), lr=3e-3)  # tests/test_stal.py's optimizer
+    aug_g = torch.Generator("cuda").manual_seed(691)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        total, parts = stal_loss(head(feats, random_box_aug(boxes, aug_g), box_mask), labels_t,
+                                 box_mask, cfg)
+        total.backward()
+        opt.step()
+        return total.detach(), parts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _all_reset(fa, pd, ig, rms)
+    losses = [float(step()[0]) for _ in range(STAL_STEPS)]
+    with torch.no_grad():
+        logits = head(feats, boxes, box_mask)
+    # alphaction's post-processing: softmax over the pose classes, sigmoid over the rest
+    scores = torch.cat([logits[..., :cfg.num_pose].softmax(-1),
+                        logits[..., cfg.num_pose:].sigmoid()], -1).cpu().numpy()
+    counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+    preds, gt = {}, {}
+    for i in range(b):
+        bx, lab = boxes[i, :n_valid[i]].cpu().numpy(), labels[i, :n_valid[i]]
+        preds[f"clip{i}"] = (bx, scores[i, :n_valid[i]])
+        rows, cls = np.nonzero(lab)
+        gt[f"clip{i}"] = (bx[rows], cls.astype(np.int32))
+    result = frame_map(preds, gt, num_classes=cfg.num_classes)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = time.perf_counter() - t0
+    mean_ap = result[f"frame_mAP@{0.5}"]
+    print(f"STAL AVA path (B {b} x {t} x {grid} x {grid} x {cfg.in_dim}, {sum(n_valid)} boxes, "
+          f"{STAL_STEPS} steps, inference, frame mAP): losses {losses}, frame_mAP@0.5 "
+          f"{mean_ap:.4f} over {len(result['per_class_ap'])} classes; launches {counts}; "
+          f"{wall:.1f} s wall", flush=True)
+    if counts or not all(math.isfinite(x) for x in losses) or not math.isfinite(mean_ap):
+        raise AssertionError(f"STAL path: launches {counts}, losses {losses}, mAP {mean_ap}")
+    rois = torch.cat([torch.arange(b, device="cuda").repeat_interleave(nb)[:, None].float(),
+                      boxes.reshape(-1, 4)], 1)
+    roi = functools.partial(roi_align_3d, output_size=cfg.roi_size,
+                            spatial_scale=cfg.spatial_scale)
+    leaf = feats.detach().requires_grad_()
+    with torch.no_grad():
+        roi_ms = _time_ms(lambda: roi(feats, rois), iters=5, warmup=1)
+    roi_fb_ms = _time_ms(lambda: torch.autograd.grad(roi(leaf, rois).sum(), leaf), iters=5,
+                         warmup=1)
+    step_ms = _time_ms(step, iters=3, warmup=1)
+    out_gb = b * nb * t * cfg.roi_size[0] * cfg.roi_size[1] * cfg.in_dim * 4 / 1e9
+    print(f"[{card}] STAL: roi_align_3d on ({b}, {t}, {grid}, {grid}, {cfg.in_dim}) fp32 x "
+          f"{b * nb} ROIs -> {out_gb:.3f} GB: forward {roi_ms:.3f} ms, forward + backward "
+          f"{roi_fb_ms:.3f} ms; train step {step_ms:.2f} ms; peak device memory {peak:.2f} GB",
+          flush=True)
+    return {"losses": losses, "frame_map": mean_ap, "roi_align_ms": roi_ms,
+            "roi_align_fwd_bwd_ms": roi_fb_ms, "step_ms": step_ms, "peak_gb": peak,
+            "boxes": sum(n_valid), "path_wall_s": wall}
+
+
+def _same_result(got: dict, want: dict, what: str) -> None:
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    for k, v in want.items():
+        if not np.allclose(np.asarray(got[k], np.float64), np.asarray(v, np.float64),
+                           atol=1e-6, rtol=0):
+            raise AssertionError(f"{what}: {k} = {got[k]} on the card, {v} on the CPU")
+
+
+def run_localization_cli(card) -> dict:
+    """Phase 70: the eval CLI's temporal_detection, openset and
+    spatiotemporal tasks on their tiny configs with --device cuda, each
+    result equal to the task's CPU run (floats to 1e-6)."""
+    from internvideo_tpu_torch.cli import eval as cli
+    from internvideo_tpu_torch.core.config import load_config
+
+    res = {}
+    for task in LOCALIZATION_TASKS:
+        path = f"configs/torch/eval_{task}_tiny.py"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--config", path, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+        run = load_config(path)
+        got = cli.TASKS[task](run, torch.device("cuda"))
+        want = cli.TASKS[task](run, torch.device("cpu"))
+        _same_result(got, want, f"task {task}")
+        _same_result({k: v for k, v in printed.items() if k != "task"},
+                     {k: (round(float(v), 4) if hasattr(v, "__float__") else v)
+                      for k, v in want.items()}, f"task {task}'s printed line")
+        if rc != 0 or printed["task"] != task:
+            raise AssertionError(f"cli.eval {path} printed {printed}")
+        print(f"[{card}] cli.eval {path} --device cuda: {json.dumps(printed)} ({wall:.2f} s "
+              f"wall); equal to the CPU run", flush=True)
+        res[task] = {"result": printed, "wall_s": wall}
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -7289,6 +7807,33 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 66. K5 + K8 non-causal with window 10 and pads at -2 at ActionFormer's
+    # six level shapes vs their plain versions; their fp32 times
+    af_err = check_actionformer_kernels(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    af_k = time_actionformer_kernels(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 67. ActionFormer at THUMOS width: kernel route vs plain route
+    af_route = check_actionformer_routes(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 68. the ActionFormer main path (train, infer, decode, C++ NMS, mAP), counting launches
+    af = run_actionformer_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 69. the STAL head at AVA width: train, infer, frame mAP; ROIAlign3D's time
+    stal = run_stal_path(fa, pd, ig, rms, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 70. the eval CLI's temporal_detection / openset / spatiotemporal on the card vs the CPU
+    loc_cli = run_localization_cli(card)
+
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
     io_bytes = 4 * b * s * h * d * 2 + 2 * b * h * s * 4  # q, k, v, dO; lse, delta
@@ -7305,7 +7850,8 @@ def main() -> int:
                  "retrieval": ret_launches, "entry_points": entry_launches,
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
                  "zeroshot": zs_launches, "distill": distill_launches,
-                 "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches}
+                 "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches,
+                 "actionformer": af["launches"]}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -7487,7 +8033,8 @@ def main() -> int:
         "design": "wgmma + TMA, warp-specialised", "earlier_design": K5_EARLIER,
         "window": {"window": GQA_WINDOW, "counter": "flash_fwd_causal_window",
                    "launches_by_path": by_path("flash_fwd_causal_window"),
-                   "note": "no ported preset sets a window; phase 24 holds it, phase 28 times it",
+                   "note": "no LLM preset sets a window; phase 24 holds it, phase 28 times "
+                           "it; ActionFormer runs it non-causal (its own entry)",
                    "max_abs_err": gqa_err["flash_fwd_causal_window"], "ms": gw["ms"],
                    "plain_ms": gw["plain_ms"], "bound_ms": gw["bound"][0],
                    "bound_by": gw["bound"][1], "library_ms": gw["library_ms"],
@@ -7504,8 +8051,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "library_note": r["library_note"],
             "shape": r["shape"],
             "window": {"window": GQA_WINDOW, "counter": win, "launches_by_path": by_path(win),
-                       "note": "no ported preset sets a window; phase 29 holds it, phase 32 "
-                               "times it",
+                       "note": "no LLM preset sets a window; phase 29 holds it, phase 32 "
+                               "times it; ActionFormer runs it non-causal (its own entry)",
                        "max_abs_err": rl_err[win], "ms": w["ms"], "plain_ms": w["plain_ms"],
                        "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
                        "library_ms": w["library_ms"], "library_note": w["library_note"]},
@@ -7657,10 +8204,40 @@ def main() -> int:
     print(f"[{card}] audio-visual steps: " + json.dumps(av_steps), flush=True)
     print(f"[{card}] audio-visual real audio: " + json.dumps(av_real), flush=True)
     print(f"[{card}] audio-visual simple tower: " + json.dumps(av_simple), flush=True)
-    print(f"chip_smoke: phases 1-65 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    af_cfg, _ = _af_config()
+    for name, line, body in ((WINDOW_KERNELS[0], 153, "flash_fwd_causal.cu"),
+                             (WINDOW_KERNELS[1], 468, "flash_bwd_causal_dq.cu"),
+                             (WINDOW_KERNELS[2], 613, "flash_bwd_causal_dkv.cu")):
+        r = af_k[name][AF_LEVELS[0]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + body, "replaces": jax_fa + str(line),
+            "launches": af["launches"].get(name, 0), "launches_by_path": by_path(name),
+            "launches_per_train_step": af_want(af_cfg, 1, 0)[name],
+            "max_abs_err": max(af_err[name].values()), "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "library_note": r["library_note"], "shape": r["shape"], "dtype": "float32",
+            "window": r["window"], "segments": "K8: 0 valid, -2 pads, non-causal",
+            "ms_by": "CUDA graph replay (the device alone)", "event_ms": r["event_ms"],
+            "plain_note": "the plain forward" if name == WINDOW_KERNELS[0]
+                          else "the plain backward (dq, dk, dv together)",
+            "actionformer_levels": {
+                str(s): {"shape": af_k[name][s]["shape"], "pairs": af_k[name][s]["pairs"],
+                         "max_abs_err_fp32": af_err[name][s], "ms": af_k[name][s]["ms"],
+                         "event_ms": af_k[name][s]["event_ms"],
+                         "plain_ms": af_k[name][s]["plain_ms"],
+                         "bound_ms": af_k[name][s]["bound"][0],
+                         "bound_by": af_k[name][s]["bound"][1],
+                         "library_ms": af_k[name][s]["library_ms"]} for s in AF_LEVELS},
+            "design": "wgmma + TMA, warp-specialised (bf16); fp32: the CUDA-core kernel",
+        })
+    print(f"[{card}] ActionFormer: " + json.dumps({"routes_max_abs": af_route, **{
+        k: v for k, v in af.items() if k != "launches"}}), flush=True)
+    print(f"[{card}] STAL: " + json.dumps(stal), flush=True)
+    print(f"[{card}] localization CLI: " + json.dumps(loc_cli), flush=True)
+    print(f"chip_smoke: phases 1-70 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
-        if entry["name"].startswith("flash_bwd_causal_"):
+        if entry["name"].startswith("flash_bwd_causal_") and entry.get("dtype") != "float32":
             entry.update(design="wgmma + TMA, warp-specialised", earlier_design=K5_BWD_EARLIER,
                          ptxas=k5_ptxas["dq" if "_dq" in entry["name"] else "dk/dv"])
     print(json.dumps({"kernels": kernels}))

@@ -3,26 +3,30 @@
     python -m internvideo_tpu_torch.cli.eval \
         --config configs/torch/eval_classification_1b.py --device cuda
 
-Port of internvideo_tpu/cli/eval.py. The config file defines
-`config = EvalRunConfig(...)`; dotlist overrides follow. Ported tasks:
+Port of internvideo_tpu/cli/eval.py, with all ten of its tasks. The config
+file defines `config = EvalRunConfig(...)`; dotlist overrides follow. Tasks:
 
-  classification  encoder multi-view softmax ensemble -> top-1/top-5
-  retrieval       VideoCLIP ITC + the cross-encoder ITM rerank -> R@K /
-                  mdR / meanR (`options.no_rerank` skips the rerank)
-  zeroshot        prompt-ensembled zero-shot action classification
-  mcqa            multiple-choice retrieval accuracy (+ mAP)
-  videoqa         generation-based QA accuracy (eval/videoqa.py scorers)
-  mcq_benchmark   VideoMME / MVBench-class generation MCQ suites
-  grounding       temporal grounding mIoU / R@{0.3,0.5,0.7}
+  classification      encoder multi-view softmax ensemble -> top-1/top-5
+  retrieval           VideoCLIP ITC + the cross-encoder ITM rerank -> R@K /
+                      mdR / meanR (`options.no_rerank` skips the rerank)
+  zeroshot            prompt-ensembled zero-shot action classification
+  mcqa                multiple-choice retrieval accuracy (+ mAP)
+  videoqa             generation-based QA accuracy (eval/videoqa.py scorers)
+  mcq_benchmark       VideoMME / MVBench-class generation MCQ suites
+  grounding           temporal grounding mIoU / R@{0.3,0.5,0.7}
+  temporal_detection  TAL decode + per-class NMS (C++) -> mAP@tIoU
+  openset             OpenMax recalibration (C++ libMR) -> open-set accuracy
+  spatiotemporal      ROIAlign3D on the device + an ROI head -> AVA frame mAP
 
-The JAX CLI's other tasks (temporal_detection, openset, spatiotemporal)
-exit with "not yet ported". The three generation tasks take their generate
-function from `run.data()`, as in JAX; here `data` may also take `model`
-and `device` arguments, which get `run.model` and the CLI's device
+An unknown task exits with an error. The three generation tasks take their
+generate function from `run.data()`, as in JAX; here `data` may also take
+`model` and `device` arguments, which get `run.model` and the CLI's device
 (configs/torch/chat_videoqa_8b.py builds its VideoChat from them).
-`--device` is explicit: `cuda` (the default) with no GPU is an error, not a
-CPU run. `checkpoint=None` means the seeded init; loading a checkpoint is
-not ported yet (ROADMAP queue 1, item 9).
+temporal_detection and openset are host work whatever the device;
+spatiotemporal sends the feature maps and ROIs to the device and hands
+`apply_head` a tensor there. `--device` is explicit: `cuda` (the default)
+with no GPU is an error, not a CPU run. `checkpoint=None` means the seeded
+init; loading a checkpoint is not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -35,14 +39,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
-# The JAX CLI's task names (internvideo_tpu/cli/eval.py:329-340).
-_JAX_TASKS = (
-    "retrieval", "zeroshot", "classification", "mcqa", "videoqa",
-    "mcq_benchmark", "grounding", "temporal_detection", "openset",
-    "spatiotemporal",
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class EvalRunConfig:
@@ -208,9 +204,58 @@ def run_grounding(run: EvalRunConfig, device: torch.device) -> dict:
     return run_grounding_eval(queries, generate_fn, **run.options)
 
 
+def run_temporal_detection(run: EvalRunConfig, device: torch.device) -> dict:
+    """TAL suite (ANETdetection protocol): `run.data()` -> (raw_outputs,
+    gt); raw_outputs: vid -> (scores (T, C), left (T,), right (T,))
+    anchor-free head outputs; decode -> per-class NMS -> mAP@tIoU, on the
+    host, as internvideo_tpu/cli/eval.py:280-304."""
+    from internvideo_tpu_torch.eval.temporal_detection import (
+        decode_proposals,
+        detection_map,
+        nms_proposals,
+    )
+
+    raw, gt = run.data()
+    opts = dict(run.options)
+    dec = {k: opts.pop(k) for k in
+           ("stride", "score_threshold", "max_per_class") if k in opts}
+    nms = {k: opts.pop(k) for k in
+           ("iou_threshold", "soft", "sigma", "max_keep") if k in opts}
+    preds = {}
+    for vid, (scores, left, right) in raw.items():
+        segs, sc, labs = decode_proposals(
+            np.asarray(scores), np.asarray(left), np.asarray(right), **dec)
+        preds[vid] = nms_proposals(segs, sc, labs, **nms)
+    return detection_map(preds, gt, **opts)
+
+
+def run_openset(run: EvalRunConfig, device: torch.device) -> dict:
+    """Open-set AR (OpenMax over the libMR port): `run.data()` ->
+    (train_feats, train_labels, train_logits, test_feats, test_logits,
+    test_labels), -1 test labels marking unknown-class samples."""
+    from internvideo_tpu_torch.eval.openset import OpenMax, openset_metrics
+
+    tr_f, tr_y, tr_z, te_f, te_z, te_y = run.data()
+    om = OpenMax(**run.options).fit(tr_f, tr_y, tr_z)
+    return openset_metrics(om.recalibrate(te_f, te_z), te_y)
+
+
+def run_spatiotemporal(run: EvalRunConfig, device: torch.device) -> dict:
+    """STAL frame-mAP (AVA protocol): `run.data()` -> (apply_head,
+    features_by_frame, boxes_by_frame, ground_truth); the ROI features are
+    computed on `device`."""
+    from internvideo_tpu_torch.eval.spatiotemporal import evaluate_action_detector
+
+    apply_head, feats, boxes, gt = _task_data(run, device)
+    return evaluate_action_detector(apply_head, feats, boxes, gt, device=device,
+                                    **run.options)
+
+
 TASKS = {"classification": run_classification, "retrieval": run_retrieval,
          "zeroshot": run_zeroshot, "mcqa": run_mcqa, "videoqa": run_videoqa,
-         "mcq_benchmark": run_mcq_benchmark, "grounding": run_grounding}
+         "mcq_benchmark": run_mcq_benchmark, "grounding": run_grounding,
+         "temporal_detection": run_temporal_detection, "openset": run_openset,
+         "spatiotemporal": run_spatiotemporal}
 
 
 def main(argv=None):
@@ -229,9 +274,6 @@ def main(argv=None):
     if args.overrides:
         run = apply_overrides(run, args.overrides)
     if run.task not in TASKS:
-        if run.task in _JAX_TASKS:
-            raise SystemExit(f"task {run.task!r} is not yet ported; "
-                             f"ported: {list(TASKS)}")
         raise SystemExit(f"unknown task {run.task!r}; one of {list(TASKS)}")
     metrics = TASKS[run.task](run, device)
     print(json.dumps({"task": run.task, **{

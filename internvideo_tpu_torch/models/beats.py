@@ -99,11 +99,11 @@ class FlaxLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp64 stays fp64
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(self.dtype)
 
 
 class Conv(nn.Module):

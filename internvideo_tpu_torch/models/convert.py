@@ -54,6 +54,15 @@ as it is), `qformer.vision_in`, `qformer.bert.layer.{i}.*` (a fusion-only
 BERT: no embeddings, no MLM head, cross-attention from layer 0), `llm_proj`
 and `language_model.*` (the LLM names above).
 
+ActionFormer (models/actionformer.py) goes through
+`actionformer_params_from_jax`: flax 1-D Conv kernels (3, in, out) become
+`Conv1d` weights (out, in, 3), `stem{i}` / `level{l}` become `stem.{i}` /
+`levels.{l - 1}`, the blocks' `LayerNorm_0` / `LayerNorm_1` become `norm1` /
+`norm2`, the heads' `conv{i}` / `ln{i}` become `conv.{i}` / `ln.{i}`, and
+each scalar `scale_{l}` becomes `scales.{l}`. The STAL `ROIActionHead`
+(models/stal.py: `fc1`, `fc2`, `cls_score`) maps with `params_from_jax`
+as it is.
+
 numpy bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit, so bf16
 weights load exactly. The module's `load_state_dict(sd, strict=True)` then
 accepts the result.
@@ -143,4 +152,33 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
                 sd[path] = t
 
     walk(params, "")
+    return sd
+
+
+_ACTIONFORMER_RENAMES = (
+    (re.compile(r"^stem(\d+)\."), lambda m: f"stem.{m.group(1)}."),
+    (re.compile(r"^level(\d+)\."), lambda m: f"levels.{int(m.group(1)) - 1}."),
+    (re.compile(r"\.LayerNorm_([01])\."), lambda m: f".norm{int(m.group(1)) + 1}."),
+    (re.compile(r"\.(conv|ln)(\d+)\."), lambda m: f".{m.group(1)}.{m.group(2)}."),
+    (re.compile(r"^scale_(\d+)$"), lambda m: f"scales.{m.group(1)}"),
+)
+
+
+def actionformer_params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
+    """JAX ActionFormer params -> the port ActionFormer's state_dict. With
+    `cfg` (an ActionFormerConfig) the stem blocks must be exactly
+    range(num_blocks) and the level blocks range(1, num_levels)."""
+    if "params" in params:
+        params = params["params"]
+    if cfg is not None:
+        stem = sorted(int(k[4:]) for k in params if re.fullmatch(r"stem\d+", k))
+        levels = sorted(int(k[5:]) for k in params if re.fullmatch(r"level\d+", k))
+        if stem != list(range(cfg.num_blocks)) or levels != list(range(1, cfg.num_levels)):
+            raise ValueError(f"param tree has stem {stem} / levels {levels}, config "
+                             f"num_blocks {cfg.num_blocks} / num_levels {cfg.num_levels}")
+    sd = {}
+    for key, t in params_from_jax(params).items():
+        for pattern, repl in _ACTIONFORMER_RENAMES:
+            key = pattern.sub(repl, key)
+        sd[key] = t
     return sd

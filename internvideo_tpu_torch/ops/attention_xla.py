@@ -43,7 +43,8 @@ def attention_xla(
         v = v.repeat_interleave(hq // hkv, dim=2)
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
 
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    acc = torch.promote_types(orig_dtype, torch.float32)  # fp32, or fp64 for an fp64 anchor
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
 
     mask = None
     if causal or window is not None:
@@ -65,5 +66,5 @@ def attention_xla(
     probs = torch.softmax(logits, dim=-1)
     if window is not None:  # flash semantics: a row with no key in its band gives 0
         probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).to(acc), v.to(acc))
     return out.to(orig_dtype)

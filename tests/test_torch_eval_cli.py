@@ -71,10 +71,13 @@ def test_cli_classification_on_cpu():
 
 
 def test_cli_rejects_unported_tasks_and_checkpoints(monkeypatch):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        _main("--config", TINY, "--device", "cpu", "task=openset")
-    with pytest.raises(SystemExit, match="unknown task"):
-        _main("--config", TINY, "--device", "cpu", "task=nope")
+    # every task of the JAX CLI is ported: an unknown name is the only task error
+    from internvideo_tpu.cli import eval as jax_cli
+
+    assert set(cli.TASKS) == set(jax_cli.TASKS)
+    for task in ("nope", "openset_v2"):
+        with pytest.raises(SystemExit, match="unknown task"):
+            _main("--config", TINY, "--device", "cpu", f"task={task}")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _main("--config", TINY, "--device", "cpu", "checkpoint=/nonexistent")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
