@@ -495,7 +495,28 @@ non-zero and prints no result):
      step's ms and peak memory; every loss finite;
  70. the eval CLI's temporal_detection, openset and spatiotemporal tasks on
      their tiny configs with `--device cuda`; each result dict equals the
-     same task on the CPU (floats to 1e-6).
+     same task on the CPU (floats to 1e-6);
+ 71. checkpoint round trips on qwen3_8b_mla and qwen3_8b_dense at full
+     width, text depth 4, bf16: export_*_hf of the seeded writer (through
+     params_to_jax), save_hf_checkpoint in 1 GiB shards with an index, the
+     generate CLI's `load_checkpoint` into another seed's model (every
+     tensor bit-identical), 16 greedy tokens on a 256-token prompt with the
+     CLI's arguments (`--paged` for M2LA) equal to the writer's; per run 4
+     K5 (GQA: 4 GQA K5) and 4 K6 a decode step; bytes, write / read / load
+     seconds and the reader's GB/s (warm page cache);
+ 72. a synthetic reference-layout InternVideo2-1B .safetensors at full
+     depth (bf16) through `cli.eval` task classification with
+     `checkpoint=` on configs/torch/eval_classification_1b.py: 40 K1 a
+     forward, finite logits; on the same loaded weights at B 2 the kernel
+     route's pooled output and logits no farther from an fp32 copy than
+     1.25 x the plain route's;
+ 73. that file cut to the distill teacher (the pos embed resampled from 16
+     to 8 frames by `interpolate_pos_embed`, no classifier), converted by
+     tools/convert_cli --kind internvideo2_encoder to npz, then 2 steps of
+     `cli.train` on configs/torch/distill_l14_1b.py with
+     `data.teacher_checkpoint=`: the teacher bit-identical to phase 72's
+     load, per step 40 K1 (teacher), 48 K3 + 48 pre-pass, 24 each of K2 /
+     K4b dq / dk/dv (student), every loss finite.
 
 The last three lines are the card, the kernel table as JSON and
 {"ok": true, "device": {...}}; the line before them gives the whole run's
@@ -7383,6 +7404,340 @@ def run_localization_cli(card) -> dict:
     return res
 
 
+CKPT_LLM_DEPTH = 4  # text depth of the LLM round trip (full width)
+CKPT_SHARD_BYTES = 1 << 30  # the LLM export's shard size: several shards + index
+CKPT_PROMPT, CKPT_NEW = 256, 16  # prompt tokens, greedy tokens of the round trip
+CKPT_DISTILL_STEPS = 2
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _same_state(got: dict, want: dict, what: str) -> None:
+    """Bit-equal tensors under the same keys (want cast to got's dtype and
+    device first: bf16 values into fp32 parameters are exact)."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys differ: {sorted(set(got) ^ set(want))[:6]}")
+    bad = [k for k in got if not torch.equal(got[k], want[k].to(got[k].device, got[k].dtype))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. {bad[:4]}")
+
+
+def run_ckpt_llm_path(fa, pd, card) -> dict:
+    """Phase 71: qwen3_8b_mla and qwen3_8b_dense at full width, text depth
+    CKPT_LLM_DEPTH, bf16: the seeded writer exported with export_*_hf
+    (through params_to_jax) and written by save_hf_checkpoint in 1 GiB
+    shards with an index; the reader (another seed) loaded through the
+    generate CLI's `load_checkpoint`; every tensor bit-identical; greedy
+    `generate` of CKPT_NEW tokens on a CKPT_PROMPT-token prompt with the
+    CLI's arguments (`--paged` for M2LA) equal to the writer's. Launches of
+    the reader's generate: per prefill CKPT_LLM_DEPTH K5 (GQA for the dense
+    model), per decode step CKPT_LLM_DEPTH K6 (M2LA only)."""
+    import tempfile
+
+    from internvideo_tpu_torch.cli import generate as cli
+    from internvideo_tpu_torch.core.checkpoint import load_hf_checkpoint, save_hf_checkpoint
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.convert import (
+        export_gqa_llm_hf,
+        export_mla_llm_hf,
+        params_to_jax,
+    )
+    from internvideo_tpu_torch.models.generation import generate
+    from internvideo_tpu_torch.models.llm_gqa import GQATransformer
+
+    def dense(seed):
+        return GQATransformer(getattr(presets, PRESET_GQA)(num_layers=CKPT_LLM_DEPTH),
+                              device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(seed)).eval()
+
+    zero = dict.fromkeys(_serve_counts(fa, pd), 0)
+    ids = torch.randint(1, VOCAB, (1, CKPT_PROMPT), generator=torch.Generator().manual_seed(71))
+    res, total = {}, dict(zero)
+    cases = ((PRESET_8B, lambda s: _llm(PRESET_8B, s, num_layers=CKPT_LLM_DEPTH),
+              export_mla_llm_hf, True,
+              {"flash_fwd_causal": CKPT_LLM_DEPTH,
+               "paged_decode": CKPT_LLM_DEPTH * (CKPT_NEW - 1)}),
+             (PRESET_GQA, dense, export_gqa_llm_hf, False,
+              {"flash_fwd_causal_gqa": CKPT_LLM_DEPTH}))
+    for preset, build, export, paged, per_run in cases:
+        t_phase = time.perf_counter()
+        writer = build(0)
+        n_params = sum(p.numel() for p in writer.parameters())
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_llm_") as d:
+            t0 = time.perf_counter()
+            hf = export(params_to_jax(writer.state_dict(), writer), writer.cfg)
+            t_export = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            files = save_hf_checkpoint(d, hf, shard_size_bytes=CKPT_SHARD_BYTES)
+            t_write = time.perf_counter() - t0
+            del hf
+            nbytes = _dir_bytes(d)
+            if len(files) < 2 or "model.safetensors.index.json" not in os.listdir(d):
+                raise AssertionError(f"{preset}: {files} without an index; want 1 GiB shards")
+            t0 = time.perf_counter()
+            sd = load_hf_checkpoint(d)
+            t_read = time.perf_counter() - t0
+            read_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+            del sd
+            reader = build(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.load_checkpoint(reader, d)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        _same_state(reader.state_dict(), writer.state_dict(), f"{preset} loaded vs written")
+        kw = dict(max_new_tokens=CKPT_NEW, paged=paged, page_size=64,
+                  cache_dtype=getattr(torch, reader.cfg.dtype))
+        with torch.no_grad():
+            want = generate(writer, ids.cuda(), **kw)[0].tolist()
+        del writer
+        gc.collect()
+        torch.cuda.empty_cache()
+        _serve_reset(fa, pd)
+        with torch.no_grad():
+            got = generate(reader, ids.cuda(), **kw)[0].tolist()
+        torch.cuda.synchronize()
+        launches = _serve_counts(fa, pd)
+        wall = time.perf_counter() - t_phase
+        r = {"params": n_params, "files": len(files), "disk_bytes": nbytes,
+             "export_s": t_export, "write_s": t_write, "write_gb_per_s": nbytes / t_write / 1e9,
+             "read_s": t_read, "read_bytes": read_bytes, "read_gb_per_s": read_bytes / t_read / 1e9,
+             "load_checkpoint_s": t_load, "tokens": got, "phase_s": wall,
+             "launches": {k: v for k, v in launches.items() if v}}
+        print(f"[{card}] checkpoint round trip {preset} depth {CKPT_LLM_DEPTH} "
+              f"({n_params / 1e9:.3f} B params, bf16): " + json.dumps(
+                  {k: v for k, v in r.items() if k != "tokens"}) + f"; tokens {got[:6]}... equal "
+              f"to the writer's; every tensor bit-identical", flush=True)
+        if got != want or len(got) != CKPT_NEW:
+            raise AssertionError(f"{preset}: loaded model's tokens {got} vs the writer's {want}")
+        if launches != {**zero, **per_run}:
+            raise AssertionError(f"{preset}: launches {launches}; expected {per_run}")
+        total = {k: total[k] + launches[k] for k in total}
+        res[preset] = r
+        del reader
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": total, **res}
+
+
+def _reference_1b_sd(cfg, seed: int) -> dict:
+    """A synthetic reference-layout InternVideo2 state dict for `cfg` (the
+    1B at its full depth), bf16 on the card: the names and shapes of
+    single_modality/models/internvideo2.py (tests/test_realshape_checkpoint.py
+    builds the same table for the blocks), the attention pool's q / k / v
+    biases as `q_bias` Parameters, the classifier when `cfg.num_classes`;
+    LayerScale gammas 0.1 so that every block moves the output."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    d, p, c = cfg.embed_dim, cfg.patch_size, cfg.clip_embed_dim
+    hidden = int(d * cfg.mlp_ratio)
+
+    def w(*shape, std=0.02):
+        return (torch.randn(shape, generator=g, device="cuda") * std).bfloat16()
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn(n, generator=g, device="cuda")).bfloat16()
+
+    def gamma():
+        return torch.full((d,), 0.1, device="cuda").bfloat16()
+
+    sd = {"patch_embed.proj.weight": w(d, 3, cfg.tubelet_size, p, p), "patch_embed.proj.bias": w(d),
+          "cls_token": w(1, 1, d), "pos_embed": w(1, 1 + cfg.num_patches, d)}
+    for i in range(cfg.depth):
+        b = f"blocks.{i}"
+        sd.update({f"{b}.norm1.weight": norm(d), f"{b}.attn.qkv.weight": w(3 * d, d),
+                   f"{b}.attn.q_norm.weight": norm(d), f"{b}.attn.k_norm.weight": norm(d),
+                   f"{b}.attn.proj.weight": w(d, d), f"{b}.attn.proj.bias": w(d),
+                   f"{b}.ls1.gamma": gamma(), f"{b}.norm2.weight": norm(d),
+                   f"{b}.mlp.fc1.weight": w(hidden, d), f"{b}.mlp.fc1.bias": w(hidden),
+                   f"{b}.mlp.fc2.weight": w(d, hidden), f"{b}.mlp.fc2.bias": w(d),
+                   f"{b}.ls2.gamma": gamma()})
+    cp = "clip_projector"
+    for name in ("norm1_q", "norm1_k", "norm1_v"):
+        sd[f"{cp}.{name}.weight"], sd[f"{cp}.{name}.bias"] = norm(d), w(d)
+    for name in ("q", "k", "v"):
+        sd[f"{cp}.cross_attn.{name}.weight"], sd[f"{cp}.cross_attn.{name}_bias"] = w(d, d), w(d)
+    sd[f"{cp}.cross_attn.proj.weight"], sd[f"{cp}.cross_attn.proj.bias"] = w(c, d), w(c)
+    if cfg.num_classes:
+        sd["fc_norm.weight"], sd["fc_norm.bias"] = norm(c), w(c)
+        sd["head.weight"], sd["head.bias"] = w(cfg.num_classes, c), w(cfg.num_classes)
+    return sd
+
+
+def run_ckpt_eval_path(fa, root: str, card) -> dict:
+    """Phase 72: a synthetic reference-layout InternVideo2-1B .safetensors
+    at full depth (bf16) written into `root`, then `cli.eval` task
+    classification with `checkpoint=` on CONFIG_1B: 40 K1 a forward, finite
+    logits. On the same loaded weights (the CLI's `load_weights`, every
+    tensor the file's) at B 2: the bf16 kernel route's pooled output and
+    logits no farther from an fp32 copy than 1.25 x the plain route's.
+    Returns the reference state dict (CPU), the loaded model's state dict
+    and the numbers."""
+    from internvideo_tpu_torch.cli import eval as cli
+    from internvideo_tpu_torch.core.checkpoint import read_safetensors, write_safetensors
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.models.convert import convert_internvideo2_encoder, params_from_jax
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+
+    t_phase = time.perf_counter()
+    cfg = load_config(CONFIG_1B).model
+    ref = _reference_1b_sd(cfg, 72)
+    path = os.path.join(root, "internvideo2_1b_reference.safetensors")
+    t0 = time.perf_counter()
+    write_safetensors(path, ref)
+    t_write = time.perf_counter() - t0
+    ref = {k: v.cpu() for k, v in ref.items()}
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    back = read_safetensors(path)
+    t_read = time.perf_counter() - t0
+    _same_state(back, ref, "the reference file read back")
+    del back
+
+    forwards = []
+
+    def record(module, args, out):
+        if isinstance(module, InternVideo2):
+            forwards.append(bool(torch.isfinite(out.logits).all()))
+
+    hook = torch.nn.modules.module.register_module_forward_hook(record)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        fa.reset_launch_count()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--config", CONFIG_1B, "--device", "cuda", f"checkpoint={path}"])
+        torch.cuda.synchronize()
+        launches = fa.launch_count()
+    finally:
+        hook.remove()
+    t_cli = time.perf_counter() - t0
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[{card}] cli.eval {CONFIG_1B} checkpoint=<reference 1B, {nbytes / 1e9:.3f} GB>: "
+          f"{json.dumps(result)} ({t_cli:.1f} s wall incl. init, load and data); "
+          f"{len(forwards)} forwards, flash_fwd launches {launches}", flush=True)
+    if rc != 0 or not forwards or not all(forwards):
+        raise AssertionError("cli.eval with checkpoint= ran no forward or gave non-finite logits")
+    if launches != DEPTH_1B * len(forwards):
+        raise AssertionError(f"{launches} K1 launches for {len(forwards)} forwards")
+
+    model = InternVideo2(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    cli.load_weights(model.eval(), path,
+                     lambda sd: convert_internvideo2_encoder(sd, depth=cfg.depth), cfg)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    loaded = model.state_dict()
+    _same_state(loaded, params_from_jax(convert_internvideo2_encoder(ref, depth=cfg.depth)),
+                "the 1B loaded through load_weights vs the file")
+    f32 = _fp32_copy(model, lambda: InternVideo2(
+        dataclasses.replace(cfg, dtype="float32", param_dtype="float32"), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(0)))
+    video = torch.randn(2, cfg.num_frames, cfg.img_size, cfg.img_size, 3, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(72))
+    outs = {}
+    for tag, m, impl in (("kernel", model, "kernel"), ("plain", model, "plain"),
+                         ("fp32", f32, "plain")):
+        _set_attn_impl(m, impl)
+        with torch.inference_mode():
+            outs[tag] = m(video)
+    _set_attn_impl(model, "auto")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = {}
+    for name in ("pooled", "logits"):
+        k, p, ref32 = (getattr(outs[t], name) for t in ("kernel", "plain", "fp32"))
+        dist[name] = {"kernel_vs_plain": _rel(k, p), "kernel_vs_fp32": _rel(k, ref32),
+                      "plain_vs_fp32": _rel(p, ref32)}
+        if not (torch.isfinite(k).all()
+                and dist[name]["kernel_vs_fp32"] <= 1.25 * dist[name]["plain_vs_fp32"]):
+            raise AssertionError(f"loaded 1B: the kernel route's {name} is {dist[name]}")
+    wall = time.perf_counter() - t_phase
+    r = {"disk_bytes": nbytes, "write_s": t_write, "read_s": t_read,
+         "read_gb_per_s": nbytes / t_read / 1e9, "load_weights_s": t_load, "cli_s": t_cli,
+         "forwards": len(forwards), "routes_rel_l2": dist, "phase_s": wall,
+         "launches": {"flash_fwd": launches}}
+    print(f"[{card}] reference-layout 1B checkpoint: " + json.dumps(r), flush=True)
+    return {**r, "ref": ref, "loaded": {k: v.clone() for k, v in loaded.items()}}
+
+
+def run_ckpt_distill_path(fa, pd, ig, rms, root: str, ev: dict, card) -> dict:
+    """Phase 73: the phase-72 reference file cut to the distill teacher
+    (CONFIG_DISTILL's 1B at 8 frames, no classifier): the pos embed resampled
+    from 16 to 8 frames with `interpolate_pos_embed`, `fc_norm` / `head`
+    dropped; converted to npz by tools/convert_cli --kind
+    internvideo2_encoder; CKPT_DISTILL_STEPS steps of `cli.train` on
+    CONFIG_DISTILL with `data.teacher_checkpoint=` the npz. The teacher's
+    weights equal the eval phase's load bit for bit (the pos embed: the
+    resampled table); launches against `distill_want`; every loss finite."""
+    from internvideo_tpu_torch.cli import train as cli
+    from internvideo_tpu_torch.core.checkpoint import write_safetensors
+    from internvideo_tpu_torch.core.config import load_config
+    from internvideo_tpu_torch.nn.embeds import interpolate_pos_embed
+    from internvideo_tpu_torch.tools import convert_cli
+
+    t_phase = time.perf_counter()
+    run = load_config(CONFIG_DISTILL)
+    ecfg, tcfg = load_config(CONFIG_1B).model, run.teacher
+    pos = interpolate_pos_embed(ev["ref"]["pos_embed"][0].cuda().float(), ecfg.grid_size,
+                                tcfg.grid_size).bfloat16()
+    tref = {k: v for k, v in ev["ref"].items() if not k.startswith(("fc_norm.", "head."))}
+    tref["pos_embed"] = pos[None].cpu()
+    src, npz = os.path.join(root, "teacher_reference.safetensors"), os.path.join(root, "teacher.npz")
+    write_safetensors(src, tref)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert_cli.main(["--kind", "internvideo2_encoder", "--depth", str(tcfg.depth),
+                               "--src", src, "--dst", npz])
+    t_convert = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("convert_cli failed")
+
+    want = distill_want(run, CKPT_DISTILL_STEPS)
+    seen, build = {}, cli.build_distill
+
+    def spy(r, device):
+        out = build(r, device)
+        seen["teacher"] = out[2]
+        return out
+
+    buf = io.StringIO()
+    cli.build_distill = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _all_reset(fa, pd, ig, rms)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--config", CONFIG_DISTILL, "--device", "cuda",
+                           f"trainer.total_steps={CKPT_DISTILL_STEPS}", "trainer.log_every=1",
+                           "trainer.checkpoint_dir=None", f"data.teacher_checkpoint={npz}"])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
+        t_cli = time.perf_counter() - t0
+    finally:
+        cli.build_distill = build
+    records = _step_records(buf.getvalue())
+    teacher = seen["teacher"].state_dict()
+    expect = {k: v for k, v in ev["loaded"].items() if not k.startswith(("fc_norm.", "head."))}
+    expect["pos_embed"] = pos
+    _same_state(teacher, expect, "the distill teacher vs the eval phase's load")
+    wall = time.perf_counter() - t_phase
+    r = {"npz_bytes": os.path.getsize(npz), "convert_cli_s": t_convert, "cli_s": t_cli,
+         "losses": [float(x["loss"]) for x in records], "phase_s": wall, "launches": counts}
+    print(f"[{card}] distill teacher from the convert CLI's npz: " + json.dumps(r)
+          + f"; predicted launches {want}; teacher bit-identical to the eval load", flush=True)
+    if rc != 0 or len(records) != CKPT_DISTILL_STEPS:
+        raise AssertionError(f"cli.train logged {len(records)} of {CKPT_DISTILL_STEPS} steps")
+    if not all(math.isfinite(float(x[k])) for x in records
+               for k in ("loss", "loss_middle", "loss_final", "grad_norm")):
+        raise AssertionError("non-finite loss on the distill path from a loaded teacher")
+    if counts != want:
+        raise AssertionError(f"launches {counts}; predicted {want}")
+    return r
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -7833,6 +8188,25 @@ def main() -> int:
 
     # 70. the eval CLI's temporal_detection / openset / spatiotemporal on the card vs the CPU
     loc_cli = run_localization_cli(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 71. HF-layout LLM checkpoints: export, shards + index, the generate CLI's loader, tokens
+    ckpt_llm = run_ckpt_llm_path(fa, pd, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
+        # 72. a reference-layout 1B checkpoint through cli.eval checkpoint=; routes vs fp32
+        ckpt_eval = run_ckpt_eval_path(fa, ckpt_root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 73. that file cut to the distill teacher, the convert CLI's npz, two distill steps
+        ckpt_distill = run_ckpt_distill_path(fa, pd, ig, rms, ckpt_root, ckpt_eval, card)
+    del ckpt_eval["ref"], ckpt_eval["loaded"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
@@ -7841,6 +8215,9 @@ def main() -> int:
               "flash_bwd_dkv": _bound(8 * b * h * s * s * d, io_bytes + 2 * b * s * h * d * 2)}
     src = "internvideo_tpu_torch/csrc/"
     jax_fa = "internvideo_tpu/ops/flash_attention.py:"
+
+    ckpt_paths = {"ckpt_llm": ckpt_llm["launches"], "ckpt_eval": ckpt_eval["launches"],
+                  "ckpt_distill": ckpt_distill["launches"]}
 
     def by_path(name, eval_n=0):
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
@@ -7851,7 +8228,7 @@ def main() -> int:
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
                  "zeroshot": zs_launches, "distill": distill_launches,
                  "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches,
-                 "actionformer": af["launches"]}
+                 "actionformer": af["launches"], **ckpt_paths}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -8234,7 +8611,18 @@ def main() -> int:
         k: v for k, v in af.items() if k != "launches"}}), flush=True)
     print(f"[{card}] STAL: " + json.dumps(stal), flush=True)
     print(f"[{card}] localization CLI: " + json.dumps(loc_cli), flush=True)
-    print(f"chip_smoke: phases 1-70 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    ckpt_s = {"ckpt_llm": {p: ckpt_llm[p]["phase_s"] for p in (PRESET_8B, PRESET_GQA)},
+              "ckpt_eval": ckpt_eval["phase_s"], "ckpt_distill": ckpt_distill["phase_s"]}
+    for entry in kernels:  # the checkpoint phases' launches (71-73) and wall seconds
+        n = {p: counts.get(entry["name"], 0) for p, counts in ckpt_paths.items()}
+        if any(n.values()):
+            entry["launches"] += sum(n.values())
+            entry["checkpoint"] = {"launches": n, "phase_s": {p: ckpt_s[p] for p in n if n[p]}}
+    print(f"[{card}] checkpoint phases: " + json.dumps({
+        "llm": {p: {k: v for k, v in ckpt_llm[p].items() if k != "tokens"}
+                for p in (PRESET_8B, PRESET_GQA)},
+        "eval": ckpt_eval, "distill": ckpt_distill}), flush=True)
+    print(f"chip_smoke: phases 1-73 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_") and entry.get("dtype") != "float32":

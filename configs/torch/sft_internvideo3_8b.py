@@ -23,7 +23,10 @@ Cuts, each forced by one 80 GB card:
      batch 1 (no sequence parallelism on one card);
   3. ce_chunk_size 8192 -> 2048 (the engine's default; one chunk's fp32
      logits are 2048 x 151,936);
-  4. no HF export (hf_export_every 0) and no checkpoints.
+  4. no HF export (hf_export_every 2,000 -> 0: like JAX's, the train CLI
+     passes the Trainer no export function, so the setting would do
+     nothing; a caller that wants the export builds the Trainer with
+     `train/trainer.py:hf_export_fn`) and no checkpoints.
 
 Data: seeded synthetic packed rows (data/mllm_tokenize.py
 `synthetic_sft_stream`): each row holds one video sample (16 frames at

@@ -25,16 +25,37 @@ generate function from `run.data()`, as in JAX; here `data` may also take
 temporal_detection and openset are host work whatever the device;
 spatiotemporal sends the feature maps and ROIs to the device and hands
 `apply_head` a tensor there. `--device` is explicit: `cuda` (the default)
-with no GPU is an error, not a CPU run. `checkpoint=None` means the seeded
-init; loading a checkpoint is not ported yet (ROADMAP queue 1, item 9).
+with no GPU is an error, not a CPU run.
+
+`checkpoint=` (classification, retrieval, zeroshot, mcqa; `None` is the
+seeded init) is dispatched by `load_weights`:
+
+  * a directory with `step_*.pt` files (the port's CheckpointManager): the
+    latest step's model weights;
+  * a directory with `*.safetensors` files (an HF directory, sharded with
+    an index or a single `model.safetensors`) or a `.safetensors` file: the
+    reference state dict through the task's converter
+    (`convert_internvideo2_encoder` for classification,
+    `convert_internvideo2_stage2` for the VideoCLIP tasks), then
+    `params_from_jax`;
+  * an `.npz`: a converted tree as the convert CLI writes it
+    (tools/convert_cli.py), through `params_from_jax`.
+
+A directory that holds neither raises. JAX sends every directory without
+`model.safetensors.index.json` to orbax, so a single-shard HF directory
+restores nothing there and the seeded init runs (ROADMAP queue 3). JAX's
+mcqa passes the raw state dict through unconverted; the port converts it
+as the other VideoCLIP tasks do.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import inspect
 import json
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -49,17 +70,51 @@ class EvalRunConfig:
     options: dict = dataclasses.field(default_factory=dict)
 
 
+def load_weights(model: torch.nn.Module, checkpoint: Optional[str], convert: Callable,
+                 cfg=None) -> None:
+    """Load `checkpoint` into `model` (see the module docstring); `convert`
+    maps a reference state dict to the JAX param tree, `cfg` checks the
+    tree's depth in `params_from_jax`. None leaves the seeded init."""
+    from internvideo_tpu_torch.core.checkpoint import (
+        CheckpointManager,
+        load_hf_checkpoint,
+        read_safetensors,
+    )
+    from internvideo_tpu_torch.models.convert import params_from_jax
+    from internvideo_tpu_torch.tools.convert_cli import load_flat_params
+
+    if checkpoint is None:
+        return
+    if not os.path.exists(checkpoint):
+        raise FileNotFoundError(f"checkpoint {checkpoint!r} does not exist")
+    if os.path.isdir(checkpoint):
+        if CheckpointManager(checkpoint).restore_model(model) is not None:
+            return
+        if not glob.glob(os.path.join(checkpoint, "*.safetensors")):
+            raise FileNotFoundError(f"checkpoint {checkpoint!r} holds no step_*.pt checkpoint "
+                                    "and no *.safetensors file")
+        tree = convert(load_hf_checkpoint(checkpoint))
+    elif checkpoint.endswith(".safetensors"):
+        tree = convert(read_safetensors(checkpoint))
+    elif checkpoint.endswith(".npz"):
+        tree = load_flat_params(checkpoint)
+    else:
+        raise ValueError(f"checkpoint {checkpoint!r}: a step directory, an HF directory, a "
+                         ".safetensors file or a converted .npz")
+    model.load_state_dict(params_from_jax(tree, cfg), strict=True)
+
+
 def run_classification(run: EvalRunConfig, device: torch.device) -> dict:
     from internvideo_tpu_torch.eval.classification import final_test
+    from internvideo_tpu_torch.models.convert import convert_internvideo2_encoder
     from internvideo_tpu_torch.models.internvideo2 import InternVideo2
 
-    if run.checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP queue 1, item 9)")
     model = InternVideo2(
         run.model, device=device,
         generator=torch.Generator(device=device).manual_seed(0),
     ).eval()
+    load_weights(model, run.checkpoint,
+                 lambda sd: convert_internvideo2_encoder(sd, depth=run.model.depth), run.model)
 
     @torch.inference_mode()
     def forward(video: np.ndarray) -> torch.Tensor:
@@ -69,16 +124,22 @@ def run_classification(run: EvalRunConfig, device: torch.device) -> dict:
 
 
 def _videoclip(run: EvalRunConfig, device: torch.device):
-    """The seeded VideoCLIP of `run.model` on `device`, in eval mode."""
+    """The VideoCLIP of `run.model` on `device` in eval mode: seeded, or
+    loaded from `run.checkpoint` (a stage-2 checkpoint through
+    `convert_internvideo2_stage2`)."""
+    from internvideo_tpu_torch.models.convert import convert_internvideo2_stage2
     from internvideo_tpu_torch.models.videoclip import VideoCLIP
 
-    if run.checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP queue 1, item 9)")
-    return VideoCLIP(
+    model = VideoCLIP(
         run.model, device=device,
         generator=torch.Generator(device=device).manual_seed(0),
     ).eval()
+    pre = run.model.pretrain
+    load_weights(model, run.checkpoint, lambda sd: convert_internvideo2_stage2(
+        sd, depth=run.model.vision.depth,
+        clip_return_layers=pre.clip_return_layers if pre is not None else 0,
+        text_layers=run.model.text.num_layers), run.model)
+    return model
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:

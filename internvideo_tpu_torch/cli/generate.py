@@ -6,25 +6,31 @@
         --ids 1,2,3 --max-new-tokens 32 --device cuda
     python -m internvideo_tpu_torch.cli.generate --preset qwen3_dense_tiny \
         --ids 1,2,3 --device cpu
+    python -m internvideo_tpu_torch.cli.generate --preset qwen3_8b_mla \
+        --checkpoint /hf/ckpt_dir --ids 1,2,3 --paged --device cuda
 
 Port of internvideo_tpu/cli/generate.py in token-id mode, for the M2LA
 presets (qwen3_8b_mla, ...) and the dense-GQA ones (qwen3_8b_dense; at
 test widths qwen3_mla_tiny and qwen3_dense_tiny, for a CPU). Prints
-{"tokens": [...]}. With no checkpoint the weights are the seeded random
-init (`--seed`). `--device` is explicit: `cuda` (the default) with no GPU
-is an error, not a CPU run. The prefill runs causal flash attention (K5 on
+{"tokens": [...]}. `--checkpoint` is an HF-layout `.safetensors` file or
+directory (sharded with `model.safetensors.index.json`, or not); its
+weights go through `convert_hf_mla_llm` or `convert_hf_gqa_llm` by the
+preset's flavor and `params_from_jax` into the model (`load_checkpoint`).
+With no checkpoint the weights are the seeded random init (`--seed`).
+`--device` is explicit: `cuda` (the default) with no GPU is an error, not
+a CPU run. The prefill runs causal flash attention (K5 on
 the card; grouped-query heads for the GQA preset). `--paged` decodes over
 latent page pools (K6 on the card): M2LA only, a GQA preset raises as in
-JAX; the GQA decode attends on the plain route. Loading `--checkpoint`
-(ROADMAP queue 1, item 9) and the `--prompt` / `--tokenizer` text mode
-(item 11) are not ported yet: no LLM checkpoint is in the repository and
-the card's environment has no tokenizer package.
+JAX; the GQA decode attends on the plain route. The `--prompt` /
+`--tokenizer` text mode (ROADMAP queue 1, item 11) is not ported yet: the
+card's environment has no tokenizer package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -48,11 +54,29 @@ def build_model(args, device: torch.device):
                      "the LLM flavors")
 
 
+def load_checkpoint(model, path: str) -> None:
+    """HF-layout weights (a `.safetensors` file or an HF directory) into
+    `model`: converted by `convert_hf_gqa_llm` for a dense-GQA config,
+    `convert_hf_mla_llm` otherwise (JAX cli/generate.py:47-65), then
+    loaded with strict=True."""
+    from internvideo_tpu_torch.core.checkpoint import load_hf_checkpoint, read_safetensors
+    from internvideo_tpu_torch.models.convert import (
+        convert_hf_gqa_llm,
+        convert_hf_mla_llm,
+        params_from_jax,
+    )
+
+    sd = load_hf_checkpoint(path) if os.path.isdir(path) else read_safetensors(path)
+    convert = convert_hf_gqa_llm if hasattr(model.cfg, "num_kv_heads") else convert_hf_mla_llm
+    model.load_state_dict(params_from_jax(convert(sd, model.cfg), model.cfg), strict=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="qwen3_8b_mla")
     ap.add_argument("--checkpoint", default=None,
-                    help="not ported yet; omit for the seeded random init")
+                    help="HF-layout .safetensors file or directory (converted on load); "
+                         "omit for the seeded random init")
     ap.add_argument("--tokenizer", default=None, help="not ported yet")
     ap.add_argument("--prompt", default=None, help="not ported yet; use --ids")
     ap.add_argument("--ids", default=None, help="comma-separated prompt token ids")
@@ -68,10 +92,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.checkpoint is not None:
-        raise SystemExit("--checkpoint: loading LLM weights (convert_hf_mla_llm, safetensors) "
-                         "is not ported yet (ROADMAP queue 1, item 9); omit it for the "
-                         "seeded random init")
     if args.prompt is not None or args.tokenizer is not None:
         raise SystemExit("--prompt / --tokenizer: the text mode needs a tokenizer package, "
                          "which is not ported (ROADMAP queue 1, item 11); pass --ids")
@@ -85,6 +105,8 @@ def main(argv=None):
     from internvideo_tpu_torch.models.generation import generate
 
     model = build_model(args, device).eval()
+    if args.checkpoint is not None:
+        load_checkpoint(model, args.checkpoint)
     out = generate(
         model, ids.to(device),
         max_new_tokens=args.max_new_tokens, eos_token_id=args.eos_token_id,

@@ -70,6 +70,32 @@ class RunConfig:
 _TASKS = ("finetune", "pretrain", "sft", "clip", "clip_av", "distill")
 
 
+def load_teacher(module: torch.nn.Module, path: Optional[str], cfg=None) -> torch.nn.Module:
+    """The convert CLI's npz at `path` (if any) into a teacher module, cast
+    to its parameters' dtypes (JAX train/state.py:133-178,
+    `load_flat_params`); `cfg` checks the tree's depth."""
+    if path:
+        from internvideo_tpu_torch.models.convert import params_from_jax
+        from internvideo_tpu_torch.tools.convert_cli import load_flat_params
+
+        module.load_state_dict(params_from_jax(load_flat_params(path), cfg), strict=True)
+    return module
+
+
+def load_stage2_state_dict(path: str, run: "RunConfig") -> dict:
+    """A reference stage-2 state dict (.safetensors / .npz / torch .pth)
+    converted to the VideoCLIP's state_dict (JAX cli/train.py:238-262)."""
+    from internvideo_tpu_torch.models.convert import convert_internvideo2_stage2, params_from_jax
+    from internvideo_tpu_torch.tools.convert_cli import load_state_dict
+
+    pre = run.model.pretrain
+    tree = convert_internvideo2_stage2(
+        load_state_dict(path), depth=run.model.vision.depth,
+        clip_return_layers=pre.clip_return_layers if pre else 0,
+        text_layers=run.model.text.num_layers)
+    return params_from_jax(tree, run.model)
+
+
 def build_finetune(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes) for the finetune task on `device`."""
     from internvideo_tpu_torch.models.internvideo2 import InternVideo2
@@ -116,27 +142,26 @@ def _num_visible_tokens(mask_type: str, mask_ratio: float, t_s: int, n_spatial: 
 def build_pretrain(run: RunConfig, device: torch.device):
     """(trainer, full-rate video shape, (CLIP teacher, MAE teacher)) for UMT
     dual-teacher masked pretraining on `device` (the JAX `build_pretrain`,
-    :287-342). The teachers are frozen (train/state.py `frozen_teacher`) and
-    ride the step; with no teacher checkpoint in the repository they start
-    from seeded random weights, as the JAX CLI's do without one."""
+    :287-342). The teachers load `data.clip_teacher_checkpoint` /
+    `data.mae_teacher_checkpoint` when given, else start from seeded
+    random weights as the JAX CLI's do; they are frozen (train/state.py
+    `frozen_teacher`) and ride the step."""
     from internvideo_tpu_torch.models.pretrain import PretrainInternVideo2
     from internvideo_tpu_torch.models.teachers import CLIPTeacher, MAETeacher
     from internvideo_tpu_torch.train.engines.pretrain import make_pretrain_step
     from internvideo_tpu_torch.train.state import frozen_teacher
 
-    for key in ("clip_teacher_checkpoint", "mae_teacher_checkpoint"):
-        if run.data.get(key):
-            raise NotImplementedError(
-                f"data.{key}: loading the convert-CLI's teacher npz is not ported yet "
-                "(ROADMAP queue 1, item 9)")
     seed = run.trainer.seed
     gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
     enc, cfg = run.model.encoder, run.engine
     t_full = enc.num_frames * cfg.td_ratio
     model = PretrainInternVideo2(run.model, device=device, generator=gen(seed))
-    clip_teacher = frozen_teacher(CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)))
-    mae_teacher = frozen_teacher(MAETeacher(run.mae_teacher, num_frames=t_full, device=device,
-                                            generator=gen(seed + 2)))
+    clip_teacher = frozen_teacher(load_teacher(
+        CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)),
+        run.data.get("clip_teacher_checkpoint")))
+    mae_teacher = frozen_teacher(load_teacher(
+        MAETeacher(run.mae_teacher, num_frames=t_full, device=device, generator=gen(seed + 2)),
+        run.data.get("mae_teacher_checkpoint"), run.mae_teacher))
     trainer = Trainer(
         run.trainer, model,
         lambda grad_accum=1: make_pretrain_step(cfg, clip_teacher, mae_teacher,
@@ -148,21 +173,20 @@ def build_pretrain(run: RunConfig, device: torch.device):
 def build_distill(run: RunConfig, device: torch.device):
     """(trainer, video shape, teacher) for distillation of a small student
     from a frozen encoder on `device` (the JAX `build_distill`, :345-388).
-    The teacher starts from `trainer.seed` + 1, as the JAX CLI's does
-    without a checkpoint, and rides the step frozen."""
+    The teacher loads `data.teacher_checkpoint` when given, else starts
+    from `trainer.seed` + 1 as the JAX CLI's does, and rides the step
+    frozen."""
     from internvideo_tpu_torch.models.internvideo2 import InternVideo2
     from internvideo_tpu_torch.models.pretrain import PretrainInternVideo2
     from internvideo_tpu_torch.train.engines.distill import make_distill_step
     from internvideo_tpu_torch.train.state import frozen_teacher
 
-    if run.data.get("teacher_checkpoint"):
-        raise NotImplementedError(
-            "data.teacher_checkpoint: loading the convert-CLI's encoder npz is not ported "
-            "yet (ROADMAP queue 1, item 9)")
     seed = run.trainer.seed
     gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
     model = PretrainInternVideo2(run.model, device=device, generator=gen(seed))
-    teacher = frozen_teacher(InternVideo2(run.teacher, device=device, generator=gen(seed + 1)))
+    teacher = frozen_teacher(load_teacher(
+        InternVideo2(run.teacher, device=device, generator=gen(seed + 1)),
+        run.data.get("teacher_checkpoint"), run.teacher))
     trainer = Trainer(
         run.trainer, model,
         lambda grad_accum=1: make_distill_step(teacher, run.engine, grad_accum=grad_accum))
@@ -174,24 +198,22 @@ def build_distill(run: RunConfig, device: torch.device):
 def build_clip(run: RunConfig, device: torch.device):
     """(trainer, example batch shapes, CLIP teacher or None) for VideoCLIP
     stage 2 on `device` (the JAX `build_clip`, :127-181). With `engine.uta`
-    > 0 the frozen CLIP teacher starts from `trainer.seed` + 1 and rides the
-    step."""
+    > 0 the frozen CLIP teacher loads `data.teacher_checkpoint` or starts
+    from `trainer.seed` + 1, and rides the step; `data.init_state_dict`
+    loads a reference stage-2 checkpoint into the model."""
     from internvideo_tpu_torch.models.teachers import CLIPTeacher
     from internvideo_tpu_torch.models.videoclip import VideoCLIP
     from internvideo_tpu_torch.train.engines.clip import make_clip_train_step
     from internvideo_tpu_torch.train.state import frozen_teacher
 
-    for key in ("init_state_dict", "teacher_checkpoint"):
-        if run.data.get(key):
-            raise NotImplementedError(
-                f"data.{key}: the stage-2 checkpoint converters are not ported yet "
-                "(ROADMAP queue 1, item 9)")
     seed = run.trainer.seed
     gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
     model = VideoCLIP(run.model, device=device, generator=gen(seed))
     teacher = None
     if run.engine.uta > 0:
-        teacher = frozen_teacher(CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)))
+        teacher = frozen_teacher(load_teacher(
+            CLIPTeacher(run.teacher, device=device, generator=gen(seed + 1)),
+            run.data.get("teacher_checkpoint")))
     v, b = run.model.vision, run.data["batch_size"]
     text = (b, run.data.get("text_len", 32))
     batch = {"video": (b, v.num_frames, v.img_size, v.img_size, 3), "input_ids": text,
@@ -199,6 +221,8 @@ def build_clip(run: RunConfig, device: torch.device):
     trainer = Trainer(
         run.trainer, model,
         lambda grad_accum=1: make_clip_train_step(run.engine, teacher, grad_accum=grad_accum))
+    if run.data.get("init_state_dict"):
+        trainer.load_params(load_stage2_state_dict(run.data["init_state_dict"], run))
     return trainer, batch, teacher
 
 

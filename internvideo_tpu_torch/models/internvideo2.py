@@ -119,9 +119,9 @@ def _unported(cfg: InternVideo2Config) -> Optional[str]:
     if cfg.remat_policy is not None:
         return f"remat_policy={cfg.remat_policy!r} (ROADMAP queue 1, item 9)"
     if cfg.pool_type != "attn":
-        return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 9)"
+        return f"pool_type={cfg.pool_type!r} (ROADMAP queue 1, item 10: ViCLIP)"
     if cfg.ln_pre:
-        return "ln_pre (ROADMAP queue 1, item 9)"
+        return "ln_pre (ROADMAP queue 1, item 10: ViCLIP)"
     return None
 
 

@@ -6,7 +6,13 @@ D/4 channels and a spatial 2D embedding on the other 3D/4, in [T, H, W]
 patch order, with an all-zero CLS slot in front. The patch projection is a
 block reshape of channels-last video followed by one Dense, with patch
 content flattened in (ts, p, p, c) order (embeds.py:112-131).
-`interpolate_pos_embed` is not ported yet (ROADMAP queue 1, item 9).
+
+`interpolate_pos_embed` resamples a learned 3D pos embed to another grid
+as JAX's `jax.image.resize(..., "trilinear")` does: a triangle kernel at
+half-pixel centres, widened by 1 / scale on an axis that shrinks (the
+antialiasing `F.interpolate` lacks), weights normalized per output row.
+Each axis whose size changes is one small matmul with that axis's weight
+matrix (`resize_weights`).
 """
 
 from __future__ import annotations
@@ -71,6 +77,38 @@ def get_3d_sincos_pos_embed(
     if cls_token:
         full = np.concatenate([np.zeros((1, embed_dim)), full], axis=0)
     return full.astype(np.float32)
+
+
+def resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of `jax.image.scale_and_translate`'s
+    linear kernel at scale n_out / n_in, translation 0, antialiased."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)  # widen only when downsampling
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = (1.0 - x).clamp_min(0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid, dst_grid) -> torch.Tensor:
+    """(1 + T0 H0 W0, D) with a CLS slot -> (1 + T1 H1 W1, D): trilinear
+    resampling of the grid part (checkpoint surgery when the frame count or
+    resolution changes; JAX nn/embeds.py:78-95)."""
+    t0, h0, w0 = src_grid
+    t1, h1, w1 = dst_grid
+    cls_tok, grid = pos_embed[:1], pos_embed[1:]
+    d = grid.shape[-1]
+    vol = grid.reshape(t0, h0, w0, d)
+    for axis, (n_in, n_out) in enumerate(((t0, t1), (h0, h1), (w0, w1))):
+        if n_in != n_out:
+            w = resize_weights(n_in, n_out).to(device=vol.device, dtype=vol.dtype)
+            vol = torch.tensordot(vol, w, dims=([axis], [0])).movedim(-1, axis)
+    return torch.cat([cls_tok, vol.reshape(t1 * h1 * w1, d)], dim=0)
 
 
 class PatchEmbed3D(nn.Module):

@@ -25,7 +25,7 @@ Caches are written in place (`prefill`, `decode`) and returned, where JAX
 returns an updated copy. `attn_impl`: auto | kernel | plain (or the JAX
 spellings pallas | xla). The kernel route on a CPU tensor runs the kernels'
 plain versions. Head-parallel (mesh) decode is not ported (ROADMAP queue 1,
-item 9): the serving engine refuses a mesh.
+item 8b): the serving engine refuses a mesh.
 """
 
 from __future__ import annotations

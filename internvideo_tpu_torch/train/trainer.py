@@ -12,16 +12,25 @@ Port of internvideo_tpu/train/trainer.py (TrainerConfig, Trainer.fit):
     iterator past the batches already trained on;
   * `save_on_preemption`: SIGTERM / SIGINT save the current step and stop
     at the next step boundary;
-  * `ema_decay` and `load_params`.
+  * `ema_decay` and `load_params`;
+  * `hf_export_every` keeps JAX's contract (:93-95, :326-332): a given
+    `export_fn(state, step)` runs every N steps, and without one the
+    setting does nothing. `hf_export_fn` builds one: the model's
+    state_dict through `params_to_jax`, a `to_hf` export (e.g.
+    `export_mla_llm_hf`) and `save_hf_checkpoint` into `<dir>/step_<N>`;
+  * `flops_per_batch` > 0 logs tflops_per_sec, and MFU against the
+    device's bf16 peak where utils/metrics.py knows it; a step's
+    `tokens` metric logs tokens_per_sec; `tensorboard_dir` adds the
+    tensorboard sink.
 
-The mesh must resolve to one device (core/mesh.py); `health_check_every`,
-`hf_export_every`, `flops_per_batch` and `tensorboard_dir` raise
-NotImplementedError (ROADMAP queue 1, items 8 and 9).
+The mesh must resolve to one device (core/mesh.py); `health_check_every`
+raises NotImplementedError (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import signal
 from typing import Callable, Iterable, Optional
 
@@ -58,25 +67,35 @@ class TrainerConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
 
 
-def _unported(config: TrainerConfig) -> Optional[str]:
-    if config.health_check_every > 0:
-        return "health_check_every > 0 (ROADMAP queue 1, item 8)"
-    if config.hf_export_every > 0:
-        return "hf_export_every > 0 (ROADMAP queue 1, item 9)"
-    if config.flops_per_batch > 0:
-        return "flops_per_batch > 0 (ROADMAP queue 1, item 9)"
-    return None
+def hf_export_fn(directory: str, to_hf: Callable[[dict], dict], *,
+                 shard_size_bytes: int = 4 * 1024**3) -> Callable:
+    """An `export_fn(state, step)` for `hf_export_every`: writes the model's
+    weights as an HF checkpoint in `<directory>/step_<step>`. `to_hf` maps
+    the JAX param tree (`{"params": ...}` from `params_to_jax`) to the HF
+    state dict, e.g. `lambda t: export_mla_llm_hf(t, cfg)`."""
+    from internvideo_tpu_torch.core.checkpoint import save_hf_checkpoint
+    from internvideo_tpu_torch.models.convert import params_to_jax
+
+    def export(state: TrainState, step: int) -> None:
+        tree = params_to_jax(state.model.state_dict(), state.model)
+        save_hf_checkpoint(os.path.join(directory, f"step_{step}"), to_hf(tree),
+                           shard_size_bytes=shard_size_bytes)
+
+    return export
 
 
 class Trainer:
     def __init__(self, config: TrainerConfig, model: torch.nn.Module,
-                 step_builder: Callable, *, jsonl_path: Optional[str] = None):
+                 step_builder: Callable, *, jsonl_path: Optional[str] = None,
+                 export_fn: Optional[Callable] = None):
         """`model` is built on its device; `step_builder(grad_accum=n)`
-        returns step(state, batch) -> metrics (train/step.py)."""
-        missing = _unported(config)
-        if missing:
-            raise NotImplementedError(f"Trainer: {missing} is not ported yet")
+        returns step(state, batch) -> metrics (train/step.py);
+        `export_fn(state, step)` runs every `hf_export_every` steps."""
+        if config.health_check_every > 0:
+            raise NotImplementedError("Trainer: health_check_every > 0 (ROADMAP queue 1, "
+                                      "item 8) is not ported yet")
         single_device(config.mesh)
+        self.export_fn = export_fn
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
@@ -94,6 +113,8 @@ class Trainer:
                 self.ckpt.restore(self.state)
         self.metrics = MetricLogger(jsonl_path=jsonl_path, log_every=config.log_every,
                                     tensorboard_dir=config.tensorboard_dir)
+        if config.flops_per_batch:
+            self.metrics.set_peak_flops(device=self.device)
 
     def load_params(self, state_dict: dict) -> None:
         """Replace the model's parameters with a converted checkpoint (e.g.
@@ -150,6 +171,10 @@ class Trainer:
         for st, row in zip(steps, host):
             scalars = dict(zip(keys, row))
             self.metrics.update(**{k: v for k, v in scalars.items() if k != "finite"})
+            if "tokens" in scalars:
+                self.metrics.add_tokens(int(scalars["tokens"]))
+            if self.config.flops_per_batch:
+                self.metrics.add_flops(self.config.flops_per_batch)
             if bad is None and not scalars.get("finite", 1.0):
                 bad = (st, scalars)
         if halt_on_nan and bad is not None:
@@ -178,6 +203,9 @@ class Trainer:
                     self.metrics.log_step(step + 1, extra={"lr": self.lr_schedule(step)})
                 if self.ckpt is not None:
                     self.ckpt.save(step + 1, self.state)
+                if (self.export_fn is not None and cfg.hf_export_every
+                        and (step + 1) % cfg.hf_export_every == 0):
+                    self.export_fn(self.state, step + 1)
             if pending:  # the final partial window
                 last, n = pending[-1][0], len(pending)
                 self._flush_metrics(pending, halt_on_nan=cfg.halt_on_nan)

@@ -355,7 +355,7 @@ def test_losses_fall_on_a_fixed_batch(name):
         assert all(math.isfinite(v) for v in vals) and vals[-1] < vals[0], (key, vals)
 
 
-def test_build_clip_teacher_is_frozen_and_checkpoints_raise():
+def test_build_clip_teacher_is_frozen_and_checkpoints_raise(tmp_path):
     run = load_config(os.path.join(ROOT, "configs", "torch", "clip_stage2_tiny.py"))
     trainer, batch, teacher = cli.build_clip(run, torch.device("cpu"))
     assert batch == {"video": (8, 2, 28, 28, 3), "input_ids": (8, 16),
@@ -365,10 +365,34 @@ def test_build_clip_teacher_is_frozen_and_checkpoints_raise():
         id(q) for q in trainer.model.parameters()}
     plain = dataclasses.replace(run, engine=dataclasses.replace(run.engine, uta=0.0))
     assert cli.build_clip(plain, torch.device("cpu"))[2] is None
-    for key in ("init_state_dict", "teacher_checkpoint"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cli.build_clip(dataclasses.replace(run, data={**run.data, key: "x.pt"}),
-                           torch.device("cpu"))
+    # the checkpoints load (they raised until checkpoint I/O was ported): a
+    # reference stage-2 state dict (.safetensors, .npz, bf16 .pth) into the
+    # model and the convert CLI's npz into the frozen teacher
+    from internvideo_tpu_torch.core.checkpoint import write_safetensors
+    from internvideo_tpu_torch.models.convert import params_to_jax
+    from internvideo_tpu_torch.tools.convert_cli import flatten_params
+    from tests.torch_ckpt_synth import same_weights, stage2_reference_sd
+
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    other = VideoCLIP(run.model, device="cpu", generator=gen(5))
+    ref = stage2_reference_sd(other)
+    other_t = CLIPTeacher(run.teacher, device="cpu", generator=gen(6))
+    np.savez(tmp_path / "teacher.npz",
+             **flatten_params(params_to_jax(other_t.state_dict(), other_t)))
+    write_safetensors(str(tmp_path / "s2.safetensors"), ref)
+    np.savez(tmp_path / "s2.npz", **{k: v.numpy() for k, v in ref.items()})
+    torch.save({"model": {k: v.bfloat16() for k, v in ref.items()}}, tmp_path / "s2.pth")
+    for name in ("s2.safetensors", "s2.npz", "s2.pth"):
+        loaded, _, t = cli.build_clip(dataclasses.replace(run, data={
+            **run.data, "init_state_dict": str(tmp_path / name),
+            "teacher_checkpoint": str(tmp_path / "teacher.npz")}), torch.device("cpu"))
+        if name == "s2.pth":  # bf16 weights, cast to the model's fp32 parameters
+            other_bf16 = VideoCLIP(run.model, device="cpu", generator=gen(5))
+            other_bf16.load_state_dict({k: v.bfloat16() for k, v in other.state_dict().items()})
+            assert same_weights(loaded.model, other_bf16), name
+        else:
+            assert same_weights(loaded.model, other), name
+        assert same_weights(t, other_t) and not any(q.requires_grad for q in t.parameters())
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(["--config", os.path.join(ROOT, "configs", "torch", "clip_tiny.py"),

@@ -167,7 +167,7 @@ def test_cli_distill_on_cpu():
             assert np.isfinite(float(fields[key])), key
 
 
-def test_distill_configs_mirror_jax_and_give_the_slice_shapes():
+def test_distill_configs_mirror_jax_and_give_the_slice_shapes(tmp_path):
     jrun = jax_load_config(os.path.join(ROOT, "configs", "distill_tiny.py"))
     trun = load_config(TINY)
     for field in ("task", "trainer", "model", "data", "engine", "teacher"):
@@ -182,7 +182,20 @@ def test_distill_configs_mirror_jax_and_give_the_slice_shapes():
     assert big.model.clip_output_dim == big.teacher.embed_dim
     assert big.model.clip_final_output_dim == big.teacher.clip_embed_dim
     assert len(eng.teacher_layer_indices) == len(big.model.clip_indices) == 6
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.build_distill(dataclasses.replace(trun, data={**trun.data,
-                                                          "teacher_checkpoint": "t.npz"}),
-                          torch.device("cpu"))
+    # data.teacher_checkpoint loads (it raised until checkpoint I/O was
+    # ported): a reference encoder state dict through the convert CLI's npz
+    from internvideo_tpu_torch.core.checkpoint import write_safetensors
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+    from internvideo_tpu_torch.tools import convert_cli
+    from tests.torch_ckpt_synth import encoder_reference_sd, same_weights
+
+    other = InternVideo2(trun.teacher, device="cpu", generator=torch.Generator().manual_seed(9))
+    write_safetensors(str(tmp_path / "t.safetensors"),
+                      encoder_reference_sd(other.state_dict(), trun.teacher))
+    with redirect_stdout(io.StringIO()):
+        convert_cli.main(["--kind", "internvideo2_encoder", "--depth", str(trun.teacher.depth),
+                          "--src", str(tmp_path / "t.safetensors"),
+                          "--dst", str(tmp_path / "t.npz")])
+    _, _, teacher = cli.build_distill(dataclasses.replace(trun, data={
+        **trun.data, "teacher_checkpoint": str(tmp_path / "t.npz")}), torch.device("cpu"))
+    assert same_weights(teacher, other) and not teacher.training

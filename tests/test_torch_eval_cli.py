@@ -78,7 +78,9 @@ def test_cli_rejects_unported_tasks_and_checkpoints(monkeypatch):
     for task in ("nope", "openset_v2"):
         with pytest.raises(SystemExit, match="unknown task"):
             _main("--config", TINY, "--device", "cpu", f"task={task}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # checkpoint= loads since checkpoint I/O was ported (it raised
+    # NotImplementedError before); a missing one is an error, not the init
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         _main("--config", TINY, "--device", "cpu", "checkpoint=/nonexistent")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -1,7 +1,7 @@
 """The port's generate CLI on the CPU with the tiny smoke preset
 `qwen3_mla_tiny` (the widths tests/test_generate_cli.py injects): in-process
-and on the command line; the refusals; `--device cuda` without a card exits
-non-zero."""
+and on the command line; the refusals and a missing `--checkpoint`;
+`--device cuda` without a card exits non-zero."""
 
 import contextlib
 import io
@@ -42,12 +42,14 @@ def test_generate_cli_random_init():
 
 def test_generate_cli_refusals():
     cpu = ["--preset", "qwen3_mla_tiny", "--device", "cpu"]
-    for extra, match in ((["--ids", "1", "--checkpoint", "x.safetensors"], "not ported"),
-                         (["--prompt", "hello", "--tokenizer", "tok"], "tokenizer"),
+    for extra, match in ((["--prompt", "hello", "--tokenizer", "tok"], "tokenizer"),
                          ([], "--ids"),
                          (["--ids", "1", "--preset", "no_such_preset"], "unknown preset")):
         with pytest.raises(SystemExit, match=match):
             main(cpu + extra)
+    # --checkpoint loads (tests/test_torch_convert_cli.py); a missing one raises
+    with pytest.raises(FileNotFoundError):
+        main(cpu + ["--ids", "1", "--checkpoint", "x.safetensors"])
 
 
 def test_generate_cli_tiny_preset_on_the_command_line():

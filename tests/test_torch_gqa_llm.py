@@ -1,7 +1,7 @@
 """The dense-GQA LLM of the PyTorch port (models/llm_gqa.py) vs the JAX
 package: the ports of tests/test_gqa_llm.py except the HF round trip
-(checkpoint I/O is not ported), each also held against JAX on the same
-weights.
+(tests/test_torch_convert.py and test_torch_convert_cli.py hold it), each
+also held against JAX on the same weights.
 
 Weights are the JAX model's init, loaded through
 models/convert.py:params_from_jax with strict=True; the lm_head is scaled

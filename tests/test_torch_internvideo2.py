@@ -18,8 +18,9 @@ import torch
 from internvideo_tpu.models import internvideo2 as jax_iv2
 from internvideo_tpu.nn import embeds as jax_embeds
 from internvideo_tpu.nn import transformer as jax_tf
+from internvideo_tpu_torch.core.checkpoint import as_tensor
 from internvideo_tpu_torch.models import internvideo2 as iv2
-from internvideo_tpu_torch.models.convert import _to_tensor, params_from_jax
+from internvideo_tpu_torch.models.convert import params_from_jax
 from internvideo_tpu_torch.nn import embeds, transformer
 
 SMALL = dict(embed_dim=176, num_heads=2, depth=2, num_frames=4, img_size=56,
@@ -141,8 +142,8 @@ def test_patch_embed_matches_jax():
     params = _np_tree(jmod.init(jax.random.key(0), x))
     mod = embeds.PatchEmbed3D(48, patch_size=14, tubelet_size=2)
     mod.load_state_dict({
-        "proj.weight": _to_tensor(params["params"]["proj"]["kernel"].T),
-        "proj.bias": _to_tensor(params["params"]["proj"]["bias"]),
+        "proj.weight": as_tensor(params["params"]["proj"]["kernel"].T),
+        "proj.bias": as_tensor(params["params"]["proj"]["bias"]),
     })
     out = mod(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(out, np.asarray(jmod.apply(params, x)), atol=1e-5, rtol=1e-5)
@@ -156,7 +157,7 @@ def test_mlp_matches_jax(act):
     jmod = jax_tf.Mlp(hidden_dim=96, act=act)
     params = _np_tree(jmod.init(jax.random.key(0), x))["params"]
     mod = transformer.Mlp(48, 96, act=act)
-    mod.load_state_dict({f"{fc}.{n}": _to_tensor(params[fc]["kernel"].T if n == "weight"
+    mod.load_state_dict({f"{fc}.{n}": as_tensor(params[fc]["kernel"].T if n == "weight"
                                                  else params[fc]["bias"])
                          for fc in ("fc1", "fc2") for n in ("weight", "bias")}, strict=True)
     out = mod(torch.from_numpy(x)).detach().numpy()
@@ -172,12 +173,12 @@ def test_attention_pooling_matches_jax():
     mod = transformer.AttentionPoolingBlock(176, 2, 32)
     sd = {}
     for norm in ("norm1_q", "norm1_k", "norm1_v"):
-        sd[f"{norm}.weight"] = _to_tensor(params["params"][norm]["scale"])
-        sd[f"{norm}.bias"] = _to_tensor(params["params"][norm]["bias"])
+        sd[f"{norm}.weight"] = as_tensor(params["params"][norm]["scale"])
+        sd[f"{norm}.bias"] = as_tensor(params["params"][norm]["bias"])
     for lin in ("q", "k", "v", "proj"):
         p = params["params"]["cross_attn"][lin]
-        sd[f"cross_attn.{lin}.weight"] = _to_tensor(p["kernel"].T)
-        sd[f"cross_attn.{lin}.bias"] = _to_tensor(p["bias"])
+        sd[f"cross_attn.{lin}.weight"] = as_tensor(p["kernel"].T)
+        sd[f"cross_attn.{lin}.bias"] = as_tensor(p["bias"])
     mod.load_state_dict(sd, strict=True)
     out = mod(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(out, np.asarray(jmod.apply(params, x)), atol=1e-5, rtol=1e-5)

@@ -224,7 +224,7 @@ def test_pretrain_loss_and_student_grads_match_jax(tiny_slice):
     assert all(p.grad is None for m in (clip_t, mae_t) for p in m.parameters())
 
 
-def test_cli_pretrain_on_cpu_and_frozen_teachers():
+def test_cli_pretrain_on_cpu_and_frozen_teachers(tmp_path):
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = cli.main(["--config", TINY, "--device", "cpu", "trainer.total_steps=3",
@@ -246,10 +246,22 @@ def test_cli_pretrain_on_cpu_and_frozen_teachers():
     assert in_opt == {id(p) for p in trainer.model.parameters()}
     assert not any(k.startswith(("clip_teacher", "mae_teacher"))
                    for k in trainer.model.state_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.build_pretrain(dataclasses.replace(run, data={**run.data,
-                                                          "clip_teacher_checkpoint": "x.npz"}),
-                           torch.device("cpu"))
+    # the teachers' checkpoints load since checkpoint I/O was ported (they
+    # raised NotImplementedError before): the convert CLI's npz of a CLIP
+    # teacher (tests/test_torch_convert_cli.py holds both teachers)
+    from internvideo_tpu_torch.models.convert import params_to_jax
+    from internvideo_tpu_torch.tools.convert_cli import flatten_params
+
+    clip_t = teachers[0]
+    with torch.no_grad():
+        for p in clip_t.parameters():
+            p.add_(1.0)
+    path = str(tmp_path / "clip_teacher.npz")
+    np.savez(path, **flatten_params(params_to_jax(clip_t.state_dict(), clip_t)))
+    _, _, (loaded, _) = cli.build_pretrain(dataclasses.replace(
+        run, data={**run.data, "clip_teacher_checkpoint": path}), torch.device("cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                 clip_t.state_dict().values()))
 
 
 @pytest.mark.parametrize("name", ["pretrain_1b_umt", "pretrain_tiny"])

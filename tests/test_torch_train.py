@@ -362,10 +362,12 @@ def test_grad_accum_trainer_and_unported_options(tmp_path):
         assert torch.equal(p, other.model.state_dict()[name]), name
     trainer.fit(data)
     assert trainer.state.step == 2 and logged == [1, 2]
-    for kw in (dict(health_check_every=5), dict(hf_export_every=5),
-               dict(flops_per_batch=1e9), dict(tensorboard_dir=str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _tiny_trainer(tmp_path, 2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _tiny_trainer(tmp_path, 2, health_check_every=5)
+    # ported: hf_export_every without an export_fn does nothing, as in JAX;
+    # flops_per_batch logs (tensorboard_dir too: tests/test_torch_utils_io.py)
+    for kw in (dict(hf_export_every=5), dict(flops_per_batch=1e9)):
+        assert _tiny_trainer(tmp_path, 2, **kw)[0].export_fn is None
     from internvideo_tpu_torch.core.mesh import MeshConfig
 
     with pytest.raises(NotImplementedError, match="item 8"):

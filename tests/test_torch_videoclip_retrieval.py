@@ -171,8 +171,28 @@ def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         tret.retrieval_evaluation(encode_video=enc_v, encode_text=enc_t, rerank_score=rerank,
                                   videos=videos, texts=texts, shard_hosts=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        cli.main(["--config", str(ROOT / TORCH_CFG), "--device", "cpu", "checkpoint=/x"])
+    # checkpoint= loads (it raised until checkpoint I/O was ported): a
+    # synthetic reference stage-2 checkpoint of the config with the pretrain
+    # tower, as a single-shard HF directory, through the CLI's task
+    import dataclasses
+    import tempfile
+
+    from internvideo_tpu_torch.core.checkpoint import save_hf_checkpoint
+    from internvideo_tpu_torch.models.pretrain import PretrainConfig
+    from tests.torch_ckpt_synth import same_weights, stage2_reference_sd
+
+    run = load_config(str(ROOT / TORCH_CFG))
+    vis = run.model.vision
+    cfg = dataclasses.replace(run.model, pretrain=PretrainConfig(
+        encoder=vis, clip_output_dim=40, clip_final_output_dim=vis.clip_embed_dim,
+        clip_return_layers=2, mae_return_layers=0))
+    other = tvc.VideoCLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    with tempfile.TemporaryDirectory() as d:
+        save_hf_checkpoint(d, stage2_reference_sd(other))
+        run = dataclasses.replace(run, model=cfg, checkpoint=d)
+        assert same_weights(cli._videoclip(run, torch.device("cpu")), other)
+        out = cli.TASKS["retrieval"](run, torch.device("cpu"))
+    assert all(np.isfinite(v) for v in out.values())
 
 
 def test_pretrain_tower_encode_vision():
