@@ -16,7 +16,8 @@ non-zero and prints no result):
      K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128), of K7's wgmma
      s8 GEMM (f32 and bf16 output), of K3's (the forward body with the
      QK-RMSNorm in shared memory at d 64, 72, 88, 128), of K6's bf16
-     tensor-core decode (at (R, P) = (896, 128), (512, 64)) and of K11's
+     tensor-core decode (at (R, P) = (896, 128), (512, 64), all heads in a
+     CTA and a CTA per group of 32 heads) and of K11's
      (the walk with only Q normed at d 64, 88, and its normed-k pre-pass);
      fails on a spill in K4b's, K7's, K3's, K6's or K11's;
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
@@ -516,11 +517,42 @@ non-zero and prints no result):
      `cli.train` on configs/torch/distill_l14_1b.py with
      `data.teacher_checkpoint=`: the teacher bit-identical to phase 72's
      load, per step 40 K1 (teacher), 48 K3 + 48 pre-pass, 24 each of K2 /
-     K4b dq / dk/dv (student), every loss finite.
+     K4b dq / dk/dv (student), every loss finite;
+ 74. K5's causal forward at (d_qk, d_v) = (128, 64) (qwen3_moe_text's) vs
+     its plain version: fp32 at (2, 333, 4) (max-abs 2e-5, out and LSE),
+     bf16 at the prefill's (8, 2048, 32) and a ragged (1, 1999, 32) (rel-L2
+     <= 1e-2, LSE within 1e-2); K6's bf16 kernel at (R, P) = (512, 64) with
+     64 and 128 heads (gpt_oss_moe_text's, deepseek_v3's) at B 8, seq
+     2048-2112, on a NaN-dirty pool (rel-L2 <= 1e-2); their times (K5:
+     CUDA events; K6: graph replay; medians of 5) beside the bound, the
+     plain version and K5's SDPA yardstick (K6's 32- and 20-head shapes:
+     phase 19);
+ 75. qwen3_moe_text at full depth (48 layers, ~30.4 B parameters, bf16,
+     seeded init on the card): the ServingEngine (8 slots, page 64) serves
+     8 seeded prompts of 2048 ids, 16 greedy tokens each, with every count
+     set to 0 just before and read just after: 48 K5 a prefill and 48 K6 a
+     decode step, nothing else; prefill and decode tokens/s; a one-slot
+     engine equal token for token to generate(paged=True) at B 1 on the
+     first prompt (tools_torch/run_moe_phases.py: all 8, and the 8-slot
+     engine's agreement with B-8 generate); one prefill and one decode step under a device-only
+     profile with marker kernels around the MoE layers and their expert
+     GEMMs (idle share, the MoE share of device time, expert GEMMs vs
+     router / sort / combine vs K5 / K6 vs the rest); peak memory. Then at
+     depth 4 (full width), B 2 x 512 prefill + 4 paged decode steps: the
+     kernel route's logits no farther from an fp32 copy than 1.25 x the
+     plain route's, the fp32 routes within 1e-4, and the share of expert
+     picks the two bf16 routes share;
+ 76. gpt_oss_moe_text at full depth (24 layers, ~20.9 B parameters): the
+     same engine run and token checks (K5 at (64, 64), K6 at 64 heads);
+ 77. deepseek_v3 at depth 4 (3 dense layers + 1 MoE layer, full width,
+     ~15.1 B parameters): the same, the exact check on 2 prompts (K5 at
+     (192, 128), K6 at 128 heads; the grouped sigmoid router, the shared
+     expert, q_lora, YaRN).
 
-The last three lines are the card, the kernel table as JSON and
-{"ok": true, "device": {...}}; the line before them gives the whole run's
-wall time.
+After each phase (and between the parts of some) a line gives the run's
+elapsed seconds. The last three lines are the card, the kernel table as
+JSON and {"ok": true, "device": {...}}; the line before them gives the
+whole run's wall time.
 """
 
 import contextlib
@@ -580,6 +612,16 @@ RL_DEPTH, RL_ITERS, RL_ACCUM = 24, 2, 4
 RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW = 2, 8, 1024, 128
 RL_SHAPE = (4, 1152, 32, 8, 128)  # B, L, Hq, Hkv, head_dim of one microbatch's attention
 RL_ENGINE_DEPTH, RL_ENGINE_PROMPT, RL_ENGINE_NEW = 4, 256, 32  # the engine backend, qwen3_8b_mla
+# MoE serving (phases 74-77): qwen3_moe_text and gpt_oss_moe_text at full depth,
+# deepseek_v3 at depth 4 (3 dense layers + 1 MoE layer, full width); 8 prompts of
+# 2048 ids, 16 greedy tokens each; the route check at depth 4
+PRESET_MOE, PRESET_GPT_OSS, PRESET_DEEPSEEK = "qwen3_moe_text", "gpt_oss_moe_text", "deepseek_v3"
+MOE_PROMPTS, MOE_PROMPT, MOE_NEW = 8, 2048, 16
+# prompts of the one-slot engine vs B-1 generate check in chip_smoke (each
+# 6.5-10 s on qwen3_moe_text: 30 host-bound B-1 decode steps and 2
+# prefills); tools_torch/run_moe_phases.py checks all 8
+MOE_EXACT = {PRESET_MOE: 1, PRESET_GPT_OSS: 1, PRESET_DEEPSEEK: 2}
+MOE_ROUTE_DEPTH, DEEPSEEK_DEPTH = 4, 4
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W): bf16 tensor cores, HBM
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 PEAK_INT8_OPS = 1979e12  # int8 tensor cores, dense
@@ -724,6 +766,14 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _free(t_start: float) -> None:
+    """Release what the last phase left on the card and print the run's
+    elapsed seconds, so that the log shows where the wall time goes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [elapsed {time.perf_counter() - t_start:.1f} s]", flush=True)
+
+
 def _rel(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm()).item()
@@ -796,9 +846,9 @@ def _ptxas(log: str, pattern: str, label, count: int) -> dict:
     return res
 
 
-def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 12) -> dict:
+def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 14) -> dict:
     """The ptxas report of each instantiation of one of K5's bf16 kernels
-    (`<kernel><d_qk, d_v, kSeg>`: the forward, or the backward's
+    (`<kernel><d_qk, d_v, kSeg>`: the forward, 14, or the backward's
     `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`, 10 each)."""
     return _ptxas(log, kernel + r"ILi(\d+)ELi(\d+)ELb(\d)E",
                   lambda m: f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})", count)
@@ -836,12 +886,14 @@ def _ptxas_k4b_k7(log: str) -> dict:
 def _ptxas_k3_k6(log: str) -> dict:
     """The ptxas report of K3's bf16 kernels (fused_qkv_fwd_wgmma_kernel<D>,
     K2's body with the QK-RMSNorm in shared memory at D = 64, 72, 88, 128)
-    and of K6's (paged_decode_mma_kernel<R, P>); raises on a spill (the
-    kernels they replace had none)."""
+    and of K6's (paged_decode_mma_kernel<R, P, kGroups>: all heads in a CTA,
+    or a CTA per group of 32); raises on a spill (the kernels they replace
+    had none)."""
     rep = {**_ptxas(log, r"fused_qkv_fwd_wgmma_kernelILi(\d+)E",
                     lambda m: f"fused_qkv_fwd ({m[1]}, {m[1]})", 4),
-           **_ptxas(log, r"paged_decode_mma_kernelILi(\d+)ELi(\d+)E",
-                    lambda m: f"paged_decode (R {m[1]}, P {m[2]})", 2)}
+           **_ptxas(log, r"paged_decode_mma_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                    lambda m: f"paged_decode (R {m[1]}, P {m[2]}"
+                              + (", head groups)" if m[3] == "1" else ")"), 4)}
     spilled = {k: v for k, v in rep.items() if v["spill_stores"] or v["spill_loads"]}
     if spilled:
         raise AssertionError(f"K3 / K6 kernels spill: {spilled}")
@@ -7738,6 +7790,401 @@ def run_ckpt_distill_path(fa, pd, ig, rms, root: str, ev: dict, card) -> dict:
     return r
 
 
+# -- MoE serving: phases 74-77 ------------------------------------------------------------
+
+def _moe_k5_shape(preset: str) -> tuple:
+    """(B, S, H, d_qk, d_v) the preset's prefill gives K5 at the serving shape."""
+    from internvideo_tpu_torch.models import presets
+
+    m = getattr(presets, preset)().mla
+    b, s = MOE_PROMPTS, MOE_PROMPT
+    return (b, s, m.num_heads, m.q_head_dim, m.v_head_dim)
+
+
+def check_moe_kernels(fa, pd, card) -> dict:
+    """Phase 74: K5 at (128, 64) and K6 past 32 heads vs their plain
+    versions, then their times with the bound and the yardstick (K6's
+    earlier shapes are timed in phase 19). Returns {name: record}."""
+    g = torch.Generator("cuda").manual_seed(74)
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    # K5 (128, 64): fp32 at a small shape (2e-5), bf16 at the serving shape
+    # and at a ragged prompt (rel-L2 <= 1e-2, LSE within 1e-2)
+    for dt, (b, s, h, d, dv) in ((torch.float32, (2, 333, 4, 128, 64)),
+                                 (torch.bfloat16, _moe_k5_shape(PRESET_MOE)),
+                                 (torch.bfloat16, (1, 1999, 32, 128, 64))):
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).to(dt)
+        k = torch.randn(b, s, h, d, device="cuda", generator=g).to(dt)
+        v = torch.randn(b, s, h, dv, device="cuda", generator=g).to(dt)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        rel = _rel(out, ref)
+        ok = (err <= 2e-5 and lse_err <= 2e-5) if dt == torch.float32 else (
+            rel <= 1e-2 and lse_err <= 1e-2)
+        print(f"K5 (128, 64) causal {(b, s, h, d, dv)} {str(dt)[6:]}: max-abs {err:.3e}, rel-L2 "
+              f"{rel:.3e}, LSE max-abs {lse_err:.3e}", flush=True)
+        if not (ok and torch.isfinite(out).all()):
+            raise AssertionError(f"K5 (128, 64) disagrees with its plain version at {(b, s, h)}")
+        if (b, s, h, d, dv) == _moe_k5_shape(PRESET_MOE):
+            scale = d ** -0.5
+            with torch.no_grad():
+                ms = _median_ms(lambda: fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0))
+                plain_ms = _time_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, scale, True),
+                                    iters=1)
+                lib_ms, lib_note = _sdpa_causal_ms(q, k, v)
+            pairs = b * h * s * (s + 1) // 2
+            bound = _bound(2 * pairs * (d + dv), (2 * b * s * h * d + 2 * b * s * h * dv) * 2
+                           + b * h * s * 4)
+            res["flash_fwd_causal_moe"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_note=lib_note, bound=bound,
+                shape=[b, s, h, d, dv], max_abs_err=err, rel_l2=rel)
+            print(f"[{card}] K5 (128, 64) {(b, s, h, d, dv)} bf16: kernel {ms:.4f} ms (median "
+                  f"of 5; {2 * pairs * (d + dv) / ms / 1e9:.1f} TFLOP/s), bound {bound[0]:.4f} "
+                  f"ms ({bound[1]}), plain {plain_ms:.3f} ms, SDPA yardstick "
+                  + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None else lib_note),
+                  flush=True)
+        del q, k, v, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+    # K6 bf16 at 64 and 128 heads (gpt_oss_moe_text's, deepseek_v3's)
+    for tag, (b, h, r, p_dim, ps), lens in (("64h", (8, 64, 512, 64, 64), DECODE_LENS),
+                                           ("128h", (8, 128, 512, 64, 64), DECODE_LENS)):
+        q_lat, q_pe, pages, tables, sl = _paged_inputs(b, h, r, p_dim, ps, -(-max(lens) // ps) + 1,
+                                                       lens, torch.bfloat16, 74)
+        scale = (128 + p_dim) ** -0.5
+        out = pd.paged_mla_decode(q_lat, q_pe, pages, tables, sl, softmax_scale=scale)
+        pages = torch.nan_to_num(pages)
+        ref = pd.paged_mla_decode_ref(q_lat, q_pe, pages, tables, sl, softmax_scale=scale)
+        torch.cuda.synchronize()
+        rel, err = _rel(out, ref), (out.float() - ref.float()).abs().max().item()
+        if not (torch.isfinite(out).all() and rel <= 1e-2):
+            raise AssertionError(f"K6 bf16 at {h} heads disagrees with its plain version")
+        call = lambda: pd._paged_decode_cuda(q_lat, q_pe, pages, tables, sl, scale)  # noqa: E731
+        with torch.no_grad():
+            ms = _median_graph_ms(call)
+            event_ms = _time_ms(call, iters=50, warmup=5)
+            plain_ms = _time_ms(lambda: pd.paged_mla_decode_ref(q_lat, q_pe, pages, tables, sl,
+                                                                softmax_scale=scale), iters=5)
+        toks = sum(lens)
+        pool = toks * (r + p_dim) * 2
+        bound = _bound(toks * h * 2 * (r + p_dim + r),
+                       pool + b * h * (2 * r + p_dim) * 2 + tables.numel() * 4)
+        res[f"paged_decode_{tag}"] = dict(
+            ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=None, bound=bound,
+            pool_gb_per_s=pool / ms / 1e6, shape=[b, h, r, p_dim, ps, min(lens), max(lens)],
+            max_abs_err=err, rel_l2=rel)
+        print(f"[{card}] K6 bf16 (B {b}, H {h}, R {r}, P {p_dim}, page {ps}) seq {min(lens)}-"
+              f"{max(lens)}: rel-L2 {rel:.3e} (bar 1e-2), max-abs {err:.3e}; kernel {ms:.4f} ms "
+              f"(graph replay, median of 5; {pool / ms / 1e6:.0f} GB/s of pool; CUDA events "
+              f"{event_ms:.4f}), bound {bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.3f} ms",
+              flush=True)
+        del q_lat, q_pe, pages, tables, sl, out, ref
+        torch.cuda.empty_cache()
+    print(f"[{card}] phase 74: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return res
+
+
+def _moe_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=MOE_PROMPT).astype(np.int32) for _ in range(MOE_PROMPTS)]
+
+
+def _timed_calls(model) -> dict:
+    """Count and time (host wall around a synchronised call) the model's
+    prefill_paged / decode_step_paged calls; delete the attributes to undo."""
+    rec = {"prefill": [0, 0.0], "decode": [0, 0.0]}
+    for name, key in (("prefill_paged", "prefill"), ("decode_step_paged", "decode")):
+        fn = getattr(model, name)
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[_key][0] += 1
+            rec[_key][1] += time.perf_counter() - t0
+            return out
+
+        setattr(model, name, timed)
+    return rec
+
+
+def _engine(model, max_batch: int):
+    from internvideo_tpu_torch.serve import ServingEngine
+
+    per_seq = -(-(MOE_PROMPT + MOE_NEW) // 64)
+    return ServingEngine(model, max_batch=max_batch, page_size=64,
+                         num_pages=max_batch * per_seq, max_len=MOE_PROMPT + MOE_NEW,
+                         prompt_buckets=(MOE_PROMPT,))
+
+
+def _moe_markers():
+    """Bracket every MoEMlp forward and its grouped expert GEMMs with a
+    marker kernel (torch.cuda._sleep(1): `spin_kernel`), so that a device-only profile can
+    tell MoE kernels apart: in stream order the markers come 4 to a layer
+    (MoE start, experts start, experts end, MoE end). Returns the undo."""
+    from internvideo_tpu_torch.nn import moe as moe_mod
+
+    fwd, experts = moe_mod.MoEMlp.forward, moe_mod.grouped_experts
+
+    def marked_forward(self, *a, **kw):
+        torch.cuda._sleep(1)
+        out = fwd(self, *a, **kw)
+        torch.cuda._sleep(1)
+        return out
+
+    def marked_experts(*a, **kw):
+        torch.cuda._sleep(1)
+        out = experts(*a, **kw)
+        torch.cuda._sleep(1)
+        return out
+
+    moe_mod.MoEMlp.forward, moe_mod.grouped_experts = marked_forward, marked_experts
+
+    def undo():
+        moe_mod.MoEMlp.forward, moe_mod.grouped_experts = fwd, experts
+    return undo
+
+
+def profile_moe(step, card, what: str) -> dict:
+    """One `step()` under a device-only torch.profiler with the MoE markers:
+    wall, device busy and idle share, and device ms of the expert GEMMs,
+    the rest of the MoE layers (router, top-k, sort, gather, combine), K5,
+    K6 and everything else (attention projections, norms, embedding, head);
+    the expert GEMMs' launches a MoE layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    undo = _moe_markers()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    groups = dict.fromkeys(("expert GEMMs", "router / sort / combine", "K5", "K6", "other"), 0.0)
+    marks, expert_launches, layers = 0, 0, 0
+    for e in kernels:
+        name = e.name.lower()
+        if "spin_kernel" in name:
+            marks += 1
+            layers += marks % 4 == 1
+            continue
+        us = e.time_range.elapsed_us()
+        state = marks % 4  # 1: MoE, 2: experts, 3: MoE after the experts, 0: outside
+        if state == 2:
+            groups["expert GEMMs"] += us / 1e3
+            expert_launches += 1
+        elif state in (1, 3):
+            groups["router / sort / combine"] += us / 1e3
+        elif "causal_fwd" in name:
+            groups["K5"] += us / 1e3
+        elif "paged_decode" in name:
+            groups["K6"] += us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    busy = sum(groups.values())
+    if not busy or not layers:
+        raise AssertionError(f"{what}: the profiler saw no device time or no MoE marker")
+    moe = groups["expert GEMMs"] + groups["router / sort / combine"]
+    rec = {"wall_ms": wall, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall),
+           "moe_share_of_device": moe / busy, "groups_ms": groups, "moe_layers": layers,
+           "expert_launches_per_layer": expert_launches / layers}
+    print(f"[{card}] {what} under torch.profiler (device only, MoE markers): wall {wall:.1f} ms, "
+          f"device busy {busy:.1f} ms, idle {rec['idle']:.1%}; MoE layers {moe / busy:.1%} of "
+          f"device time; " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
+                                       for k, v in groups.items())
+          + f"; {expert_launches / layers:.0f} expert-GEMM launches a MoE layer", flush=True)
+    return rec
+
+
+def run_moe_path(fa, pd, card, preset: str, depth=None, exact: int = MOE_PROMPTS,
+                 agreement: bool = False, profile: bool = False) -> dict:
+    """Phases 75-77's serving run of `preset` (at `depth` layers, or its own)
+    in bf16 with seeded weights: the ServingEngine (8 slots) serves
+    MOE_PROMPTS seeded prompts of MOE_PROMPT ids, MOE_NEW greedy tokens each,
+    paged, with every count set to 0 just before and read just after (one
+    K5 a layer a prefill, one K6 a layer a decode step, nothing else);
+    prefill and decode tokens/s from the synchronised calls; with
+    `agreement`, the engine's tokens beside generate(paged=True)'s at B 8
+    (their agreement: the batch changes the GEMMs' shapes and so their bf16
+    rounding); then the exact check on the first `exact` prompts: the
+    engine with one slot against generate(paged=True) at B 1, prompt by
+    prompt (the same shapes: the tokens must be equal). With `profile`, one
+    prefill and one decode step under the MoE profile."""
+    from internvideo_tpu_torch.models.generation import generate
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _llm(preset, **({"num_layers": depth} if depth else {}))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_layers = cfg.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = _moe_prompts(cfg.vocab_size, 75)
+    zero = dict.fromkeys(_serve_counts(fa, pd), 0)
+
+    eng = _engine(model, MOE_PROMPTS)
+    rec = _timed_calls(model)
+    _serve_reset(fa, pd)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MOE_NEW) for p in prompts]
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _serve_counts(fa, pd)
+    (n_pre, pre_s), (n_dec, dec_s) = rec["prefill"], rec["decode"]
+    want = {**zero, "flash_fwd_causal": n_layers * n_pre, "paged_decode": n_layers * n_dec}
+    if launches != want or n_pre != MOE_PROMPTS or n_dec != MOE_NEW - 1:
+        raise AssertionError(f"{preset}: launches {launches} for {n_pre} prefills / {n_dec} decode "
+                             f"steps; expected {want} ({n_layers} K5 a prefill, {n_layers} K6 a "
+                             "decode step)")
+    engine_tokens = np.stack([outs[r] for r in rids])
+    if engine_tokens.shape != (MOE_PROMPTS, MOE_NEW) or not (
+            (engine_tokens >= 0) & (engine_tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{preset}: engine tokens {engine_tokens.shape}")
+    for name in ("prefill_paged", "decode_step_paged"):
+        delattr(model, name)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"preset": preset, "layers": n_layers, "params_b": n_params / 1e9,
+           "param_gb": _param_bytes(model, skip_embed=False) / 1e9, "init_s": init_s,
+           "launches": launches, "prefill_calls": n_pre, "decode_steps": n_dec,
+           "engine_wall_s": wall,
+           "engine_tokens_per_sec": MOE_PROMPTS * MOE_NEW / wall,
+           "prefill_tokens_per_sec": MOE_PROMPTS * MOE_PROMPT / pre_s,
+           "prefill_ms_per_call": pre_s / n_pre * 1e3,
+           "decode_tokens_per_sec": MOE_PROMPTS * n_dec / dec_s,
+           "decode_ms_per_step": dec_s / n_dec * 1e3}
+    print(f"[{card}] {preset} ({n_layers} layers, {n_params / 1e9:.2f} B parameters, "
+          f"{res['param_gb']:.1f} GB bf16, init {init_s:.1f} s) ServingEngine, 8 slots: "
+          f"{MOE_PROMPTS} prompts of {MOE_PROMPT}, {MOE_NEW} greedy tokens each, in {wall:.2f} s; "
+          f"prefill {res['prefill_ms_per_call']:.1f} ms a call = "
+          f"{res['prefill_tokens_per_sec']:.0f} tokens/s (B 1 x {MOE_PROMPT}); decode "
+          f"{res['decode_ms_per_step']:.1f} ms a step = {res['decode_tokens_per_sec']:.1f} "
+          f"tokens/s (B {MOE_PROMPTS}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+    ids = torch.from_numpy(np.stack(prompts)).long().cuda()
+    if agreement:
+        gen8 = generate(model, ids, max_new_tokens=MOE_NEW, paged=True, page_size=64,
+                        cache_dtype=torch.bfloat16).cpu().numpy()
+        res["engine_vs_generate_b8_agreement"] = float((gen8 == engine_tokens).mean())
+        res["engine_vs_generate_b8_first_token_agreement"] = float(
+            (gen8[:, 0] == engine_tokens[:, 0]).mean())
+        print(f"[{card}] {preset}: the 8-slot engine agrees with generate(paged=True) at B 8 "
+              f"on {res['engine_vs_generate_b8_agreement']:.1%} of tokens "
+              f"({res['engine_vs_generate_b8_first_token_agreement']:.1%} of first tokens)",
+              flush=True)
+    one = _engine(model, 1)
+    rids = [one.submit(p, MOE_NEW) for p in prompts[:exact]]
+    outs = one.run()
+    del one
+    for rid, p in zip(rids, prompts[:exact]):
+        alone = generate(model, torch.from_numpy(p).long()[None].cuda(), max_new_tokens=MOE_NEW,
+                         paged=True, page_size=64, cache_dtype=torch.bfloat16)[0].cpu().numpy()
+        if not (alone == outs[rid]).all():
+            raise AssertionError(f"{preset}: the one-slot engine's tokens {outs[rid].tolist()} "
+                                 f"differ from generate(paged=True)'s {alone.tolist()}")
+    res["exact_prompts"] = exact
+    print(f"[{card}] {preset} tokens: the one-slot engine equals generate(paged=True) at B 1 on "
+          f"{exact} of the {MOE_PROMPTS} prompts ({MOE_NEW} each); the 8-slot engine's first: "
+          f"{engine_tokens[0][:8].tolist()}", flush=True)
+
+    if profile:
+        from internvideo_tpu_torch.models.llm import init_paged_cache
+
+        b, s = MOE_PROMPTS, MOE_PROMPT
+        pages, tables = init_paged_cache(cfg, b, s + 64, 64, torch.bfloat16, "cuda")
+        tok = ids[:, :1].contiguous()
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            pre1 = lambda: model.prefill_paged(ids[:1], pages, tables[:1], 64)  # noqa: E731
+            pre1()
+            res["profile_prefill_b1"] = profile_moe(pre1, card,
+                                                    f"{preset} prefill B 1 x {s} (the engine's)")
+            dec = lambda: model.decode_step_paged(tok, pages, tables, lens, 64)  # noqa: E731
+            dec()
+            res["profile_decode_b8"] = profile_moe(dec, card, f"{preset} paged decode step B {b} "
+                                                               f"seq {s}")
+        del pages, tables
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] {preset}: peak device memory {res['peak_gb']:.2f} GB, phase "
+          f"{res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def check_moe_routes(preset: str, depth: int, card) -> dict:
+    """Phase 75, second part: `preset` at `depth` layers (full width), B 2
+    prompts of 512, prefill + 4 paged decode steps on the kernel route and
+    on the plain route in bf16 and on both in fp32 (the same weights): the
+    kernel route's logits no farther from the fp32 run than 1.25 x the plain
+    route's, the fp32 routes within 1e-4; and the share of (token, slot)
+    expert picks that agree between the two bf16 routes."""
+    from internvideo_tpu_torch.models.llm import MLATransformer
+    from internvideo_tpu_torch.nn import moe as moe_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _llm(preset, num_layers=depth)
+    cfg = model.cfg
+    g = torch.Generator("cuda").manual_seed(75)
+    ids = torch.randint(1, cfg.vocab_size, (2, 512), device="cuda", generator=g)
+    fed = torch.randint(1, cfg.vocab_size, (2, 4), device="cuda", generator=g)
+    route = moe_mod.route_tokens
+    picks = {}
+
+    def recording(impl):
+        def rec(*a, **kw):
+            out = route(*a, **kw)
+            picks.setdefault(impl, []).append(out[0])
+            return out
+        return rec
+
+    res = {}
+    for impl in ("kernel", "plain"):
+        moe_mod.route_tokens = recording(impl)
+        try:
+            res[impl] = _route_logits(model, impl, ids, fed)
+        finally:
+            moe_mod.route_tokens = route
+    agree = [(a == b).float().mean().item() for a, b in zip(picks["kernel"], picks["plain"])]
+    ref = _fp32_copy(model, lambda: MLATransformer(
+        dataclasses.replace(cfg, dtype="float32", param_dtype="float32"), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(0)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = {impl: _route_logits(ref, impl, ids, fed) for impl in ("kernel", "plain")}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_to_fp32(res, f32, f"{preset} at depth {depth} (full width), B 2 x 512, prefill + 4 "
+                            "paged decode steps")
+    share = sum(agree) / len(agree)
+    print(f"[{card}] {preset} depth {depth}: the two bf16 routes pick the same expert for "
+          f"{share:.2%} of (token, slot) picks (by layer and call: "
+          f"{min(agree):.2%}-{max(agree):.2%}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    rows = {n: {"kernel_vs_fp32": _rel(res["kernel"][n], f32["plain"][n]),
+                "plain_vs_fp32": _rel(res["plain"][n], f32["plain"][n])} for n in range(5)}
+    return {"expert_pick_agreement": share, "logits_rel_l2": rows}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -7768,7 +8215,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     k5_ptxas = {what: _ptxas_k5(build_log, kernel, count) for what, kernel, count in (
-        ("forward", "causal_fwd_bf16_kernel", 12), ("dq", "causal_bwd_dq_bf16_kernel", 10),
+        ("forward", "causal_fwd_bf16_kernel", 14), ("dq", "causal_bwd_dq_bf16_kernel", 10),
         ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
     k4a_ptxas = _ptxas_k4a(build_log)
     k1k2_ptxas = _ptxas_k1k2(build_log)
@@ -7800,183 +8247,148 @@ def main() -> int:
     # 6. times
     kern_ms, plain_ms, max_abs = time_all(fa, model, card)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 7. backward kernels vs plain
     bwd_err = check_backward(fa)
 
     # 8. the training main path, counting launches
     train_launches = run_train_path(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 9. kernel route vs plain route in training
     run = load_config(CONFIG_TRAIN)
     check_train_routes(run)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 10. times
     t = time_train(fa, run, card)
     del run
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 11. the pretrain kernels vs their plain versions
     pre_err = check_pretrain_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 12. the pretrain main path, counting launches
     pre_launches, k3_by_len = run_pretrain_path(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 13. kernel route vs plain route in pretraining
     prun = load_config(CONFIG_PRETRAIN)
     check_pretrain_routes(prun)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 14. times
     pk = time_pretrain_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     time_pretrain_step(fa, prun, card)
 
     # 15. the causal flash kernel (K5) vs its plain version
     k5_err = check_causal_kernel(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 16. the paged decode kernel (K6) vs its plain version
     k6_err = check_paged_kernel(pd)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 17. the serving main path, counting launches
     llm, serve_launches = run_serve_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 18. kernel route vs plain route in serving
     check_serve_routes(llm)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 19. times
     serve_times = {PRESET_8B: time_llm(llm, PRESET_8B, card)}
     del llm
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     llm = _llm(PRESET_2B)
     serve_times[PRESET_2B] = time_llm(llm, PRESET_2B, card)
     del llm
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     sk = time_serve_kernels(fa, pd, card)
     print(f"[{card}] serving: " + json.dumps(serve_times), flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 20. the SFT kernels (K5 backward, K8, K2 / K4b at 72) vs their plain versions
     sft_err = check_sft_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 21. the SFT main path, counting launches
     sft_launches = run_sft_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 22. kernel route vs plain route in SFT
     check_sft_routes(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 22b. one bf16 AdamW step: the card's fused update vs the CPU route
     check_adamw_bf16(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 23. times
     st = time_sft_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     sft_step = time_sft_step(fa, card)
     print(f"[{card}] sft: " + json.dumps(sft_step), flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 24. K5 with GQA and the window vs its plain version
     gqa_err = check_gqa_kernel(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 24b. K2 and K5 at the HiCo video path's shapes vs their plain versions,
     # and timed there
     hico_err = check_hico_kernels(fa)
     hico_t = time_hico_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 25. the dense-GQA main path (generate CLI, the Qwen3-VL-dense compose)
     gqa_launches = run_gqa_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 26. the HiCo video serving main path, counting launches
     hico, mllm_launches = run_mllm_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 27. kernel route vs plain route on both paths
     check_mllm_routes(hico, fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 28. times
     serve_mm = time_mllm(hico, card)
     del hico
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     serve_mm.update(time_gqa_llm(card))
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     gk = time_gqa_kernel(fa, card)
     print(f"[{card}] multimodal and dense-GQA serving: " + json.dumps(serve_mm), flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 29. K5's GQA / window backward vs its plain version
     rl_err = check_rl_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 30. the RL main path (compiled rollout on qwen3_8b_dense), then the
     # engine backend on qwen3_8b_mla, counting launches
     rl_launches, rl_batch, rl_peak = run_rl_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     rl_engine_launches = run_rl_engine_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 31. kernel route vs plain route on one policy update
     check_rl_routes(rl_batch, card)
     del rl_batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 32. times
     rk = time_rl_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     rl_iter = time_rl_iteration(card)
     print(f"[{card}] rl: " + json.dumps({**rl_iter, "peak_gb": rl_peak}), flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 33. K7 (the fused dynamic-int8 GEMM) vs its plain version
     i8_err = check_int8_kernel(ig)
@@ -7987,214 +8399,172 @@ def main() -> int:
     # 35. routes, int8_mix vs int8_wo, drift from dense; fp32 depth 2 tokens
     check_int8_routes(i8_model, ig, i8_ref, i8_ids, card)
     del i8_ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 36. times, while the int8 8B model is on the card
     i8t = time_int8(i8_model, ig, card, serve_times[PRESET_8B])
     del i8_model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 37. the 1B encoder and the tower with quant="int8"
     i8_enc = run_int8_encoder_tower(fa, pd, ig, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 38. K9 and K10 vs their plain versions
     norm_err = check_norm_kernels(rms)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 39. K11 vs its plain version; 39b. the three kernels' entry points
     large_err = check_large_kernel(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     entry_launches = run_norm_entry_points(fa, pd, ig, rms)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 40. the VideoCLIP stage-2 retrieval main path, counting launches
     ret_launches, _, ret_wall = run_retrieval_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 41. kernel route vs plain route on the stage-2 model
     vclip = check_retrieval_routes(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 42. times
     ret = time_retrieval(vclip, fa, rms, card)
     del vclip
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 43. K1 / K4a at the stage-2 step's shapes, K2 / K3 / K4b at the UTA
     # variant's, vs their plain versions; their times
     clip_err = check_clip_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     clip_k = time_clip_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 44. the stage-2 training main path (the 1B recipe), counting launches
     clip_launches = run_clip_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 45. kernel route vs plain route on the first step's losses
     crun = load_config(CONFIG_CLIP)
     check_clip_routes(crun)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 46. times: the step, its peak memory and device busy share
     clip_step = time_clip_step(fa, pd, ig, rms, crun, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 47. the UTA variant (CLIP-6B teacher, masked student), counting launches
     clip_uta_launches = run_clip_uta_path(fa, pd, ig, rms, crun, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 48. K1 / K2 / K5 at the chat path's shapes vs their plain versions
     chat_err = check_chat_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 49. the chat main path: task videoqa on the full-width VideoChat, counting launches
     chat_launches = run_chat_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 50. kernel route vs plain route on the chat model
     chat = _chat_model()
     check_chat_routes(chat, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 51. times: TTFT split, decode, idle share, peak memory; the kernels at its shapes
     chat_t = time_chat(chat, fa, card)
     del chat
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     chat_k = time_chat_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 52. task zeroshot on the stage-2 model, counting launches
     zs_launches = run_zeroshot_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 53. K3 and K2 / K4b at the distill student's head dim 64 vs their plain versions
     distill_err = check_distill_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 54. their times at the student's shape
     distill_k = time_distill_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 55. the distill main path (L/14 from a frozen 1B), counting launches
     distill_launches = run_distill_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 56. kernel route vs plain route of the distill loss
     drun = load_config(CONFIG_DISTILL)
     check_distill_routes(drun)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 57. times: the step, the teacher's share, peak memory, device time by group
     distill_step = time_distill_step(fa, pd, ig, rms, drun, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 58. the real SFT data path: jsonl + clips -> packs -> SFT steps, counting launches
     sft_jsonl = run_sft_jsonl_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 59. prefetch_to_device on the card
     prefetch = check_prefetch(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 60. the fusion cross-attention at the audio-visual shapes and the simple
     # tower's attention vs their plain versions; their times
     av_err = check_av_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     av_k = time_av_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 61. the audio-visual main path (audio_video on the full-width config), counting launches
     av_launches = run_clip_av_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 62. the step of each media type: launches, ms, peak memory, device time by group
     arun = load_config(CONFIG_AV)
     av_steps, av_trainer = time_clip_av_steps(fa, pd, ig, rms, arun, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 63. the real-audio path: wavs + clips -> corpora -> load_fbank -> prefetch -> steps
     av_real = run_av_real_audio_path(av_trainer, arun, card)
     del av_trainer
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 64. kernel route vs plain route of the audio-visual loss per media type
     check_clip_av_routes(arun)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 65. the simple audio tower at its default width, one audio step
     av_simple = run_simple_tower_step(fa, pd, ig, rms, arun, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 66. K5 + K8 non-causal with window 10 and pads at -2 at ActionFormer's
     # six level shapes vs their plain versions; their fp32 times
     af_err = check_actionformer_kernels(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     af_k = time_actionformer_kernels(fa, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 67. ActionFormer at THUMOS width: kernel route vs plain route
     af_route = check_actionformer_routes(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 68. the ActionFormer main path (train, infer, decode, C++ NMS, mAP), counting launches
     af = run_actionformer_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 69. the STAL head at AVA width: train, infer, frame mAP; ROIAlign3D's time
     stal = run_stal_path(fa, pd, ig, rms, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 70. the eval CLI's temporal_detection / openset / spatiotemporal on the card vs the CPU
     loc_cli = run_localization_cli(card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
 
     # 71. HF-layout LLM checkpoints: export, shards + index, the generate CLI's loader, tokens
     ckpt_llm = run_ckpt_llm_path(fa, pd, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
@@ -8205,8 +8575,27 @@ def main() -> int:
         # 73. that file cut to the distill teacher, the convert CLI's npz, two distill steps
         ckpt_distill = run_ckpt_distill_path(fa, pd, ig, rms, ckpt_root, ckpt_eval, card)
     del ckpt_eval["ref"], ckpt_eval["loaded"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(t_start)
+
+    # 74. K5 at (128, 64) and K6 past 32 heads vs their plain versions; their
+    # times beside the bound, the yardstick and K6's earlier shapes
+    moe_k = check_moe_kernels(fa, pd, card)
+    _free(t_start)
+
+    # 75. qwen3_moe_text at full depth: the engine and generate, counting launches,
+    # the MoE profile; then at depth 4 the kernel route vs the plain route vs fp32
+    moe = {PRESET_MOE: run_moe_path(fa, pd, card, PRESET_MOE, exact=MOE_EXACT[PRESET_MOE],
+                                    profile=True)}
+    moe_routes = check_moe_routes(PRESET_MOE, MOE_ROUTE_DEPTH, card)
+    _free(t_start)
+
+    # 76. gpt_oss_moe_text at full depth (K5 at (64, 64), K6 at 64 heads)
+    moe[PRESET_GPT_OSS] = run_moe_path(fa, pd, card, PRESET_GPT_OSS,
+                                       exact=MOE_EXACT[PRESET_GPT_OSS])
+
+    # 77. deepseek_v3 at depth 4, full width (K5 at (192, 128), K6 at 128 heads)
+    moe[PRESET_DEEPSEEK] = run_moe_path(fa, pd, card, PRESET_DEEPSEEK, depth=DEEPSEEK_DEPTH,
+                                        exact=MOE_EXACT[PRESET_DEEPSEEK])
 
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
@@ -8218,6 +8607,7 @@ def main() -> int:
 
     ckpt_paths = {"ckpt_llm": ckpt_llm["launches"], "ckpt_eval": ckpt_eval["launches"],
                   "ckpt_distill": ckpt_distill["launches"]}
+    moe_paths = {f"moe_{p}": r["launches"] for p, r in moe.items()}
 
     def by_path(name, eval_n=0):
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
@@ -8228,7 +8618,7 @@ def main() -> int:
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
                  "zeroshot": zs_launches, "distill": distill_launches,
                  "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches,
-                 "actionformer": af["launches"], **ckpt_paths}
+                 "actionformer": af["launches"], **ckpt_paths, **moe_paths}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -8622,7 +9012,29 @@ def main() -> int:
         "llm": {p: {k: v for k, v in ckpt_llm[p].items() if k != "tokens"}
                 for p in (PRESET_8B, PRESET_GQA)},
         "eval": ckpt_eval, "distill": ckpt_distill}), flush=True)
-    print(f"chip_smoke: phases 1-73 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the MoE phases' launches (75-77) and the new shapes (74)
+        n = {p: counts.get(entry["name"], 0) for p, counts in moe_paths.items()}
+        if entry["name"] == "flash_fwd_causal":
+            r = moe_k["flash_fwd_causal_moe"]
+            entry["launches"] += sum(n.values())
+            entry["moe"] = {"launches": n, "shape_128_64": r["shape"], "ms": r["ms"],
+                            "ms_by": "CUDA events, median of 5", "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                            "library_ms": r["library_ms"], "library_note": r["library_note"],
+                            "max_abs_err": r["max_abs_err"], "rel_l2": r["rel_l2"],
+                            "ptxas": {k: v for k, v in k5_ptxas["forward"].items()
+                                      if k.startswith("(128, 64")}}
+        elif entry["name"] == "paged_decode":
+            entry["launches"] += sum(n.values())
+            entry["moe"] = {"launches": n, "ms_by": "CUDA graph replay, median of 5", **{
+                tag: {"shape": r["shape"], "ms": r["ms"], "event_ms": r["event_ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                      "bound_by": r["bound"][1], "pool_gb_per_s": r["pool_gb_per_s"],
+                      "max_abs_err": r["max_abs_err"], "rel_l2": r["rel_l2"]}
+                for tag, r in ((t, moe_k[f"paged_decode_{t}"]) for t in ("64h", "128h"))}}
+    print(f"[{card}] MoE serving: " + json.dumps({"runs": moe, "routes_depth_4": moe_routes}),
+          flush=True)
+    print(f"chip_smoke: phases 1-77 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_") and entry.get("dtype") != "float32":

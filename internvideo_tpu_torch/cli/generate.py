@@ -8,10 +8,13 @@
         --ids 1,2,3 --device cpu
     python -m internvideo_tpu_torch.cli.generate --preset qwen3_8b_mla \
         --checkpoint /hf/ckpt_dir --ids 1,2,3 --paged --device cuda
+    python -m internvideo_tpu_torch.cli.generate --preset qwen3_moe_text \
+        --ids 1,2,3 --paged --device cuda
 
 Port of internvideo_tpu/cli/generate.py in token-id mode, for the M2LA
-presets (qwen3_8b_mla, ...) and the dense-GQA ones (qwen3_8b_dense; at
-test widths qwen3_mla_tiny and qwen3_dense_tiny, for a CPU). Prints
+presets (qwen3_8b_mla, ...; the MoE ones qwen3_moe_text, gpt_oss_moe_text,
+deepseek_v3) and the dense-GQA ones (qwen3_8b_dense; at test widths
+qwen3_mla_tiny, qwen3_moe_tiny and qwen3_dense_tiny, for a CPU). Prints
 {"tokens": [...]}. `--checkpoint` is an HF-layout `.safetensors` file or
 directory (sharded with `model.safetensors.index.json`, or not); its
 weights go through `convert_hf_mla_llm` or `convert_hf_gqa_llm` by the

@@ -1,6 +1,8 @@
 // Causal flash-attention forward with a narrow value head for Hopper
 // (sm_90a): the M2LA LLM's prefill attention, q/k at d_qk = nope + rope
-// (256 on qwen3_8b_mla, 192 on qwen3_2b_mla) and v/o at d_v = 128, inputs
+// (256 on qwen3_8b_mla, 192 on qwen3_2b_mla and deepseek_v3, 128 on
+// qwen3_moe_text, 64 on gpt_oss_moe_text) and v/o at d_v = 128 (64 on the
+// two MoE models: d_qk 128 is two 64-column panels, d_v 64 one), inputs
 // in (B, S, H, D) with any 16-byte-multiple strides (a (B, H, S, D) view
 // and the k / v halves of one projection included).
 //
@@ -1032,6 +1034,7 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
   IVT_CASE(256, 128)
   IVT_CASE(192, 128)
   IVT_CASE(128, 128)
+  IVT_CASE(128, 64)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)

@@ -24,11 +24,18 @@
 // launch of K6.
 //
 // bf16 (the serving paths; paged_decode_mma_kernel<R, P> at the (R, P) of
-// qwen3_8b_mla (896, 128) and qwen3_2b_mla / internvideo25_hico_2b (512,
-// 64), up to 32 heads): one CTA of 8 warps takes all heads of one sequence
-// over one split, so each pool byte of the sequence is read once; grid
-// (splits, B) with B x splits at most one CTA per SM (the CTA holds its SM:
-// ~215 KB of shared memory), a single wave. Its tokens arrive 16 at a time
+// qwen3_8b_mla (896, 128) and of qwen3_2b_mla / internvideo25_hico_2b and
+// the MoE models qwen3_moe_text, gpt_oss_moe_text and deepseek_v3 (512,
+// 64)): one CTA of 8 warps takes a group of up to 32 heads (two m16 tiles)
+// of one sequence over one split, so each pool byte of the split is read
+// once per head group (all heads at once up to 32 heads; the 2 or 4 groups
+// of gpt_oss_moe_text's 64 and deepseek_v3's 128 heads run in the same wave
+// and find the split's bytes in L2 after the first); grid (splits, head
+// groups, B) with B x groups x splits at most one CTA per SM (the CTA holds
+// its SM: ~215 KB of shared memory), a single wave. A loop over more m16
+// head tiles inside the CTA was not taken: O for 64 heads x R 512 in fp32
+// is 128 KB of registers, past what 8 warps can hold beside the scores.
+// Its tokens arrive 16 at a time
 // through a 4-stage ring of shared-memory tiles: one bulk copy
 // (cp.async.bulk) per token row of R + P values, 2 KB at the 8B shape,
 // issued by the lanes of warp 0 (each block-table column read once, by one
@@ -274,8 +281,11 @@ struct DecodeTile {
 };
 
 // Partials: acc (B, splits, H, R) and (m, l) (B, splits, H, 2), base-2 m,
-// for the splits that hold tokens (the merge reads no other).
-template <int R, int P>
+// for the splits that hold tokens (the merge reads no other). kGroups: more
+// than 32 heads, a CTA per group of 32 (grid (splits, groups, B)); without
+// it all heads are the CTA's (grid (splits, B)) and the code is that of the
+// all-heads kernel, head offset 0 at compile time.
+template <int R, int P, bool kGroups>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q_lat,
                             const __nv_bfloat16* __restrict__ q_pe,
@@ -285,7 +295,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                             int page_size, int max_pages, int split_len, float scale_log2) {
   using T = DecodeTile<R, P>;
   constexpr int C = T::kC;
-  const int split = blockIdx.x, b = blockIdx.y, n_splits = gridDim.x;
+  const int split = blockIdx.x, b = kGroups ? blockIdx.z : blockIdx.y, n_splits = gridDim.x;
+  const int h0 = kGroups ? blockIdx.y * kMaxHeads : 0;  // this CTA's heads: [h0, h0 + nh)
+  const int nh = kGroups ? min(kMaxHeads, H - h0) : H;
   const int t_begin = split * split_len;
   const int t_end = min(seq_lens[b], t_begin + split_len);
   if (t_begin >= t_end) return;
@@ -334,20 +346,20 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       hp::bulk_load(sRing + (j % kRingStages) * T::kStageBytes + lane * T::kRowBytes,
                     pages + (page * page_size + pos % page_size) * C, C * 2, bar);
   };
-  // [q_lat | q_pe] of every head by bulk copies (lane h: head h's two
-  // rows), rows past H zero; then the ring's first stages.
+  // [q_lat | q_pe] of the CTA's heads by bulk copies (lane h: head h0 + h's
+  // two rows), rows past nh zero; then the ring's first stages.
   if (warp == 0) {
-    if (lane == 0) hp::mbar_arrive_expect_tx(q_full, H * C * 2);
+    if (lane == 0) hp::mbar_arrive_expect_tx(q_full, nh * C * 2);
     __syncwarp();
-    if (lane < H) {
-      const long long row = (long long)b * H + lane;
+    if (lane < nh) {
+      const long long row = (long long)b * H + h0 + lane;
       hp::bulk_load(sQ + lane * T::kRowBytes, q_lat + row * R, R * 2, q_full);
       hp::bulk_load(sQ + lane * T::kRowBytes + R * 2, q_pe + row * P, P * 2, q_full);
     }
     for (int j = 0; j < min(kRingStages, n_stages); ++j) issue(j);
   }
-  for (int i = tid; i < (kMaxHeads - H) * (C / 8); i += kMmaThreads) {
-    const int h = H + i / (C / 8), ch = i % (C / 8);
+  for (int i = tid; i < (kMaxHeads - nh) * (C / 8); i += kMmaThreads) {
+    const int h = nh + i / (C / 8), ch = i % (C / 8);
     *reinterpret_cast<uint4*>(sQ + h * T::kRowBytes + ch * 16) = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
@@ -468,8 +480,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 4);
-  const long long base = ((long long)b * n_splits + split) * H;
-  if (sp == 0 && sh < H) {
+  const long long base = ((long long)b * n_splits + split) * H + h0;
+  if (sp == 0 && sh < nh) {
     part_ml[(base + sh) * 2] = m_run;
     part_ml[(base + sh) * 2 + 1] = l_run;
   }
@@ -478,7 +490,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int h = 16 * m + g + 8 * r;
-      if (h >= H) continue;
+      if (h >= nh) continue;
 #pragma unroll
       for (int n = 0; n < T::kNTiles; ++n)
         *reinterpret_cast<float2*>(part_acc + (base + h) * R + c0 + 8 * n + 2 * t) =
@@ -568,12 +580,15 @@ cudaError_t launch_bf16(const void* q_lat, const void* q_pe, const void* pages, 
                         int H, int page_size, int max_pages, int split_len, int n_splits,
                         float scale_log2, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  auto kern = paged_decode_mma_kernel<R, P>;
+  const bool groups = H > kMaxHeads;
+  auto kern = groups ? paged_decode_mma_kernel<R, P, true> : paged_decode_mma_kernel<R, P, false>;
   constexpr int smem = DecodeTile<R, P>::kSmemBytes;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(n_splits, B), kMmaThreads, smem, stream>>>(
+  const dim3 grid = groups ? dim3(n_splits, (H + kMaxHeads - 1) / kMaxHeads, B)
+                           : dim3(n_splits, B);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf*>(q_lat), static_cast<const bf*>(q_pe), static_cast<const bf*>(pages),
       tables, seq_lens, part_acc, part_ml, H, page_size, max_pages, split_len, scale_log2);
   return merge<bf>(part_acc, part_ml, seq_lens, out, B, H, R, n_splits, split_len, stream);
@@ -584,8 +599,8 @@ cudaError_t launch_bf16(const void* q_lat, const void* q_pe, const void* pages, 
 // C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (q_lat, q_pe,
 // pages and out alike); all arrays contiguous and 16-byte aligned, with R *
 // sizeof(dtype) and P * sizeof(dtype) multiples of 16, R a multiple of 4,
-// R <= 1024 and R + P <= 1152; bf16 takes (R, P) = (896, 128) or (512, 64)
-// and H <= 32. part_acc (B, splits, H, R) and part_ml (B, splits, H, 2) are
+// R <= 1024 and R + P <= 1152; bf16 takes (R, P) = (896, 128) or (512, 64),
+// any H (groups of 32 heads a CTA). part_acc (B, splits, H, R) and part_ml (B, splits, H, 2) are
 // float32 scratch; split_len is a multiple of 16 and splits * split_len >=
 // max_pages * page_size. Returns the cudaError_t of the launches
 // (cudaErrorInvalidValue for what it does not take); launches on `stream`,
@@ -608,7 +623,8 @@ extern "C" int ivt_paged_decode(int dtype, const void* q_lat, const void* q_pe, 
   if (dtype == 0)
     return launch_f32(q_lat, q_pe, pages, tables, lens, acc, ml, out, B, H, R, P, page_size,
                       max_pages, split_len, n_splits, scale_log2, s);
-  if (dtype != 1 || H > kMaxHeads) return cudaErrorInvalidValue;
+  if (dtype != 1 || H < 1 || (H + kMaxHeads - 1) / kMaxHeads > 65535)
+    return cudaErrorInvalidValue;
 #define IVT_CASE(RR, PP)                                                                      \
   if (R == RR && P == PP)                                                                     \
     return launch_bf16<RR, PP>(q_lat, q_pe, pages, tables, lens, acc, ml, out, B, H, page_size, \

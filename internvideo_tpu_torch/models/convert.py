@@ -51,7 +51,10 @@ For the MLA LLM the names are the reference's HF / xtuner layout:
 `layers.{i}.self_attn.{q_proj,kv_a_proj_with_mqa,o_proj}.{weight,bias}`,
 `layers.{i}.self_attn.kv_b_proj_kernel` (kept (R, H, nope + v), the JAX raw
 param), `layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`,
-`lm_head.weight`. The dense-GQA LLM keeps the same names with
+`lm_head.weight`; a MoE layer's `mlp` holds the JAX names (the router
+`kernel` -> `mlp.router.weight` transposed, the stacks `mlp.w_gate` / `w_up`
+(E, D, I) and `mlp.w_down` (E, I, D) and the biases `mlp.b_{gate,up,down}`
+as they are, `mlp.shared_{gate,up,down}_proj.weight`). The dense-GQA LLM keeps the same names with
 `layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}` and the per-head
 `layers.{i}.self_attn.{q,k}_norm.weight`. The
 VideoMLLM tree keeps its JAX top level:
@@ -664,7 +667,12 @@ def convert_hf_mla_llm(sd: Mapping, cfg) -> dict:
     """HF / xtuner MLA checkpoint (q_proj | q_a / q_b + q_a_layernorm,
     kv_a_proj_with_mqa, kv_b_proj, o_proj; SwiGLU gate / up / down, or the
     Qwen3-MoE expert layout) -> MLATransformer params (JAX
-    convert.py:902-958)."""
+    convert.py:902-958). The first `moe_first_k_dense` layers of a MoE
+    config read the SwiGLU names (JAX reads experts there and fails). No
+    HF layout of expert biases or shared experts is known (JAX's converter
+    has none either), so such a config raises instead of building a tree
+    without those leaves."""
+    _check_hf_moe(cfg)
     sd = _strip_llm_prefix({k: as_tensor(v) for k, v in sd.items()})
     p = {"embed_tokens": {"embedding": sd["embed_tokens.weight"]}, "norm": _rmsnorm(sd, "norm")}
     if not cfg.tie_word_embeddings:
@@ -672,7 +680,7 @@ def convert_hf_mla_llm(sd: Mapping, cfg) -> dict:
     for i in range(cfg.num_layers):
         b = f"layers.{i}"
         attn = convert_xtuner_mla_attention(sd, cfg.mla, prefix=f"{b}.self_attn.")["params"]
-        if cfg.moe is not None:
+        if cfg.moe is not None and i >= cfg.moe_first_k_dense:
             # mlp.gate (router, (E, D)) + mlp.experts.{j}.{gate,up,down}_proj
             # -> stacked (E, D, I) / (E, I, D) grouped-GEMM weights
             experts = range(cfg.moe.num_experts)
@@ -692,6 +700,15 @@ def convert_hf_mla_llm(sd: Mapping, cfg) -> dict:
     return {"params": p}
 
 
+def _check_hf_moe(cfg) -> None:
+    moe = cfg.moe  # a MoEConfig, or any object with the fields the layout reads
+    if moe is not None and (getattr(moe, "expert_bias", False)
+                            or getattr(moe, "num_shared_experts", 0)):
+        raise NotImplementedError(
+            "the HF MLA layout here is Qwen3-MoE's (mlp.gate, mlp.experts.{j}.*); it has no "
+            "names for expert biases (expert_bias) or shared experts (num_shared_experts)")
+
+
 def _export_llm_common(p: Mapping) -> tuple[dict, callable]:
     sd = {"model.embed_tokens.weight": as_tensor(p["embed_tokens"]["embedding"]),
           "model.norm.weight": as_tensor(p["norm"]["weight"])}
@@ -709,6 +726,7 @@ def _export_llm_common(p: Mapping) -> tuple[dict, callable]:
 def export_mla_llm_hf(params: Mapping, cfg) -> dict:
     """MLATransformer params -> HF-layout state dict, the inverse of
     `convert_hf_mla_llm` (JAX convert.py:961-1043)."""
+    _check_hf_moe(cfg)
     p = params.get("params", params)
     sd, put_linear = _export_llm_common(p)
     mla = cfg.mla
@@ -743,7 +761,7 @@ def export_mla_llm_hf(params: Mapping, cfg) -> dict:
             put_linear(f"{b}.self_attn.q_a_proj", attn["q_a_proj"])
             sd[f"{b}.self_attn.q_a_layernorm.weight"] = as_tensor(attn["q_a_layernorm"]["weight"])
             put_rows(f"{b}.self_attn.q_b_proj", attn["q_b_proj"], q_inv)
-        if cfg.moe is not None:
+        if cfg.moe is not None and i >= cfg.moe_first_k_dense:
             sd[f"{b}.mlp.gate.weight"] = _T(lp["mlp"]["router"]["kernel"])
             for j in range(cfg.moe.num_experts):
                 for hf, ours in (("gate_proj", "w_gate"), ("up_proj", "w_up"),

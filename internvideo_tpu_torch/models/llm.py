@@ -14,8 +14,15 @@ written in place. `quant="int8_wo"` / `"int8_mix"` (serving) builds the
 attention projections (nn/mla.py), the SwiGLU's gate, up and down and the
 lm_head as `ops/quant.py:Int8WoDense`; under int8_mix the layer projections
 take K7 at >= INT8_MIX_DYN_M flattened rows and the lm_head stays
-weight-only (JAX models/llm.py:85-100, 204-215). Options outside the
-ported slices raise NotImplementedError naming their ROADMAP item: fp8, MoE.
+weight-only (JAX models/llm.py:85-100, 204-215).
+
+With `moe` (a nn/moe.py MoEConfig) every layer past the first
+`moe_first_k_dense` takes an `MoEMlp` as its `mlp` (the rest keep a
+SwiGLU); every caller reaches it through `DecoderLayer.feed_forward`, as
+JAX's `_mlp` (:137-157). Each MoE layer keeps its last aux loss (JAX sows
+it into "intermediates"), and every pass returns their sum as
+`LLMOutput.moe_aux_loss` (`moe_aux_losses`). `fp8` raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from torch import nn
 
 from internvideo_tpu_torch.nn.dense import trunc_normal_
 from internvideo_tpu_torch.nn.mla import MLAConfig, MLAttention
+from internvideo_tpu_torch.nn.moe import MoEMlp
 from internvideo_tpu_torch.nn.norms import RMSNorm
 from internvideo_tpu_torch.nn.paged_cache import paged_write
 from internvideo_tpu_torch.nn.rope import YarnConfig, mrope_cos_sin, rope_cos_sin
@@ -63,6 +71,8 @@ class LLMOutput:
     logits: Optional[torch.Tensor]
     hidden: torch.Tensor
     caches: Optional[list] = None
+    # a MoE model's summed per-layer aux losses (None without MoE layers)
+    moe_aux_loss: Optional[torch.Tensor] = None
 
 
 def _check_options(cfg: LLMConfig) -> None:
@@ -70,9 +80,6 @@ def _check_options(cfg: LLMConfig) -> None:
         raise ValueError(f"unknown quant {cfg.quant!r}; None, 'int8_wo' or 'int8_mix'")
     if cfg.fp8 is not None:
         raise NotImplementedError(f"fp8={cfg.fp8!r} is not ported yet (ROADMAP queue 1, item 10)")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE feed-forward (nn/moe.py) is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
 
 
 class SwiGLU(nn.Module):
@@ -93,7 +100,9 @@ class SwiGLU(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LLMConfig, *, device=None):
+    """`dense_mlp`: a SwiGLU even in a MoE model (its first_k_dense layers)."""
+
+    def __init__(self, cfg: LLMConfig, *, dense_mlp: bool = False, device=None):
         super().__init__()
         dtype, pdtype = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype,
@@ -102,18 +111,33 @@ class DecoderLayer(nn.Module):
                                      attn_impl=cfg.attn_impl, quant=cfg.quant, device=device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps,
                                                 dtype=dtype, device=device)
-        self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size, dtype=dtype,
-                          param_dtype=pdtype, quant=cfg.quant, device=device)
+        self.is_moe = cfg.moe is not None and not dense_mlp
+        if self.is_moe:
+            self.mlp = MoEMlp(cfg.moe, cfg.hidden_size, dtype=dtype, param_dtype=pdtype,
+                              device=device)
+        else:
+            self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size, dtype=dtype,
+                              param_dtype=pdtype, quant=cfg.quant, device=device)
+        self.moe_aux_loss: Optional[torch.Tensor] = None
+
+    def feed_forward(self, x):
+        """The layer's MLP on the normed `x`; a MoE layer keeps its aux loss
+        in `moe_aux_loss` (JAX's sow)."""
+        out = self.mlp(x)
+        if not self.is_moe:
+            return out
+        self.moe_aux_loss = out.aux_loss
+        return out.output
 
     def forward(self, x, cos, sin, segment_ids=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, q_segment_ids=segment_ids,
                                kv_segment_ids=segment_ids, causal=True)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + self.feed_forward(self.post_attention_layernorm(x))
 
     def decode(self, x, cos, sin, cache, cache_len):
         h, cache = self.self_attn.decode(self.input_layernorm(x), cos, sin, cache, cache_len)
         x = x + h
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return x + self.feed_forward(self.post_attention_layernorm(x)), cache
 
 
 class Embedding(nn.Module):
@@ -140,8 +164,9 @@ class MLATransformer(nn.Module):
         dtype, pdtype = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
                                       param_dtype=pdtype, device=device)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dense_mlp=i < cfg.moe_first_k_dense,
+                                                 device=device)
+                                    for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=dtype, device=device)
         if not cfg.tie_word_embeddings:
             # weight-only even under int8_mix: prefill scores the last position only
@@ -152,11 +177,15 @@ class MLATransformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Truncated normal (std 0.02) tables, kernels and kv_b; zero
-        biases; unit norm weights (set at construction)."""
+        """Truncated normal (std 0.02) tables, kernels, kv_b, routers, expert
+        stacks and expert biases; zero dense biases; unit norm weights (set
+        at construction)."""
         trunc_normal_(self.embed_tokens.weight, 0.02, generator)
         for layer in self.layers:
             layer.self_attn.init_weights(generator)
+            if layer.is_moe:
+                layer.mlp.init_weights(generator)
+                continue
             for d in (layer.mlp.gate_proj, layer.mlp.up_proj, layer.mlp.down_proj):
                 d.init_weights(generator)
         if not self.cfg.tie_word_embeddings:
@@ -184,6 +213,10 @@ class MLATransformer(nn.Module):
             position_ids = position_ids[0]
         return rope_cos_sin(position_ids, rope_dim, cfg.rope_theta, cfg.rope_scaling)
 
+    def _output(self, logits, x, caches=None) -> LLMOutput:
+        return LLMOutput(logits=logits, hidden=x, caches=caches,
+                         moe_aux_loss=moe_aux_losses(self) if self.cfg.moe is not None else None)
+
     def _head(self, h):
         if self.cfg.tie_word_embeddings:
             return self.embed_tokens.attend(h)
@@ -205,7 +238,7 @@ class MLATransformer(nn.Module):
         for i in range(len(self.layers)):
             x = self.run_layer(i, x, cos, sin, segment_ids)
         x = self.norm(x)
-        return LLMOutput(logits=self._head(x) if with_logits else None, hidden=x)
+        return self._output(self._head(x) if with_logits else None, x)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         return [torch.zeros((batch, max_len, self.cfg.mla.cache_dim), dtype=dtype,
@@ -222,9 +255,9 @@ class MLATransformer(nn.Module):
         for layer, cache in zip(self.layers, caches):
             h, _ = layer.self_attn.prefill(layer.input_layernorm(x), cos, sin, cache, 0)
             x = x + h
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            x = x + layer.feed_forward(layer.post_attention_layernorm(x))
         x = self.norm(x)
-        return LLMOutput(logits=self._head(x[:, -1:]), hidden=x, caches=caches)
+        return self._output(self._head(x[:, -1:]), x, caches)
 
     def decode_step(self, token_ids, caches, cache_len, *, position_ids=None) -> LLMOutput:
         x = self.embed_tokens(token_ids)
@@ -236,7 +269,7 @@ class MLATransformer(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, _ = layer.decode(x, cos, sin, cache, cache_len)
         x = self.norm(x)
-        return LLMOutput(logits=self._head(x), hidden=x, caches=caches)
+        return self._output(self._head(x), x, caches)
 
     def prefill_paged(self, input_ids, pages, block_tables, page_size: int, *,
                       input_embeds=None, position_ids=None) -> LLMOutput:
@@ -253,9 +286,9 @@ class MLATransformer(nn.Module):
             entries = layer.self_attn.compute_cache_entry(xn, cos, sin)
             _write_positions(pool, entries, block_tables, position_ids, page_size)
             x = x + layer.self_attn(xn, cos, sin, causal=True)
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            x = x + layer.feed_forward(layer.post_attention_layernorm(x))
         x = self.norm(x)
-        return LLMOutput(logits=self._head(x[:, -1:]), hidden=x, caches=pages)
+        return self._output(self._head(x[:, -1:]), x, pages)
 
     def decode_step_paged(self, token_ids, pages, block_tables, seq_lens, page_size: int, *,
                           impl: Optional[str] = None) -> LLMOutput:
@@ -271,9 +304,9 @@ class MLATransformer(nn.Module):
             _write_positions(pool, entry, block_tables, positions, page_size)
             x = x + layer.self_attn.decode_paged(xn, cos, sin, pool, block_tables, seq_lens + 1,
                                                  impl=impl)
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            x = x + layer.feed_forward(layer.post_attention_layernorm(x))
         x = self.norm(x)
-        return LLMOutput(logits=self._head(x), hidden=x, caches=pages)
+        return self._output(self._head(x), x, pages)
 
 
 def init_paged_cache(cfg, batch: int, max_len: int, page_size: int = 64,
@@ -296,3 +329,14 @@ def _write_positions(pages, entries, tables, positions, page_size: int):
     positions = positions.long()
     pids = torch.gather(tables.long(), 1, positions // page_size).reshape(-1)
     return paged_write(pages, entries.reshape(-1, c), pids, (positions % page_size).reshape(-1))
+
+
+def moe_aux_losses(model) -> torch.Tensor:
+    """The sum of the aux losses the MoE layers of `model` (an
+    MLATransformer) kept on their last pass: JAX's `moe_aux_losses` over
+    the sown losses (:451-458). 0.0 when the model has no MoE layer."""
+    total = torch.zeros((), dtype=torch.float32, device=model.device)
+    for layer in model.layers:
+        if layer.is_moe and layer.moe_aux_loss is not None:
+            total = total + layer.moe_aux_loss
+    return total

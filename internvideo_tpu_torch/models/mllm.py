@@ -196,7 +196,9 @@ class VideoMLLM(nn.Module):
         cos, sin = lm._rope(position_ids)
         for i, layer in enumerate(lm.layers):
             x = x + attend(i, layer, layer.input_layernorm(x), cos, sin)
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            # MoE layers through their router (MLA flavour), as JAX mllm.py:209-211
+            ff = getattr(layer, "feed_forward", layer.mlp)
+            x = x + ff(layer.post_attention_layernorm(x))
             if deepstack is not None and i < len(deepstack):
                 x = x + deepstack[i]
         return lm.norm(x)

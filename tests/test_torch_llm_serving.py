@@ -141,9 +141,17 @@ def test_presets_match_jax_and_unported_options_raise():
     cfg = LLMConfig(**{**tiny, "mla": MLAConfig(**tiny["mla"])})
     assert presets.qwen3_mla_tiny() == cfg
     gen = torch.Generator().manual_seed(0)
-    for over, item in ((dict(fp8="fwd"), "item 10"), (dict(moe=object()), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            MLATransformer(dataclasses.replace(cfg, **over), device="cpu", generator=gen)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MLATransformer(dataclasses.replace(cfg, fp8="fwd"), device="cpu", generator=gen)
+    # MoE is ported (parity: test_torch_moe_llm.py): qwen3_moe_tiny builds its
+    # expert stacks in the JAX layout, and moe_first_k_dense layers keep a SwiGLU
+    moe_cfg = dataclasses.replace(presets.qwen3_moe_tiny(), moe_first_k_dense=1)
+    mm = MLATransformer(moe_cfg, device="cpu", generator=gen)
+    e, d, i = moe_cfg.moe.num_experts, moe_cfg.hidden_size, moe_cfg.moe.intermediate_size
+    assert mm.layers[1].mlp.w_gate.shape == mm.layers[1].mlp.w_up.shape == (e, d, i)
+    assert mm.layers[1].mlp.w_down.shape == (e, i, d)
+    assert mm.layers[1].mlp.router.weight.dtype == torch.float32
+    assert mm.layers[0].mlp.gate_proj.weight.shape == (moe_cfg.intermediate_size, d)
     # int8_wo / int8_mix are ported (parity: test_torch_int8_serving.py): every
     # projection and the lm_head hold int8 weights with fp32 scales
     for quant in ("int8_wo", "int8_mix"):

@@ -181,14 +181,15 @@ def test_bf16_split_len_keeps_one_wave_at_the_path_shapes():
 
 
 def test_bf16_wrapper_refuses_shapes_it_does_not_instantiate():
-    """The bf16 kernel exists at (R, P) = (896, 128) and (512, 64) with at
-    most 32 heads; another shape raises before anything reaches the card,
-    naming the queue that would add it."""
+    """The bf16 kernel exists at (R, P) = (896, 128) and (512, 64), at any
+    head count (a CTA per group of 32 heads); another (R, P) raises before
+    anything reaches the card, at any head count, naming the queue that
+    would add it."""
     args = lambda h, r, p: (torch.zeros(1, h, r, dtype=torch.bfloat16),  # noqa: E731
                             torch.zeros(1, h, p, dtype=torch.bfloat16),
                             torch.zeros(2, 4, r + p, dtype=torch.bfloat16),
                             torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         pd._paged_decode_cuda(*args(2, 64, 16), 1.0)
-    with pytest.raises(NotImplementedError, match="at most 32 heads"):
-        pd._paged_decode_cuda(*args(40, 512, 64), 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        pd._paged_decode_cuda(*args(40, 1024, 64), 1.0)
