@@ -11,21 +11,22 @@ non-zero and prints no result):
   2. build: compiles internvideo_tpu_torch/csrc/*.cu with nvcc; prints
      the ptxas report and, on a line of its own for each, the registers
      and spill bytes of each instantiation of K5's wgmma forward, dq and
-     dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88), of
-     K1's and K2's (the forward body at d 64, 88 / 64, 72, 88, 128), of
+     dk/dv kernels, of K4a's (the same dq / dk/dv bodies at d 64, 88, 128),
+     of K1's and K2's (the forward body at d 64, 88, 128 / 64, 72, 88, 128), of
      K4b's (the dq / dk/dv bodies at d 64, 72, 88, 128), of K7's wgmma
      s8 GEMM (f32 and bf16 output), of K3's (the forward body with the
      QK-RMSNorm in shared memory at d 64, 72, 88, 128), of K6's bf16
      tensor-core decode (at (R, P) = (896, 128), (512, 64), all heads in a
      CTA and a CTA per group of 32 heads) and of K11's
      (the walk with only Q normed at d 64, 88, and its normed-k pre-pass);
-     fails on a spill in K4b's, K7's, K3's, K6's or K11's;
+     fails on a spill in K4b's, K7's, K3's, K6's or K11's, or in the bf16
+     K1 / K4a at d 128 and K5 backward at (128, 64) (phase 78's);
   3. the flash kernel vs its plain PyTorch version on the card, at the JAX
      kernel tests' shapes (fp32, max-abs 2e-5), at the encoder's
      (2, 4097, 16, 88) bf16 with q/k/v as views of one (B, S, 3*1408)
      tensor (out rel-L2 <= 1e-2, LSE max-abs <= 1e-2), and in bf16 at the
      edges of the wgmma kernel's 128-row query tile and 64-key stages (Sq
-     1, 127, 129 against Sk 65, 129, 193; d 64 and 88; the same bars);
+     1, 127, 129 against Sk 65, 129, 193; d 64, 88 and 128; the same bars);
   4. the main path: `internvideo_tpu_torch.cli.eval` on
      configs/torch/eval_classification_1b.py (InternVideo2-1B, 16 x 224 px,
      bf16, B = 16); every kernel launch count is reset just before and
@@ -43,7 +44,7 @@ non-zero and prints no result):
      LSE cotangent;
   8. the training main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/finetune_k400_1b.py (InternVideo2-1B, 8 x 224 px, B = 32,
-     bf16 + fp32 params, remat, drop-path, mixup/cutmix) for 3 steps; the
+     bf16 + fp32 params, remat, drop-path, mixup/cutmix) for 2 steps; the
      launch counts are reset just before and read just after and must be
      80 flash_fwd (forward + remat recompute), 40 dq and 40 dk/dv per step;
      every logged loss and grad_norm must be finite;
@@ -74,7 +75,7 @@ non-zero and prints no result):
      1e-2, two calls bit-identical);
  12. the pretrain main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/pretrain_1b_umt.py (1B student at 16 x 224, S = 833,
-     CLIP-6B and MAE-g14 teachers, B = 32) for 3 steps; the launch counts are
+     CLIP-6B and MAE-g14 teachers, B = 32) for 2 steps; the launch counts are
      reset just before and read just after and must be, per step, 128
      fused_qkv_fwd and 128 fused_qkv_rstd (40 student forward + 40 remat
      recompute at S = 833 + 48 CLIP teacher at S = 257, counted by S
@@ -147,7 +148,7 @@ non-zero and prints no result):
      views;
  21. the SFT main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/sft_internvideo3_8b.py (InternVideo3-8B widths, text
-     depth 32, pack 8192, B = 1, bf16, remat) for 3 steps; the launch counts
+     depth 32, pack 8192, B = 1, bf16, remat) for 2 steps; the launch counts
      are reset just before and read just after and must be, per step,
      2 x 32 segmented K5 forwards (forward + remat), 32 + 32 segmented K5
      dq / dk/dv and 27 each of K2 / K4b dq / K4b dk/dv, nothing else; every
@@ -228,8 +229,8 @@ non-zero and prints no result):
      remat, bf16, seeded weights) and depth RL_DEPTH, the compiled rollout
      backend, 2 prompts x 8 = 16 rows of 1024 + 128 tokens at temperature
      1.0, a rule-based reward (the share of response tokens in a fixed id
-     set), kl_beta 0.01 (the frozen reference runs), grad_accum 4, 2
-     iterations; launches reset before and read after: per iteration 14 x
+     set), kl_beta 0.01 (the frozen reference runs), grad_accum 4, 1
+     iteration; launches reset before and read after: per iteration 14 x
      depth `flash_fwd_causal_gqa` (prefill, logp_old, and per microbatch
      policy + reference + remat recompute), 4 x depth each of
      `flash_bwd_causal_{dq,dkv}_gqa`, nothing else (decode attends on the
@@ -347,7 +348,7 @@ non-zero and prints no result):
      SDPA;
  44. the stage-2 main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/clip_stage2_1b.py (internvideo2_stage2_1b uncut, B 64,
-     32 tokens, `uta=0`: the tower unmasked at S = 1025, remat) for 3
+     32 tokens, `uta=0`: the tower unmasked at S = 1025, remat) for 2
      steps; launches reset just before and read just after must equal
      `clip_want`'s prediction (per step 90 K1 = 80 tower incl. remat + 5
      MLM + 5 VTM cross-attention, 50 dq, 50 dk/dv, nothing else); every
@@ -405,7 +406,7 @@ non-zero and prints no result):
  55. the distill main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/distill_l14_1b.py (InternVideo2-L/14 student at 8 x 224,
      tube masking 0.8 so S = 417, remat; the frozen InternVideo2-1B teacher
-     at S = 2049, bf16; B 32) for 3 steps; launches reset just before and
+     at S = 2049, bf16; B 32) for 2 steps; launches reset just before and
      read just after: per step 40 K1 (teacher), 48 K3 + 48 pre-pass, all at
      S 417 (student forward + remat), 24 each of K2 / K4b dq / K4b dk/dv,
      nothing else; every loss term and grad_norm finite;
@@ -419,7 +420,7 @@ non-zero and prints no result):
      device time by kernel group and the idle share (torch.profiler);
  58. the real SFT data path: `cli.train` on configs/torch/sft_internvideo3_8b.py
      with `data.jsonl=` (16 rows: 8 conversations on seeded 64 x 240 x 320
-     uint8 `.npy` clips, 8 text only) and text depth 4 for 3 steps; per step
+     uint8 `.npy` clips, 8 text only) and text depth 4 for 2 steps; per step
      8 segmented K5 forwards, 4 + 4 segmented K5 dq / dk/dv, 27 each of
      K2 / K4b at head dim 72, nothing else; the host's ms a batch for
      packing + load_media beside the step's, the step fed by
@@ -440,7 +441,7 @@ non-zero and prints no result):
  61. the audio-visual main path: `internvideo_tpu_torch.cli.train` on
      configs/torch/clip_av_stage2_1b.py (the 1B tower at 4 x 224 with
      remat, BEATs on the 998 x 64 fbank -> 252 tokens, bert-large; B 64, 32
-     tokens, media type audio_video) for 3 steps; launches reset just before
+     tokens, media type audio_video) for 2 steps; launches reset just before
      and read just after must equal `clip_av_want` (per step 90 K1 = 80
      tower + 5 MLM + 5 VTM at Sk 1277, 50 dq, 50 dk/dv, nothing else;
      BEATs' attention is plain torch); every loss term and grad_norm finite;
@@ -452,7 +453,7 @@ non-zero and prints no result):
      (device time by kernel group, idle share);
  63. the real-audio path on that trainer: 8 wavs of 10-12 s (half at
      22.05 kHz stereo) and seeded uint8 clips written to a temp dir, an
-     audio and an audio_video corpus registered and built, 3 steps of each
+     audio and an audio_video corpus registered and built, 1 step of each
      through JsonlVideoTextDataset -> load_fbank -> prefetch_to_device ->
      the step; the host's ms a batch (and load_fbank's alone) beside the fed
      step's, and its idle share;
@@ -547,7 +548,46 @@ non-zero and prints no result):
  77. deepseek_v3 at depth 4 (3 dense layers + 1 MoE layer, full width,
      ~15.1 B parameters): the same, the exact check on 2 prompts (K5 at
      (192, 128), K6 at 128 heads; the grouped sigmoid router, the shared
-     expert, q_lora, YaRN).
+     expert, q_lora, YaRN);
+ 78. K1's forward and K4a's dq / dk/dv at head dim 128 (intern_s1's
+     InternViT-6B: 25 heads, S 1025 at 448 px) vs their plain versions:
+     fp32 at (1, 1025, 3) (out / LSE max-abs 2e-5, grads 5e-4), bf16 on qkv
+     views at (4, 1025, 25) and a ragged B 1 (rel-L2 <= 1e-2, LSE within
+     1e-2); K5 / K8's backward at (d_qk, d_v) = (128, 64) (qwen3_moe_text's)
+     fp32 at (2, 333, 4) and bf16 at the SFT pack's (4, 2048, 32) with 2-3
+     segments and pads a row and without segments; the time of each (CUDA
+     events, median of 5) beside its bound, the plain version's and the
+     library call's (flash SDPA; cuDNN SDPA where flash refuses d_v !=
+     d_qk, with a bool mask for the segments); phase 2 fails on a spill in
+     any of their bf16 instantiations;
+ 79. intern_s1 (InternVLChat: InternViT-6B -> pixel shuffle -> projector ->
+     qwen3_moe_text) at full width, vision uncut (45 layers), text 24 of 48
+     (71.9 GB in full leaves no room), bf16, seeded init: B 4 rows of 1024
+     tokens, one 448 x 448 image and 256 placeholders a row; counts set to 0
+     just before one forward and read just after: 45 K1 at d 128 and 24 K5
+     at (128, 64), nothing else; finite logits over the 153,216-word
+     vocabulary; wall time split into vision and text, peak memory; then at
+     depth 2 / 2 the kernel route's logits no farther from an fp32 copy than
+     1.25 x the plain route's, the fp32 routes within 1e-4;
+ 80. intern_s1 SFT at vision 8 / text 8 (full width): 3 steps through
+     Trainer + make_sft_step on B 4 packed rows of 2048 (2-3 segments and
+     pads a row, one image each), counts set to 0 just before and read just
+     after: per step 8 K1 + 8 + 8 K4a (the tower has no remat), 16 K5 + K8
+     forwards (the text model's remat) + 8 + 8 backward; finite loss and
+     grad norm; the step's ms and pack tokens/s, peak memory; one more step
+     under torch.profiler (device time by group and the top kernels, idle
+     share) and the MoE layers' part (one alone, times 8); then at depth 2 / 2 one step's grads of a vision qkv and an
+     expert weight on the kernel route no farther from fp32 than 1.25 x
+     the plain route's (the loss likewise, or within 2e-3);
+ 81. intern_s1_mini (InternViT-300M + qwen3_8b_mla at vocab 153216) with
+     nothing cut: B 8 rows of 1024, one image each: 24 K1 at d 64 and 36 K5
+     at (256, 128) a forward, finite logits, wall time, peak memory;
+ 82. intern_s1 at full width, depth 2 / 2, written in the reference's
+     compose layout (HF names, bf16 safetensors shards), converted by
+     tools/convert_cli --kind internvl, loaded into a model of another seed:
+     logits bit-identical to the writer's (the tower's attention pool,
+     which the reference has not, keeps its init); the same for --kind
+     internvit on the tower alone (its tokens).
 
 After each phase (and between the parts of some) a line gives the run's
 elapsed seconds. The last three lines are the card, the kernel table as
@@ -567,6 +607,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -577,12 +618,12 @@ MAIN_SHAPE = (16, 4097, 16, 88)  # B, S, H, head_dim of the 1B at 16 x 224
 DEPTH_1B = 40
 CONFIG_TRAIN = "configs/torch/finetune_k400_1b.py"
 TRAIN_SHAPE = (32, 2049, 16, 88)  # B, S, H, head_dim of the 1B finetune at 8 x 224
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 CONFIG_PRETRAIN = "configs/torch/pretrain_1b_umt.py"
 PRETRAIN_SHAPE = (32, 833, 16, 88)  # B, S, H, head_dim of the masked 1B student
 TEACHER_SHAPE = (512, 257, 25, 128)  # B*T, S, H, head_dim of the CLIP-6B teacher
 MAE_TEACHER_SHAPE = (32, 4096, 16, 88)  # B, S, H, head_dim of the VideoMAE-g14 teacher (K1)
-PRETRAIN_STEPS = 3
+PRETRAIN_STEPS = 2
 PRESET_8B, PRESET_2B = "qwen3_8b_mla", "qwen3_2b_mla"
 LLM_DEPTH_8B, VOCAB = 36, 151936
 PREFILL_SHAPE = (8, 2048)  # B, prompt: bench.py's LLM prefill shape
@@ -594,7 +635,7 @@ DECODE_SHAPE_2B = (8, 20, 512, 64, 64)  # the 2B video decode (internvideo25_hic
 SERVE_ENGINE = dict(max_batch=8, page_size=64, num_pages=272, prompt_buckets=(512, 2048),
                     max_len=2112)
 CONFIG_SFT = "configs/torch/sft_internvideo3_8b.py"
-SFT_PACK, SFT_STEPS, SFT_ROUTE_PACK = 8192, 3, 2048
+SFT_PACK, SFT_STEPS, SFT_ROUTE_PACK = 8192, 2, 2048
 SFT_ATTN_SHAPE = (1, 8192, 32, 256, 128)  # B, S, H, d_qk, d_v of the SFT text attention
 TOWER_SHAPE = (8, 196, 16, 72)  # B * frames, S, H, head_dim of the tower at 16 x 224
 TOWER_DEPTH = 27
@@ -608,7 +649,7 @@ HICO_TOWER_SHAPE = (64, 196, 16, 72)  # B * T', S, H, head_dim of the tower at 1
 HICO_ATTN_SHAPE = (1, HICO_PROMPT, 20, 192, 128)  # B, S, H, d_qk, d_v of the 2B video prefill
 # GRPO RL on qwen3_8b_dense: depth (the largest multiple of 4 under 72 GB,
 # PERF.md §4), prompts x group rows of prompt + response tokens, microbatches
-RL_DEPTH, RL_ITERS, RL_ACCUM = 24, 2, 4
+RL_DEPTH, RL_ITERS, RL_ACCUM = 24, 1, 4
 RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW = 2, 8, 1024, 128
 RL_SHAPE = (4, 1152, 32, 8, 128)  # B, L, Hq, Hkv, head_dim of one microbatch's attention
 RL_ENGINE_DEPTH, RL_ENGINE_PROMPT, RL_ENGINE_NEW = 4, 256, 32  # the engine backend, qwen3_8b_mla
@@ -667,7 +708,7 @@ NORM_SHAPE = (16 * 4097, 1408)
 # and the VTM pass (3B rows); the UTA variant at B 8 (the batch cut):
 # the masked student at S = 1 + 4 * 52 and its cross-attention
 CONFIG_CLIP = "configs/torch/clip_stage2_1b.py"
-CLIP_STEPS = 3
+CLIP_STEPS = 2
 CLIP_TOWER_SHAPE = (64, 1025, 16, 88)
 CLIP_CROSS_SHAPES = {"mlm": (64, 32, 1025, 16, 64), "vtm": (192, 32, 1025, 16, 64)}
 CLIP_UTA_B = 8
@@ -691,7 +732,7 @@ CONFIG_ZEROSHOT = "configs/torch/eval_zeroshot_stage2_1b.py"
 # tube masking at 0.8 (S = 1 + 8 * 52) and the frozen 1B teacher unmasked
 # (S = 1 + 8 * 256, the finetune's K1 shape), B 32; the route check's depth
 CONFIG_DISTILL = "configs/torch/distill_l14_1b.py"
-DISTILL_STEPS = 3
+DISTILL_STEPS = 2
 DISTILL_STUDENT_SHAPE = (32, 417, 16, 64)
 DISTILL_TEACHER_SHAPE = (32, 2049, 16, 88)
 # The real SFT data path (phase 58): a jsonl of 8 conversations on seeded
@@ -699,7 +740,7 @@ DISTILL_TEACHER_SHAPE = (32, 2049, 16, 88)
 # config's 16 x 224 grid) and 8 text-only ones, the SFT config's widths with
 # the text depth cut to 4; then (phase 59) prefetch_to_device's batches
 SFT_JSONL_DEPTH = 4
-SFT_JSONL_STEPS = 3
+SFT_JSONL_STEPS = 2
 SFT_JSONL_CLIP = (64, 240, 320, 3)
 PREFETCH_BATCH = {"video": (8, 16, 224, 224, 3), "input_ids": (8, 8192)}
 # Audio-visual stage 2 (phases 60-65): the full-width config (the 1B tower at
@@ -709,7 +750,8 @@ PREFETCH_BATCH = {"video": (8, 16, 224, 224, 3), "input_ids": (8, 8192)}
 # audio alone; the simple tower at its default width (1024 x 128 -> 512
 # tokens, 12 heads of 64); the real-audio path's wavs and uint8 clips
 CONFIG_AV = "configs/torch/clip_av_stage2_1b.py"
-AV_STEPS = 3
+AV_STEPS = 2
+AV_REAL_STEPS = 1  # fed steps a media type on the real-audio path (phase 63)
 AV_CROSS_SHAPES = {"av_mlm": (64, 32, 1277, 16, 64), "av_vtm": (192, 32, 1277, 16, 64),
                    "audio_mlm": (64, 32, 252, 16, 64), "audio_vtm": (192, 32, 252, 16, 64)}
 AV_SIMPLE_SHAPE = (64, 512, 12, 64)
@@ -849,23 +891,23 @@ def _ptxas(log: str, pattern: str, label, count: int) -> dict:
 def _ptxas_k5(log: str, kernel: str = "causal_fwd_bf16_kernel", count: int = 14) -> dict:
     """The ptxas report of each instantiation of one of K5's bf16 kernels
     (`<kernel><d_qk, d_v, kSeg>`: the forward, 14, or the backward's
-    `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`, 10 each)."""
+    `causal_bwd_dq_bf16_kernel` / `causal_bwd_dkv_bf16_kernel`, 12 each)."""
     return _ptxas(log, kernel + r"ILi(\d+)ELi(\d+)ELb(\d)E",
                   lambda m: f"({m[1]}, {m[2]}{', seg' if m[3] == '1' else ''})", count)
 
 
 def _ptxas_k4a(log: str) -> dict:
     """The ptxas report of K4a's bf16 kernels (flash_bwd_{dq,dkv}_wgmma_kernel
-    <D>, K5's bodies at D = 64 and 88)."""
+    <D>, K5's bodies at D = 64, 88 and 128)."""
     return _ptxas(log, r"flash_bwd_(dq|dkv)_wgmma_kernelILi(\d+)E",
-                  lambda m: f"{m[1]} ({m[2]}, {m[2]})", 4)
+                  lambda m: f"{m[1]} ({m[2]}, {m[2]})", 6)
 
 
 def _ptxas_k1k2(log: str) -> dict:
     """The ptxas report of K1's and K2's bf16 kernels ({flash,small_s}_fwd_
-    wgmma_kernel<D>, K5's forward body at D = 64, 88 and 64, 72, 88, 128)."""
+    wgmma_kernel<D>, K5's forward body at D = 64, 88, 128 and 64, 72, 88, 128)."""
     return _ptxas(log, r"(flash|small_s)_fwd_wgmma_kernelILi(\d+)E",
-                  lambda m: f"{m[1]}_fwd ({m[2]}, {m[2]})", 6)
+                  lambda m: f"{m[1]}_fwd ({m[2]}, {m[2]})", 7)
 
 
 def _ptxas_k4b_k7(log: str) -> dict:
@@ -1375,14 +1417,15 @@ def _kernel_group(name: str) -> str:
     return "elementwise / reductions / copies"
 
 
-def profile_step(step, card, what: str = "train step") -> dict:
+def profile_step(step, card, what: str = "train step", top: int = 0) -> dict:
     """One step under torch.profiler: device time by kernel group and the
     device's idle share of the step's wall time. Returns {"wall_ms",
     "busy_ms", "groups"} (busy_ms None when the profiler saw no device
     time). Only device activity is traced: host-op tracing added its own
     host time to the wall and took ~29 s to trace and summarise one ~3.4 s
     audio-visual step (tools_torch/probe_clip_av.py), and the groups read
-    device events alone."""
+    device events alone. With `top`, also prints the `top` kernels by device
+    time and returns them under "top"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1408,7 +1451,16 @@ def profile_step(step, card, what: str = "train step") -> dict:
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {t:.1f} ms ({t / busy:.1%} of device time, {launches[g]} launches)",
               flush=True)
-    return {"wall_ms": wall, "busy_ms": busy, "groups": groups}
+    if not top:
+        return {"wall_ms": wall, "busy_ms": busy, "groups": groups}
+    kernels = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key[:120])
+                      for evt in prof.key_averages()
+                      if evt.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)[:top]
+    for ms, n, name in kernels:
+        print(f"    {ms:.1f} ms in {n} launches: {name}", flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "groups": groups,
+            "top": [{"ms": ms, "launches": n, "kernel": name} for ms, n, name in kernels]}
 
 
 def time_train(fa, run, card) -> dict:
@@ -1449,7 +1501,7 @@ def time_train(fa, run, card) -> dict:
 
 def time_finetune_step(run, card, profile: bool = False) -> float:
     """Phase 10's train step: the finetune config's trainer at B = 32 on a
-    device-resident batch (CUDA events, 3 steps after 1); with `profile`
+    device-resident batch (CUDA events, 2 steps after 1); with `profile`
     one more step under torch.profiler. Returns the step's ms."""
     from internvideo_tpu_torch.cli import train as cli
 
@@ -1461,7 +1513,7 @@ def time_finetune_step(run, card, profile: bool = False) -> float:
     batch = {"video": torch.randn(b, c.num_frames, c.img_size, c.img_size, 3, device="cuda",
                                   generator=g),
              "label": torch.randint(0, c.num_classes, (b,), device="cuda", generator=g)}
-    step_ms = _time_ms(lambda: trainer._step(trainer.state, batch), iters=3, warmup=1)
+    step_ms = _time_ms(lambda: trainer._step(trainer.state, batch), iters=2, warmup=1)
     print(f"[{card}] InternVideo2-1B finetune train step 8x224 bf16 B={b} (remat, drop-path, "
           f"mixup/cutmix, AdamW), device-resident batch: {step_ms:.1f} ms = "
           f"{b * 1e3 / step_ms:.2f} clips/s", flush=True)
@@ -1814,11 +1866,12 @@ def time_pretrain_step(fa, run, card) -> dict:
         run, trainer=dataclasses.replace(run.trainer, checkpoint_dir=None)), torch.device("cuda"))
     g = torch.Generator("cuda").manual_seed(10)
     batch = {"video": torch.randn(*shape, device="cuda", generator=g)}
-    step_ms = _time_ms(lambda: trainer._step(trainer.state, batch), iters=2, warmup=1)
+    step_ms = _time_ms(lambda: trainer._step(trainer.state, batch), iters=1, warmup=1)
     sv = batch["video"][:, ::run.engine.td_ratio]
     with torch.no_grad():
-        clip_ms = _time_ms(lambda: clip_t(sv), iters=2, warmup=1)
-        mae_ms = _time_ms(lambda: mae_t(batch["video"]), iters=2, warmup=1)
+        # both teachers ran inside the step's warm-up and timed calls
+        clip_ms = _time_ms(lambda: clip_t(sv), iters=1, warmup=0)
+        mae_ms = _time_ms(lambda: mae_t(batch["video"]), iters=1, warmup=0)
     b = shape[0]
     print(f"[{card}] InternVideo2-1B UMT pretrain step 16x224 (S = 833) + CLIP-6B + MAE-g14 "
           f"teachers bf16 B={b}, device-resident batch: {step_ms:.1f} ms = "
@@ -2836,7 +2889,7 @@ def time_sft_step(fa, card) -> dict:
     tokens = int((batch["segment_ids"] >= 0).sum())
     step = lambda: trainer._step(trainer.state, batch)  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
-    step_ms = _time_ms(step, iters=3, warmup=1)
+    step_ms = _time_ms(step, iters=2, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{card}] InternVideo3-8B SFT step (text depth {_sft_depth()}, pack {SFT_PACK}, "
           f"B=1, {tokens} real tokens, 16 x 224 clip, bf16, remat, AdamW), device-resident "
@@ -5467,7 +5520,7 @@ def check_clip_routes(run) -> None:
 def time_clip_step(fa, pd, ig, rms, run, card) -> dict:
     """Phase 46: the stage-2 trainer (CONFIG_CLIP, B 64) on a device-resident
     batch: launches of one step against the prediction, then the step's ms
-    (CUDA events, 3 steps after 1), the peak device memory and one step
+    (CUDA events, 2 steps after 1), the peak device memory and one step
     under torch.profiler (device busy share)."""
     from internvideo_tpu_torch.cli import train as cli
 
@@ -5483,7 +5536,7 @@ def time_clip_step(fa, pd, ig, rms, run, card) -> dict:
     torch.cuda.synchronize()
     per_step = {k: v for k, v in _all_counts(fa, pd, ig, rms).items() if v}
     want = clip_want(run, 1)
-    step_ms = _time_ms(step, iters=3, warmup=0)
+    step_ms = _time_ms(step, iters=2, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = {k: float(v) for k, v in m.items()}
     print(f"[{card}] VideoCLIP stage-2 1B step (tower 4x224 S = 1025 unmasked, remat; bert-large "
@@ -6233,7 +6286,7 @@ def check_distill_routes(run) -> None:
 def time_distill_step(fa, pd, ig, rms, run, card) -> dict:
     """Phase 57: the distill trainer (CONFIG_DISTILL, B 32) on a
     device-resident batch: one step's launches against `distill_want`, the
-    step's ms (CUDA events, 3 steps after 1), clips/s, peak memory, the
+    step's ms (CUDA events, 2 steps after 1), clips/s, peak memory, the
     frozen teacher's share (its targets alone, CUDA events), then one step
     under torch.profiler: device time by kernel group, the idle share of
     the step's wall there and of its CUDA-event span."""
@@ -6254,12 +6307,12 @@ def time_distill_step(fa, pd, ig, rms, run, card) -> dict:
     want = distill_want(run, 1)
     if per_step != want:
         raise AssertionError(f"the distill step launched {per_step}; predicted {want}")
-    step_ms = _time_ms(step, iters=3, warmup=0)
+    step_ms = _time_ms(step, iters=2, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     enc = run.model.encoder
     keep = draw_keep_indices(run.engine, enc, g, shape[0], enc.num_frames)
     teacher_ms = _time_ms(lambda: teacher_targets(teacher, run.engine, batch["video"], keep),
-                          iters=3, warmup=1)
+                          iters=2, warmup=1)
     b = shape[0]
     first = {k: float(v) for k, v in m.items()}
     print(f"[{card}] distill step (L/14 student 8x224 S = {DISTILL_STUDENT_SHAPE[1]}, remat; "
@@ -6770,7 +6823,7 @@ def run_av_real_audio_path(trainer, run, card) -> dict:
     """Phase 63: the real-audio path on the phase-62 trainer. Wavs and clips
     written by `_write_av_files`, an `audio` and an `audio_video` corpus
     registered and built (`register_corpus`, `build_datasets`, the toy
-    tokenizer, 4 x 224 clips, 32 tokens); per media type AV_STEPS steps of
+    tokenizer, 4 x 224 clips, 32 tokens); per media type AV_REAL_STEPS steps of
     JsonlVideoTextDataset (load_fbank: 998 x 64) -> prefetch_to_device ->
     the step at B 64, every loss finite; the host's ms a batch (the whole
     batch; load_fbank alone as B x its mean over the corpus's rows, each
@@ -6809,9 +6862,9 @@ def run_av_real_audio_path(trainer, run, card) -> dict:
             fed = lambda: trainer._step(trainer.state, trainer.put_batch(next(data)))  # noqa: E731
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            metrics = [fed() for _ in range(AV_STEPS)]
+            metrics = [fed() for _ in range(AV_REAL_STEPS)]
             torch.cuda.synchronize()
-            fed_ms = (time.perf_counter() - t0) * 1e3 / AV_STEPS
+            fed_ms = (time.perf_counter() - t0) * 1e3 / AV_REAL_STEPS
             losses = [{k: float(x) for k, x in m.items()} for m in metrics]
             if not all(math.isfinite(x) for m in losses for x in m.values()):
                 raise AssertionError(f"non-finite metrics on the real-audio {media} path: "
@@ -6823,7 +6876,7 @@ def run_av_real_audio_path(trainer, run, card) -> dict:
             print(f"[{card}] real-audio {media} path ({AV_REAL_WAVS} wavs of 10-12 s, half at "
                   f"22.05 kHz stereo; {AV_REAL_CLIP} uint8 clips): host {batch_ms:.1f} ms a "
                   f"batch of {b} (load_fbank {fbank_ms:.1f} ms: B x its mean over the rows), "
-                  f"the fed step {fed_ms:.1f} ms over {AV_STEPS} steps; idle "
+                  f"the fed step {fed_ms:.1f} ms over {AV_REAL_STEPS} steps; idle "
                   + ("not measured" if idle is None else f"{idle:.1%}")
                   + f" of the profiled fed step; losses {losses}", flush=True)
             out[media] = {"host_batch_ms": batch_ms, "load_fbank_ms_per_batch": fbank_ms,
@@ -8185,6 +8238,762 @@ def check_moe_routes(preset: str, depth: int, card) -> dict:
     return {"expert_pick_agreement": share, "logits_rel_l2": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phases 78-82: the InternVL / Intern-S1 compose (InternViT -> pixel shuffle
+# -> projector -> MoE or dense M2LA text) and its SFT step
+# ---------------------------------------------------------------------------
+
+# intern_s1's InternViT-6B at 448 px: S = (448 / 14)^2 + 1, 25 heads of 128;
+# its text model's attention (qwen3_moe_text, (d_qk, d_v) = (128, 64)) on the
+# SFT pack
+PRESET_S1, PRESET_S1_MINI = "intern_s1", "intern_s1_mini"
+INTERNVL_VIT_SHAPE = (4, 1025, 25, 128)
+INTERNVL_K5_SHAPE = (4, 2048, 32, 128, 64)
+INTERNVL_IMAGE_TOKENS = 256  # (1024 patches) / (2 x 2 pixel shuffle)
+# phase 79: the forward, vision uncut, text 24 of 48 (71.9 GB in full); B 4
+# rows of 1024 (one image each); the route check at depth 2 / 2
+INTERNVL_FWD_TEXT_DEPTH, INTERNVL_FWD_ROWS, INTERNVL_FWD_LEN = 24, 4, 1024
+INTERNVL_ROUTE_DEPTH = 2
+# phase 80: the SFT step at vision 8 / text 8, B 4 packed rows of 2048, 3 steps
+INTERNVL_SFT_DEPTH, INTERNVL_SFT_STEPS = 8, 3
+# phase 81: intern_s1_mini uncut, B 8 rows of 1024
+INTERNVL_MINI_ROWS = 8
+# phase 82: the checkpoint round trip at full width, depth 2 / 2
+INTERNVL_CKPT_DEPTH = 2
+
+
+def _ptxas_internvl(log: str) -> dict:
+    """The ptxas report of this slice's new instantiations: K1's forward and
+    K4a's dq / dk/dv bf16 kernels at d 128, K5's bf16 dq / dk/dv at (128,
+    64) with and without segments, and their fp32 CUDA-core kernels (the
+    parity route); raises on a spill in a bf16 kernel."""
+    rep = {**_ptxas(log, r"flash_(fwd|bwd_dq|bwd_dkv)_wgmma_kernelILi128E",
+                    lambda m: f"flash_{m[1]} bf16 (128, 128)", 3),
+           **_ptxas(log, r"causal_bwd_(dq|dkv)_bf16_kernelILi128ELi64ELb(\d)E",
+                    lambda m: f"causal_bwd_{m[1]} bf16 (128, 64{', seg' if m[2] == '1' else ''})",
+                    4),
+           **_ptxas(log, r"flash_(fwd|bwd_dq|bwd_dkv)_f32_kernelILi128E",
+                    lambda m: f"flash_{m[1]} fp32 (128, 128)", 3),
+           **_ptxas(log, r"causal_bwd_(dq|dkv)_f32_kernelILi128ELi64ELb(\d)E",
+                    lambda m: f"causal_bwd_{m[1]} fp32 (128, 64{', seg' if m[2] == '1' else ''})",
+                    4)}
+    spilled = {k: v for k, v in rep.items()
+               if "bf16" in k and (v["spill_stores"] or v["spill_loads"])}
+    if spilled:
+        raise AssertionError(f"the new bf16 instantiations spill: {spilled}")
+    return rep
+
+
+def _internvl_segments(b: int, s: int) -> torch.Tensor:
+    """(B, S) segment ids of the SFT pack: rows of 2 or 3 segments (the
+    first 1024 tokens long, holding the row's image) and a tail of pads
+    (-1)."""
+    ids = torch.full((b, s), -1, dtype=torch.int32)
+    for r in range(b):
+        lens = [s // 2, s * 5 // 16 - s // 32 * r, s // 8 + s // 64 * r] if r < 3 else \
+            [s // 2, s * 25 // 64]
+        ids[r, :sum(lens)] = torch.repeat_interleave(torch.arange(len(lens), dtype=torch.int32),
+                                                     torch.tensor(lens))
+    return ids.cuda()
+
+
+def _sdpa_bwd_any_ms(q, k, v, do, **kw) -> tuple:
+    """(forward ms, backward ms, note) of the fastest PyTorch SDPA backend that
+    runs forward + backward on (B, S, H, D) q / k / v with `kw` (is_causal or
+    attn_mask), v at its own width (yardstick only, never on the port's
+    path); the backward as forward + backward less the forward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    best = (None, None, "no SDPA backend took the shape")
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a refusal's reasons, printed below in one line
+                lk = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                f_ms = statistics.median(_time_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=5, warmup=1)
+                    for _ in range(3))
+                fb_ms = statistics.median(_time_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(*lk, **kw), lk, dot), iters=5, warmup=1)
+                    for _ in range(3))
+        except RuntimeError as e:  # the backend refuses the shape: try the next
+            print(f"  SDPA {backend.name} refused: {str(e).splitlines()[0][:100]}", flush=True)
+            continue
+        if best[0] is None or fb_ms - f_ms < best[1]:
+            best = (f_ms, fb_ms - f_ms, backend.name)
+    return best
+
+
+def check_internvl_kernels(fa, card) -> dict:
+    """Phase 78 (a): K1 and K4a at d 128 (the InternViT-6B tower's S 1025)
+    and K5 / K8's backward at (128, 64) (qwen3_moe_text on the SFT pack),
+    each against its plain version: fp32 at small shapes (out max-abs 2e-5,
+    grads 5e-4), bf16 at the path's shapes (rel-L2 1e-2 each; LSE max-abs
+    1e-2), K1 / K4a also at a ragged B 1 (S 1025: a 1-row last query tile);
+    then each kernel's time (CUDA events, median of 5), its bound, its plain
+    version's time and the library call's. Returns {name: record}."""
+    g = torch.Generator("cuda").manual_seed(78)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    # K1 / K4a at d 128
+    b, s, h, d = INTERNVL_VIT_SHAPE
+    q, k, v, do = (rnd(1, s, 3, d) for _ in range(4))
+    got, ref = _flash_vs_plain(fa, q, k, v, do)
+    errs = [(x - r).abs().max().item() for x, r in zip(got, ref)]
+    print(f"K1 / K4a fp32 (1, {s}, 3, {d}): out / lse max-abs {errs[0]:.3e} / {errs[1]:.3e} "
+          f"(bar 2e-5), dq / dk / dv {errs[2]:.3e} / {errs[3]:.3e} / {errs[4]:.3e} (bar 5e-4)",
+          flush=True)
+    if not (max(errs[:2]) <= 2e-5 and max(errs[2:]) <= 5e-4):
+        raise AssertionError("fp32 K1 / K4a at d 128 disagree with their plain versions")
+    f32 = {"flash_fwd": errs[0], "flash_bwd_dq": errs[2], "flash_bwd_dkv": max(errs[3:])}
+    for bb in (1, b):  # the ragged B 1, then the path's B (timed below)
+        _, (q, k, v) = _qkv_views(bb, s, h, d, g)
+        do = rnd(bb, s, h, d).bfloat16()
+        got, ref = _flash_vs_plain(fa, q, k, v, do)
+        rels = [_rel(x, r) for x, r in zip(got, ref)]
+        lse_err = (got[1] - ref[1]).abs().max().item()
+        print(f"K1 / K4a bf16 {(bb, s, h, d)} on qkv views: out / dq / dk / dv rel-L2 "
+              f"{rels[0]:.3e} / {rels[2]:.3e} / {rels[3]:.3e} / {rels[4]:.3e} (bar 1e-2), LSE "
+              f"max-abs {lse_err:.3e} (bar 1e-2)", flush=True)
+        if not (max(rels[:1] + rels[2:]) <= 1e-2 and lse_err <= 1e-2):
+            raise AssertionError(f"bf16 K1 / K4a at d 128 disagree with their plain versions "
+                                 f"at B {bb}")
+        if bb == b:
+            errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+            for name, i in (("flash_fwd", 0), ("flash_bwd_dq", 2), ("flash_bwd_dkv", 3)):
+                res[name] = dict(rel_l2=max(rels[i:i + 1 + (i == 3)]),
+                                 max_abs_err=max(errs[i:i + 1 + (i == 3)]),
+                                 max_abs_err_fp32=f32[name], shape=[b, s, s, h, d])
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = fa._flash_fwd_cuda(q, k, v, scale)
+        delta = fa._bwd_delta(out, do)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ms = {"flash_fwd": _median_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale)),
+              "flash_bwd_dq": _median_ms(lambda: fa._launch_bwd(
+                  "flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)),
+              "flash_bwd_dkv": _median_ms(lambda: fa._launch_bwd(
+                  "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale))}
+        plain_f = _time_ms(lambda: fa.flash_attention_ref_with_lse(q, k, v, scale), iters=1)
+        plain_b = _time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale),
+                           iters=1)
+    lib_f = statistics.median(_sdpa_fwd_ms(q, k, v) for _ in range(5))
+    lib_b = statistics.median(_sdpa_bwd_ms(q, k, v, do) for _ in range(5))
+    bounds = _attn_bounds(b, s, s, h, d)
+    for name, key, plain, lib in (("flash_fwd", "fwd", plain_f, lib_f),
+                                  ("flash_bwd_dq", "dq", plain_b, lib_b),
+                                  ("flash_bwd_dkv", "dkv", plain_b, lib_b)):
+        res[name].update(ms=ms[name], plain_ms=plain, library_ms=lib, bound=bounds[key],
+                         library_note="flash SDPA " + ("forward" if key == "fwd" else
+                                                       "backward alone (the aten op)"))
+        flops = {"fwd": 4, "dq": 6, "dkv": 8}[key] * b * h * s * s * d
+        print(f"[{card}] {name} {(b, s, h, d)} bf16: kernel {ms[name]:.4f} ms (median of 5; "
+              f"{flops / ms[name] / 1e9:.1f} TFLOP/s), bound {bounds[key][0]:.4f} ms "
+              f"({bounds[key][1]}), plain {plain:.3f} ms, {res[name]['library_note']} "
+              f"{lib:.4f} ms", flush=True)
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    # K5 / K8 backward at (128, 64): fp32 small, bf16 at the pack's shape
+    b, s, h, d, dvd = INTERNVL_K5_SHAPE
+    for dt, (bb, ss, hh) in ((torch.float32, (2, 333, 4)), (torch.bfloat16, (b, s, h))):
+        seg_full = _internvl_segments(bb, ss) if ss == s else torch.repeat_interleave(
+            torch.tensor([0, 1, 2, -1], dtype=torch.int32), torch.tensor([150, 100, 50, 33])
+        )[None].repeat(bb, 1).cuda()
+        q, k = (rnd(bb, ss, hh, d).to(dt) for _ in range(2))
+        kv = rnd(bb, ss, hh, d + dvd).to(dt)
+        k = kv[..., :d] if dt == torch.bfloat16 else k  # strided views, as MLAttention makes
+        v = kv[..., d:]
+        do = rnd(bb, ss, hh, dvd).to(dt)
+        for seg in (seg_full, None):
+            tag = "_seg" if seg is not None else ""
+            kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+            before = {n: fa.launch_count(n) for n in fa.KERNELS}
+            got = _attn_grads(lambda q, k, v: fa.flash_attention(q, k, v, **kw), q, k, v, do)
+            torch.cuda.synchronize()
+            for n in (f"flash_bwd_causal_dq{tag}", f"flash_bwd_causal_dkv{tag}"):
+                if fa.launch_count(n) != before[n] + 1:
+                    raise AssertionError(f"the (128, 64) backward did not launch {n}")
+            ref_out, ref_lse = fa.flash_attention_ref_with_lse(q, k, v, d ** -0.5, True, 0, seg,
+                                                               seg)
+            want = [ref_out, *fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do,
+                                                         d ** -0.5, causal=True,
+                                                         q_segment_ids=seg, kv_segment_ids=seg)]
+            errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+            rels = [_rel(a, w) for a, w in zip(got, want)]
+            what = f"K5{' + K8' * bool(tag)} {(bb, ss, hh, d, dvd)} {str(dt)[6:]} causal" + (
+                f", {int(seg.max()) + 1} segments + pads" if seg is not None else "")
+            if dt == torch.float32:
+                print(f"{what}: out / dq / dk / dv max-abs {errs[0]:.2e} / {errs[1]:.2e} / "
+                      f"{errs[2]:.2e} / {errs[3]:.2e} (bars 2e-5, 5e-4)", flush=True)
+                if not (errs[0] <= 2e-5 and max(errs[1:]) <= 5e-4):
+                    raise AssertionError(f"fp32 {what} disagrees with its plain version")
+                res.setdefault(f"f32{tag}", dict(dq=errs[1], dkv=max(errs[2:])))
+                continue
+            print(f"{what}: out / dq / dk / dv rel-L2 {rels[0]:.2e} / {rels[1]:.2e} / "
+                  f"{rels[2]:.2e} / {rels[3]:.2e} (bar 1e-2), max-abs {errs[1]:.2e} / "
+                  f"{errs[2]:.2e} / {errs[3]:.2e}", flush=True)
+            if not (max(rels) <= 1e-2 and all(torch.isfinite(x).all() for x in got)):
+                raise AssertionError(f"bf16 {what} disagrees with its plain version")
+            scale = d ** -0.5
+            with torch.no_grad():
+                out, lse = fa._flash_fwd_causal_cuda(q, k, v, scale, True, 0, seg, seg)
+                delta = fa._bwd_delta(out, do)
+                plain = _time_ms(lambda: fa.flash_attention_bwd_ref(
+                    q, k, v, out, lse, do, scale, causal=True, q_segment_ids=seg,
+                    kv_segment_ids=seg), iters=1)
+            grads = tuple(torch.empty_like(x) for x in (q, k, v))
+            ptrs = fa._seg_ptrs(seg, seg)[1]
+            kms = {kind: _median_ms(lambda: fa._launch_bwd_causal(
+                kind, q, k, v, do, lse, delta, ptrs, grads, scale, True, 0), iters=5)
+                for kind in ("dq", "dkv")}
+            if seg is None:
+                lib = _sdpa_bwd_any_ms(q, k, v, do, is_causal=True)
+            else:
+                # the kernel's function: causal within equal ids (the pads' -1 run too)
+                keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
+                    ss, ss, dtype=torch.bool, device="cuda").tril()
+                lib = _sdpa_bwd_any_ms(q, k, v, do, attn_mask=keep[:, None])
+                del keep
+            pairs = hh * (_visible_pairs(seg) if seg is not None else bb * ss * (ss + 1) // 2)
+            io_bwd = (2 * bb * ss * hh * d + 2 * bb * ss * hh * dvd) * 2 + 2 * bb * hh * ss * 4
+            bounds = {"dq": _bound(2 * pairs * (2 * d + dvd), io_bwd + bb * ss * hh * d * 2),
+                      "dkv": _bound(2 * pairs * (2 * d + 2 * dvd),
+                                    io_bwd + bb * ss * hh * (d + dvd) * 2)}
+            for kind, i in (("dq", 1), ("dkv", 2)):
+                name = f"flash_bwd_causal_{kind}{tag}"
+                res[name] = dict(ms=kms[kind], plain_ms=plain, library_ms=lib[1],
+                                 library_note=f"SDPA {lib[2]} backward (forward + backward less "
+                                              f"the forward)" + (", explicit (B, 1, S, S) bool "
+                                                                 "mask" if seg is not None else ""),
+                                 bound=bounds[kind], shape=[bb, ss, hh, d, dvd],
+                                 segments=seg is not None, visible_pairs_per_head=pairs // hh,
+                                 rel_l2=max(rels[i:i + 1 + (i == 2)]),
+                                 max_abs_err=max(errs[i:i + 1 + (i == 2)]),
+                                 max_abs_err_fp32=res[f"f32{tag}"][kind])
+                print(f"[{card}] {name} {(bb, ss, hh, d, dvd)} bf16: kernel {kms[kind]:.4f} ms "
+                      f"(median of 5), bound {bounds[kind][0]:.4f} ms ({bounds[kind][1]}, "
+                      f"{pairs // hh:.3e} visible pairs a head), plain {plain:.2f} ms, "
+                      + (f"{res[name]['library_note']} {lib[1]:.4f} ms" if lib[1] is not None
+                         else lib[2]), flush=True)
+            del out, lse, delta, grads
+        del q, k, v, kv, do, got, want
+        torch.cuda.empty_cache()
+    for tag in ("", "_seg"):
+        res.pop(f"f32{tag}")
+    print(f"[{card}] phase 78: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          "GB", flush=True)
+    return res
+
+
+def _internvl(preset: str, seed: int = 0, dtype: str = "bfloat16", vision_depth=None,
+              text_depth=None):
+    """The preset's InternVLChat on the card with seeded weights, its
+    depths cut to `vision_depth` / `text_depth` where given, in `dtype`."""
+    from internvideo_tpu_torch.models import presets
+    from internvideo_tpu_torch.models.internvl import InternVLChat
+
+    cfg = getattr(presets, preset)()
+    vis = {"dtype": dtype, "param_dtype": dtype,
+           **({"depth": vision_depth} if vision_depth else {})}
+    text = {"dtype": dtype, "param_dtype": dtype,
+            **({"num_layers": text_depth} if text_depth else {})}
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **vis),
+                              text=dataclasses.replace(cfg.text, **text))
+    return InternVLChat(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def _set_internvl_impl(model, impl: str) -> None:
+    """The route of every vision block's and text layer's attention."""
+    from internvideo_tpu_torch.nn.mla import MLAttention
+    from internvideo_tpu_torch.nn.transformer import Attention
+
+    for m in model.modules():
+        if isinstance(m, (Attention, MLAttention)):
+            m.attn_impl = impl
+
+
+def _internvl_prompts(cfg, b: int, length: int, seed: int) -> dict:
+    """Device tensors of B rows of `length` tokens, each with one image's
+    INTERNVL_IMAGE_TOKENS placeholders at positions 16.., and B 448 x 448
+    images."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    ids = torch.randint(1, cfg.image_token_id - 1, (b, length), device="cuda", generator=g)
+    ids[:, 16:16 + INTERNVL_IMAGE_TOKENS] = cfg.image_token_id
+    size = cfg.vision.img_size
+    return {"input_ids": ids, "position_ids": torch.arange(length, device="cuda")[None].repeat(
+        b, 1), "images": torch.randn(b, size, size, 3, device="cuda", generator=g)}
+
+
+def _internvl_sft_batch(cfg, b: int, length: int, seed: int) -> dict:
+    """A packed SFT batch as the JAX engine takes it (numpy): rows of 2-3
+    segments and pads (_internvl_segments), the first segment of each row
+    holding its image's placeholders; 1-D positions restarting at each
+    segment; labels the next token within a segment, -100 on the
+    placeholders, the pads and each segment's last token."""
+    rng = np.random.default_rng(seed)
+    seg = _internvl_segments(b, length).cpu().numpy()
+    ids = rng.integers(1, cfg.image_token_id - 1, size=(b, length)).astype(np.int32)
+    ids[:, 16:16 + INTERNVL_IMAGE_TOKENS] = cfg.image_token_id
+    pos = np.zeros((b, length), np.int32)
+    for r in range(b):
+        for sid in set(seg[r].tolist()) - {-1}:
+            at = np.flatnonzero(seg[r] == sid)
+            pos[r, at] = np.arange(len(at))
+    nxt = np.roll(ids, -1, axis=1)
+    same = np.roll(seg, -1, axis=1) == seg
+    same[:, -1] = False
+    labels = np.where(same & (seg >= 0) & (nxt != cfg.image_token_id), nxt, -100)
+    size = cfg.vision.img_size
+    return {"input_ids": ids, "segment_ids": seg.astype(np.int32), "position_ids": pos,
+            "labels": labels.astype(np.int32),
+            "video": rng.standard_normal((b, size, size, 3), dtype=np.float32)}
+
+
+def _internvl_counts_want(fa, **kw) -> dict:
+    return {**dict.fromkeys(fa.KERNELS, 0), "paged_decode": 0, **kw}
+
+
+def run_internvl_forward(fa, pd, card) -> dict:
+    """Phase 79 (b): intern_s1 at full width, vision uncut (45 layers), text
+    at INTERNVL_FWD_TEXT_DEPTH of 48 (71.9 GB in full leaves the card no
+    room), B 4 rows of 1024 tokens, one image each: the launches of one
+    forward (45 K1 at d 128, 24 K5 at (128, 64), nothing else), finite
+    logits of the full vocabulary, the wall time split into vision and
+    text, peak memory."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = _internvl(PRESET_S1, text_depth=INTERNVL_FWD_TEXT_DEPTH).eval()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    x = _internvl_prompts(cfg, INTERNVL_FWD_ROWS, INTERNVL_FWD_LEN, 79)
+    _serve_reset(fa, pd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(x["input_ids"], x["images"], position_ids=x["position_ids"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _serve_counts(fa, pd)
+    want = _internvl_counts_want(fa, flash_fwd=cfg.vision.depth,
+                                 flash_fwd_causal=cfg.text.num_layers)
+    if launches != want:
+        raise AssertionError(f"intern_s1 forward launches {launches}; expected {want}")
+    b, length = x["input_ids"].shape
+    if tuple(out.logits.shape) != (b, length, cfg.text.vocab_size) or not torch.isfinite(
+            out.logits).all():
+        raise AssertionError(f"intern_s1 logits {tuple(out.logits.shape)} not finite or of the "
+                             "wrong shape")
+    del out
+    with torch.no_grad():
+        vis_ms = _median_ms(lambda: model.encode_images(x["images"]), runs=3, iters=1)
+        all_ms = _median_ms(lambda: model(x["input_ids"], x["images"],
+                                          position_ids=x["position_ids"]), runs=3, iters=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"params_b": n_params / 1e9, "vision_depth": cfg.vision.depth,
+           "text_depth": cfg.text.num_layers, "rows": b, "tokens": length, "launches": launches,
+           "first_forward_s": first_s, "forward_ms": all_ms, "vision_ms": vis_ms,
+           "text_ms": all_ms - vis_ms, "peak_gb": peak}
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] intern_s1 forward (vision {res['vision_depth']} layers uncut, text "
+          f"{res['text_depth']} of 48; {res['params_b']:.2f} B parameters), B {b} x {length} "
+          f"with one image a row: {all_ms:.1f} ms (median of 3; vision {vis_ms:.1f} ms, text "
+          f"{all_ms - vis_ms:.1f} ms), first call {first_s:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; peak device memory {peak:.2f} GB; "
+          f"phase {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def _internvl_fp32(model, preset, depth):
+    return _fp32_copy(model, lambda: _internvl(preset, dtype="float32", vision_depth=depth,
+                                               text_depth=depth))
+
+
+def check_internvl_routes(fa, card) -> dict:
+    """Phase 79, second part: intern_s1 at depth INTERNVL_ROUTE_DEPTH /
+    INTERNVL_ROUTE_DEPTH, full width, B 2 x 1024 with one image a row: the
+    bf16 kernel route's logits no farther from the fp32 run than 1.25 x the
+    bf16 plain route's, the fp32 routes within 1e-4 (_hold_to_fp32)."""
+    depth = INTERNVL_ROUTE_DEPTH
+    model = _internvl(PRESET_S1, vision_depth=depth, text_depth=depth).eval()
+    x = _internvl_prompts(model.config, 2, INTERNVL_FWD_LEN, 791)
+
+    def logits(m, impl):
+        _set_internvl_impl(m, impl)
+        with torch.no_grad():
+            images = x["images"].to(next(m.parameters()).dtype)
+            return [m(x["input_ids"], images, position_ids=x["position_ids"]).logits.float()]
+
+    fa.reset_launch_count()
+    res = {impl: logits(model, impl) for impl in ("kernel", "plain")}
+    if fa.launch_count("flash_fwd") != depth or fa.launch_count("flash_fwd_causal") != depth:
+        raise AssertionError("the kernel route of the intern_s1 route check ran no kernel")
+    ref = _internvl_fp32(model, PRESET_S1, depth)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = {impl: logits(ref, impl) for impl in ("kernel", "plain")}
+    del ref
+    _hold_to_fp32(res, f32, f"[{card}] intern_s1 at depth {depth} / {depth} (full width), B 2 x "
+                            f"{INTERNVL_FWD_LEN}, one image a row")
+    return {"kernel_vs_fp32": _rel(res["kernel"][0], f32["plain"][0]),
+            "plain_vs_fp32": _rel(res["plain"][0], f32["plain"][0]),
+            "kernel_vs_plain": _rel(res["kernel"][0], res["plain"][0])}
+
+
+def _internvl_sft_trainer(model, steps: int):
+    from internvideo_tpu_torch.train.engines.sft import SFTConfig, make_sft_step
+    from internvideo_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(TrainerConfig(total_steps=steps, log_every=1), model,
+                   lambda grad_accum=1: make_sft_step(SFTConfig(), grad_accum=grad_accum))
+
+
+def run_internvl_sft(fa, pd, card) -> dict:
+    """Phase 80 (c): intern_s1 at full width, vision INTERNVL_SFT_DEPTH of 45
+    and text INTERNVL_SFT_DEPTH of 48 (the state of the full model, ~8 bytes
+    a parameter, would not fit), B 4 packed rows of 2048 (2-3 segments and
+    pads, one image a row): INTERNVL_SFT_STEPS steps through Trainer +
+    make_sft_step, counting launches (a step: depth K1 + depth K4a dq and
+    dk/dv, the tower has no remat; 2 x depth segmented K5 forwards, the text
+    model's remat, and depth K5 dq and dk/dv); finite loss and grad norm;
+    the step's time (ms, pack tokens/s: the median of the fit's steps after
+    the first, which allocates the optimizer state); then one more step on
+    a device-resident batch under torch.profiler (device time by group and
+    the top kernels, idle share), and the MoE layers' part of it (one MoE
+    layer's forward, remat recompute and backward alone on the step's rows
+    under the profiler, times the depth)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    depth, steps = INTERNVL_SFT_DEPTH, INTERNVL_SFT_STEPS
+    model = _internvl(PRESET_S1, vision_depth=depth, text_depth=depth)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = _internvl_sft_trainer(model, steps)
+    b, length = INTERNVL_K5_SHAPE[:2]
+    batches = [_internvl_sft_batch(cfg, b, length, 80 + i) for i in range(steps)]
+    inner, metrics, step_s = trainer._step, [], []
+
+    def timed_step(state, batch):  # the Trainer syncs each step anyway (log_every=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics.append(inner(state, batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return metrics[-1]
+
+    trainer._step = timed_step
+    t_init = time.perf_counter() - t_phase
+    _serve_reset(fa, pd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer.fit(iter(batches), steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _serve_counts(fa, pd)
+    trainer._step = inner
+    want = _internvl_counts_want(
+        fa, flash_fwd=depth * steps, flash_bwd_dq=depth * steps, flash_bwd_dkv=depth * steps,
+        flash_fwd_causal_seg=2 * depth * steps, flash_bwd_causal_dq_seg=depth * steps,
+        flash_bwd_causal_dkv_seg=depth * steps)
+    if launches != want:
+        raise AssertionError(f"intern_s1 SFT launches {launches}; expected {want}")
+    rec = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, r in enumerate(rec):
+        print(f"intern_s1 SFT step {i + 1}: loss {r['loss']:.5f}, grad_norm "
+              f"{r['grad_norm']:.4f}, tokens {r['tokens']:.0f}", flush=True)
+    if len(rec) != steps or not all(math.isfinite(r[k]) for r in rec
+                                    for k in ("loss", "grad_norm")):
+        raise AssertionError("intern_s1 SFT: non-finite loss or grad norm")
+    batch = trainer.put_batch(batches[-1])
+    step_ms = statistics.median(step_s[1:]) * 1e3  # the first step allocates the optimizer
+    t0 = time.perf_counter()
+    prof = profile_step(lambda: trainer._step(trainer.state, batch), card,
+                        "intern_s1 SFT step", top=8)
+    prof_s = time.perf_counter() - t0
+    # the MoE layers' part of it: one MoE layer's forward, its remat
+    # recompute and its backward alone on the step's rows, times the depth
+    mlp = model.language_model.layers[0].mlp
+    g = torch.Generator("cuda").manual_seed(800)
+    x = torch.randn(b, length, cfg.text.hidden_size, device="cuda", generator=g).bfloat16()
+    x.requires_grad_()
+    dy = torch.randn(b, length, cfg.text.hidden_size, device="cuda", generator=g).bfloat16()
+
+    def moe_layer():
+        with torch.no_grad():
+            mlp(x)
+        torch.autograd.grad(mlp(x).output, [x, *mlp.parameters()], dy, allow_unused=True)
+
+    moe_layer()
+    one = profile_step(moe_layer, card, "one MoE layer: forward, remat recompute, backward")
+    moe = {"device_ms": None if one["busy_ms"] is None else one["busy_ms"] * depth,
+           "wall_ms": one["wall_ms"] * depth}
+    if moe["device_ms"] is not None and prof["busy_ms"]:
+        moe["share_of_step_device"] = moe["device_ms"] / prof["busy_ms"]
+    moe["share_of_step_wall"] = moe["wall_ms"] / prof["wall_ms"]
+    print(f"[{card}] intern_s1 SFT: the {depth} MoE layers (one alone x {depth}) take "
+          f"{moe['wall_ms']:.1f} ms of wall ({moe['share_of_step_wall']:.1%} of the profiled "
+          "step's) and " + ("an unmeasured device time" if moe["device_ms"] is None else
+                            f"{moe['device_ms']:.1f} ms of device time "
+                            f"({moe['share_of_step_device']:.1%})"), flush=True)
+    del x, dy
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"params_b": n_params / 1e9, "vision_depth": depth, "text_depth": depth,
+           "rows": b, "pack": length, "steps": rec, "init_s": t_init, "fit_s": fit_s,
+           "step_s": step_s, "profile_s": prof_s, "launches": launches, "moe_layers": moe,
+           "step_ms": step_ms, "pack_tokens_per_sec": b * length / step_ms * 1e3,
+           "label_tokens_per_sec": rec[-1]["tokens"] / step_ms * 1e3, "profile": prof,
+           "peak_gb": peak}
+    del trainer, model, batch, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] intern_s1 SFT (vision {depth} / text {depth} layers, {n_params / 1e9:.2f} B "
+          f"parameters), B {b} x {length}: {steps} steps through Trainer in {fit_s:.1f} s (init "
+          f"{t_init:.1f} s, the profiled step {prof_s:.1f} s); a step {step_ms:.1f} ms (median "
+          f"of steps 2-{steps}) = {res['pack_tokens_per_sec']:.0f} pack tokens/s; peak device "
+          f"memory {peak:.2f} GB; phase {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def _internvl_loss_grads(model, batch, impl, names):
+    from internvideo_tpu_torch.train.chunked_ce import chunked_cross_entropy
+
+    _set_internvl_impl(model, impl)
+    model.zero_grad(set_to_none=True)
+    video = batch["video"].to(next(model.parameters()).dtype)
+    out = model(batch["input_ids"], video, position_ids=batch["position_ids"],
+                segment_ids=batch["segment_ids"], with_logits=False)
+    loss = chunked_cross_entropy(out.hidden, model.language_model.lm_head.weight,
+                                 batch["labels"])
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+             if n in names}
+    model.zero_grad(set_to_none=True)
+    return loss.detach().float(), grads
+
+
+def check_internvl_sft_routes(fa, card) -> dict:
+    """Phase 80, second part: intern_s1 at depth INTERNVL_ROUTE_DEPTH /
+    INTERNVL_ROUTE_DEPTH, full width, B 2 packed rows of 2048: one step's
+    loss and the grads of a vision block's qkv and an expert weight on the
+    bf16 kernel route, the bf16 plain route and the fp32 plain route; each
+    grad of the kernel route no farther from fp32 than 1.25 x the plain
+    route's (rel-L2), the loss likewise or within 2e-3 (relative) of fp32."""
+    depth = INTERNVL_ROUTE_DEPTH
+    model = _internvl(PRESET_S1, vision_depth=depth, text_depth=depth)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _internvl_sft_batch(
+        model.config, 2, INTERNVL_K5_SHAPE[1], 801).items()}
+    names = ("vision_tower.blocks.0.attn.qkv.weight", f"language_model.layers.{depth - 1}.mlp.w_up")
+    fa.reset_launch_count()
+    lk, gk = _internvl_loss_grads(model, batch, "kernel", names)
+    if fa.launch_count("flash_bwd_dq") != depth or fa.launch_count(
+            "flash_bwd_causal_dkv_seg") != depth:
+        raise AssertionError("the kernel route of the intern_s1 SFT check ran no kernel")
+    lp, gp = _internvl_loss_grads(model, batch, "plain", names)
+    ref = _internvl_fp32(model, PRESET_S1, depth)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    l32, g32 = _internvl_loss_grads(ref, batch, "plain", names)
+    del ref
+    far = {n: (_rel(gk[n], g32[n]), _rel(gp[n], g32[n])) for n in names}
+    loss_far = (abs(lk - l32).item() / abs(l32).item(), abs(lp - l32).item() / abs(l32).item())
+    print(f"[{card}] intern_s1 SFT routes at depth {depth} / {depth} (full width), B 2 x "
+          f"{INTERNVL_K5_SHAPE[1]}: loss kernel {lk.item():.6f} plain {lp.item():.6f} fp32 "
+          f"{l32.item():.6f} (to fp32: kernel {loss_far[0]:.2e}, plain {loss_far[1]:.2e})",
+          flush=True)
+    for n in names:
+        print(f"  {n}: grad rel-L2 to fp32: kernel {far[n][0]:.2e}, plain {far[n][1]:.2e} (bar: "
+              f"kernel <= 1.25 x plain)", flush=True)
+    if not (all(k <= 1.25 * p for k, p in far.values())
+            and (loss_far[0] <= 1.25 * loss_far[1] or loss_far[0] <= 2e-3)):
+        raise AssertionError("intern_s1 SFT: the kernel route is farther from fp32 than the "
+                             "plain route")
+    return {"loss_to_fp32": loss_far, "grads_to_fp32": far}
+
+
+def run_internvl_mini(fa, pd, card) -> dict:
+    """Phase 81 (d): intern_s1_mini with nothing cut (InternViT-300M, 24
+    layers of 16 x 64; qwen3_8b_mla's 36 layers at vocab 153216), B 8 rows
+    of 1024 with one image each: the launches of one forward (24 K1 at d
+    64, 36 K5 at (256, 128)), finite logits, the wall time, peak memory."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = _internvl(PRESET_S1_MINI).eval()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    x = _internvl_prompts(cfg, INTERNVL_MINI_ROWS, INTERNVL_FWD_LEN, 81)
+    _serve_reset(fa, pd)
+    with torch.no_grad():
+        out = model(x["input_ids"], x["images"], position_ids=x["position_ids"])
+    torch.cuda.synchronize()
+    launches = _serve_counts(fa, pd)
+    want = _internvl_counts_want(fa, flash_fwd=cfg.vision.depth,
+                                 flash_fwd_causal=cfg.text.num_layers)
+    if launches != want:
+        raise AssertionError(f"intern_s1_mini forward launches {launches}; expected {want}")
+    if not torch.isfinite(out.logits).all():
+        raise AssertionError("intern_s1_mini: non-finite logits")
+    del out
+    with torch.no_grad():
+        ms = _median_ms(lambda: model(x["input_ids"], x["images"],
+                                      position_ids=x["position_ids"]), runs=3, iters=1)
+        vis_ms = _median_ms(lambda: model.encode_images(x["images"]), runs=3, iters=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"params_b": n_params / 1e9, "launches": launches, "forward_ms": ms, "vision_ms": vis_ms,
+           "peak_gb": peak, "phase_s": time.perf_counter() - t_phase}
+    print(f"[{card}] intern_s1_mini forward, nothing cut ({n_params / 1e9:.2f} B parameters), B "
+          f"{INTERNVL_MINI_ROWS} x {INTERNVL_FWD_LEN}: {ms:.1f} ms (median of 3; vision "
+          f"{vis_ms:.1f} ms); launches { {k: v for k, v in launches.items() if v} }; peak device "
+          f"memory {peak:.2f} GB; phase {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def _internvit_hf_sd(sd: dict, cfg, prefix: str = "") -> dict:
+    """A port InternVideo2 encoder's tensors (state_dict names under
+    `prefix`) in the reference's InternViT layout (HF
+    `InternVLVisionModel` names): the inverse of convert_internvit. The
+    attention pool has no counterpart there and is left out."""
+    t = lambda k: sd[prefix + k].detach().cpu()  # noqa: E731
+    p, d = cfg.patch_size, cfg.embed_dim
+    out = {"embeddings.patch_embeddings.projection.weight":
+           t("patch_embed.proj.weight").reshape(d, p, p, 3).permute(0, 3, 1, 2).contiguous(),
+           "embeddings.patch_embeddings.projection.bias": t("patch_embed.proj.bias"),
+           "embeddings.cls_token": t("cls_token"),
+           "embeddings.position_embeddings": t("pos_embed")[None]}
+    for i in range(cfg.depth):
+        b, o = f"blocks.{i}.", f"encoder.layer.{i}."
+        for n, w in zip("qkv", t(b + "attn.qkv.weight").chunk(3)):
+            out[f"{o}attention.{n}_proj.weight"] = w.contiguous()
+        pairs = [("attn.proj", "attention.projection_layer"), ("mlp.fc1", "mlp.fc1"),
+                 ("mlp.fc2", "mlp.fc2"), ("norm1", "layernorm_before"),
+                 ("norm2", "layernorm_after"), ("attn.q_norm", "attention.q_norm"),
+                 ("attn.k_norm", "attention.k_norm")]
+        for ours, hf in pairs:
+            for leaf in ("weight", "bias"):
+                if prefix + b + f"{ours}.{leaf}" in sd:
+                    out[f"{o}{hf}.{leaf}"] = t(b + f"{ours}.{leaf}")
+        out[o + "lambda_1"], out[o + "lambda_2"] = t(b + "ls1.gamma"), t(b + "ls2.gamma")
+    return out
+
+
+def _internvl_hf_sd(model) -> dict:
+    """A port InternVLChat in the reference's compose layout:
+    `model.vision_tower.*` (_internvit_hf_sd), `model.multi_modal_projector.*`
+    and the text model through export_mla_llm_hf under
+    `model.language_model.*` (lm_head.weight at the top)."""
+    from internvideo_tpu_torch.models.convert import export_mla_llm_hf, params_to_jax
+
+    sd = model.state_dict()
+    out = {f"model.vision_tower.{k}": v for k, v in _internvit_hf_sd(
+        sd, model.config.vision, "vision_tower.").items()}
+    for ours, hf in (("mlp1_norm", "layer_norm"), ("mlp1_fc1", "linear_1"),
+                     ("mlp1_fc2", "linear_2")):
+        for leaf in ("weight", "bias"):
+            out[f"model.multi_modal_projector.{hf}.{leaf}"] = sd[f"{ours}.{leaf}"].detach().cpu()
+    lm = model.language_model
+    for k, v in export_mla_llm_hf(params_to_jax(lm.state_dict(), lm), lm.cfg).items():
+        out[k if k == "lm_head.weight" else "model.language_model." + k[len("model."):]] = \
+            v.detach().cpu().contiguous()
+    return out
+
+
+def run_internvl_checkpoint(fa, pd, card) -> dict:
+    """Phase 82 (e): intern_s1 at full width, depth INTERNVL_CKPT_DEPTH /
+    INTERNVL_CKPT_DEPTH: the seeded model written in the reference's
+    compose layout (HF names, bf16, safetensors shards), the convert CLI's
+    `internvl` kind on it (--preset intern_s1 with the cut depths), the npz
+    loaded into a model of another seed through params_from_jax (every
+    tensor but the unused attention pool's, which the reference has not);
+    its logits equal the writer's bit for bit. Then the same for the
+    `internvit` kind alone on the tower's file: the encoder's tokens equal."""
+    import tempfile
+
+    from internvideo_tpu_torch.core.checkpoint import save_hf_checkpoint
+    from internvideo_tpu_torch.models.convert import params_from_jax
+    from internvideo_tpu_torch.models.internvideo2 import InternVideo2
+    from internvideo_tpu_torch.tools import convert_cli
+
+    t_phase = time.perf_counter()
+    depth = INTERNVL_CKPT_DEPTH
+    writer = _internvl(PRESET_S1, 0, vision_depth=depth, text_depth=depth).eval()
+    cfg = writer.config
+    x = _internvl_prompts(cfg, 1, 512, 82)
+    with torch.no_grad():
+        want = writer(x["input_ids"], x["images"], position_ids=x["position_ids"]).logits
+        want_tok = writer.vision_tower(x["images"][:, None], with_pool=False).tokens
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_internvl_") as d:
+        for kind in ("internvl", "internvit"):
+            t0 = time.perf_counter()
+            hf = _internvl_hf_sd(writer) if kind == "internvl" else _internvit_hf_sd(
+                writer.state_dict(), cfg.vision, "vision_tower.")
+            src = os.path.join(d, kind)
+            save_hf_checkpoint(src, hf)
+            nbytes = sum(v.numel() * v.element_size() for v in hf.values())
+            del hf
+            write_s = time.perf_counter() - t0
+            dst = os.path.join(d, f"{kind}.npz")
+            argv = ["--kind", kind, "--src", src, "--dst", dst, "--depth", str(depth)]
+            if kind == "internvl":
+                argv += ["--preset", PRESET_S1, "--text-layers", str(depth)]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                if convert_cli.main(argv) != 0:
+                    raise AssertionError(f"the convert CLI's {kind} kind failed")
+            convert_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tree = convert_cli.load_flat_params(dst)
+            if kind == "internvl":
+                reader = _internvl(PRESET_S1, 1, vision_depth=depth, text_depth=depth).eval()
+                sd = params_from_jax(tree, cfg)
+            else:
+                reader = InternVideo2(writer.vision_tower.config, device="cuda",
+                                      generator=torch.Generator("cuda").manual_seed(1)).eval()
+                sd = params_from_jax(tree, cfg.vision)
+            missing, unexpected = reader.load_state_dict(sd, strict=False)
+            pool = "vision_tower.clip_projector." if kind == "internvl" else "clip_projector."
+            if unexpected or any(not k.startswith(pool) for k in missing):
+                raise AssertionError(f"{kind}: the npz misses {missing} or adds {unexpected}")
+            with torch.no_grad():
+                if kind == "internvl":
+                    got = reader(x["input_ids"], x["images"],
+                                 position_ids=x["position_ids"]).logits
+                    ok = torch.equal(got, want)
+                else:
+                    ok = torch.equal(reader(x["images"][:, None], with_pool=False).tokens,
+                                     want_tok)
+            load_s = time.perf_counter() - t0
+            if not ok:
+                raise AssertionError(f"{kind}: the loaded model's output differs from the "
+                                     "writer's")
+            res[kind] = {"bytes": nbytes, "write_s": write_s, "convert_s": convert_s,
+                         "load_s": load_s, "pool_tensors_left_at_init": len(missing)}
+            print(f"[{card}] {kind} round trip at depth {depth} / {depth}, full width: "
+                  f"{nbytes / 1e9:.2f} GB written in {write_s:.1f} s, converted by the CLI in "
+                  f"{convert_s:.1f} s, loaded in {load_s:.1f} s; "
+                  + ("logits" if kind == "internvl" else "tower tokens")
+                  + f" bit-identical to the writer's ({len(missing)} attention-pool tensors "
+                  "keep their init: the reference has no pool)", flush=True)
+            del reader, sd, tree
+            gc.collect()
+            torch.cuda.empty_cache()
+    del writer
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -8215,13 +9024,17 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     k5_ptxas = {what: _ptxas_k5(build_log, kernel, count) for what, kernel, count in (
-        ("forward", "causal_fwd_bf16_kernel", 14), ("dq", "causal_bwd_dq_bf16_kernel", 10),
-        ("dk/dv", "causal_bwd_dkv_bf16_kernel", 10))}
+        ("forward", "causal_fwd_bf16_kernel", 14), ("dq", "causal_bwd_dq_bf16_kernel", 12),
+        ("dk/dv", "causal_bwd_dkv_bf16_kernel", 12))}
     k4a_ptxas = _ptxas_k4a(build_log)
     k1k2_ptxas = _ptxas_k1k2(build_log)
     k4b_k7_ptxas = _ptxas_k4b_k7(build_log)
     k3_k6_ptxas = _ptxas_k3_k6(build_log)
     k11_ptxas = _ptxas_k11(build_log)
+    ivl_ptxas = _ptxas_internvl(build_log)  # raises on a spill in the new bf16 kernels
+    print("ptxas, the InternVL slice's new instantiations: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} bytes "
+        "spilled" for k, v in ivl_ptxas.items()), flush=True)
     for what, rep in (*k5_ptxas.items(), ("K4a dq and dk/dv", k4a_ptxas),
                       ("K1 and K2", k1k2_ptxas), ("K4b and K7", k4b_k7_ptxas),
                       ("K3 (wgmma + TMA) and K6 (mma.sync + bulk copies)", k3_k6_ptxas),
@@ -8596,6 +9409,32 @@ def main() -> int:
     # 77. deepseek_v3 at depth 4, full width (K5 at (192, 128), K6 at 128 heads)
     moe[PRESET_DEEPSEEK] = run_moe_path(fa, pd, card, PRESET_DEEPSEEK, depth=DEEPSEEK_DEPTH,
                                         exact=MOE_EXACT[PRESET_DEEPSEEK])
+    _free(t_start)
+
+    # 78. K1 / K4a at d 128 and K5 / K8's backward at (128, 64) vs their plain
+    # versions; their times beside the bound and the library call
+    ivl_k = check_internvl_kernels(fa, card)
+    _free(t_start)
+
+    # 79. intern_s1's forward (vision uncut, text 24 of 48), counting launches;
+    # then the kernel route vs the plain route vs fp32 at depth 2 / 2
+    ivl_fwd = run_internvl_forward(fa, pd, card)
+    ivl_fwd["routes_depth_2"] = check_internvl_routes(fa, card)
+    _free(t_start)
+
+    # 80. intern_s1 SFT at vision 8 / text 8 through Trainer + make_sft_step,
+    # counting launches; then the routes of one step at depth 2 / 2
+    ivl_sft = run_internvl_sft(fa, pd, card)
+    ivl_sft["routes_depth_2"] = check_internvl_sft_routes(fa, card)
+    _free(t_start)
+
+    # 81. intern_s1_mini's forward, nothing cut, counting launches
+    ivl_mini = run_internvl_mini(fa, pd, card)
+    _free(t_start)
+
+    # 82. the convert CLI's internvl and internvit kinds: round trips bit for bit
+    ivl_ckpt = run_internvl_checkpoint(fa, pd, card)
+    _free(t_start)
 
     fwd_bound = _fwd_bound(*MAIN_SHAPE)
     b, s, h, d = TRAIN_SHAPE
@@ -8608,6 +9447,8 @@ def main() -> int:
     ckpt_paths = {"ckpt_llm": ckpt_llm["launches"], "ckpt_eval": ckpt_eval["launches"],
                   "ckpt_distill": ckpt_distill["launches"]}
     moe_paths = {f"moe_{p}": r["launches"] for p, r in moe.items()}
+    ivl_paths = {"internvl_forward": ivl_fwd["launches"], "internvl_sft": ivl_sft["launches"],
+                 "internvl_mini": ivl_mini["launches"]}
 
     def by_path(name, eval_n=0):
         paths = {"train": train_launches, "pretrain": pre_launches, "serve": serve_launches,
@@ -8618,7 +9459,7 @@ def main() -> int:
                  "clip": clip_launches, "clip_uta": clip_uta_launches, "chat": chat_launches,
                  "zeroshot": zs_launches, "distill": distill_launches,
                  "sft_jsonl": sft_jsonl["launches"], "clip_av": av_launches,
-                 "actionformer": af["launches"], **ckpt_paths, **moe_paths}
+                 "actionformer": af["launches"], **ckpt_paths, **moe_paths, **ivl_paths}
         return {"eval": eval_n, **{p: counts.get(name, 0) for p, counts in paths.items()}}
 
     def clip_times(name, tags):
@@ -9034,7 +9875,25 @@ def main() -> int:
                 for tag, r in ((t, moe_k[f"paged_decode_{t}"]) for t in ("64h", "128h"))}}
     print(f"[{card}] MoE serving: " + json.dumps({"runs": moe, "routes_depth_4": moe_routes}),
           flush=True)
-    print(f"chip_smoke: phases 1-77 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
+    for entry in kernels:  # the InternVL phases' launches (79-81) and the new shapes (78)
+        n = {p: counts.get(entry["name"], 0) for p, counts in ivl_paths.items()}
+        r = ivl_k.get(entry["name"])
+        if not (any(n.values()) or r):
+            continue
+        entry["launches"] += sum(n.values())
+        entry["internvl"] = {"launches": n}
+        if r:
+            entry["internvl"].update(
+                shape=r["shape"], ms=r["ms"], ms_by="CUDA events, median of 5",
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                library_ms=r["library_ms"], library_note=r["library_note"],
+                max_abs_err=r["max_abs_err"], max_abs_err_fp32=r["max_abs_err_fp32"],
+                rel_l2=r["rel_l2"], **{k: r[k] for k in ("segments", "visible_pairs_per_head")
+                                       if k in r})
+    print(f"[{card}] InternVL: " + json.dumps({
+        "forward": ivl_fwd, "sft": ivl_sft, "mini": ivl_mini, "checkpoint": ivl_ckpt,
+        "ptxas": ivl_ptxas}), flush=True)
+    print(f"chip_smoke: phases 1-82 in {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(card)
     for entry in kernels:  # K5's backward, redesigned: its design and ptxas report
         if entry["name"].startswith("flash_bwd_causal_") and entry.get("dtype") != "float32":

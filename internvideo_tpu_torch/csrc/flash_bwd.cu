@@ -32,7 +32,7 @@
 //
 // Design: the bf16 kernels are K5's warp-specialised wgmma + TMA bodies
 // (flash_bwd_causal_dq.cu, flash_bwd_causal_dkv.cu; their design notes are
-// there), instantiated at (D, D) for D = 64 and 88 under this kernel's own
+// there), instantiated at (D, D) for D = 64, 88 and 128 under this kernel's own
 // __global__ names (flash_bwd_{dq,dkv}_wgmma_kernel) and launched from those
 // files, non-causal, without segments, window or groups. Head dim 88 is
 // stored as three 32-column panels (96 columns, 64-byte swizzle); the TMA
@@ -40,9 +40,12 @@
 // nothing to the products that reduce over d, and the stores write 88. The
 // dq kernel holds 128 query rows a CTA and dq of all columns in registers,
 // and walks pipelined (the next key tile's S / dP issued before this one's
-// dQ). The dk/dv kernel holds 128 keys a CTA and dk and dv in registers;
-// at d 88 it walks each 64-row step in two halves of 32 rows, so S^T /
-// dP^T fit beside the two accumulators. fp32 inputs take the
+// dQ; at d 128, the InternViT-6B tower's, it waits for each product, as K4b
+// does there). The dk/dv kernel holds 128 keys a CTA and dk and dv in
+// registers; at d 88 it walks each 64-row step in two halves of 32 rows, so
+// S^T / dP^T fit beside the two accumulators; at d 128 it holds 64 keys a
+// CTA, each warpgroup half of dk's and dv's columns, with P^T / dS^T
+// through shared memory (K4b's d-128 form). fp32 inputs take the
 // CUDA-core kernels of attn_bwd.cuh (one thread per row; the parity route,
 // not the bf16 main path).
 
@@ -90,6 +93,7 @@ extern "C" int ivt_flash_bwd_dq(int dtype, const void* q, const void* k, const v
                                   strides, scale, stream);
   if (D == 64) return launch_bwd_dq_f32(flash_bwd_dq_f32_kernel<64>, a);
   if (D == 88) return launch_bwd_dq_f32(flash_bwd_dq_f32_kernel<88>, a);
+  if (D == 128) return launch_bwd_dq_f32(flash_bwd_dq_f32_kernel<128>, a);
   return cudaErrorInvalidValue;
 }
 
@@ -105,5 +109,6 @@ extern "C" int ivt_flash_bwd_dkv(int dtype, const void* q, const void* k, const 
                                   strides, scale, stream);
   if (D == 64) return launch_bwd_dkv_f32(flash_bwd_dkv_f32_kernel<64>, a);
   if (D == 88) return launch_bwd_dkv_f32(flash_bwd_dkv_f32_kernel<88>, a);
+  if (D == 128) return launch_bwd_dkv_f32(flash_bwd_dkv_f32_kernel<128>, a);
   return cudaErrorInvalidValue;
 }

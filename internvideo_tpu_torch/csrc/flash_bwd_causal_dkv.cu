@@ -39,8 +39,8 @@
 //   warpgroup, each holding dk and dv of its keys in registers, with P^T and
 //   dS^T as bf16 A fragments in registers (the RS form). A warpgroup skips
 //   a step none of its keys sees.
-// - d_qk 256 and 128 (kShare): dk 128 + dv 64 registers (64 + 64 at (128,
-//   128)) beside S^T and dP^T spilled (116-460 bytes in ptxas). 64 keys a
+// - (256, 128) and (128, 128) (kShare): dk 128 + dv 64 registers (64 + 64
+//   at (128, 128)) beside S^T and dP^T spilled (116-460 bytes in ptxas). 64 keys a
 //   CTA: each warpgroup computes S^T and dP^T for half the step's 64 rows
 //   (m64n32k16), writes its P^T and dS^T in bf16 to a swizzled shared tile
 //   (two buffers, so one named barrier a step orders both writes before
@@ -63,6 +63,12 @@
 //   memory, warpgroup 0 all of dv and 1 all of dk) ran at 255 TFLOP/s. So
 //   the register form walks each step in two halves of 32 rows (S^T and
 //   dP^T m64n32k16: 16 + 16 registers, fragments 16), 0 spills.
+// - (128, 64) (qwen3_moe_text, the Intern-S1 text model): d_v 64 does not
+//   split into two whole 64-column panels, so it takes the register form
+//   in half steps, whose count matches d 88's: dk 64 + dv 32 registers, S^T
+//   and dP^T 16 + 16, fragments 16.
+// - K4a at d 128 (the InternViT-6B tower of Intern-S1) runs the kShare form
+//   as K4b's does there.
 // TMA zero-fills rows past Sq / Sk; keys past Sk are not stored.
 
 #include "causal_bwd.cuh"
@@ -83,13 +89,16 @@ struct DkvTile {
   static constexpr int kVCols = DV % 64 == 0 ? 64 : 32;
   static constexpr int kQW = (DQK + kQCols - 1) / kQCols * kQCols;
   static constexpr int kVW = (DV + kVCols - 1) / kVCols * kVCols;
-  static constexpr bool kShare = DQK >= 128;  // P^T / dS^T through shared memory
+  // P^T / dS^T through shared memory where both widths split into whole
+  // 64-column panels (d_v 128 and up); (128, 64) keeps the register form.
+  static constexpr bool kShare = DQK >= 128 && DV >= 128;
   static_assert(!kShare || (DQK % 128 == 0 && DV % 128 == 0),
                 "the column halves must be whole 64-column panels");
-  // The register form in half steps (kHalfSteps, the 32-column panels of
-  // d 88): S^T / dP^T of 32 rows at a time, each step in two parts.
-  static constexpr bool kHalfSteps = DQK % 32 != 0 || DV % 32 != 0;
-  static_assert(!kHalfSteps || !kShare, "half steps are a register-form walk");
+  // The register form in half steps (kHalfSteps): S^T / dP^T of 32 rows at
+  // a time, each step in two parts, wherever dk and dv together hold more
+  // than 64 registers a thread (the stored widths past 128 columns: d 72 /
+  // 88 as three 32-column panels each, and (128, 64)).
+  static constexpr bool kHalfSteps = !kShare && kQW + kVW > 128;
   static constexpr int kKeys = kShare ? 64 : 128;  // keys per CTA
   static constexpr int kStages = DQK > 128 ? 2 : 4;
   // dk / dv columns a warpgroup accumulates (of the stored widths)
@@ -718,6 +727,7 @@ extern "C" int ivt_flash_bwd_causal_dkv(int dtype, const void* q, const void* k,
     return seg ? launch<DQK, DV, true>(dtype, B, a, s) : launch<DQK, DV, false>(dtype, B, a, s);
   IVT_CASE(256, 128)
   IVT_CASE(128, 128)
+  IVT_CASE(128, 64)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)
@@ -730,7 +740,7 @@ namespace ivt {
 // K4a's bf16 dk/dv launch, called by flash_bwd.cu's ivt_flash_bwd_dkv (whose
 // arguments it takes): this file's body at (D, D), non-causal, no segments,
 // window or groups. Returns cudaErrorInvalidValue for a head dim other than
-// 64 or 88.
+// 64, 88 or 128.
 cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dk, void* dv, int B,
                                 int Sq, int Sk, int H, int D, const long long* strides,
@@ -740,6 +750,7 @@ cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dkv_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dkv_wgmma_kernel<88>, B, a, s);
+  if (D == 128) return launch_bf16<128, 128>(flash_bwd_dkv_wgmma_kernel<128>, B, a, s);
   return cudaErrorInvalidValue;
 }
 

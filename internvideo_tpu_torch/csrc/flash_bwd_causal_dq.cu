@@ -2,7 +2,8 @@
 // segmented / grouped-query / windowed case (K5 backward + K8) on Hopper
 // (sm_90a): the gradient of the LLMs' training attention, q/k at d_qk =
 // nope + rope (256 on qwen3_8b_mla) and v/dO at d_v = 128, or (128, 128) on
-// qwen3_8b_dense, inputs in (B, S, H, D) with any 16-byte-multiple strides.
+// qwen3_8b_dense, or (128, 64) on qwen3_moe_text (the Intern-S1 text model),
+// inputs in (B, S, H, D) with any 16-byte-multiple strides.
 //
 // Replaces internvideo_tpu/ops/flash_attention.py:468 `_bwd_dq_kernel` as
 // `_bwd` (:782) drives it on its causal / segmented remap path (:830-908,
@@ -70,7 +71,9 @@
 //   small-S backward; small_s_bwd.cu) at d 64 / 72 / 88 walk pipelined
 //   (kPipelined): tile t + 1's S and
 //   dP are issued before tile t's dQ and waited for alone, so its exp2 and
-//   ds run while dQ of tile t is on the tensor cores. K5's kernel keeps the
+//   ds run while dQ of tile t is on the tensor cores; at d 128 both take
+//   the walk that waits for each product (the pipelined one spilled
+//   there, two tiles' S / dP beside dq's 64 registers). K5's kernel keeps the
 //   walk that waits for each product: its causal and windowed tiles are
 //   skipped per warpgroup, and the pipelined walk with that skip spilled at
 //   (128, 128) and ran 0.74-0.82 x at the RL shapes (its skip loop alone
@@ -517,7 +520,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // K4a's bf16 dq kernel (flash_bwd.cu's ivt_flash_bwd_dq): the same body at
-// d_v = d_qk = D, launched non-causal, without segments, window or groups.
+// d_v = d_qk = D, launched non-causal, without segments, window or groups;
+// pipelined at 64 / 88, and at 128 the walk that waits for each product, as
+// K4b's at 128 (below).
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -525,7 +530,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                               const __grid_constant__ CUtensorMap v_map,
                               const __grid_constant__ CUtensorMap do_map,
                               const CausalBwdArgs a) {
-  dq_bf16_body<D, D, false, true>(q_map, k_map, v_map, do_map, a);
+  dq_bf16_body<D, D, false, (D < 128)>(q_map, k_map, v_map, do_map, a);
 }
 
 // K4b's bf16 dq kernel (small_s_bwd.cu's ivt_small_s_bwd_dq): K4a's body
@@ -677,6 +682,7 @@ extern "C" int ivt_flash_bwd_causal_dq(int dtype, const void* q, const void* k, 
     return seg ? launch<DQK, DV, true>(dtype, B, a, s) : launch<DQK, DV, false>(dtype, B, a, s);
   IVT_CASE(256, 128)
   IVT_CASE(128, 128)
+  IVT_CASE(128, 64)
   IVT_CASE(64, 64)
   IVT_CASE(64, 32)
   IVT_CASE(32, 32)
@@ -689,7 +695,7 @@ namespace ivt {
 // K4a's bf16 dq launch, called by flash_bwd.cu's ivt_flash_bwd_dq (whose
 // arguments it takes: 18 strides, dk and dv sharing the last three): this
 // file's body at (D, D), non-causal, no segments, window or groups.
-// Returns cudaErrorInvalidValue for a head dim other than 64 or 88.
+// Returns cudaErrorInvalidValue for a head dim other than 64, 88 or 128.
 cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* delta, void* dq, int B, int Sq,
                                int Sk, int H, int D, const long long* strides, float scale,
@@ -699,6 +705,7 @@ cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_bf16<64, 64>(flash_bwd_dq_wgmma_kernel<64>, B, a, s);
   if (D == 88) return launch_bf16<88, 88>(flash_bwd_dq_wgmma_kernel<88>, B, a, s);
+  if (D == 128) return launch_bf16<128, 128>(flash_bwd_dq_wgmma_kernel<128>, B, a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,7 @@
 //
 // Design: the bf16 kernel is K5's warp-specialised wgmma + TMA forward body
 // (flash_fwd_causal.cu; its design notes are there), instantiated at (D, D)
-// for D = 64 and 88 under this kernel's own __global__ name
+// for D = 64, 88 and 128 under this kernel's own __global__ name
 // (flash_fwd_wgmma_kernel) and launched from that file, non-causal, without
 // segments, window or groups: one CTA of a TMA producer warp and two
 // consumer warpgroups of 64 query rows per (128-query tile, head, batch);
@@ -90,5 +90,6 @@ extern "C" int ivt_flash_fwd(int dtype, const void* q, const void* k, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_f32<64>(q, k, v, o, lse, B, Sq, Sk, H, st, scale * kLog2e, s);
   if (D == 88) return launch_f32<88>(q, k, v, o, lse, B, Sq, Sk, H, st, scale * kLog2e, s);
+  if (D == 128) return launch_f32<128>(q, k, v, o, lse, B, Sq, Sk, H, st, scale * kLog2e, s);
   return cudaErrorInvalidValue;
 }

@@ -1045,7 +1045,7 @@ extern "C" int ivt_flash_fwd_causal(int dtype, const void* q, const void* k, con
 namespace ivt {
 
 // K1's and K2's bf16 launches, called by flash_fwd.cu's ivt_flash_fwd
-// (small_s = false: flash_fwd_wgmma_kernel, head dims 64 and 88) and
+// (small_s = false: flash_fwd_wgmma_kernel, head dims 64, 88 and 128) and
 // small_s_fwd.cu's ivt_small_s_fwd (small_s = true: small_s_fwd_wgmma_kernel,
 // 64, 72, 88 and 128), with their C entries' arguments (12 strides: q, k, v,
 // o): this file's body at (D, D), non-causal, without segments, window or
@@ -1068,6 +1068,7 @@ cudaError_t flash_fwd_wgmma(bool small_s, const void* q, const void* k, const vo
   } else {
     IVT_CASE(flash_fwd_wgmma_kernel, 64)
     IVT_CASE(flash_fwd_wgmma_kernel, 88)
+    IVT_CASE(flash_fwd_wgmma_kernel, 128)
   }
 #undef IVT_CASE
   return cudaErrorInvalidValue;

@@ -12,12 +12,13 @@ Two layers, as in the JAX package:
     Conv3d patchify as a Dense in (kt, kh, kw, C) order), the UMT pretrain
     student and its CLIP / VideoMAE teachers, stage 2 with HF BERT, BEATs,
     the HF / xtuner MLA LLM (its rope rows permuted to half-split), the HF
-    GQA LLM, and InternVideo3 (vision, projector, text). The converters of
-    models the port does not have yet (ViCLIP, MobileCLIP / CLIP text,
-    InternViT / InternVL, UniFormerV2, the BEATs tokenizer) wait on
-    ROADMAP queue 1, item 10. BEATs' weight-normed position conv is folded
-    in numpy as JAX folds it; a bf16 checkpoint folds in fp32 and rounds
-    once (JAX rounds each ml_dtypes op).
+    GQA LLM, InternVideo3 (vision, projector, text), and InternViT /
+    InternVL (the InternVL / Intern-S1 compose). The converters of models
+    the port does not have yet (ViCLIP, MobileCLIP / CLIP text,
+    UniFormerV2, the BEATs tokenizer) wait on ROADMAP queue 1, item 10.
+    BEATs' weight-normed position conv is folded in numpy as JAX folds it;
+    a bf16 checkpoint folds in fp32 and rounds once (JAX rounds each
+    ml_dtypes op).
   * `params_from_jax` maps such a tree to a port module's state_dict, and
     `params_to_jax(state_dict, model)` maps it back (its exact inverse), so
     the exports and the trainer's HF export run on a port model's weights
@@ -25,7 +26,7 @@ Two layers, as in the JAX package:
 
 `params_from_jax`'s input is the nested dict a JAX module's `init` gives (InternVideo2,
 PretrainInternVideo2, CLIPTeacher, MAETeacher, MLATransformer,
-GQATransformer, VideoMLLM with either text model), unboxed
+GQATransformer, VideoMLLM with either text model, InternVLChat), unboxed
 (`flax.linen.unbox`), as numpy arrays or torch tensors; a top-level
 `{"params": ...}` wrapper is accepted. Translations:
 
@@ -60,7 +61,9 @@ as they are, `mlp.shared_{gate,up,down}_proj.weight`). The dense-GQA LLM keeps t
 VideoMLLM tree keeps its JAX top level:
 `vision_tower.{patch_embed, pos_embed, blocks.{i}.{norm1, qkv, proj, norm2,
 fc1, fc2}}`, `merger.{norm, linear_fc1, linear_fc2}`,
-`deepstack_merger.{j}.*` and `language_model.*` (the LLM names above).
+`deepstack_merger.{j}.*` and `language_model.*` (the LLM names above). InternVLChat
+(models/internvl.py): `vision_tower.*` (the InternVideo2 names),
+`mlp1_norm`, `mlp1_fc1`, `mlp1_fc2` and `language_model.*`.
 VideoCLIP keeps its flax names too: `vision_encoder.*` (the InternVideo2 or
 pretrain-student names above), `text_encoder.{word,position,token_type}_
 embeddings.weight`, `text_encoder.layer.{i}.{attention,crossattention}.
@@ -120,7 +123,8 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
     """JAX params -> state_dict of the matching port module. With `cfg` (an
     InternVideo2 or teacher config with `depth`, an LLMConfig, GQAConfig,
     VisionTowerConfig or BertConfig with `num_layers`, an MLLMConfig, a
-    VideoCLIPConfig, a VideoCLIPAVConfig or a VideoChatConfig) the
+    VideoCLIPConfig, a VideoCLIPAVConfig, a VideoChatConfig or an
+    InternVLConfig) the
     `blocks_{i}` / `layers_{i}` / `layer_{i}` of each tower must be exactly
     range(depth)."""
     if "params" in params:
@@ -138,6 +142,9 @@ def params_from_jax(params: Mapping, cfg=None) -> dict[str, torch.Tensor]:
             _check_depth(params["vision_encoder"], cfg.vision.depth)
             _check_depth(params["qformer"]["bert"], cfg.qformer.bert.num_layers)
             _check_depth(params["language_model"], cfg.llm.num_layers)
+        elif hasattr(cfg, "downsample_ratio"):  # InternVLConfig
+            _check_depth(params["vision_tower"], cfg.vision.depth)
+            _check_depth(params["language_model"], cfg.text.num_layers)
         elif hasattr(cfg, "vision") and hasattr(cfg, "text"):
             _check_depth(params["vision_tower"], cfg.vision.num_layers)
             _check_depth(params["language_model"], cfg.text.num_layers)
@@ -895,3 +902,71 @@ def convert_internvideo3(sd: Mapping, cfg) -> dict:
         lm_sd, cfg.text)
     params["language_model"] = lm["params"]
     return {"params": params}
+
+
+def convert_internvit(sd: Mapping, *, depth: int, prefix: str = "") -> dict:
+    """InternViT vision checkpoint (HF `InternVLVisionModel` naming, which
+    the reference's compose vision subclasses) -> InternVideo2 encoder
+    params at T = 1 (JAX convert.py:675-747). Both norm flavors: InternVL's
+    LayerNorm blocks (no QK-norm) and Intern-S1's RMSNorm + QK-norm. The
+    separate q / k / v projections fold into the flat (D, 3D) qkv kernel;
+    the xtuner subclass's `layer.{i}.` (no `encoder.`) is read too. A final
+    `layernorm` (use_mean_pooling=False) raises: the compose has none."""
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    sd = {k: as_tensor(v) for k, v in sd.items()}
+    if "layernorm.weight" in sd:
+        raise NotImplementedError(
+            "InternViT with a final layernorm (use_mean_pooling=False) is not supported by "
+            "the compose path")
+    w = sd["embeddings.patch_embeddings.projection.weight"]  # (D, 3, p, p)
+    p: dict = {"patch_embed": {"proj": {"kernel": _patchify_kernel(w[:, :, None])}}}
+    if "embeddings.patch_embeddings.projection.bias" in sd:
+        p["patch_embed"]["proj"]["bias"] = sd["embeddings.patch_embeddings.projection.bias"]
+    p["cls_token"] = sd["embeddings.cls_token"]
+    if "embeddings.position_embeddings" in sd:
+        p["pos_embed"] = sd["embeddings.position_embeddings"][0]
+    for i in range(depth):
+        b = f"encoder.layer.{i}"
+        if f"{b}.attention.q_proj.weight" not in sd and \
+                f"layer.{i}.attention.q_proj.weight" in sd:
+            b = f"layer.{i}"  # the xtuner subclass flattens `encoder.`
+        norm = _layernorm if f"{b}.layernorm_before.bias" in sd else _rmsnorm
+        a = f"{b}.attention"
+        attn = {"qkv": {"kernel": torch.cat([_T(sd[f"{a}.{n}_proj.weight"])
+                                             for n in "qkv"], dim=1)},
+                "proj": _linear(sd, f"{a}.projection_layer")}
+        if f"{a}.q_proj.bias" in sd:
+            attn["qkv"]["bias"] = torch.cat([sd[f"{a}.{n}_proj.bias"] for n in "qkv"])
+        if f"{a}.q_norm.weight" in sd:
+            attn["q_norm"] = _rmsnorm(sd, f"{a}.q_norm")
+            attn["k_norm"] = _rmsnorm(sd, f"{a}.k_norm")
+        p[f"blocks_{i}"] = {
+            "attn": attn,
+            "norm1": norm(sd, f"{b}.layernorm_before"),
+            "norm2": norm(sd, f"{b}.layernorm_after"),
+            "ls1": {"gamma": sd[f"{b}.lambda_1"]},
+            "ls2": {"gamma": sd[f"{b}.lambda_2"]},
+            "mlp": {"fc1": _linear(sd, f"{b}.mlp.fc1"), "fc2": _linear(sd, f"{b}.mlp.fc2")},
+        }
+    return {"params": p}
+
+
+def convert_internvl(sd: Mapping, cfg) -> dict:
+    """Full InternVL / Intern-S1 compose checkpoint -> InternVLChat params
+    (JAX convert.py:750-769): `model.vision_tower.*` through
+    convert_internvit, `model.multi_modal_projector.*` (layer_norm +
+    linear_1 / linear_2 -> mlp1_*), `model.language_model.*` through the
+    MLA LLM bridge (MoE included) when the file holds it."""
+    sd = {k: as_tensor(v) for k, v in sd.items()}
+    pj = "model.multi_modal_projector."
+    out = {
+        "vision_tower": convert_internvit(sd, depth=cfg.vision.depth,
+                                          prefix="model.vision_tower.")["params"],
+        "mlp1_norm": _layernorm(sd, pj + "layer_norm"),
+        "mlp1_fc1": _linear(sd, pj + "linear_1"),
+        "mlp1_fc2": _linear(sd, pj + "linear_2"),
+    }
+    if any(k.startswith("model.language_model.") for k in sd):
+        out["language_model"] = convert_hf_mla_llm(sd, cfg.text)["params"]
+    return {"params": out}

@@ -108,7 +108,7 @@ def make_config(size: str, **overrides) -> InternVideo2Config:
 
 @dataclasses.dataclass
 class EncoderOutput:
-    pooled: torch.Tensor  # (B, clip_embed_dim) attention-pooled embedding
+    pooled: Optional[torch.Tensor]  # (B, clip_embed_dim) attention-pooled embedding
     logits: Optional[torch.Tensor]  # (B, num_classes) if a head is configured
     tokens: torch.Tensor  # (B, 1+N, D) final-layer hidden states
     hidden_states: Optional[tuple]  # per-layer (B, 1+N, D) when requested
@@ -190,11 +190,14 @@ class InternVideo2(nn.Module):
         return_hidden_states: bool = False,
         return_hidden_layers: Optional[Sequence[int]] = None,
         return_pool_attn: bool = False,
+        with_pool: bool = True,
     ) -> EncoderOutput:
         """`keep_indices`: (B, n_vis) visible positions in [0, N); only
         those tokens enter the blocks. `generator` draws the DropPath masks;
         it is needed when not `deterministic` and `drop_path_rate` > 0, and
-        lives on the video's device."""
+        lives on the video's device. `with_pool=False` skips the pooling head
+        and the classifier (`pooled` and `logits` None) for a caller that
+        reads only the tokens (the InternVL compose)."""
         cfg = self.config
         dtype = self.dtype
         x = self.patch_embed(video)  # (B, T', L, D)
@@ -226,6 +229,9 @@ class InternVideo2(nn.Module):
                 hidden.append(x)
 
         pool_attn = None
+        if not with_pool:
+            return EncoderOutput(pooled=None, logits=None, tokens=x,
+                                 hidden_states=tuple(hidden) if hidden else None)
         if return_pool_attn:
             pooled, pool_attn = self.clip_projector(x, return_attn=True)
         else:

@@ -2,10 +2,9 @@
 
 Port of the stage-2 VideoCLIP-1B, the M2LA LLM presets, the InternVideo3-8B
 and InternVideo2.5-HiCo MLLM presets, the MoE text models (Qwen3-MoE,
-DeepSeek-V3, GPT-OSS) and the dense-GQA Qwen3-8B of
-internvideo_tpu/models/presets.py (:26-42, :45-154, :195-268), field for
-field; the InternVL composes (`intern_s1`, `intern_s1_mini`) wait with
-their family (ROADMAP queue 1, item 10). `qwen3_mla_tiny`,
+DeepSeek-V3, GPT-OSS), the InternVL composes (Intern-S1, Intern-S1-mini)
+and the dense-GQA Qwen3-8B of internvideo_tpu/models/presets.py (:26-268),
+field for field. `qwen3_mla_tiny`,
 `qwen3_moe_tiny` and `qwen3_dense_tiny` are the port's own: each
 architecture at test widths, so that `cli.generate` runs on a CPU in
 seconds.
@@ -16,7 +15,8 @@ from __future__ import annotations
 import dataclasses
 
 from internvideo_tpu_torch.models.bert import BertConfig
-from internvideo_tpu_torch.models.internvideo2 import make_config
+from internvideo_tpu_torch.models.internvideo2 import InternVideo2Config, make_config
+from internvideo_tpu_torch.models.internvl import InternVLConfig
 from internvideo_tpu_torch.models.llm import LLMConfig
 from internvideo_tpu_torch.models.llm_gqa import GQAConfig
 from internvideo_tpu_torch.models.mllm import MLLMConfig
@@ -232,6 +232,42 @@ def internvideo25_hico_2b(**overrides) -> MLLMConfig:
         video_token_id=151656,
         vision_start_token_id=151652,
         vision_end_token_id=151653,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def intern_s1_mini(**overrides) -> InternVLConfig:
+    """Intern-S1-mini compose (intern_s1_config.py:144): InternViT 1024 /
+    24 layers (LayerNorm, no QK-norm) at 448 px + the pixel-shuffle
+    projector + the dense qwen3_8b_mla text model at vocab 153216."""
+    cfg = InternVLConfig(
+        vision=InternVideo2Config(
+            embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0,
+            patch_size=14, img_size=448, num_frames=1, tubelet_size=1,
+            qk_normalization=False, norm_type="layernorm",
+            init_values=0.1, num_classes=0,
+            dtype="bfloat16", param_dtype="bfloat16",
+        ),
+        text=qwen3_8b_mla(vocab_size=153216, mrope_section=None),
+        image_token_id=152957,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def intern_s1(**overrides) -> InternVLConfig:
+    """Intern-S1 compose (intern_s1_config.py:130): InternViT 3200 / 45
+    layers (RMSNorm + whole-dim QK-RMSNorm) at 448 px + the pixel-shuffle
+    projector + the qwen3_moe_text MoE text model at vocab 153216."""
+    cfg = InternVLConfig(
+        vision=InternVideo2Config(
+            embed_dim=3200, depth=45, num_heads=25, mlp_ratio=4.0,
+            patch_size=14, img_size=448, num_frames=1, tubelet_size=1,
+            qk_normalization=True, norm_type="rmsnorm",
+            init_values=0.1, num_classes=0,
+            dtype="bfloat16", param_dtype="bfloat16",
+        ),
+        text=qwen3_moe_text(vocab_size=153216),
+        image_token_id=152957,
     )
     return dataclasses.replace(cfg, **overrides)
 

@@ -138,19 +138,26 @@ def grouped_experts(cfg: MoEConfig, xs: torch.Tensor, sizes: list, w_gate, w_up,
     for expert e: one product per projection for each non-empty group
     (JAX's `ragged_dot`), with each expert's (b_gate, b_up, b_down) when
     `biases` is given. -> (M, D)."""
-    parts, start = [], 0
-    for ei, cnt in enumerate(sizes):
-        if cnt == 0:
+    d_out = w_down.shape[-1]
+    if torch.is_grad_enabled():
+        # One unbind of each stack (and one split of the rows, below): their
+        # backwards write every expert's gradient into one tensor, where an
+        # index or slice per expert gives each a zero-filled gradient of the
+        # whole tensor for autograd to sum.
+        w_gate, w_up, w_down = (w.unbind(0) for w in (w_gate, w_up, w_down))
+        if biases is not None:
+            biases = tuple(b.unbind(0) for b in biases)
+    parts = []
+    for ei, rows in enumerate(xs.split(sizes)):
+        if rows.shape[0] == 0:
             continue
-        rows = xs[start:start + cnt]
-        start += cnt
         h, u = rows @ w_gate[ei], rows @ w_up[ei]
         if biases is not None:
             h, u = h + biases[0][ei], u + biases[1][ei]
         y = moe_act(cfg, h, u) @ w_down[ei]
         parts.append(y if biases is None else y + biases[2][ei])
     if not parts:
-        return xs.new_zeros((0, w_down.shape[-1]))
+        return xs.new_zeros((0, d_out))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

@@ -63,19 +63,21 @@ from internvideo_tpu_torch.ops.rmsnorm import rms_norm
 
 # Head dims the kernels are instantiated for: K1 / K4a (csrc/flash_fwd.cu,
 # flash_bwd.cu; their bf16 kernels in flash_fwd_causal.cu's flash_fwd_wgmma
-# and flash_bwd_causal_{dq,dkv}.cu) and K2 / K4b / K3 (csrc/small_s_fwd.cu,
-# small_s_bwd.cu, fused_qkv.cu; K2's and K4b's bf16 kernels also in those
-# wgmma bodies; 128 for the CLIP-6B teacher).
-KERNEL_HEAD_DIMS = (64, 88)
+# and flash_bwd_causal_{dq,dkv}.cu; 128 for Intern-S1's InternViT-6B at S
+# 1025), K2 / K4b / K3 (csrc/small_s_fwd.cu, small_s_bwd.cu, fused_qkv.cu;
+# K2's and K4b's bf16 kernels also in those wgmma bodies; 128 for the
+# CLIP-6B teacher) and K11 (csrc/fused_qkv_large.cu).
+KERNEL_HEAD_DIMS = (64, 88, 128)
 SMALL_S_HEAD_DIMS = (64, 72, 88, 128)
+FUSED_LARGE_HEAD_DIMS = (64, 88)
 # (d_qk, d_v) pairs of the K5 forward (csrc/flash_fwd_causal.cu):
 # qwen3_8b_mla, qwen3_2b_mla / deepseek_v3, qwen3_8b_dense, qwen3_moe_text,
 # gpt_oss_moe_text, and small pairs for the parity checks; and of its
-# backward (csrc/flash_bwd_causal_*.cu): the training pairs of qwen3_8b_mla
-# and qwen3_8b_dense and the small ones
+# backward (csrc/flash_bwd_causal_*.cu): the training pairs of qwen3_8b_mla,
+# qwen3_8b_dense and qwen3_moe_text (Intern-S1's text) and the small ones
 CAUSAL_HEAD_DIMS = ((256, 128), (192, 128), (128, 128), (128, 64), (64, 64), (64, 32),
                     (32, 32))
-CAUSAL_BWD_HEAD_DIMS = ((256, 128), (128, 128), (64, 64), (64, 32), (32, 32))
+CAUSAL_BWD_HEAD_DIMS = ((256, 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32))
 SMALL_S_MAX = 1024  # the JAX package's _SMALL_S_MAX
 FUSED_LARGE_MAX = 8192  # the JAX package's _FUSED_LARGE_MAX
 _FUSED_LARGE_MAX_HEADS = 128  # fused_qkv_large_eligible (:2032)
@@ -676,7 +678,7 @@ def fused_qkv_ref(qkv, q_weight, k_weight, num_heads: int, scale: float, eps: fl
 
 # fused kernel -> (head dims its source instantiates, source, (lo, hi]: its S range)
 _FUSED = {"fused_qkv_fwd": (SMALL_S_HEAD_DIMS, "csrc/fused_qkv.cu", (0, SMALL_S_MAX)),
-          "fused_qkv_large_fwd": (KERNEL_HEAD_DIMS, "csrc/fused_qkv_large.cu",
+          "fused_qkv_large_fwd": (FUSED_LARGE_HEAD_DIMS, "csrc/fused_qkv_large.cu",
                                   (SMALL_S_MAX, FUSED_LARGE_MAX))}
 
 
@@ -870,7 +872,7 @@ def fused_qkv_large_eligible(s: int, num_heads: int, head_dim: int, itemsize: in
     kernel's own: a head dim csrc/fused_qkv_large.cu instantiates, fp32 or
     bf16."""
     return (SMALL_S_MAX < s <= FUSED_LARGE_MAX and num_heads <= _FUSED_LARGE_MAX_HEADS
-            and head_dim in KERNEL_HEAD_DIMS and itemsize in (2, 4))
+            and head_dim in FUSED_LARGE_HEAD_DIMS and itemsize in (2, 4))
 
 
 def fused_qkv_rmsnorm_attention(

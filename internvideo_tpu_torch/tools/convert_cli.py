@@ -26,16 +26,26 @@ converts as it is. The output feeds the train CLI's
 `data.*_checkpoint=` teachers, the eval CLI's `checkpoint=` and
 `models/convert.py:params_from_jax`.
 
+    # InternViT (Intern-S1's 6B tower) and the full Intern-S1 compose
+    python -m internvideo_tpu_torch.tools.convert_cli --kind internvit \
+        --depth 45 --src vit.safetensors --dst vit.npz
+    python -m internvideo_tpu_torch.tools.convert_cli --kind internvl \
+        --preset intern_s1 --src /hf/intern_s1_dir --dst intern_s1.npz
+
 Kinds whose model the port does not have yet (mobileclip_text,
-beats_tokenizer, internvit, internvl, viclip) raise NotImplementedError
-(ROADMAP queue 1, item 10). `internvideo2_pretrain` takes its decoder
-counts from `--clip-return-layers` and `--mae-return-layers` (JAX's CLI
-passes neither, and its converter requires both).
+beats_tokenizer, viclip) raise NotImplementedError (ROADMAP queue 1, item
+10). `internvideo2_pretrain` takes its decoder counts from
+`--clip-return-layers` and `--mae-return-layers` (JAX's CLI passes
+neither, and its converter requires both). `internvl` reads the preset's
+depths, as JAX's CLI does; given explicitly, `--depth` and
+`--text-layers` cut the preset's vision and text depths (a checkpoint
+written at a cut depth; JAX's CLI has no such cut).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import Mapping
@@ -116,7 +126,8 @@ def load_flat_params(path: str) -> dict:
     return {"params": tree}
 
 
-_LATER = ("mobileclip_text", "beats_tokenizer", "internvit", "internvl", "viclip")
+_LATER = ("mobileclip_text", "beats_tokenizer", "viclip")
+_DEPTH, _TEXT_LAYERS = 40, 24  # --depth / --text-layers when not given
 
 
 def convert(kind: str, sd: dict, args) -> dict:
@@ -126,6 +137,15 @@ def convert(kind: str, sd: dict, args) -> dict:
     if kind in _LATER:
         raise NotImplementedError(f"--kind {kind}: its model is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
+    if kind == "internvl":
+        cfg = getattr(presets, args.preset)()
+        if args.depth is not None:
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision,
+                                                                      depth=args.depth))
+        if args.text_layers is not None:
+            cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                                    num_layers=args.text_layers))
+        return C.convert_internvl(sd, cfg)
     if kind == "internvideo2_encoder":
         return C.convert_internvideo2_encoder(sd, depth=args.depth)
     if kind == "internvideo2_pretrain":
@@ -144,6 +164,8 @@ def convert(kind: str, sd: dict, args) -> dict:
         return C.convert_hf_bert(sd, num_layers=args.text_layers)
     if kind == "beats":
         return C.convert_beats(sd, num_layers=args.depth)
+    if kind == "internvit":
+        return C.convert_internvit(sd, depth=args.depth)
     if kind == "internvideo3":
         return C.convert_internvideo3(sd, getattr(presets, args.preset)())
     if kind == "hf_mla_llm":
@@ -166,14 +188,22 @@ def main(argv=None):
     ap.add_argument("--kind", required=True, choices=KINDS)
     ap.add_argument("--src", required=True)
     ap.add_argument("--dst", required=True, help=".npz output path")
-    ap.add_argument("--depth", type=int, default=40)
+    ap.add_argument("--depth", type=int, default=None,
+                    help=f"encoder depth (default {_DEPTH}); internvl: cuts the preset's vision "
+                         "depth")
     ap.add_argument("--clip-return-layers", type=int, default=6)
     ap.add_argument("--mae-return-layers", type=int, default=0,
                     help="internvideo2_pretrain's MAE decoders")
-    ap.add_argument("--text-layers", type=int, default=24)
+    ap.add_argument("--text-layers", type=int, default=None,
+                    help=f"text depth (default {_TEXT_LAYERS}); internvl: cuts the preset's text "
+                         "depth")
     ap.add_argument("--preset", default="qwen3_8b_mla",
-                    help="models/presets name (hf_mla_llm / hf_gqa_llm / internvideo3 kinds)")
+                    help="models/presets name (hf_mla_llm / hf_gqa_llm / internvideo3 / internvl "
+                         "kinds)")
     args = ap.parse_args(argv)
+    if args.kind != "internvl":
+        args.depth = _DEPTH if args.depth is None else args.depth
+        args.text_layers = _TEXT_LAYERS if args.text_layers is None else args.text_layers
 
     sd = load_state_dict(args.src)
     flat = flatten_params(convert(args.kind, sd, args))

@@ -181,7 +181,7 @@ def test_pretrain_kind_pth_and_later_kinds(tmp_path):
     np.testing.assert_array_equal(
         got["clip_decoder_1"]["head"]["kernel"].view(torch.int16).numpy(),
         want["clip_decoder_1"]["head"]["kernel"].view(np.int16))
-    for kind in ("viclip", "internvit", "mobileclip_text", "internvl", "beats_tokenizer"):
+    for kind in ("viclip", "mobileclip_text", "beats_tokenizer"):
         with pytest.raises(NotImplementedError, match="item 10"):
             tcli.main(["--kind", kind, "--src", dst, "--dst", str(tmp_path / "x.npz")])
 
